@@ -1,0 +1,155 @@
+"""Serving-style traffic over the sharded DFC runtime, on the card.
+
+The port's counterpart of the JAX package's ``examples/serve_shards.py``,
+with the same flags and traffic: a Zipf-skewed key draw
+(``zipf_keys(rng, batch, 4096, skew)``, seed 0), op codes drawn per key to
+be valid for the target shard's kind, ``lanes = batch`` and ``capacity =
+batch * (phases + 1)``.  It prints per-shard load, throughput and -- in
+durable mode -- pwb/op and pfence/op, the paper's Figure-3 metric.
+
+``--mixed`` runs a heterogeneous fabric (kinds round-robin over the shards
+in sorted order: deque, map, queue, stack).  ``--durable`` announces each
+phase's batch, sliced over ``--threads`` announcing threads, and runs one
+``combine_phase``.  ``--device`` picks the device (default ``cuda``).
+``--depth`` above 1 and ``--split-backlog`` raise until the pipelined and
+resharding slices land.
+
+Run:  PYTHONPATH=src python -m repro_torch.launch.serve_shards [--kind queue |
+      --mixed] [--shards 16] [--skew 1.1] [--phases 50] [--batch 256]
+      [--durable] [--threads 4] [--device cuda]
+"""
+
+from __future__ import annotations
+
+import argparse
+import tempfile
+import time
+from pathlib import Path
+from typing import Any, Callable, Dict, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.checkpoint.dfc_checkpoint import SimFS
+from repro_torch.core.torch_dfc import STRUCTS
+from repro_torch.runtime.dfc_shard import R_OVERFLOW, ShardedDFCRuntime, zipf_keys
+
+
+def build_parser() -> argparse.ArgumentParser:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--kind", default="queue", choices=sorted(STRUCTS))
+    ap.add_argument("--mixed", action="store_true",
+                    help="heterogeneous fabric: kinds round-robin per shard")
+    ap.add_argument("--shards", type=int, default=16)
+    ap.add_argument("--skew", type=float, default=1.1)
+    ap.add_argument("--phases", type=int, default=50)
+    ap.add_argument("--batch", type=int, default=256)
+    ap.add_argument("--durable", action="store_true")
+    ap.add_argument("--threads", type=int, default=1,
+                    help="announcing threads per durable phase")
+    ap.add_argument("--depth", type=int, default=0,
+                    help="durable pipeline depth (0 or 1 = serial)")
+    ap.add_argument("--split-backlog", type=int, default=0,
+                    help="split the hottest shard once it leads the mean "
+                         "op count by N (0 = never)")
+    ap.add_argument("--device", default="cuda")
+    return ap
+
+
+PhaseHook = Callable[..., None]
+
+
+def serve(args: argparse.Namespace, hook: Optional[PhaseHook] = None) -> Dict[str, Any]:
+    """Drive the fabric for ``args.phases`` phases and print the report.
+
+    ``hook(phase=, rt=, keys=, ops=, params=, resp=, kinds=)`` runs after
+    each phase, outside the timed region.  Returns the run's counts:
+    ``n_ops``, ``n_overflow``, ``seconds`` and ``phase_seconds`` (serving
+    time, hooks excluded),
+    ``pwb`` / ``pfence`` (durable mode) and the runtime ``rt``.
+    """
+    if args.depth > 1:
+        raise NotImplementedError("--depth > 1 waits for the pipelined fabric slice")
+    if args.split_backlog:
+        raise NotImplementedError("--split-backlog waits for the resharding slice")
+    rng = np.random.default_rng(0)
+    all_kinds = sorted(STRUCTS)
+    kinds = (
+        [all_kinds[s % len(all_kinds)] for s in range(args.shards)]
+        if args.mixed else args.kind
+    )
+    lanes = args.batch  # worst case: every op on one shard
+    capacity = args.batch * (args.phases + 1)
+
+    with tempfile.TemporaryDirectory(prefix="dfc_serve_") as root:
+        fs = SimFS(Path(root)) if args.durable else None
+        rt = ShardedDFCRuntime(
+            kinds, args.shards, capacity, lanes, fs=fs, n_threads=args.threads,
+            device=args.device,
+        )
+        on_card = rt.device.type == "cuda"
+        opmax = np.asarray([STRUCTS[k].n_opcodes for k in rt.kinds])
+        n_ops = n_overflow = 0
+        shard_hits = np.zeros(args.shards, np.int64)
+        phase_seconds = []
+        for phase in range(args.phases):
+            keys = zipf_keys(rng, args.batch, 4096, args.skew)
+            shard = rt.route_host(keys)
+            ops = rng.integers(1, opmax[shard])  # per-key draw valid for its kind
+            params = rng.random(args.batch).astype(np.float32) * 100
+            t0 = time.perf_counter()
+            if args.durable:
+                # slice the phase's batch over the announcing threads, then
+                # combine every ready announcement in one phase
+                per = (args.batch + args.threads - 1) // args.threads
+                threads = []
+                for t in range(args.threads):
+                    sl = slice(t * per, min((t + 1) * per, args.batch))
+                    if sl.start >= sl.stop:
+                        break
+                    rt.announce(t, keys[sl], ops[sl], params[sl], token=phase + 1)
+                    threads.append(t)
+                rt.combine_phase()
+                recs = [rt.read_responses(t, token=phase + 1) for t in threads]
+                resp = np.concatenate([np.asarray(r["resp"], np.float32) for r in recs])
+                kinds_out = np.concatenate([np.asarray(r["kinds"]) for r in recs])
+            else:
+                resp, kinds_dev = rt.step(keys, ops, params)
+                kinds_out = kinds_dev.cpu().numpy()
+            if on_card:
+                torch.cuda.synchronize(rt.device)
+            phase_seconds.append(time.perf_counter() - t0)
+            n_ops += int(np.sum(kinds_out != R_OVERFLOW))
+            n_overflow += int(np.sum(kinds_out == R_OVERFLOW))
+            shard_hits += np.bincount(shard, minlength=args.shards)
+            if hook is not None:
+                hook(phase=phase, rt=rt, keys=keys, ops=ops, params=params,
+                     resp=resp, kinds=kinds_out)
+
+        seconds = sum(phase_seconds)
+        label = "mixed" if args.mixed else args.kind
+        print(f"kind={label} shards={rt.n_shards} skew={args.skew} device={rt.device}")
+        print(f"throughput: {n_ops / seconds:,.0f} ops/s  "
+              f"({args.phases} phases, {seconds:.2f}s)")
+        print(f"overflow:   {n_overflow} ops rejected (re-announce to retry)")
+        hot = ", ".join(f"s{s}({rt.kinds[s][0]}):{h}" for s, h in enumerate(shard_hits))
+        print(f"shard load: {hot}")
+        touched = rt.meta["phases"].cpu().numpy()
+        print(f"phases/shard: min={touched.min()} max={touched.max()}")
+        out = {"n_ops": n_ops, "n_overflow": n_overflow, "seconds": seconds,
+               "phase_seconds": phase_seconds, "phases": args.phases, "rt": rt}
+        if args.durable:
+            print(f"pwb/op: {fs.stats['pwb'] / max(n_ops, 1):.3f}  "
+                  f"pfence/op: {fs.stats['pfence'] / max(n_ops, 1):.3f}")
+            out.update(pwb=fs.stats["pwb"], pfence=fs.stats["pfence"],
+                       pstats=fs.pstats.as_dict())
+    return out
+
+
+def main(argv=None) -> int:
+    serve(build_parser().parse_args(argv))
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -1,0 +1,1220 @@
+"""Sharded multi-object DFC runtime on PyTorch: one announcement fabric,
+many objects.
+
+Counterpart of the JAX package's ``runtime/dfc_shard.py``, serial durable
+path.  ``n_shards`` DFC structures -- stacks, queues, deques and maps, mixed
+freely -- live behind ONE announcement fabric.  A key->shard router buckets
+each announced batch into per-shard lanes, and the combine runs every
+shard's phase grouped BY KIND: one kernel launch per kind present (one
+thread block per shard), see ``kernels/dfc_reduce/ops.py``.
+
+Paper mechanisms (Algorithm/line numbers of arXiv:2012.12868):
+
+  * announce (Alg. 1 lines 2-12): per-thread double-buffered announcement
+    records (``ann{0,1}`` + a 2-bit ``valid`` selector, MSB published last),
+    plus a copy in the device ring ``AnnounceRing``,
+  * combine + single pfence (Alg. 2, line 80): one durable phase persists
+    every touched shard's new state and every combined response, then
+    pfences ONCE,
+  * two-increment epoch commit (Alg. 1 lines 81-83), per shard: persist
+    cEpoch=v+1, publish v+2 unsynced; recovery rounds odd up to even,
+  * detectability: recovery reports, per thread and per op, whether the op
+    took effect and with which response; ``replay_pending`` re-announces
+    exactly the ops that did not.
+
+Durable layout (``SimFS``, pwb = write, pfence = fsync), byte for byte the
+reference's, so either package recovers a root the other wrote::
+
+  tAnn/thread_{t}/ann{0,1}.json   double-buffered announcements + valid
+  shard_{s}/slot{0,1}/...         alternating state slots, picked by parity
+  shard_{s}/cEpoch                per-shard two-increment commit
+
+This slice ports the volatile ``step`` and the serial durable path.  The
+options of later slices raise ``NotImplementedError`` and name their slice:
+the pipelined and fused fabric (``depth > 1``, ``pipeline``, ``chain > 1``,
+``phase_loop``), per-side lanes (``split_lanes``), resharding
+(``split_shard``, ``merge_shards``, recovery of a resharded root) and
+observability (a live ``obs``).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import functools
+import hashlib
+import io
+import json
+from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
+
+import numpy as np
+import torch
+
+from repro_torch.checkpoint.dfc_checkpoint import BOT, SimFS
+from repro_torch.core.torch_dfc import (
+    KIND_CODES,
+    OP_NONE,
+    R_NONE,
+    STRUCTS,
+    _mul_u32,
+    _as_u32,
+    init_announce_ring,
+    init_sharded,
+    map_state,
+    ring_announce,
+    ring_drain,
+    ring_has_room,
+    shard_slice,
+    stack_shards,
+    to_int32,
+)
+from repro_torch.kernels.dfc_reduce.ops import (
+    _one_sharded_combine,
+    dfc_hetero_combine_step,
+    dfc_hetero_multi_combine_step,
+    select_touched,
+)
+from repro_torch.obs import EV_EPOCH, NULL_OBS
+
+# runtime-level response kind: op rejected because its shard's announcement
+# lanes were full this phase — never applied, safe to re-announce.
+R_OVERFLOW = 4
+
+_HASH_MULT = 2654435761  # Knuth multiplicative hashing constant
+
+_SLICE_PIPELINE = "the pipelined and fused fabric slice"
+_SLICE_LANES = "the per-side lanes slice"
+_SLICE_RESHARD = "the resharding slice"
+_SLICE_OBS = "the observability slice"
+
+
+class StaleTokenError(LookupError):
+    """``read_responses(thread, token)`` named a batch whose durable response
+    record no longer exists: the double-buffered announcement slots retain
+    only a thread's last two batches, and ``token`` predates both."""
+
+
+def resolve_device(device) -> torch.device:
+    """The device an entry point runs on; a CUDA device without a card is
+    an error, never a quiet move to the CPU."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "CUDA is not available: pass device='cpu' to run on the CPU"
+        )
+    return dev
+
+
+def _to_np(x) -> np.ndarray:
+    if torch.is_tensor(x):
+        return x.detach().cpu().numpy()
+    return np.asarray(x)
+
+
+# ===================================================================== router
+def shard_of_keys(keys, n_shards: int) -> torch.Tensor:
+    """bucket(key): multiplicative hash, identical on host and device, over
+    keys cut to 32 bits (as the reference sees them)."""
+    h = _mul_u32(_as_u32(keys), _HASH_MULT)
+    h = h ^ (h >> 16)
+    return (h % n_shards).to(torch.int32)
+
+
+def shard_of_keys_host(keys, n_shards: int) -> np.ndarray:
+    """NumPy twin of ``shard_of_keys`` for oracles and drivers."""
+    k = np.asarray(keys).astype(np.uint32)
+    h = k * np.uint32(_HASH_MULT)
+    h = h ^ (h >> np.uint32(16))
+    return (h % np.uint32(n_shards)).astype(np.int32)
+
+
+def route_keys_host(keys, n_shards: int, table=None) -> np.ndarray:
+    """Host routing: bucket hash + optional table lookup."""
+    if table is None:
+        return shard_of_keys_host(keys, n_shards)
+    table = np.asarray(table)
+    return table[shard_of_keys_host(keys, len(table))].astype(np.int32)
+
+
+def zipf_keys(rng, n: int, universe: int, skew: float) -> np.ndarray:
+    """Zipfian key draw over a finite universe (skew=0 -> uniform) from an
+    explicit ``numpy.random.Generator``."""
+    ranks = np.arange(1, universe + 1, dtype=np.float64)
+    p = ranks ** (-skew) if skew > 0 else np.ones(universe)
+    p /= p.sum()
+    return rng.choice(universe, size=n, p=p)
+
+
+def route_batch(keys, ops, params, *, n_shards: int, lanes: int, table=None):
+    """Bucket a flat announced batch into per-shard op lists, on the device
+    of ``ops``.
+
+    Returns ``(shard_ops i32[S, L], shard_params f32[S, L], shard i32[B],
+    lane i32[B], ok bool[B], overflow bool[B], shard_keys i32[S, L])``.
+    An op's lane is its batch-order rank among the ops routed to its shard
+    (stable), so per-shard op lists keep announcement order.  Ops ranked
+    past ``lanes`` overflow and touch no shard; ``OP_NONE`` lanes are never
+    routed.  ``table`` (``i32[n_buckets]``, bucket -> shard) routes through
+    a custom table; ``None`` is the identity.
+    """
+    dev = ops.device
+    keys32 = to_int32(keys).to(dev)
+    ops32 = ops.to(torch.int32)
+    b = ops32.shape[0]
+    if table is None:
+        shard = shard_of_keys(keys32, n_shards)
+    else:
+        t = table.to(dev)
+        shard = t[shard_of_keys(keys32, t.shape[0]).long()].to(torch.int32)
+    active = ops32 != OP_NONE
+    s_eff = torch.where(active, shard.long(), n_shards)  # n_shards: nowhere
+
+    # stable rank of op j within its shard: exclusive prefix sum per segment
+    onehot = s_eff[None, :] == torch.arange(n_shards, device=dev)[:, None]
+    rank_mat = onehot.int().cumsum(1, dtype=torch.int32) - 1  # [S, B]
+    lane = rank_mat[s_eff.clamp(0, n_shards - 1), torch.arange(b, device=dev)]
+
+    ok = active & (lane < lanes)
+    overflow = active & (lane >= lanes)
+
+    # dest is injective over ok lanes; the rest land in a sink slot
+    sink = n_shards * lanes
+    dest = torch.where(ok, s_eff * lanes + lane.long(), sink)
+    flat_ops = torch.full((sink + 1,), OP_NONE, dtype=torch.int32, device=dev)
+    flat_params = torch.zeros((sink + 1,), dtype=torch.float32, device=dev)
+    flat_keys = torch.zeros((sink + 1,), dtype=torch.int32, device=dev)
+    flat_ops[dest] = ops32
+    flat_params[dest] = params.to(dev, torch.float32)
+    flat_keys[dest] = keys32
+    return (
+        flat_ops[:sink].reshape(n_shards, lanes),
+        flat_params[:sink].reshape(n_shards, lanes),
+        shard,
+        lane,
+        ok,
+        overflow,
+        flat_keys[:sink].reshape(n_shards, lanes),
+    )
+
+
+# ================================================================ fused steps
+def _gather_flat(ok, overflow, shard, lane, resp_mat, kind_mat, n_shards, lanes):
+    """Responses back in flat batch order (overflow -> ``R_OVERFLOW``)."""
+    s = shard.long().clamp(0, n_shards - 1)
+    ln = lane.long().clamp(0, lanes - 1)
+    responses = torch.where(ok, resp_mat[..., s, ln], 0.0)
+    out_kinds = torch.where(ok, kind_mat[..., s, ln], R_NONE)
+    out_kinds = torch.where(overflow, R_OVERFLOW, out_kinds).to(torch.int32)
+    return responses, out_kinds
+
+
+def _bump_meta(meta, touched, n_ops):
+    new_meta = dict(meta)  # carry extra columns (e.g. "kind") through
+    new_meta["phases"] = (meta["phases"] + touched.int()).to(torch.int32)
+    new_meta["ops_combined"] = (meta["ops_combined"] + n_ops).to(torch.int32)
+    return new_meta
+
+
+def sharded_step(state, keys, ops, params, meta, *, kind: str, n_shards: int,
+                 lanes: int, backend: str = "kernel"):
+    """One end-to-end phase over a HOMOGENEOUS fabric.  ``meta`` is
+    ``{"phases": i32[S], "ops_combined": i32[S]}``; untouched shards keep
+    their state and epoch.  Returns ``(new_state, new_meta, responses
+    f32[B], kinds i32[B])``."""
+    shard_ops, shard_params, shard, lane, ok, overflow, shard_keys = route_batch(
+        keys, ops, params, n_shards=n_shards, lanes=lanes
+    )
+    combined, s_resp, s_kinds = _one_sharded_combine(
+        kind, backend, state, shard_ops, shard_params, keys=shard_keys
+    )
+    live = shard_ops != OP_NONE
+    touched = live.any(1)
+    new_state = select_touched(touched, combined, state)
+    new_meta = _bump_meta(meta, touched, live.sum(1))
+    responses, out_kinds = _gather_flat(
+        ok, overflow, shard, lane, s_resp, s_kinds, n_shards, lanes
+    )
+    return new_state, new_meta, responses, out_kinds
+
+
+@functools.lru_cache(maxsize=None)
+def _group_ids(kinds: Tuple[str, ...]) -> Dict[str, Tuple[int, ...]]:
+    """Global shard ids per kind, in ascending shard order."""
+    out: Dict[str, List[int]] = {}
+    for s, k in enumerate(kinds):
+        out.setdefault(k, []).append(s)
+    return {k: tuple(v) for k, v in out.items()}
+
+
+def _group_rows(kinds, device) -> Dict[str, torch.Tensor]:
+    return {
+        k: torch.tensor(ids, dtype=torch.long, device=device)
+        for k, ids in _group_ids(tuple(kinds)).items()
+    }
+
+
+def hetero_step(groups, table, keys, ops, params, meta, *,
+                kinds: Tuple[str, ...], lanes: int, backend: str = "kernel"):
+    """One end-to-end phase over a HETEROGENEOUS fabric: route, one combine
+    per kind group present, keep untouched shards, gather responses.  Op
+    codes are interpreted by the TARGET shard's structure.
+
+    Returns ``(new_groups, new_meta, responses f32[B], out_kinds i32[B])``.
+    """
+    n_shards = len(kinds)
+    dev = ops.device
+    shard_ops, shard_params, shard, lane, ok, overflow, shard_keys = route_batch(
+        keys, ops, params, n_shards=n_shards, lanes=lanes, table=table
+    )
+    rows = _group_rows(kinds, dev)
+    group_ops = {k: shard_ops[r] for k, r in rows.items()}
+    combined = dfc_hetero_combine_step(
+        groups, group_ops, {k: shard_params[r] for k, r in rows.items()},
+        backend=backend, group_keys={k: shard_keys[r] for k, r in rows.items()},
+    )
+
+    resp_mat = torch.zeros((n_shards, lanes), dtype=torch.float32, device=dev)
+    kind_mat = torch.full((n_shards, lanes), R_NONE, dtype=torch.int32, device=dev)
+    new_groups = {}
+    for k in sorted(rows):
+        new_state, s_resp, s_kinds = combined[k]
+        g_touched = (group_ops[k] != OP_NONE).any(1)
+        new_groups[k] = select_touched(g_touched, new_state, groups[k])
+        resp_mat[rows[k]] = s_resp
+        kind_mat[rows[k]] = s_kinds
+
+    live = shard_ops != OP_NONE
+    new_meta = _bump_meta(meta, live.any(1), live.sum(1))
+    responses, out_kinds = _gather_flat(
+        ok, overflow, shard, lane, resp_mat, kind_mat, n_shards, lanes
+    )
+    return new_groups, new_meta, responses, out_kinds
+
+
+def hetero_multi_step(groups, table, keys, ops, params, meta, *,
+                      kinds: Tuple[str, ...], lanes: int, backend: str = "kernel"):
+    """Route + combine a CHAIN of flat batches over a heterogeneous fabric.
+
+    ``keys`` / ``ops`` / ``params`` are ``[B, L]`` (batches padded with
+    ``OP_NONE``).  Each batch is routed independently and batch b+1 combines
+    on top of batch b's state, exactly as B ``hetero_step`` calls would.
+
+    Returns ``(new_groups, new_meta, responses [B, L], out_kinds [B, L],
+    states, epochs_before i32[S], epochs i32[B, S], phases_cum i32[B, S],
+    ops_cum i32[B, S])``: ``states[kind]`` carries the per-batch states
+    (leading B axis), ``epochs[b]`` the per-shard epochs after batch b (each
+    op's durable commit target).
+    """
+    n_batches = ops.shape[0]
+    n_shards = len(kinds)
+    dev = ops.device
+    routed = [
+        route_batch(keys[i], ops[i], params[i], n_shards=n_shards, lanes=lanes,
+                    table=table)
+        for i in range(n_batches)
+    ]
+    shard_ops = torch.stack([r[0] for r in routed])  # [B, S, L]
+    shard_params = torch.stack([r[1] for r in routed])
+    shard_keys = torch.stack([r[6] for r in routed])
+
+    rows = _group_rows(kinds, dev)
+    multi = dfc_hetero_multi_combine_step(
+        groups,
+        {k: shard_ops[:, r] for k, r in rows.items()},
+        {k: shard_params[:, r] for k, r in rows.items()},
+        backend=backend,
+        group_keys={k: shard_keys[:, r] for k, r in rows.items()},
+    )
+
+    resp_mat = torch.zeros((n_batches, n_shards, lanes), dtype=torch.float32,
+                           device=dev)
+    kind_mat = torch.full((n_batches, n_shards, lanes), R_NONE, dtype=torch.int32,
+                          device=dev)
+    epochs = torch.zeros((n_batches, n_shards), dtype=torch.int32, device=dev)
+    epochs_before = torch.zeros((n_shards,), dtype=torch.int32, device=dev)
+    new_groups, states = {}, {}
+    for k in sorted(rows):
+        r = rows[k]
+        st, s_resp, s_kinds = multi[k]
+        states[k] = st
+        new_groups[k] = map_state(lambda leaf: leaf[-1], st)
+        resp_mat[:, r] = s_resp
+        kind_mat[:, r] = s_kinds
+        epochs[:, r] = st.epoch
+        epochs_before[r] = groups[k].epoch
+
+    live = shard_ops != OP_NONE
+    touched = live.any(2).int()  # [B, S]
+    per_batch_ops = live.sum(2)
+    new_meta = _bump_meta(meta, touched.sum(0), per_batch_ops.sum(0))
+    phases_cum = (meta["phases"][None] + touched.cumsum(0)).to(torch.int32)
+    ops_cum = (meta["ops_combined"][None] + per_batch_ops.cumsum(0)).to(torch.int32)
+
+    responses, out_kinds = [], []
+    for i, (_, _, shard, lane, ok, overflow, _) in enumerate(routed):
+        rsp, knd = _gather_flat(ok, overflow, shard, lane, resp_mat[i], kind_mat[i],
+                                n_shards, lanes)
+        responses.append(rsp)
+        out_kinds.append(knd)
+    return (
+        new_groups, new_meta, torch.stack(responses), torch.stack(out_kinds),
+        states, epochs_before, epochs, phases_cum, ops_cum,
+    )
+
+
+# ============================================================== host oracle
+def sequential_hetero_reference(kinds, shard_lists, keys, ops, params, lanes,
+                                table=None, capacity=None):
+    """Pure-Python witness of one heterogeneous sharded phase (test oracle).
+
+    ``kinds[s]`` names shard ``s``'s structure; ``shard_lists[s]`` is its
+    contents, mutated in place (a dict for keyed kinds).  Returns
+    (responses, kinds) in flat batch order, overflow ops as ``R_OVERFLOW``.
+    """
+    n_shards = len(shard_lists)
+    shard = route_keys_host(keys, n_shards, table)
+    b = len(ops)
+    responses = [0.0] * b
+    out_kinds = [R_NONE] * b
+    buckets: Dict[int, List[int]] = {}
+    for j in range(b):
+        if ops[j] == OP_NONE:
+            continue
+        s = int(shard[j])
+        rank = len(buckets.setdefault(s, []))
+        if rank >= lanes:
+            out_kinds[j] = R_OVERFLOW
+            continue
+        buckets[s].append(j)
+    for s, idxs in sorted(buckets.items()):
+        s_ops = [ops[j] for j in idxs]
+        s_par = [params[j] for j in idxs]
+        spec = STRUCTS[kinds[s]]
+        if spec.keyed:
+            s_keys = [keys[j] for j in idxs]
+            shard_lists[s], s_resp, s_kinds = spec.reference(
+                shard_lists[s], s_keys, s_ops, s_par, capacity=capacity
+            )
+        else:
+            shard_lists[s], s_resp, s_kinds = spec.reference(
+                shard_lists[s], s_ops, s_par
+            )
+        for r, (v, k) in zip(idxs, zip(s_resp, s_kinds)):
+            responses[r] = v
+            out_kinds[r] = k
+    return responses, out_kinds
+
+
+def sequential_sharded_reference(kind, shard_lists, keys, ops, params, lanes):
+    """Homogeneous wrapper of ``sequential_hetero_reference``."""
+    return sequential_hetero_reference(
+        (kind,) * len(shard_lists), shard_lists, keys, ops, params, lanes
+    )
+
+
+# ================================================================== runtime
+def _init_meta(kinds: Sequence[str], device):
+    n_shards = len(kinds)
+    return {
+        "phases": torch.zeros((n_shards,), dtype=torch.int32, device=device),
+        "ops_combined": torch.zeros((n_shards,), dtype=torch.int32, device=device),
+        "kind": torch.tensor([KIND_CODES[k] for k in kinds], dtype=torch.int32,
+                             device=device),
+    }
+
+
+@dataclasses.dataclass
+class OpVerdict:
+    """Per-op detectability verdict reported by recovery."""
+
+    applied: bool
+    kind: Optional[int] = None
+    resp: Optional[float] = None
+    shard: Optional[int] = None
+
+
+class ShardedDFCRuntime:
+    """Many persistent DFC objects -- possibly of MIXED kinds -- behind one
+    announcement fabric.
+
+    Volatile path: ``step(keys, ops, params)``.  Durable path: threads
+    ``announce`` batches; ``combine_phase`` combines every ready
+    announcement across all shards and commits per shard; ``recover``
+    rebuilds the fabric after a crash and reports per-thread, per-op
+    detectability verdicts; ``replay_pending`` re-announces exactly the
+    not-applied ops.
+
+    ``kind`` is one kind name (``rt.state`` is then the one shard-stacked
+    state) or a per-shard list (``rt.state`` is the ``{kind: state}`` group
+    dict).  ``device`` defaults to the card.  Contract: per shard,
+    ``capacity >= committed size + lanes``.
+    """
+
+    def __init__(
+        self,
+        kind: Union[str, Sequence[str]],
+        n_shards: int,
+        capacity: int,
+        lanes: int,
+        *,
+        backend: str = "kernel",
+        fs: Optional[SimFS] = None,
+        n_threads: int = 1,
+        state=None,
+        meta=None,
+        n_buckets: Optional[int] = None,
+        table=None,
+        pipeline: bool = False,
+        depth: Optional[int] = None,
+        chain: int = 1,
+        ring_slots: int = 2048,
+        split_lanes: bool = False,
+        obs=None,
+        device="cuda",
+    ):
+        if pipeline or (depth is not None and depth > 1):
+            raise NotImplementedError(f"depth > 1 / pipeline waits for {_SLICE_PIPELINE}")
+        if depth is not None and depth < 1:
+            raise ValueError("depth must be >= 1")
+        if chain > 1:
+            raise NotImplementedError(f"chain > 1 waits for {_SLICE_PIPELINE}")
+        if split_lanes:
+            raise NotImplementedError(f"split_lanes waits for {_SLICE_LANES}")
+        if obs is not None and obs.enabled:
+            raise NotImplementedError(f"a live obs waits for {_SLICE_OBS}")
+        kinds = [kind] * n_shards if isinstance(kind, str) else list(kind)
+        if len(kinds) != n_shards:
+            raise ValueError("per-shard kind list must have n_shards entries")
+        for k in kinds:
+            if k not in STRUCTS:
+                raise ValueError(f"unknown structure kind {k!r}")
+        if lanes > capacity:
+            raise ValueError("lanes must be <= per-shard capacity")
+        self.device = resolve_device(device)
+        self.kinds = kinds
+        self.kind = kinds[0] if len(set(kinds)) == 1 else "mixed"
+        self.n_shards = n_shards
+        self.capacity = capacity
+        self.lanes = lanes
+        self.backend = backend
+        self.fs = fs
+        self.n_threads = n_threads
+        self.n_buckets = int(n_buckets) if n_buckets is not None else n_shards
+        if self.n_buckets < n_shards:
+            raise ValueError("n_buckets must be >= n_shards")
+        self.table = np.asarray(
+            np.arange(self.n_buckets) % n_shards if table is None else table,
+            np.int32,
+        )
+        if self.table.shape != (self.n_buckets,):
+            raise ValueError("table must have n_buckets entries")
+        self._table_dev = torch.from_numpy(self.table).to(self.device)
+        self.r_epoch = 0  # routing epoch (even at rest; moves only on reshard)
+        self.ring = (
+            init_announce_ring(ring_slots, device=self.device)
+            if fs is not None else None
+        )
+        self._ring_tail = 0  # host mirror of the ring's absolute tail
+        self._ring_spans: Dict[int, Tuple[int, int]] = {}  # thread -> (start, n)
+        self._live: Dict[int, Dict[str, Any]] = {}  # thread -> announcement rec
+        # (thread, token) groups of the most recent dispatch
+        self.last_dispatch: List[Tuple[Tuple[int, int], ...]] = []
+        self._elide: Dict[str, bytes] = {}  # rel path -> durable leaf digest
+        self._elide_pending: Dict[str, bytes] = {}
+        if state is None:
+            self.groups = {
+                k: init_sharded(k, len(ids), capacity, device=self.device)
+                for k, ids in _group_ids(tuple(kinds)).items()
+            }
+        else:
+            self.state = state
+        self.meta = _init_meta(kinds, self.device) if meta is None else meta
+        self.obs = NULL_OBS
+
+    # ----------------------------------------------------- state as groups
+    @property
+    def state(self):
+        """Single stacked state for homogeneous fabrics, the ``{kind:
+        stacked_state}`` group dict otherwise."""
+        if len(self.groups) == 1:
+            return next(iter(self.groups.values()))
+        return self.groups
+
+    @state.setter
+    def state(self, value):
+        if isinstance(value, dict):
+            self.groups = dict(value)
+        else:
+            self.groups = {self.kinds[0]: value}
+
+    def _row(self, s: int) -> int:
+        """Local row of global shard ``s`` inside its kind group."""
+        return _group_ids(tuple(self.kinds))[self.kinds[s]].index(s)
+
+    def _shard_state(self, s: int):
+        return shard_slice(self.groups[self.kinds[s]], self._row(s))
+
+    def shard_epochs(self) -> np.ndarray:
+        """Per-global-shard epochs gathered from the kind groups."""
+        out = np.zeros((self.n_shards,), np.int64)
+        for k, ids in _group_ids(tuple(self.kinds)).items():
+            out[np.asarray(ids)] = _to_np(self.groups[k].epoch)
+        return out
+
+    # ------------------------------------------------------------- routing
+    def _upload(self, keys, ops, params):
+        return (
+            to_int32(_to_np(keys)).to(self.device),
+            torch.from_numpy(_to_np(ops).astype(np.int32)).to(self.device),
+            torch.from_numpy(_to_np(params).astype(np.float32)).to(self.device),
+        )
+
+    def route(self, keys, ops, params):
+        k, o, p = self._upload(keys, ops, params)
+        return route_batch(k, o, p, n_shards=self.n_shards, lanes=self.lanes,
+                           table=self._table_dev)
+
+    def route_host(self, keys) -> np.ndarray:
+        return route_keys_host(keys, self.n_shards, self.table)
+
+    def key_for_shard(self, s: int, start: int = 0) -> int:
+        """Smallest key >= ``start`` that routes to shard ``s`` under the
+        current table (host-side search)."""
+        for base in range(start, start + (1 << 22), 4096):
+            cand = np.arange(base, base + 4096, dtype=np.int64)
+            hit = np.nonzero(self.route_host(cand) == s)[0]
+            if hit.size:
+                return int(cand[hit[0]])
+        raise ValueError(f"no key routes to shard {s} (unrouted shard?)")
+
+    # ------------------------------------------------------- volatile path
+    def step(self, keys, ops, params):
+        """One phase over a flat batch; returns device tensors
+        ``(responses, kinds)``."""
+        k, o, p = self._upload(keys, ops, params)
+        self.groups, self.meta, resp, kinds = hetero_step(
+            self.groups, self._table_dev, k, o, p, self.meta,
+            kinds=tuple(self.kinds), lanes=self.lanes, backend=self.backend,
+        )
+        return resp, kinds
+
+    # -------------------------------------------------------- announcements
+    def _ann_path(self, t: int, slot: int) -> str:
+        return f"tAnn/thread_{t}/ann{slot}.json"
+
+    def _valid_path(self, t: int) -> str:
+        return f"tAnn/thread_{t}/valid"
+
+    def _read_valid(self, t: int) -> int:
+        raw = self.fs.read(self._valid_path(t))
+        return int(raw.decode()) if raw else 0
+
+    def _read_ann(self, t: int, slot: int) -> Dict[str, Any]:
+        raw = self.fs.read(self._ann_path(t, slot))
+        return json.loads(raw.decode()) if raw else {"val": BOT, "token": -1}
+
+    def announce(self, thread: int, keys, ops, params, token: int) -> None:
+        """Thread-side announcement (paper lines 2-12): double-buffered
+        record + valid selector, parallel pwb/pfence, MSB publish; the
+        payload also lands in the device announcement ring.  Per-thread
+        ``token``s must increase monotonically."""
+        n_op, ann = self._announce_durable(thread, token, keys, ops, params)
+        self._register_live(thread, n_op, token, ann["keys"], ann["ops"], ann["params"])
+
+    def _announce_durable(self, thread: int, token: int, keys, ops, params
+                          ) -> Tuple[int, Dict[str, Any]]:
+        """The announce protocol's durable writes (paper lines 2-12): record
+        into the inactive slot, pfence, valid flip, pfence, MSB publish --
+        3 pwb + 2 pfence.  Returns ``(slot, record)``."""
+        valid = self._read_valid(thread)
+        n_op = 1 - (valid & 1)
+        ann = {
+            "token": token,
+            "keys": [int(k) for k in _to_np(keys)],
+            "ops": [int(o) for o in _to_np(ops)],
+            "params": [float(p) for p in _to_np(params)],
+            "val": BOT,
+        }
+        self.fs.write(
+            self._ann_path(thread, n_op), json.dumps(ann).encode(), tag="announce"
+        )
+        self.fs.fsync([self._ann_path(thread, n_op)], tag="announce")
+        self.fs.write(self._valid_path(thread), str(n_op).encode(), tag="announce")
+        self.fs.fsync([self._valid_path(thread)], tag="announce")
+        self.fs.write(
+            self._valid_path(thread), str(2 | n_op).encode(), tag="announce"
+        )  # MSB
+        return n_op, ann
+
+    def _register_live(self, thread: int, slot: int, token: int, keys, ops, params
+                       ) -> Dict[str, Any]:
+        """Track a live (announced, not yet combined) batch: host metadata
+        for routing/retire plus a device-ring span for the combine payload.
+        When the ring has no room the payload stays host-side
+        (``ring_start=None``) and the combine uploads it instead."""
+        keys = np.asarray(keys, np.int64)
+        ops = np.asarray(ops, np.int32)
+        params = np.asarray(params, np.float32)
+        n = int(ops.shape[0])
+        start = None
+        if self.ring is not None and n:
+            slots = int(self.ring.keys.shape[0])
+            spans = [v for t, v in self._ring_spans.items() if t != thread]
+            oldest = min((s0 for s0, _ in spans), default=self._ring_tail)
+            if ring_has_room(slots, self._ring_tail, oldest, n):
+                self.ring = ring_announce(
+                    self.ring,
+                    torch.from_numpy(keys.astype(np.int32)),
+                    torch.from_numpy(ops),
+                    torch.from_numpy(params),
+                )
+                start = self._ring_tail
+                self._ring_tail += n
+                self._ring_spans[thread] = (start, n)
+            else:
+                self._ring_spans.pop(thread, None)
+        rec = {
+            "token": int(token), "slot": int(slot), "n": n,
+            "keys": keys, "ops": ops, "params": params, "ring_start": start,
+        }
+        self._live[thread] = rec
+        return rec
+
+    def ready_announcements(self) -> List[int]:
+        out = []
+        for t in range(self.n_threads):
+            v = self._read_valid(t)
+            if (v >> 1) & 1:
+                ann = self._read_ann(t, v & 1)
+                if ann.get("val") is BOT and ann.get("token", -1) >= 0:
+                    out.append(t)
+        return out
+
+    # ------------------------------------------------------ durable layout
+    def _epoch_path(self, s: int) -> str:
+        return f"shard_{s}/cEpoch"
+
+    def _slot_dir(self, s: int, epoch: int, nxt: bool) -> str:
+        return f"shard_{s}/slot{(epoch // 2 + (1 if nxt else 0)) % 2}"
+
+    def _read_shard_epoch(self, s: int) -> int:
+        raw = self.fs.read(self._epoch_path(s))
+        return int(raw.decode()) if raw else 0
+
+    def _persist_shard(self, s: int, epoch_target: int, state=None,
+                       counters=None) -> List[str]:
+        """pwb shard ``s``'s post-combine (or given) state into its inactive
+        slot, one ``.npy`` per leaf in field order plus ``meta.json``.
+
+        Dirty-leaf elision: a leaf whose bytes already sit durably in this
+        slot is not re-written (it stays listed in the manifest); digests
+        join the elision cache only after the phase's pfence.
+        """
+        one = self._shard_state(s) if state is None else state
+        slot = self._slot_dir(s, epoch_target - 2, nxt=True)
+        files = []
+        if counters is None:
+            counters = (
+                int(self.meta["phases"][s]),
+                int(self.meta["ops_combined"][s]),
+            )
+        meta = {
+            "kind": self.kinds[s],
+            "epoch": epoch_target,
+            "leaves": [],
+            "phases": int(counters[0]),
+            "ops_combined": int(counters[1]),
+        }
+        for i, leaf in enumerate(one.leaves()):
+            arr = np.asarray(_to_np(leaf))
+            buf = io.BytesIO()
+            np.save(buf, arr)
+            data = buf.getvalue()
+            rel = f"{slot}/leaf_{i}.npy"
+            digest = hashlib.blake2b(data, digest_size=16).digest()
+            if self._elide.get(rel) != digest:
+                self.fs.write(rel, data, tag="slot")
+                files.append(rel)
+                self._elide_pending[rel] = digest
+                self.obs.metrics.counter("elision_miss", shard=s)
+            else:
+                self.obs.metrics.counter("elision_hit", shard=s)
+            meta["leaves"].append(
+                {"file": f"leaf_{i}.npy", "shape": list(arr.shape), "dtype": str(arr.dtype)}
+            )
+        rel = f"{slot}/meta.json"
+        self.fs.write(rel, json.dumps(meta).encode(), tag="slot")
+        files.append(rel)
+        return files
+
+    def _promote_elision(self) -> None:
+        """Leaf digests written since the last pfence are durable now."""
+        self._elide.update(self._elide_pending)
+        self._elide_pending.clear()
+
+    # --------------------------------------------------------- combine phase
+    def _collect_ready(self) -> List[Tuple[int, Dict[str, Any]]]:
+        """Ready announcements as (thread, live-record) pairs, thread order."""
+        out = []
+        for t in self.ready_announcements():
+            rec = self._live.get(t)
+            v = self._read_valid(t)
+            if rec is None or rec["slot"] != (v & 1):
+                # announced before this runtime object existed: rebuild the
+                # live record from the durable mirror
+                ann = self._read_ann(t, v & 1)
+                rec = self._register_live(
+                    t, v & 1, ann["token"], ann["keys"], ann["ops"], ann["params"]
+                )
+            out.append((t, rec))
+        return out
+
+    def _payload_view(self, rec: Dict[str, Any]):
+        """A live batch's payload as device tensors: out of the announcement
+        ring when the span landed there, a host upload otherwise."""
+        if rec["ring_start"] is not None:
+            return ring_drain(self.ring, rec["ring_start"], rec["n"])
+        return (
+            torch.from_numpy(rec["keys"].astype(np.int32)).to(self.device),
+            torch.from_numpy(rec["ops"]).to(self.device),
+            torch.from_numpy(rec["params"]).to(self.device),
+        )
+
+    def combine_phase(self) -> List[int]:
+        """One durable combining phase over every ready announcement.
+
+        Concatenates the announced batches in thread order (the combiner's
+        walk over the announcement array), runs the device step on the
+        ring-resident payload, persists every touched shard into its
+        inactive slot, writes responses and per-op commit targets into the
+        combined announcements, pfences ONCE (paper line 80), then commits
+        each touched shard's epoch with the two-increment protocol (lines
+        81-83).  Returns the combined thread ids.
+        """
+        assert self.fs is not None, "combine_phase needs a SimFS"
+        ready = self._collect_ready()
+        if not ready:
+            return []
+
+        maxlen = sum(rec["n"] for _, rec in ready)
+        pad = max(8, 1 << max(0, (maxlen - 1)).bit_length())
+        karrs, oarrs, parrs, segs, off = [], [], [], [], 0
+        for t, rec in ready:
+            k, o, p = self._payload_view(rec)
+            karrs.append(k)
+            oarrs.append(o)
+            parrs.append(p)
+            segs.append({"thread": t, "token": rec["token"], "slot": rec["slot"],
+                         "off": off, "n": rec["n"]})
+            off += rec["n"]
+            self._ring_spans.pop(t, None)  # span consumed at dispatch
+        fill = pad - off
+        if fill:
+            karrs.append(torch.zeros((fill,), dtype=torch.int32, device=self.device))
+            oarrs.append(torch.full((fill,), OP_NONE, dtype=torch.int32,
+                                    device=self.device))
+            parrs.append(torch.zeros((fill,), dtype=torch.float32, device=self.device))
+        host_keys = np.concatenate([rec["keys"] for _, rec in ready])
+        batches = [{
+            "threads": segs,
+            "shard": self.route_host(host_keys),
+            "ops": np.concatenate([rec["ops"] for _, rec in ready]),
+        }]
+
+        (
+            self.groups, self.meta, resp, out_kinds,
+            states, epochs_before, epochs, phases_cum, ops_cum,
+        ) = hetero_multi_step(
+            self.groups, self._table_dev,
+            torch.cat(karrs)[None], torch.cat(oarrs)[None], torch.cat(parrs)[None],
+            self.meta, kinds=tuple(self.kinds), lanes=self.lanes,
+            backend=self.backend,
+        )
+        self.last_dispatch = [
+            tuple((seg["thread"], seg["token"]) for seg in info["threads"])
+            for info in batches
+        ]
+        self._retire({
+            "batches": batches, "resp": resp, "kinds": out_kinds,
+            "states": states, "epochs_before": epochs_before,
+            "epochs": epochs, "phases_cum": phases_cum, "ops_cum": ops_cum,
+            "repoch": self.r_epoch,
+        })
+        return [seg["thread"] for seg in segs]
+
+    def _retire(self, fl: Dict[str, Any]) -> List[int]:
+        """Persist + commit one dispatched chain, batch by batch: persist the
+        touched shards into their inactive slots, write the responses into
+        the combined announcements, ONE pfence, then the per-shard
+        two-increment epoch commits."""
+        resp = _to_np(fl["resp"])
+        kinds = _to_np(fl["kinds"])
+        epochs = _to_np(fl["epochs"])  # [B, S]
+        phases_cum = _to_np(fl["phases_cum"])
+        ops_cum = _to_np(fl["ops_cum"])
+        prev_epochs = _to_np(fl["epochs_before"])
+        # one device->host fetch per stacked leaf (not per shard slice)
+        states_np = {k: map_state(_to_np, st) for k, st in fl["states"].items()}
+
+        def batch_shard_state(b, s):
+            k, r = self.kinds[s], self._row(s)
+            return map_state(lambda leaf: leaf[b, r], states_np[k])
+
+        retired = []
+        for b, info in enumerate(fl["batches"]):
+            e_b = epochs[b]
+            touched = [int(s) for s in np.nonzero(e_b != prev_epochs)[0]]
+            if not info["threads"] and not touched:
+                continue
+            shard = info["shard"]
+            files: List[str] = []
+            for s in touched:
+                files += self._persist_shard(
+                    s, int(e_b[s]), state=batch_shard_state(b, s),
+                    counters=(phases_cum[b][s], ops_cum[b][s]),
+                )
+            targets = [int(e) for e in e_b[shard]]  # per-op commit target
+            for seg in info["threads"]:
+                sl = slice(seg["off"], seg["off"] + seg["n"])
+                ann = self._read_ann(seg["thread"], seg["slot"])
+                ann["val"] = {
+                    "resp": [float(v) for v in resp[b][sl]],
+                    "kinds": [int(k) for k in kinds[b][sl]],
+                    "shards": [int(s) for s in shard[sl]],
+                    "targets": list(targets[sl]),
+                    "repoch": fl["repoch"],
+                }
+                rel = self._ann_path(seg["thread"], seg["slot"])
+                self.fs.write(rel, json.dumps(ann).encode(), tag="resp")
+                files.append(rel)
+                retired.append(seg["thread"])
+            self.fs.fsync(files, tag="phase")  # ONE pfence for slots + responses
+            self._promote_elision()
+            for s in touched:  # per-shard two-increment epoch commit
+                e = int(e_b[s])
+                self.fs.write(self._epoch_path(s), str(e - 1).encode(), tag="epoch")
+                self.fs.fsync([self._epoch_path(s)], tag="epoch")
+                self.fs.write(self._epoch_path(s), str(e).encode(), tag="epoch")
+                self.obs.event(EV_EPOCH, shard=s, epoch=e)
+            prev_epochs = e_b
+        return retired
+
+    def flush(self) -> List[int]:
+        """Retire every dispatched chain.  The serial fabric retires each
+        phase inside the ``combine_phase`` that dispatched it, so nothing is
+        ever in flight here: returns ``[]`` (the pipelined slice keeps
+        chains in flight)."""
+        return []
+
+    def _drain(self) -> None:
+        """Combine every ready announcement (the serial fabric retires it
+        at once)."""
+        self.combine_phase()
+
+    def phase_loop(self, *args, **kwargs):
+        raise NotImplementedError(f"phase_loop waits for {_SLICE_PIPELINE}")
+
+    def split_shard(self, *args, **kwargs):
+        raise NotImplementedError(f"split_shard waits for {_SLICE_RESHARD}")
+
+    def merge_shards(self, *args, **kwargs):
+        raise NotImplementedError(f"merge_shards waits for {_SLICE_RESHARD}")
+
+    def read_responses(self, thread: int, token: Optional[int] = None
+                       ) -> Optional[Dict[str, Any]]:
+        """A thread's combined announcement, or None while still pending.
+
+        Returns ``{"token", "resp", "kinds", "shards", "targets", "repoch"}``,
+        the durable response record.  With ``token``, searches BOTH
+        announcement slots for that batch.  Raises :class:`StaleTokenError`
+        when ``token`` predates both retained slots.
+        """
+        v = self._read_valid(thread)
+        if token is None:
+            ann = self._read_ann(thread, v & 1)
+            if ann.get("val") is BOT:
+                return None
+            return dict(ann["val"], token=ann["token"])
+        held = []
+        for slot in (v & 1, 1 - (v & 1)):
+            ann = self._read_ann(thread, slot)
+            t = ann.get("token", -1)
+            if t == token:
+                if ann.get("val") is BOT:
+                    return None  # announced, not yet combined/retired
+                return dict(ann["val"], token=ann["token"])
+            if t >= 0:
+                held.append(t)
+        # per-thread tokens are monotone: a token below the newest retained
+        # one predates the retained slots for good
+        if held and token < max(held):
+            raise StaleTokenError(
+                f"thread {thread} token {token} predates retained "
+                f"announcement slot(s) (tokens held: {sorted(held)}); its "
+                "response record was overwritten or never announced — read "
+                "responses before announcing two successor batches"
+            )
+        return None
+
+    # -------------------------------------------------------------- recover
+    _REPOCH_PATH = "routing/rEpoch"
+    _INTENT_PATH = "reshard/intent.json"
+
+    @classmethod
+    def recover(
+        cls,
+        fs: SimFS,
+        *,
+        kind: Union[str, Sequence[str]] = "queue",
+        n_shards: int = 1,
+        capacity: int,
+        lanes: int,
+        backend: str = "kernel",
+        n_threads: int = 1,
+        n_buckets: Optional[int] = None,
+        table=None,
+        pipeline: bool = False,
+        depth: Optional[int] = None,
+        chain: int = 1,
+        ring_slots: int = 2048,
+        split_lanes: bool = False,
+        obs=None,
+        device="cuda",
+    ) -> Tuple["ShardedDFCRuntime", Dict[int, Dict[str, Any]]]:
+        """Recover the fabric + per-thread/per-op detectability report.
+
+        Per shard: round an odd durable epoch up to even (finish the
+        interrupted second increment, paper lines 28-30), garbage-collect
+        the inactive slot, and reload the active slot (or a fresh init when
+        the shard never committed).  Per announced op: applied iff its
+        shard's committed epoch reached the target recorded with the
+        response; everything else is reported not-applied and is safe to
+        re-announce (``replay_pending``).  A root that holds a durable
+        routing record (a fabric that resharded) raises until the
+        resharding slice.
+        """
+        if (fs.read(cls._REPOCH_PATH) or fs.read(cls._INTENT_PATH)
+                or fs.read("routing/slot0.json") or fs.read("routing/slot1.json")):
+            raise NotImplementedError(
+                f"recovering a resharded fabric waits for {_SLICE_RESHARD}"
+            )
+        kinds = [kind] * n_shards if isinstance(kind, str) else list(kind)
+        rt = cls(
+            kinds, n_shards, capacity, lanes,
+            backend=backend, fs=fs, n_threads=n_threads,
+            n_buckets=n_buckets, table=table,
+            pipeline=pipeline, depth=depth, chain=chain, ring_slots=ring_slots,
+            split_lanes=split_lanes, obs=obs, device=device,
+        )
+
+        shard_states = []
+        phases = np.zeros((n_shards,), np.int32)
+        ops_combined = np.zeros((n_shards,), np.int32)
+        committed_epochs = np.zeros((n_shards,), np.int64)
+        for s in range(n_shards):
+            spec = STRUCTS[kinds[s]]
+            epoch = rt._read_shard_epoch(s)
+            if epoch % 2 == 1:  # crashed between the two increments
+                epoch += 1
+                fs.write(rt._epoch_path(s), str(epoch).encode(), tag="recovery")
+                fs.fsync([rt._epoch_path(s)], tag="recovery")
+            committed_epochs[s] = epoch
+            active = rt._slot_dir(s, epoch, nxt=False)
+            inactive = rt._slot_dir(s, epoch, nxt=True)
+            meta_raw = fs.read_durable(f"{active}/meta.json")
+            live = {f"{active}/meta.json"}
+            if meta_raw:
+                meta = json.loads(meta_raw.decode())
+                live |= {f"{active}/{e['file']}" for e in meta["leaves"]}
+                leaves = [
+                    np.load(io.BytesIO(fs.read_durable(f"{active}/{e['file']}")))
+                    for e in meta["leaves"]
+                ]
+                shard_states.append(spec.state_cls(*[
+                    torch.from_numpy(leaf).to(rt.device) for leaf in leaves
+                ]))
+                phases[s] = meta.get("phases", 0)
+                ops_combined[s] = meta.get("ops_combined", 0)
+            else:
+                shard_states.append(spec.init(capacity, device=rt.device))
+            # GC: drop partial writes of the interrupted phase
+            for rel in list(fs.listdir(active)) + list(fs.listdir(inactive)):
+                if rel not in live:
+                    fs.delete(rel)
+
+        rt.groups = {
+            k: stack_shards([shard_states[s] for s in ids])
+            for k, ids in _group_ids(tuple(kinds)).items()
+        }
+        rt.meta = {
+            "phases": torch.from_numpy(phases).to(rt.device),
+            "ops_combined": torch.from_numpy(ops_combined).to(rt.device),
+            "kind": torch.tensor([KIND_CODES[k] for k in kinds], dtype=torch.int32,
+                                 device=rt.device),
+        }
+
+        def _slot_verdicts(ann) -> Tuple[List[OpVerdict], bool]:
+            """Per-op verdicts of one announcement record + whether its
+            phase fully committed (every target epoch reached)."""
+            verdicts: List[OpVerdict] = []
+            val = ann.get("val")
+            n_ops = len(ann.get("ops", []))
+            if val is BOT:
+                return [OpVerdict(applied=False) for _ in range(n_ops)], False
+            fully = True
+            for i in range(n_ops):
+                s = val["shards"][i]
+                k = val["kinds"][i]
+                committed = committed_epochs[s] >= val["targets"][i]
+                fully = fully and bool(committed)
+                applied = bool(committed) and k != R_OVERFLOW and k != R_NONE
+                verdicts.append(
+                    OpVerdict(
+                        applied=applied,
+                        kind=k if committed else None,
+                        resp=val["resp"][i] if committed else None,
+                        shard=s,
+                    )
+                )
+            return verdicts, fully
+
+        report: Dict[int, Dict[str, Any]] = {}
+        for t in range(n_threads):
+            v = rt._read_valid(t)
+            lsb = v & 1
+            if (v >> 1) & 1 == 0:  # re-publish a half-written valid selector
+                fs.write(rt._valid_path(t), str(2 | lsb).encode(), tag="recovery")
+            ann = rt._read_ann(t, lsb)
+            if ann.get("token", -1) < 0:
+                report[t] = {"token": None, "ops": [], "prev": None}
+                continue
+            verdicts, _ = _slot_verdicts(ann)
+            # the OLDER slot may hold a predecessor that never fully
+            # committed; only a SMALLER token qualifies (tokens are monotone)
+            prev = None
+            pann = rt._read_ann(t, 1 - lsb)
+            ptok = pann.get("token", -1)
+            if 0 <= ptok < ann["token"] and pann.get("ops"):
+                pverdicts, pfully = _slot_verdicts(pann)
+                if not pfully:
+                    prev = {"token": ptok, "ops": pverdicts}
+            report[t] = {"token": ann["token"], "ops": verdicts, "prev": prev}
+            if ann.get("val") is BOT:
+                # still pending: re-stage it so a combine_phase runs unchanged
+                rt._register_live(
+                    t, lsb, ann["token"], ann["keys"], ann["ops"], ann["params"]
+                )
+        return rt, report
+
+    def replay_pending(self, report: Dict[int, Dict[str, Any]]) -> List[int]:
+        """Re-announce exactly the not-applied ops of every thread (read back
+        from the durable records) and run one combining phase -- the
+        exactly-once resume step after a crash.  Ops that committed with an
+        ``R_NONE`` response are not replayed (they completed as no-ops);
+        uncommitted ops and ``R_OVERFLOW`` rejections are.  A reported
+        predecessor batch (``report[t]["prev"]``) is replayed in a round of
+        its own first, so per-thread op order survives.  Returns the
+        replayed thread ids."""
+
+        def _redo(ann, verdicts):
+            if not ann.get("ops"):
+                return None
+            idx = [
+                i for i, v in enumerate(verdicts)
+                if not v.applied and v.kind != R_NONE
+            ]
+            if not idx:
+                return None
+            return (
+                [ann["keys"][i] for i in idx],
+                [ann["ops"][i] for i in idx],
+                [ann["params"][i] for i in idx],
+            )
+
+        # snapshot both slots' durable records BEFORE any re-announcement
+        prev_round: List[Tuple[int, int, Tuple]] = []
+        newest_round: List[Tuple[int, int, Dict[str, Any], List[OpVerdict]]] = []
+        for t in sorted(report):
+            r = report[t]
+            lsb = self._read_valid(t) & 1
+            prev = r.get("prev")
+            if prev is not None:
+                pann = self._read_ann(t, 1 - lsb)
+                if pann.get("token", -1) == prev["token"]:
+                    redo = _redo(pann, prev["ops"])
+                    if redo is not None:
+                        prev_round.append((t, prev["token"], redo))
+            if r["token"] is None:
+                continue
+            ann = self._read_ann(t, lsb)
+            if _redo(ann, r["ops"]) is not None:
+                newest_round.append((t, r["token"], ann, r["ops"]))
+
+        replayed = set()
+        for t, token, (keys, ops, params) in prev_round:
+            self.announce(t, keys, ops, params, token=token)
+            replayed.add(t)
+        if prev_round:
+            self._drain()
+
+        # a still-PENDING newest announcement may have been combined by
+        # round 1's phase; then only its R_OVERFLOW rejections need a replay
+        for t, token, ann, verdicts in newest_round:
+            pre_combined = any(v.shard is not None for v in verdicts)
+            if not pre_combined:
+                val = self.read_responses(t, token=token)
+                if val is not None:
+                    idx = [
+                        i for i, k in enumerate(val["kinds"]) if k == R_OVERFLOW
+                    ]
+                    if not idx:
+                        continue
+                    self.announce(
+                        t,
+                        [ann["keys"][i] for i in idx],
+                        [ann["ops"][i] for i in idx],
+                        [ann["params"][i] for i in idx],
+                        token=token,
+                    )
+                    replayed.add(t)
+                    continue
+            keys, ops, params = _redo(ann, verdicts)
+            self.announce(t, keys, ops, params, token=token)
+            replayed.add(t)
+        if replayed:
+            self._drain()
+        return sorted(replayed)
+
+    # -------------------------------------------------------------- helpers
+    def shard_contents(self, s: int) -> List:
+        """Committed contents of shard ``s`` (bottom-to-top / left-to-right;
+        ``(key, value)`` pairs for a map)."""
+        one = map_state(_to_np, self._shard_state(s))
+        active = (int(one.epoch) // 2) % 2
+        if self.kinds[s] == "stack":
+            return [float(v) for v in one.values[: int(one.size[active])]]
+        if self.kinds[s] == "map":
+            return [
+                (int(one.keys[i]), float(one.values[i]))
+                for i in range(one.occupied.shape[0])
+                if one.occupied[i]
+            ]
+        cap = one.values.shape[0]
+        e = one.ends[active]
+        return [float(one.values[i % cap]) for i in range(int(e[0]), int(e[1]))]
+
+    def shard_sizes(self) -> np.ndarray:
+        """Committed sizes of every shard, from the active root counters."""
+        out = np.zeros((self.n_shards,), np.int64)
+        for k, ids in _group_ids(tuple(self.kinds)).items():
+            st = map_state(_to_np, self.groups[k])
+            rows = np.arange(len(ids))
+            active = (st.epoch // 2) % 2
+            if k == "stack":
+                sizes = st.size[rows, active]
+            elif k == "map":
+                sizes = st.count[rows, active]
+            else:
+                ends = st.ends[rows, active]  # [Sg, 2]
+                sizes = ends[:, 1] - ends[:, 0]
+            out[np.asarray(ids)] = sizes
+        return out
