@@ -8,10 +8,14 @@ script exits non-zero without printing a result):
 
   1. device    -- require CUDA; print the card's name and power limit,
   2. build     -- compile the combine kernels from ``src/repro_torch`` with
-                  nvcc (sm_90a),
-  3. kernels   -- each of the 4 CUDA kernels against its plain PyTorch
-                  version on adversarial batches, and kernels 1-3 at S=1 as
-                  the single-object steps: bit-equal,
+                  nvcc (sm_90a), one nvcc per source, all started together,
+  3. kernels   -- each of the 4 one-phase CUDA kernels against its plain
+                  PyTorch version on adversarial batches, kernels 1-3 at S=1
+                  as the single-object steps, and the K-phase kernel (B5)
+                  against ``phase_grid_combine_ref`` for every kind at S=3,
+                  K=3, N in {64, 1024} (a pass-through phase, an untouched
+                  shard, committed -0.0, a negative deque ``left``, a full
+                  map bucket): bit-equal,
   4. volatile  -- the port's main path at full width: ``serve_shards --mixed
                   --shards 256 --batch 16384 --phases 32 --skew 1.1`` on the
                   card with the kernel backend; launch counters zeroed just
@@ -22,11 +26,26 @@ script exits non-zero without printing a result):
                   then held bit for bit against their plain versions at the
                   main path's shapes (a routed batch of phase 3 on the state
                   after phase 2) and timed, beside the other parts of a step,
-  5. durable   -- ``serve_shards --mixed --durable --shards 16 --batch 256
-                  --phases 50 --threads 4`` on the card (pwb/op, pfence/op);
-                  the same durable root from the kernel and plain backends;
-                  crashes at a few persistence-op indices, then recover +
-                  replay_pending must apply every announced op exactly once.
+  5. fused     -- the fused path at the same width on phase 4's 32
+                  batches: (a) 32 ``rt.step``, (b) 4 x
+                  ``hetero_phase_loop_step(K=8, phase_axis="scan")``, (c) 4 x
+                  the same with ``phase_axis="grid"``: bit-equal responses,
+                  kinds, final state and meta; counters zeroed before and
+                  read after each run ((c) launches B5 4 times per kind and
+                  no one-phase kernel); per-phase times; B5 timed at K=8
+                  beside its bound, and held against its plain version on
+                  one K=2 dispatch (the state after phase 2, phases 3-4),
+  6. durable   -- ``serve_shards --mixed --durable --shards 16 --batch 256
+                  --phases 50 --threads 4`` (the seeded multi-thread driver)
+                  at ``--depth 1`` and ``--depth 3`` (pwb/op, pfence/op, how
+                  long retire blocked); depth 3 against depth 1 on one
+                  lockstep schedule; ``phase_loop`` on both axes against the
+                  serial drive (digest, per-tag counts); the same durable
+                  root from the kernel and plain backends, serial and
+                  pipelined; crashes at six persistence-op indices of the
+                  serial, the pipelined (depth 3, chain 4) and the
+                  ``phase_loop`` drives, then recover + replay_pending must
+                  apply every announced op exactly once.
 
 Then the card line (nvidia-smi), one JSON line with a record per kernel and,
 last, ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
@@ -48,6 +67,8 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 SOURCE = "src/repro_torch/kernels/dfc_reduce/csrc/dfc_reduce.cu"
+GRID_SOURCE = "src/repro_torch/kernels/dfc_reduce/csrc/phase_grid.cu"
+KINDS = ("stack", "queue", "deque", "map")
 # the TPU kernels these replace (JAX package, pallas_call wrappers)
 REPLACES = {
     "stack": "src/repro/kernels/dfc_reduce/kernel.py:539",
@@ -55,8 +76,11 @@ REPLACES = {
     "deque": "src/repro/kernels/dfc_reduce/kernel.py:598",
     "map": "src/repro/kernels/dfc_reduce/kernel.py:664",
 }
+GRID_REPLACES = "src/repro/kernels/dfc_reduce/ops.py:482"
 NAMES = {"stack": "dfc_stack_reduce", "queue": "dfc_queue_reduce",
          "deque": "dfc_deque_reduce", "map": "dfc_map_reduce"}
+GRID_NAMES = {k: f"dfc_phase_{k}" for k in KINDS}
+K_PHASES = 8  # phases per fused dispatch on the main path
 # H100 SXM published peaks (NVIDIA data sheet): HBM3 bytes/s, and the f32
 # rate outside the tensor cores, used for the kernels' 32-bit scalar ops
 HBM_BYTES_PER_S = 3.35e12
@@ -312,9 +336,285 @@ def phase_kernels_adversarial(torch, T):
         kfn = fns[kind][0]
         args = cases[kind][-1]
         one = [a[:1].contiguous() for a in args]
-        single[kind] = cuda_ms(lambda: kfn(*one), 20)
+        single[kind] = (cuda_ms(lambda: kfn(*one), 20), *bound(kind, one))
+    # at this size the byte and operation bounds are far below a launch's
+    # latency, which is what the time measures
     print("single-object kernels (S=1, N=64): "
-          + ", ".join(f"{NAMES[k]} {v:.4f} ms" for k, v in single.items()), flush=True)
+          + ", ".join(f"{NAMES[k]} {v[0]:.4f} ms (bound {v[1] * 1e6:.3f} ns by {v[2]})"
+                      for k, v in single.items()), flush=True)
+
+
+def phase_grid_cases(torch, T, n, k_phases=3, s=3):
+    """B5's adversarial inputs for every kind at S=3, K=3 and ``n`` lanes:
+    phase 1 all OP_NONE, shard 2 untouched in every phase, a committed -0.0
+    read in phase 0 (a stack top, a wrapped queue head, both deque ends, a
+    map value), a negative deque ``left``, a map bucket filled to R_FULL."""
+    import numpy as np
+    cap = 2 * n  # capacity >= committed size + lanes
+    rng = np.random.default_rng(n)
+    epoch = np.asarray([0, 2, 4], np.int32)  # active root slots 0, 1, 0
+    active = (epoch // 2) % 2
+    rows = np.arange(s)
+    cases = []
+    for kind in KINDS:
+        nops = T.STRUCTS[kind].n_opcodes
+        ops = rng.integers(0, nops, (k_phases, s, n)).astype(np.int32)
+        params = rng.integers(0, 30, (k_phases, s, n)).astype(np.float32)
+        params[0, 0, 1] = -0.0  # a pushed or inserted -0.0
+        keys = rng.integers(0, 48, (k_phases, s, n)).astype(np.int32)
+        if kind == "map":
+            bslots, n_buckets = T.map_geometry(cap)
+            mk = np.zeros((s, cap), np.int32)
+            mv = np.zeros((s, cap), np.float32)
+            mo = np.zeros((s, cap), np.int32)
+            count = np.zeros((s, 2), np.int32)
+
+            def place(r, key, val):  # skipped when the bucket is full
+                base = int(T.map_bucket_host([key], n_buckets)[0]) * bslots
+                free = [j for j in range(bslots) if not mo[r, base + j]]
+                if free:
+                    j = base + free[0]
+                    mk[r, j], mv[r, j], mo[r, j] = key, val, 1
+                    count[r, active[r]] += 1
+
+            bucket0 = [k for k in range(1000, 200000)
+                       if T.map_bucket_host([k], n_buckets)[0] == 0][: bslots + 1]
+            for key in bucket0[:bslots]:
+                place(1, key, 1.0)
+            for r in range(s):
+                place(r, 7, -0.0)
+                for key in rng.choice(np.arange(8, 48), 10, replace=False):
+                    place(r, int(key), float(key % 5))
+            cas = ops == T.OP_MAP_CAS
+            params[cas] = rng.integers(0, 5, int(cas.sum())) * T.CAS_DOM + 2
+            ops[0, 0, :3] = [T.OP_MAP_LOOKUP, T.OP_MAP_CAS, T.OP_MAP_LOOKUP]
+            keys[0, 0, :3] = 7
+            params[0, 0, 1] = T.pack_cas(0, 3)  # expected 0 matches the -0.0
+            ops[0, 1, 0], keys[0, 1, 0] = T.OP_MAP_INSERT, bucket0[bslots]
+            leaves = [mk, mv, mo, count, epoch]
+        else:
+            values = rng.integers(1, 50, (s, cap)).astype(np.float32)
+            if kind == "stack":
+                root = np.zeros((s, 2), np.int32)
+                root[rows, active] = [5, 3, 4]
+                values[0, 4] = -0.0
+                pop = T.OP_POP
+            elif kind == "queue":
+                root = np.zeros((s, 2, 2), np.int32)
+                root[rows, active] = [[cap - 2, cap + 3], [5, 9], [0, 2]]
+                values[0, cap - 2] = -0.0
+                pop = T.OP_DEQ
+            else:
+                root = np.zeros((s, 2, 2), np.int32)
+                root[rows, active] = [[-3, 4], [-6, -1], [2, 2]]
+                values[0, cap - 3] = values[1, cap - 2] = -0.0
+                pop = T.OP_POPL
+            ops[0, 0, 2:] = T.OP_NONE  # shard 0's first pops read the ring
+            ops[0, :2, :2] = pop
+            if kind == "deque":
+                ops[0, :2, 2] = T.OP_POPR
+            leaves = [values, root, epoch]
+        ops[1] = T.OP_NONE
+        ops[:, 2] = T.OP_NONE
+        state = T.state_from_numpy(kind, leaves, device="cuda")
+        cases.append((kind, state, *(torch.from_numpy(a).cuda() for a in (ops, params, keys))))
+    return cases
+
+
+def phase_grid_adversarial(torch, T):
+    """B5 against its plain version, bit for bit, for every kind."""
+    from repro_torch.kernels.dfc_reduce import kernel as K
+    from repro_torch.kernels.dfc_reduce import ref as R
+    for n in (64, 1024):
+        for kind, state, ops, params, keys in phase_grid_cases(torch, T, n):
+            outs_k = K.phase_grid_call(kind, state, ops, params, keys)
+            torch.cuda.synchronize()
+            outs_p = R.phase_grid_combine_ref(kind, state, ops, params, keys)
+            compare_grid(f"phase grid {kind} N={n}", outs_k, outs_p)
+            st, resp, kinds = outs_k
+            check(not bool((kinds[:, 2] != T.R_NONE).any()) and not bool(
+                (st.epoch[:, 2] != state.epoch[2]).any()), f"{kind}: shard 2 moved")
+            for a, b in zip(st.leaves(), state.leaves()):
+                check(same_bits(a[1], a[0]), f"{kind}: the pass-through phase moved")
+            if kind in ("stack", "map"):  # the committed -0.0 reads back as -0.0
+                check(bits(resp[0, 0, 0]).item() == bits(torch.tensor(-0.0)).item()
+                      and kinds[0, 0, 0].item() == T.R_VALUE, f"{kind}: -0.0 lost")
+            if kind == "map":
+                check(kinds[0, 1, 0].item() == T.R_FULL, "map: full bucket not R_FULL")
+    print("phase grid kernel: bit-equal to its plain version for every kind at "
+          "S=3, K=3, N in (64, 1024)", flush=True)
+
+
+def compare_grid(what, outs_k, outs_p):
+    compare_states(what, outs_k[0], outs_p[0])
+    compare_outputs(what, outs_k[1:], outs_p[1:])
+
+
+def grid_bound(kind, state, g_ops):
+    """(least ms, what bounds it) of one K-phase launch: the input state read
+    once, K per-phase states written, each phase's ops, params (and keys)
+    read and responses and kinds written, at the HBM rate; against the scalar
+    ops at their peak."""
+    k, s, n = g_ops.shape
+    state_bytes = sum(leaf.numel() * leaf.element_size() for leaf in state.leaves())
+    lane_bytes = s * n * (4 * (3 if kind == "map" else 2) + 8)
+    nbytes = state_bytes * (1 + k) + k * lane_bytes
+    if kind == "map":
+        nops = int(((g_ops >= 1) & (g_ops <= 4)).sum().item()) * 64
+    else:
+        nops = k * s * n * 40
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = nops / SCALAR_OPS_PER_S * 1e3
+    return (float(t_bytes), "bytes") if t_bytes >= t_ops else (float(t_ops), "operations")
+
+
+def phase_fused(torch, T, K, serve_shards, records, batches):
+    """The fused path at full width: step, scan and grid on the 32 batches
+    ``serve_shards`` drew in phase 4, bit-equal, with launch counts,
+    per-phase times, B5 at K=8 beside its bound and B5 against its plain
+    version on one K=2 dispatch."""
+    import numpy as np
+    from repro_torch.kernels.dfc_reduce import ref as R
+    from repro_torch.runtime.dfc_shard import (
+        ShardedDFCRuntime, hetero_phase_loop_step, route_batch)
+
+    args = serve_shards.build_parser().parse_args(FULL)
+    kinds = [sorted(KINDS)[s % 4] for s in range(args.shards)]
+    capacity, lanes = args.batch * (args.phases + 1), args.batch
+
+    def fabric():
+        return ShardedDFCRuntime(kinds, args.shards, capacity, lanes, device="cuda")
+
+    # (a) one rt.step per phase
+    rt_a = fabric()
+    K.reset_launches()
+    resp_a, kinds_a, step_s = [], [], []
+    for p, b in enumerate(batches):
+        t0 = time.perf_counter()
+        r, k = rt_a.step(*b)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        resp_a.append(r)
+        kinds_a.append(k)
+        if p == 1:
+            after2 = {k_: T.map_state(torch.clone, st) for k_, st in rt_a.groups.items()}
+    launch_a = dict(K.LAUNCHES)
+
+    # (b) scan and (c) grid: 4 dispatches of K = 8 phases
+    dev = torch.device("cuda")
+    chunks = []
+    for d in range(args.phases // K_PHASES):
+        part = batches[d * K_PHASES:(d + 1) * K_PHASES]
+        chunks.append((T.to_int32(np.stack([b[0] for b in part])).to(dev),
+                       torch.from_numpy(np.stack([b[1] for b in part]).astype(np.int32)).to(dev),
+                       torch.from_numpy(np.stack([b[2] for b in part])).to(dev)))
+    fused = {}
+    for axis in ("scan", "grid"):
+        rt = fabric()
+        resp, knd, disp_s = [], [], []
+        K.reset_launches()
+        for d, (k_t, o_t, p_t) in enumerate(chunks):
+            t0 = time.perf_counter()
+            out = hetero_phase_loop_step(
+                rt.groups, rt._table_dev, k_t, o_t, p_t, rt.meta,
+                kinds=tuple(rt.kinds), lanes=rt.lanes, phase_axis=axis)
+            torch.cuda.synchronize()
+            disp_s.append(time.perf_counter() - t0)
+            rt.groups, rt.meta = out[0], out[1]
+            resp.append(out[2])
+            knd.append(out[3])
+            if axis == "grid" and d == 0:
+                after_d1 = {k_: T.map_state(torch.clone, st) for k_, st in rt.groups.items()}
+            del out
+        fused[axis] = (rt, torch.cat(resp), torch.cat(knd), disp_s, dict(K.LAUNCHES))
+
+    for axis, (rt, resp, knd, _, launches) in fused.items():
+        check(same_bits(torch.stack(resp_a), resp), f"{axis}: responses differ from step")
+        check(same_bits(torch.stack(kinds_a), knd), f"{axis}: kinds differ from step")
+        for k_ in rt.groups:
+            compare_states(f"{axis} final {k_} state", rt.groups[k_], rt_a.groups[k_])
+        for c, v in rt.meta.items():
+            check(same_bits(v, rt_a.meta[c]), f"{axis}: meta {c} differs from step")
+    n_disp = len(chunks)
+    for k_ in KINDS:
+        check(launch_a[k_] == args.phases and launch_a[f"phase_grid_{k_}"] == 0,
+              f"step launches {launch_a}")
+        check(fused["scan"][4][k_] == args.phases
+              and fused["scan"][4][f"phase_grid_{k_}"] == 0,
+              f"scan launches {fused['scan'][4]}")
+        check(fused["grid"][4][f"phase_grid_{k_}"] == n_disp and fused["grid"][4][k_] == 0,
+              f"grid launches {fused['grid'][4]}")
+    per_phase = {
+        "step": statistics.median(step_s) * 1e3,
+        "scan": statistics.median(fused["scan"][3]) / K_PHASES * 1e3,
+        "grid": statistics.median(fused["grid"][3]) / K_PHASES * 1e3,
+    }
+    print(f"fused: step, scan and grid bit-equal over {args.phases} phases "
+          f"(responses, kinds, final state, meta); launches step {launch_a}, scan "
+          f"{fused['scan'][4]}, grid {fused['grid'][4]}", flush=True)
+    print("fused: median ms per phase: "
+          + ", ".join(f"{m} {v:.3f}" for m, v in per_phase.items())
+          + f" (dispatch s: scan {[round(x, 4) for x in fused['scan'][3]]}, grid "
+          f"{[round(x, 4) for x in fused['grid'][3]]})", flush=True)
+    grid_launches = fused["grid"][4]
+    del fused, rt_a
+
+    def routed_groups(lo, hi):
+        rows = {k_: torch.tensor([s for s, kk in enumerate(kinds) if kk == k_],
+                                 dtype=torch.long, device=dev) for k_ in KINDS}
+        table = torch.arange(args.shards, dtype=torch.int32, device=dev)
+        routed = [route_batch(T.to_int32(b[0]).to(dev),
+                              torch.from_numpy(b[1].astype(np.int32)).to(dev),
+                              torch.from_numpy(b[2]).to(dev), n_shards=args.shards,
+                              lanes=lanes, table=table) for b in batches[lo:hi]]
+        ops = torch.stack([r[0] for r in routed])
+        params = torch.stack([r[1] for r in routed])
+        keys = torch.stack([r[6] for r in routed])
+        return {k_: (ops[:, rows[k_]].contiguous(), params[:, rows[k_]].contiguous(),
+                     keys[:, rows[k_]].contiguous()) for k_ in KINDS}
+
+    # B5 at the main path's shapes: dispatch 2's phases on the state after
+    # dispatch 1
+    g8 = routed_groups(K_PHASES, 2 * K_PHASES)
+    for k_ in KINDS:
+        g_ops, g_params, g_keys = g8[k_]
+        st = after_d1[k_]
+        ms8 = cuda_ms(lambda: K.phase_grid_call(k_, st, g_ops, g_params, g_keys), 3)
+        b8, by8 = grid_bound(k_, st, g_ops)
+        print(f"kernel {GRID_NAMES[k_]} K,S,N={tuple(g_ops.shape)}: {ms8:.4f} ms per "
+              f"launch, {ms8 / K_PHASES:.4f} ms per phase (bound {b8:.4f} ms by {by8}), "
+              f"{grid_launches[f'phase_grid_{k_}']} launches on the main path "
+              f"({K_PHASES} phases each)", flush=True)
+        records[f"phase_grid_{k_}"] = {"ms_k8": ms8, "bound_ms_k8": b8}
+    del g8, after_d1
+
+    # B5 against its plain version: one K=2 dispatch (phases 3-4) on the
+    # state after phase 2
+    g2 = routed_groups(2, 4)
+    for k_ in KINDS:
+        g_ops, g_params, g_keys = g2[k_]
+        st = after2[k_]
+        outs_k = K.phase_grid_call(k_, st, g_ops, g_params, g_keys)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        outs_p = R.phase_grid_combine_ref(k_, st, g_ops, g_params, g_keys)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        compare_grid(f"phase grid {k_} at main-path shapes", outs_k, outs_p)
+        err = max_abs_err(outs_k[1:], outs_p[1:])
+        del outs_k, outs_p
+        ms = cuda_ms(lambda: K.phase_grid_call(k_, st, g_ops, g_params, g_keys), 5)
+        bound_ms, bound_by = grid_bound(k_, st, g_ops)
+        records[f"phase_grid_{k_}"].update({
+            "name": GRID_NAMES[k_], "route": "cuda", "source": GRID_SOURCE,
+            "replaces": GRID_REPLACES, "launches": grid_launches[f"phase_grid_{k_}"],
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": None, "bit_equal": True,
+            "k_phases": 2,
+        })
+        print(f"kernel {GRID_NAMES[k_]} K,S,N={tuple(g_ops.shape)}: bit-equal to its plain "
+              f"version; {ms:.4f} ms (plain {plain_ms:.1f} ms, bound {bound_ms:.4f} ms "
+              f"by {bound_by})", flush=True)
 
 
 def phase_volatile(torch, T, K, serve_shards, records):
@@ -326,7 +626,7 @@ def phase_volatile(torch, T, K, serve_shards, records):
     args = serve_shards.build_parser().parse_args(FULL)
     kinds_all = sorted(T.STRUCTS)
     K.reset_launches()
-    seen = {"batches": [], "launch_prev": dict(K.LAUNCHES)}
+    seen = {"batches": [], "all": [], "launch_prev": dict(K.LAUNCHES)}
 
     def hook(phase, rt, keys, ops, params, resp, kinds):
         touched = {rt.kinds[s] for s in set(rt.route_host(keys).tolist())}
@@ -335,6 +635,7 @@ def phase_volatile(torch, T, K, serve_shards, records):
             check(grew == (1 if k in touched else 0),
                   f"phase {phase}: {k} kernel launched {grew} times")
         seen["launch_prev"] = dict(K.LAUNCHES)
+        seen["all"].append((keys, ops, params))
         if phase < 2:
             seen["batches"].append((keys, ops, params, resp.clone(), kinds.copy()))
         if phase == 1:
@@ -433,7 +734,7 @@ def phase_volatile(torch, T, K, serve_shards, records):
     print(f"volatile step parts, each timed alone (ms), median step {step_ms:.3f}: "
           f"kernels {kern:.3f} ({kern / step_ms:.1%}), "
           + ", ".join(f"{k} {v:.3f}" for k, v in parts.items()), flush=True)
-    return out
+    return seen["all"]
 
 
 def profile_window(torch, rt, batches):
@@ -514,20 +815,33 @@ def _exactly_once(rt, sched, completed, report, kinds, lanes, capacity):
               f"shard {s} after replay is not the exactly-once oracle")
 
 
+def _values(rt, kinds):
+    """Every committed value of the fabric (a map entry's value)."""
+    out = []
+    for s, k in enumerate(kinds):
+        got = rt.shard_contents(s)
+        out += [v for _, v in got] if k == "map" else got
+    return sorted(out)
+
+
 def phase_durable(torch, T, K, serve_shards):
     import numpy as np
     from repro_torch.checkpoint.dfc_checkpoint import CrashNow, FaultInjector, SimFS
     from repro_torch.runtime.dfc_shard import ShardedDFCRuntime, route_keys_host
 
-    K.reset_launches()
-    out = run_serve(serve_shards, serve_shards.build_parser().parse_args(DURABLE))
-    launches = dict(K.LAUNCHES)
-    check(all(v > 0 for v in launches.values()), f"durable path skipped a kernel: {launches}")
-    print(f"durable: pwb/op {out['pwb'] / out['n_ops']:.4f}, pfence/op "
-          f"{out['pfence'] / out['n_ops']:.4f}, {out['n_ops'] / out['seconds']:.1f} ops/s, "
-          f"launches {launches}", flush=True)
+    for depth in (1, 3):
+        K.reset_launches()
+        out = run_serve(serve_shards, serve_shards.build_parser().parse_args(
+            DURABLE + ["--depth", str(depth)]))
+        launches = dict(K.LAUNCHES)
+        check(all(launches[k] > 0 for k in KINDS), f"durable path skipped a kernel: {launches}")
+        print(f"durable depth {depth}: pwb/op {out['pwb'] / out['n_ops']:.4f}, pfence/op "
+              f"{out['pfence'] / out['n_ops']:.4f}, {out['n_ops'] / out['seconds']:.1f} ops/s, "
+              f"retire blocked {out['retire_wait_s'] * 1e3:.3f} ms in all "
+              f"({out['retire_wait_s'] / out['phases'] * 1e3:.4f} ms per phase), "
+              f"launches {launches}", flush=True)
 
-    kinds = [sorted(T.STRUCTS)[s % 4] for s in range(16)]
+    kinds = [sorted(KINDS)[s % 4] for s in range(16)]
     lanes, capacity, threads, per = 256, 1024, 4, 64
     rng = np.random.default_rng(5)
     opmax = np.asarray([T.STRUCTS[k].n_opcodes for k in kinds])
@@ -540,41 +854,142 @@ def phase_durable(torch, T, K, serve_shards):
             params = (rng.random(per) * 100).round(2).astype(np.float32)
             batches.append((keys, ops, params))
         sched.append(batches)
+    # insert-only twin with unique keys and values: exactly once is then a
+    # multiset check, whatever the interleaving of threads and phases
+    uniq = rng.permutation(4096)[: 3 * threads * per].reshape(3, threads, per)
+    ins = [[(uniq[p, t], np.ones(per, np.int64),
+             (1 + (p * threads + t) * per + np.arange(per)).astype(np.float32))
+            for t in range(threads)] for p in range(3)]
+    everything = sorted(float(v) for b in sum(ins, []) for v in b[2])
 
-    def drive(root, crash_at=None, backend="kernel"):
+    def fabric(root, crash_at=None, backend="kernel", depth=1, chain=1):
         inj = FaultInjector(crash_at=crash_at)
-        rt = ShardedDFCRuntime(kinds, 16, capacity, lanes, fs=SimFS(root, inj),
-                               n_threads=threads, backend=backend, device="cuda")
+        fs = SimFS(root, inj)
+        return ShardedDFCRuntime(kinds, 16, capacity, lanes, fs=fs, n_threads=threads,
+                                 backend=backend, depth=depth, chain=chain,
+                                 device="cuda"), fs, inj
+
+    def drive(root, rounds=sched, crash_at=None, **kw):
+        rt, fs, inj = fabric(root, crash_at, **kw)
         done = []
         try:
-            for p, batches in enumerate(sched):
+            for p, batches in enumerate(rounds):
                 for t, (keys, ops, params) in enumerate(batches):
                     rt.announce(t, keys, ops, params, token=p + 1)
                 rt.combine_phase()
                 done.append(p)
+            rt.flush()
         except CrashNow:
-            return done, True, inj.count
-        return done, False, inj.count
+            return done, True, inj.count, fs
+        return done, False, inj.count, fs
+
+    def recover(root, **kw):
+        return ShardedDFCRuntime.recover(
+            SimFS(root), kind=kinds, n_shards=16, capacity=capacity, lanes=lanes,
+            n_threads=threads, device="cuda", **kw)
+
+    def points(total):
+        return sorted({total // 6, total // 3, total // 2, 2 * total // 3,
+                       5 * total // 6, total - 1})
 
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         tmp = Path(tmp)
-        _, crashed, total = drive(tmp / "kernel")
+        # the serial drive: kernel and plain backends, crash sweep
+        _, crashed, total, _ = drive(tmp / "kernel")
         drive(tmp / "ref", backend="ref")
         check(not crashed, "dry run crashed")
         check(durable_digest(tmp / "kernel") == durable_digest(tmp / "ref"),
               "kernel and plain backends wrote different durable roots")
-        points = sorted({total // 6, total // 3, total // 2, 2 * total // 3,
-                         5 * total // 6, total - 1})
-        for k in points:
-            done, crashed, _ = drive(tmp / f"c{k}", crash_at=k)
+        for k in points(total):
+            done, crashed, _, _ = drive(tmp / f"c{k}", crash_at=k)
             check(crashed, f"no crash at op {k}")
-            rt, report = ShardedDFCRuntime.recover(
-                SimFS(tmp / f"c{k}"), kind=kinds, n_shards=16, capacity=capacity,
-                lanes=lanes, n_threads=threads, device="cuda")
+            rt, report = recover(tmp / f"c{k}")
             rt.replay_pending(report)
             _exactly_once(rt, sched, done, report, kinds, lanes, capacity)
-        print(f"durable: {total} persistence ops per run; crash points {points} "
-              "recovered and replayed exactly once", flush=True)
+        print(f"durable serial: {total} persistence ops per run; crash points "
+              f"{points(total)} recovered and replayed exactly once", flush=True)
+
+        # depth 3 against depth 1 on one lockstep schedule (chain 4 at both,
+        # as benchmarks/bench_multithread.py runs it)
+        stats = {}
+        for depth in (1, 3):
+            *_, fs = drive(tmp / f"lock{depth}", depth=depth, chain=threads)
+            stats[depth] = (dict(fs.stats), fs.pstats.as_dict())
+        check(stats[3][0]["pwb"] <= stats[1][0]["pwb"]
+              and stats[3][0]["pfence"] <= stats[1][0]["pfence"],
+              f"depth 3 costs more than depth 1: {stats}")
+        print(f"durable lockstep (chain 4): depth 1 {stats[1][0]}, depth 3 {stats[3][0]}",
+              flush=True)
+
+        # phase_loop on both axes against the serial drive of the same
+        # schedule (chain 4: each announcement is its own phase)
+        flat = [(t, p + 1, *b) for p, batches in enumerate(sched)
+                for t, b in enumerate(batches)]
+        for axis in ("grid", "scan"):
+            rt, fs, _ = fabric(tmp / f"loop_{axis}")
+            K.reset_launches()
+            rt.phase_loop(flat, phase_axis=axis)
+            launches = dict(K.LAUNCHES)
+            check(durable_digest(tmp / f"loop_{axis}") == durable_digest(tmp / "lock1"),
+                  f"phase_loop {axis}: durable root differs from the serial drive's")
+            check((dict(fs.stats), fs.pstats.as_dict()) == stats[1],
+                  f"phase_loop {axis}: per-tag pwb/pfence differ from the serial drive's")
+            want = ({f"phase_grid_{k}": 1 for k in KINDS} if axis == "grid"
+                    else {k: len(flat) for k in KINDS})
+            check(all(launches[k] == v for k, v in want.items()),
+                  f"phase_loop {axis} launches {launches}")
+        print(f"durable phase_loop ({len(flat)} phases): grid and scan write the serial "
+              f"drive's root and per-tag counts {stats[1][1]}", flush=True)
+
+        # pipelined (depth 3, chain 4): kernel and plain roots, crash sweep
+        pipe = {"depth": 3, "chain": threads}
+        _, crashed, total, _ = drive(tmp / "pipe", rounds=ins, **pipe)
+        drive(tmp / "pipe_ref", rounds=ins, backend="ref", **pipe)
+        check(not crashed and durable_digest(tmp / "pipe") == durable_digest(tmp / "pipe_ref"),
+              "pipelined: kernel and plain backends wrote different durable roots")
+        prevs = 0
+        for k in points(total):
+            _, crashed, _, _ = drive(tmp / f"p{k}", rounds=ins, crash_at=k, **pipe)
+            check(crashed, f"no crash at op {k}")
+            rt, report = recover(tmp / f"p{k}", **pipe)
+            prevs += sum(r["prev"] is not None for r in report.values())
+            rt.replay_pending(report)
+            surfaced = {t: report[t]["token"] or 0 for t in range(threads)}
+            for p, batches in enumerate(ins):
+                for t, b in enumerate(batches):
+                    if p + 1 > surfaced[t]:
+                        rt.announce(t, *b, token=p + 1)
+                rt.combine_phase()
+            rt.flush()
+            check(_values(rt, kinds) == everything,
+                  f"pipelined crash at op {k}: not exactly once")
+        print(f"durable pipelined: {total} persistence ops per run; crash points "
+              f"{points(total)} ({prevs} in-flight predecessors reported) recovered and "
+              "replayed exactly once", flush=True)
+
+        # phase_loop crash sweep (grid axis)
+        flat_ins = [(t, p + 1, *b) for p, batches in enumerate(ins)
+                    for t, b in enumerate(batches)]
+        rt, _, inj = fabric(tmp / "loop_dry")
+        rt.phase_loop(flat_ins, phase_axis="grid")
+        total = inj.count
+        for k in points(total):
+            rt, _, _ = fabric(tmp / f"l{k}", crash_at=k)
+            try:
+                rt.phase_loop(flat_ins, phase_axis="grid")
+                check(False, f"no crash at op {k}")
+            except CrashNow:
+                pass
+            rt, report = recover(tmp / f"l{k}")
+            rt.replay_pending(report)
+            surfaced = {t: report[t]["token"] or 0 for t in range(threads)}
+            rest = [e for e in flat_ins if e[1] > surfaced[e[0]]]
+            if rest:
+                rt.phase_loop(rest, phase_axis="grid")
+            check(_values(rt, kinds) == everything,
+                  f"phase_loop crash at op {k}: not exactly once")
+        print(f"durable phase_loop: {total} persistence ops per run; crash points "
+              f"{points(total)} recovered and replayed exactly once", flush=True)
 
 
 def main(argv=None) -> int:
@@ -605,24 +1020,29 @@ def main(argv=None) -> int:
         t0 = time.perf_counter()
         log = io.StringIO()
         with contextlib.redirect_stdout(log):
-            lib = K.build(verbose=True)
-        usage = [ln.strip() for ln in log.getvalue().splitlines() if "registers" in ln]
-        print(f"build: {lib.relative_to(ROOT)} in {time.perf_counter() - t0:.1f} s; "
-              + "; ".join(usage), flush=True)
+            libs = K.build(verbose=True)
+        usage = [ln.strip() for ln in log.getvalue().splitlines()
+                 if "registers" in ln or "Compiling entry" in ln]
+        print(f"build: {', '.join(str(p.relative_to(ROOT)) for p in libs.values())} in "
+              f"{time.perf_counter() - t0:.1f} s; " + "; ".join(usage), flush=True)
 
     with phase("3 kernels"):
         phase_kernels_adversarial(torch, T)
+        phase_grid_adversarial(torch, T)
 
     records = {}
     with phase("4 volatile"):
-        phase_volatile(torch, T, K, serve_shards, records)
+        batches = phase_volatile(torch, T, K, serve_shards, records)
 
-    with phase("5 durable"):
+    with phase("5 fused"):
+        phase_fused(torch, T, K, serve_shards, records, batches)
+
+    with phase("6 durable"):
         phase_durable(torch, T, K, serve_shards)
 
     print(card, flush=True)
-    print(json.dumps({"kernels": [records[k] for k in ("stack", "queue", "deque", "map")]}),
-          flush=True)
+    order = list(KINDS) + [f"phase_grid_{k}" for k in KINDS]
+    print(json.dumps({"kernels": [records[k] for k in order]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

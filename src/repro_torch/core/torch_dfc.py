@@ -1052,6 +1052,41 @@ def ring_drain(ring: AnnounceRing, start: int, n: int):
     return ring.keys[idx], ring.ops[idx], ring.params[idx]
 
 
+def ring_announce_phases(ring: AnnounceRing, keys, ops, params) -> AnnounceRing:
+    """Land a whole phase schedule -- ``[K, pad]`` per-phase batches padded
+    with ``OP_NONE`` lanes -- at the ring tail in one scatter; the K phases
+    occupy the contiguous span ``[tail, tail + K*pad)``."""
+    return ring_announce(ring, keys.reshape(-1), ops.reshape(-1), params.reshape(-1))
+
+
+def ring_drain_phases(ring: AnnounceRing, start: int, k: int, pad: int):
+    """Read ``k`` phases of ``pad`` lanes announced at absolute position
+    ``start`` back as ``[K, pad]`` device tensors (one gather for the whole
+    schedule)."""
+    keys, ops, params = ring_drain(ring, start, k * pad)
+    return keys.reshape(k, pad), ops.reshape(k, pad), params.reshape(k, pad)
+
+
+# ============================================================ phase intents
+@dataclasses.dataclass
+class PhaseIntents:
+    """Persist-intent log of a fused K-phase combine: everything the host
+    needs to issue each phase's pwb/pfence batch later, in serial order.
+
+    All fields are ``[K, S]``: ``epoch`` (per-shard epoch after phase k, the
+    commit target of every op phase k routed there), ``touched`` (shard s
+    received ops in phase k; untouched shards keep state and epoch),
+    ``phases_cum`` and ``ops_cum`` (combining phases and ops absorbed by
+    shard s up to and including phase k, counted from the dispatch's start;
+    the runtime adds its durable ``meta`` baseline).
+    """
+
+    epoch: torch.Tensor  # i32[K, S]
+    touched: torch.Tensor  # bool[K, S]
+    phases_cum: torch.Tensor  # i32[K, S]
+    ops_cum: torch.Tensor  # i32[K, S]
+
+
 # ============================================================ shard stacking
 def replicate_state(state, n_shards: int):
     """Stack ``n_shards`` copies of a single-object state along a new

@@ -1,16 +1,25 @@
-"""Wrappers of the hand-written CUDA combine kernels (``csrc/dfc_reduce.cu``).
+"""Wrappers of the hand-written CUDA combine kernels (``csrc/``).
 
-One wrapper per kernel, each the counterpart of a ``dfc_*_reduce_grid_call``
-of the JAX package (one program instance -- here one thread block -- per
-shard).  For a CUDA tensor a wrapper checks device, dtype, shape and
-contiguity, allocates its outputs with ``torch.empty``, launches on the
-current stream, raises if the launch reports an error, and adds one to
-``LAUNCHES[kind]``.  For a CPU tensor it returns the plain PyTorch version
-from ``ref.py``; there is no fallback from the card to the CPU.
+Two libraries, one per source:
 
-The library is built at first use with ``nvcc`` for ``sm_90a`` into
-``build/dfc_reduce/<source hash>/`` under the repository root and loaded
-with ``ctypes``.  Nothing is built or loaded when this module is imported.
+  * ``csrc/dfc_reduce.cu`` -- one combining phase per launch, one wrapper per
+    kind, each the counterpart of a ``dfc_*_reduce_grid_call`` of the JAX
+    package (one program instance -- here one thread block -- per shard);
+  * ``csrc/phase_grid.cu`` -- K fused phases per launch
+    (:func:`phase_grid_call`), the counterpart of the JAX package's
+    ``_phase_grid_combine`` (one thread block per shard, a loop over the
+    phases inside it).
+
+For a CUDA tensor a wrapper checks device, dtype, shape and contiguity,
+allocates its outputs with ``torch.empty``, launches on the current stream,
+raises if the launch reports an error, and adds one to its count in
+``LAUNCHES``.  For a CPU tensor it returns the plain PyTorch version from
+``ref.py``; there is no fallback from the card to the CPU.
+
+The libraries are built at first use with ``nvcc`` for ``sm_90a`` -- one
+``nvcc`` per source, all started together -- into ``build/dfc_reduce/`` under
+the repository root, and loaded with ``ctypes``.  Nothing is built or loaded
+when this module is imported.
 """
 
 from __future__ import annotations
@@ -22,25 +31,31 @@ import shutil
 import subprocess
 import tempfile
 from pathlib import Path
-from typing import Dict, Optional
+from typing import Dict
 
 import torch
 
-from repro_torch.core.torch_dfc import map_geometry
+from repro_torch.core.torch_dfc import STRUCTS, map_geometry
 from repro_torch.kernels.dfc_reduce import ref
 
-SOURCE = Path(__file__).resolve().parent / "csrc" / "dfc_reduce.cu"
+CSRC = Path(__file__).resolve().parent / "csrc"
+SOURCES = {"dfc_reduce": CSRC / "dfc_reduce.cu", "phase_grid": CSRC / "phase_grid.cu"}
+HEADERS = (CSRC / "combine_common.cuh",)
 BUILD_ROOT = Path(__file__).resolve().parents[4] / "build" / "dfc_reduce"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC",
 )
-# launches per kernel since the last reset (only real CUDA launches count)
-LAUNCHES: Dict[str, int] = {"stack": 0, "queue": 0, "deque": 0, "map": 0}
+# launches per kernel since the last reset (only real CUDA launches count):
+# the one-phase kernels by kind, the K-phase kernel as phase_grid_<kind>
+LAUNCHES: Dict[str, int] = {
+    **{k: 0 for k in ("stack", "queue", "deque", "map")},
+    **{f"phase_grid_{k}": 0 for k in ("stack", "queue", "deque", "map")},
+}
 # shared memory a block may use on Hopper, minus the static rank scratch
 _MAX_ELIM_BYTES = 232448 - 1024
 
-_LIB: Optional[ctypes.CDLL] = None
+_LIBS: Dict[str, ctypes.CDLL] = {}
 
 
 def reset_launches() -> None:
@@ -58,48 +73,67 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA combine kernels cannot be built")
 
 
-def library_path() -> Path:
-    """Where the library built from the current source lives."""
-    digest = hashlib.sha256(SOURCE.read_bytes() + " ".join(NVCC_FLAGS).encode())
-    return BUILD_ROOT / digest.hexdigest()[:16] / "libdfc_reduce.so"
+def library_path(name: str) -> Path:
+    """Where the library built from the current source ``name`` lives."""
+    digest = hashlib.sha256(SOURCES[name].read_bytes())
+    for h in HEADERS:
+        digest.update(h.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_ROOT / f"{name}-{digest.hexdigest()[:16]}" / f"lib{name}.so"
 
 
-def build(verbose: bool = False) -> Path:
-    """Compile the kernels (cached by a hash of source and flags); returns
-    the shared library's path.  ``verbose`` adds ``-Xptxas -v`` and prints
-    the compiler's report of registers and shared memory."""
-    out = library_path()
-    if out.exists() and not verbose:
-        return out
-    out.parent.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out.parent)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, *(("-Xptxas", "-v") if verbose else ()),
-           "-o", tmp, str(SOURCE)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
-    if verbose:
-        print(proc.stderr, end="")
-    os.replace(tmp, out)
-    return out
+def build(verbose: bool = False) -> Dict[str, Path]:
+    """Compile every library not yet built (cached by a hash of sources and
+    flags), one ``nvcc`` per source, all started together; returns each
+    library's path.  ``verbose`` rebuilds with ``-Xptxas -v`` and prints the
+    compiler's report of registers and shared memory."""
+    outs = {name: library_path(name) for name in SOURCES}
+    jobs = []
+    for name, out in outs.items():
+        if out.exists() and not verbose:
+            continue
+        out.parent.mkdir(parents=True, exist_ok=True)
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=out.parent)
+        os.close(fd)
+        cmd = [_nvcc(), *NVCC_FLAGS, *(("-Xptxas", "-v") if verbose else ()),
+               "-o", tmp, str(SOURCES[name])]
+        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                text=True)
+        jobs.append((name, out, tmp, proc))
+    failures = []
+    for name, out, tmp, proc in jobs:
+        _, err = proc.communicate()
+        if proc.returncode != 0:
+            os.unlink(tmp)
+            failures.append(f"nvcc {name} failed ({proc.returncode}):\n{err}")
+            continue
+        if verbose:
+            print(err, end="")
+        os.replace(tmp, out)
+    if failures:
+        raise RuntimeError("\n".join(failures))
+    return outs
 
 
-def _lib() -> ctypes.CDLL:
-    global _LIB
-    if _LIB is None:
-        lib = ctypes.CDLL(str(build()))
+def _lib(name: str) -> ctypes.CDLL:
+    if name not in _LIBS:
+        paths = build()
         p, i = ctypes.c_void_p, ctypes.c_int
+        lib = ctypes.CDLL(str(paths["dfc_reduce"]))
         lib.dfc_stack_reduce.argtypes = [p] * 8 + [i, i, p]
         lib.dfc_queue_reduce.argtypes = [p] * 8 + [i, i, p]
         lib.dfc_deque_reduce.argtypes = [p] * 10 + [i, i, p]
         lib.dfc_map_reduce.argtypes = [p] * 13 + [i] * 5 + [p]
-        for fn in ("dfc_stack_reduce", "dfc_queue_reduce", "dfc_deque_reduce",
-                   "dfc_map_reduce"):
-            getattr(lib, fn).restype = ctypes.c_int
-        _LIB = lib
-    return _LIB
+        fns = [getattr(lib, f"dfc_{k}_reduce") for k in ("stack", "queue", "deque", "map")]
+        grid = ctypes.CDLL(str(paths["phase_grid"]))
+        for k in ("stack", "queue", "deque"):
+            getattr(grid, f"dfc_phase_{k}").argtypes = [p] * 10 + [i] * 4 + [p]
+        grid.dfc_phase_map.argtypes = [p] * 15 + [i] * 6 + [p]
+        fns += [getattr(grid, f"dfc_phase_{k}") for k in ("stack", "queue", "deque", "map")]
+        for fn in fns:
+            fn.restype = ctypes.c_int
+        _LIBS.update(dfc_reduce=lib, phase_grid=grid)
+    return _LIBS[name]
 
 
 def _check(name: str, t: torch.Tensor, dtype: torch.dtype, shape, device) -> None:
@@ -146,7 +180,7 @@ def _ring_call(kind, fn_name, ops, params, windows, sizes, n_seg):
     counts = torch.empty((s, 4 * n_seg), dtype=torch.int32, device=dev)
     if s == 0:
         return (resp, kinds, *segs, counts)
-    err = getattr(_lib(), fn_name)(
+    err = getattr(_lib("dfc_reduce"), fn_name)(
         *_ptrs(ops, params, *windows, sizes, resp, kinds, *segs, counts),
         s, n, _stream(dev),
     )
@@ -206,7 +240,7 @@ def dfc_map_reduce_grid_call(mkeys, mvals, mocc, counts, lkeys, ops, params):
     kinds = torch.empty((s, n), dtype=torch.int32, device=dev)
     if s == 0:
         return keys_out, vals_out, occ_out, count_out, resp, kinds
-    err = _lib().dfc_map_reduce(
+    err = _lib("dfc_reduce").dfc_map_reduce(
         *_ptrs(mkeys, mvals, mocc, counts, lkeys, ops, params,
                keys_out, vals_out, occ_out, count_out, resp, kinds),
         s, c, n, bslots, n_buckets, _stream(dev),
@@ -214,3 +248,47 @@ def dfc_map_reduce_grid_call(mkeys, mvals, mocc, counts, lkeys, ops, params):
     _raise_on(err, "map")
     LAUNCHES["map"] += 1
     return keys_out, vals_out, occ_out, count_out, resp, kinds
+
+
+def phase_grid_call(kind: str, state, ops, params, keys):
+    """K fused combining phases of one kind group: ``state`` shard-stacked
+    (leading S), ``ops`` / ``keys`` i32[K,S,N], ``params`` f32[K,S,N] ->
+    ``(states, resp f32[K,S,N], kinds i32[K,S,N])``, every state leaf with a
+    leading K axis (the state after each phase).  The semantics are the
+    vectorized ``STRUCTS[kind].combine``'s, a shard with no ops in a phase
+    keeping its state and epoch."""
+    if not ops.is_cuda:
+        return ref.phase_grid_combine_ref(kind, state, ops, params, keys)
+    k, s, n = ops.shape
+    dev = ops.device
+    _check("ops", ops, torch.int32, (k, s, n), dev)
+    _check("params", params, torch.float32, (k, s, n), dev)
+    leaves = state.leaves()
+    spec = STRUCTS[kind]
+    cap = leaves[0].shape[1]
+    roots = {"stack": (s, 2), "queue": (s, 2, 2), "deque": (s, 2, 2)}
+    if spec.keyed:
+        _check("keys", keys, torch.int32, (k, s, n), dev)
+        want = [("keys", torch.int32, (s, cap)), ("values", torch.float32, (s, cap)),
+                ("occupied", torch.int32, (s, cap)), ("count", torch.int32, (s, 2))]
+    else:
+        _check_lanes(n)
+        want = [("values", torch.float32, (s, cap)),
+                ("root", torch.int32, roots[kind])]
+    want.append(("epoch", torch.int32, (s,)))
+    for leaf, (name, dtype, shape) in zip(leaves, want):
+        _check(name, leaf, dtype, shape, dev)
+    outs = [torch.empty((k, *leaf.shape), dtype=leaf.dtype, device=dev) for leaf in leaves]
+    resp = torch.empty((k, s, n), dtype=torch.float32, device=dev)
+    kinds = torch.empty((k, s, n), dtype=torch.int32, device=dev)
+    if k and s:
+        fn = getattr(_lib("phase_grid"), f"dfc_phase_{kind}")
+        if spec.keyed:
+            err = fn(*_ptrs(*leaves, keys, ops, params, *outs, resp, kinds),
+                     k, s, cap, n, *map_geometry(cap), _stream(dev))
+        else:
+            err = fn(*_ptrs(*leaves, ops, params, *outs, resp, kinds),
+                     k, s, cap, n, _stream(dev))
+        _raise_on(err, f"phase-grid {kind}")
+        LAUNCHES[f"phase_grid_{kind}"] += 1
+    return spec.state_cls(*outs), resp, kinds

@@ -17,6 +17,12 @@ shard axis: states are shard-stacked, ``ops`` / ``params`` are ``[S, N]``.
     JAX package's ``"jnp"`` backend).
 
 The single-object steps are the grid kernels at S = 1.
+
+``dfc_multi_phase_step`` fuses K phases of one kind group into one call and
+returns their persist intents: ``phase_axis="scan"`` chains K one-phase
+combines (one launch of the one-phase kernel per phase), ``"grid"`` runs the
+K-phase kernel (one launch for all K phases, the counterpart of the JAX
+package's Pallas grid over the phase axis).
 """
 
 from __future__ import annotations
@@ -29,6 +35,7 @@ from repro_torch.core.torch_dfc import (
     OP_NONE,
     STRUCTS,
     DequeState,
+    PhaseIntents,
     MapState,
     QueueState,
     StackState,
@@ -39,6 +46,7 @@ from repro_torch.core.torch_dfc import (
     stack_splice_values,
 )
 from repro_torch.kernels.dfc_reduce import kernel, ref
+from repro_torch.kernels.dfc_reduce.ref import select_touched
 
 BACKENDS = ("kernel", "ref", "torch")
 
@@ -256,17 +264,6 @@ def _one_sharded_combine(kind: str, backend: str, state, ops, params, keys=None)
     return SHARDED_COMBINE_STEPS[kind](state, ops, params, backend=backend)
 
 
-def select_touched(touched: torch.Tensor, new_state, old_state):
-    """Per shard: the combined state where ``touched``, else the old one --
-    shards that received no ops keep their state AND epoch."""
-
-    def pick(new_leaf, old_leaf):
-        t = touched.reshape(touched.shape + (1,) * (new_leaf.dim() - 1))
-        return torch.where(t, new_leaf, old_leaf)
-
-    return map_state(pick, new_state, old_state)
-
-
 def dfc_sharded_multi_combine_step(state, ops, params, *, kind, backend="kernel",
                                    keys=None):
     """Chain B sharded combining phases: ``ops`` / ``params`` are
@@ -319,6 +316,75 @@ def dfc_hetero_combine_step(groups, group_ops, group_params, *, backend="kernel"
     for kind in sorted(groups):
         out[kind] = _one_sharded_combine(
             kind, backend, groups[kind], group_ops[kind], group_params[kind],
+            keys=None if group_keys is None else group_keys.get(kind),
+        )
+    return out
+
+
+# ------------------------------------------------------------ K-phase fusion
+def _phase_grid_combine(kind: str, backend: str, state, ops, params, keys=None):
+    """K phases of one kind group through the K-phase kernel (``"kernel"``;
+    its plain version on CPU tensors) or its plain version (``"ref"``).
+    ``ops`` / ``params`` / ``keys`` are ``[K, S, N]``.  The vectorized
+    ``"torch"`` backend has no phase grid to run on: use the scan axis."""
+    if backend not in ("kernel", "ref"):
+        raise ValueError(
+            f"phase_axis='grid' needs the kernel or ref backend, got {backend!r}"
+        )
+    if keys is None:
+        keys = torch.zeros_like(ops)
+    if backend == "ref":
+        return ref.phase_grid_combine_ref(kind, state, ops, params, keys)
+    return kernel.phase_grid_call(kind, state, ops, params, keys)
+
+
+def dfc_multi_phase_step(state, ops, params, *, kind, backend="kernel", unroll=1,
+                         phase_axis="scan", keys=None):
+    """Fuse K combining phases of one kind group into one call and return
+    each phase's persist intents.
+
+    ``ops`` / ``params`` are ``[K, S, N]``; the phases chain exactly like K
+    separate sharded combine calls (an all-``OP_NONE`` phase is a pure
+    pass-through), and nothing durable happens here.  ``phase_axis``:
+    ``"scan"`` is :func:`dfc_sharded_multi_combine_step` (one one-phase
+    launch per phase, every backend); ``"grid"`` is one K-phase launch
+    (``kernel`` / ``ref`` backends).  ``unroll`` is the reference's scan
+    unroll factor: PyTorch runs eagerly, so it changes nothing here.
+
+    Returns ``(states, resp, kinds, intents)``: ``states`` with a leading K
+    axis, ``resp`` / ``kinds`` ``[K, S, N]``, ``intents`` the
+    :class:`PhaseIntents` record (cumulative counters start at zero).
+    """
+    if phase_axis == "grid":
+        states, resp, kinds = _phase_grid_combine(kind, backend, state, ops, params,
+                                                  keys=keys)
+    elif phase_axis == "scan":
+        states, resp, kinds = dfc_sharded_multi_combine_step(
+            state, ops, params, kind=kind, backend=backend, keys=keys
+        )
+    else:
+        raise ValueError(f"unknown phase_axis {phase_axis!r}")
+    live = ops != OP_NONE
+    touched = live.any(2)  # bool[K, S]
+    intents = PhaseIntents(
+        epoch=states.epoch.to(torch.int32),
+        touched=touched,
+        phases_cum=touched.int().cumsum(0, dtype=torch.int32),
+        ops_cum=live.int().sum(2, dtype=torch.int32).cumsum(0, dtype=torch.int32),
+    )
+    return states, resp, kinds, intents
+
+
+def dfc_hetero_multi_phase_step(groups, group_ops, group_params, *, backend="kernel",
+                                unroll=1, phase_axis="scan", group_keys=None):
+    """:func:`dfc_multi_phase_step` per kind group present
+    (``group_ops[kind]`` is ``[K, S_kind, N]``).  Returns ``{kind: (states,
+    resp, kinds, intents)}``."""
+    out = {}
+    for kind in sorted(groups):
+        out[kind] = dfc_multi_phase_step(
+            groups[kind], group_ops[kind], group_params[kind],
+            kind=kind, backend=backend, unroll=unroll, phase_axis=phase_axis,
             keys=None if group_keys is None else group_keys.get(kind),
         )
     return out

@@ -1,4 +1,4 @@
-"""Plain PyTorch versions of the four combine kernels.
+"""Plain PyTorch versions of the combine kernels.
 
 Same signatures and outputs as the JAX package's ``kernels/dfc_reduce/ref.py``
 but batched over a leading shard axis: each function computes what
@@ -11,6 +11,9 @@ Shapes: ``ops`` i32[S, N], ``params`` f32[S, N], windows f32[S, N] (the
 caller-built view of each shard's committed end), ``sizes`` i32[S].  The
 by-rank routes scatter into zeroed rows, so a pushed ``-0.0`` comes back as
 ``+0.0``, exactly as the reference's scatter-add gives it.
+
+``phase_grid_combine_ref`` is the plain version of the K-phase kernel: K
+phases of the vectorized ``STRUCTS[kind].combine`` in a row.
 """
 
 from __future__ import annotations
@@ -20,6 +23,7 @@ import torch
 from repro_torch.core.torch_dfc import (
     OP_DEQ,
     OP_ENQ,
+    OP_NONE,
     OP_POP,
     OP_POPL,
     OP_POPR,
@@ -30,8 +34,10 @@ from repro_torch.core.torch_dfc import (
     R_EMPTY,
     R_NONE,
     R_VALUE,
+    STRUCTS,
     exclusive_rank,
     map_lane_apply,
+    map_state,
     route_rows,
 )
 
@@ -229,3 +235,40 @@ def dfc_map_reduce_ref(mkeys, mvals, mocc, counts, lkeys, ops, params):
             summed_cur=True,
         )
     return mk, mv, mo, cnt, resp, kinds
+
+
+def select_touched(touched: torch.Tensor, new_state, old_state):
+    """Per shard: the combined state where ``touched``, else the old one --
+    shards that received no ops keep their state AND epoch."""
+
+    def pick(new_leaf, old_leaf):
+        t = touched.reshape(touched.shape + (1,) * (new_leaf.dim() - 1))
+        return torch.where(t, new_leaf, old_leaf)
+
+    return map_state(pick, new_state, old_state)
+
+
+def phase_grid_combine_ref(kind, state, ops, params, keys):
+    """K phases of one kind group, each the vectorized
+    ``STRUCTS[kind].combine`` over all shards, a shard with no ops in a phase
+    keeping its state and epoch.  ``ops`` / ``params`` / ``keys`` are
+    ``[K, S, N]`` (``keys`` read by the map only).  Returns ``(states, resp
+    f32[K,S,N], kinds i32[K,S,N])``, every state leaf with a leading K axis
+    (the state after each phase)."""
+    spec = STRUCTS[kind]
+    carry = state
+    states, resps, kinds = [], [], []
+    for k in range(ops.shape[0]):
+        if spec.keyed:
+            combined, resp, knd = spec.combine(carry, keys[k], ops[k], params[k])
+        else:
+            combined, resp, knd = spec.combine(carry, ops[k], params[k])
+        carry = select_touched((ops[k] != OP_NONE).any(1), combined, carry)
+        states.append(carry)
+        resps.append(resp)
+        kinds.append(knd)
+    return (
+        map_state(lambda *leaves: torch.stack(leaves), *states),
+        torch.stack(resps),
+        torch.stack(kinds),
+    )

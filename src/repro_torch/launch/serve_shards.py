@@ -8,15 +8,19 @@ batch * (phases + 1)``.  It prints per-shard load, throughput and -- in
 durable mode -- pwb/op and pfence/op, the paper's Figure-3 metric.
 
 ``--mixed`` runs a heterogeneous fabric (kinds round-robin over the shards
-in sorted order: deque, map, queue, stack).  ``--durable`` announces each
-phase's batch, sliced over ``--threads`` announcing threads, and runs one
-``combine_phase``.  ``--device`` picks the device (default ``cuda``).
-``--depth`` above 1 and ``--split-backlog`` raise until the pipelined and
-resharding slices land.
+in sorted order: deque, map, queue, stack).  ``--durable`` drives the
+durable path as the reference does: with ``--threads 1`` thread 0
+announces each phase's batch, then ``combine_phase`` and ``flush``; with
+``--threads T > 1`` the batch is sliced over T announcing threads and the
+seeded ``MultiThreadDriver(rt, seed=1)`` interleaves their announcements
+with combining phases.  ``--depth D`` pipelines the durable path D chains
+deep (chains of T batches when D > 1).  ``--device`` picks the device
+(default ``cuda``).  ``--split-backlog`` raises until the resharding slice
+lands.
 
 Run:  PYTHONPATH=src python -m repro_torch.launch.serve_shards [--kind queue |
       --mixed] [--shards 16] [--skew 1.1] [--phases 50] [--batch 256]
-      [--durable] [--threads 4] [--device cuda]
+      [--durable] [--threads 4] [--depth 3] [--device cuda]
 """
 
 from __future__ import annotations
@@ -32,6 +36,7 @@ import torch
 
 from repro_torch.checkpoint.dfc_checkpoint import SimFS
 from repro_torch.core.torch_dfc import STRUCTS
+from repro_torch.runtime.announce_driver import MultiThreadDriver
 from repro_torch.runtime.dfc_shard import R_OVERFLOW, ShardedDFCRuntime, zipf_keys
 
 
@@ -46,7 +51,8 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--batch", type=int, default=256)
     ap.add_argument("--durable", action="store_true")
     ap.add_argument("--threads", type=int, default=1,
-                    help="announcing threads per durable phase")
+                    help="announcing threads per durable phase (seeded "
+                         "interleaved scheduler when > 1)")
     ap.add_argument("--depth", type=int, default=0,
                     help="durable pipeline depth (0 or 1 = serial)")
     ap.add_argument("--split-backlog", type=int, default=0,
@@ -65,11 +71,9 @@ def serve(args: argparse.Namespace, hook: Optional[PhaseHook] = None) -> Dict[st
     ``hook(phase=, rt=, keys=, ops=, params=, resp=, kinds=)`` runs after
     each phase, outside the timed region.  Returns the run's counts:
     ``n_ops``, ``n_overflow``, ``seconds`` and ``phase_seconds`` (serving
-    time, hooks excluded),
-    ``pwb`` / ``pfence`` (durable mode) and the runtime ``rt``.
+    time, hooks excluded), ``pwb`` / ``pfence`` / ``pstats`` and
+    ``retire_wait_s`` (durable mode) and the runtime ``rt``.
     """
-    if args.depth > 1:
-        raise NotImplementedError("--depth > 1 waits for the pipelined fabric slice")
     if args.split_backlog:
         raise NotImplementedError("--split-backlog waits for the resharding slice")
     rng = np.random.default_rng(0)
@@ -85,8 +89,10 @@ def serve(args: argparse.Namespace, hook: Optional[PhaseHook] = None) -> Dict[st
         fs = SimFS(Path(root)) if args.durable else None
         rt = ShardedDFCRuntime(
             kinds, args.shards, capacity, lanes, fs=fs, n_threads=args.threads,
+            depth=args.depth or None, chain=args.threads if args.depth > 1 else 1,
             device=args.device,
         )
+        drv = MultiThreadDriver(rt, seed=1) if args.durable and args.threads > 1 else None
         on_card = rt.device.type == "cuda"
         opmax = np.asarray([STRUCTS[k].n_opcodes for k in rt.kinds])
         n_ops = n_overflow = 0
@@ -99,18 +105,23 @@ def serve(args: argparse.Namespace, hook: Optional[PhaseHook] = None) -> Dict[st
             params = rng.random(args.batch).astype(np.float32) * 100
             t0 = time.perf_counter()
             if args.durable:
-                # slice the phase's batch over the announcing threads, then
-                # combine every ready announcement in one phase
-                per = (args.batch + args.threads - 1) // args.threads
-                threads = []
-                for t in range(args.threads):
-                    sl = slice(t * per, min((t + 1) * per, args.batch))
-                    if sl.start >= sl.stop:
-                        break
-                    rt.announce(t, keys[sl], ops[sl], params[sl], token=phase + 1)
-                    threads.append(t)
-                rt.combine_phase()
-                recs = [rt.read_responses(t, token=phase + 1) for t in threads]
+                if drv is not None:
+                    # slice the phase's batch over the announcing threads; the
+                    # seeded driver interleaves announce/combine actions
+                    per = (args.batch + args.threads - 1) // args.threads
+                    toks = []
+                    for t in range(args.threads):
+                        sl = slice(t * per, min((t + 1) * per, args.batch))
+                        if sl.start >= sl.stop:
+                            break
+                        toks.append((t, drv.submit(t, keys[sl], ops[sl], params[sl])))
+                    drv.run()
+                else:
+                    rt.announce(0, keys, ops, params, token=phase + 1)
+                    rt.combine_phase()
+                    rt.flush()
+                    toks = [(0, phase + 1)]
+                recs = [rt.read_responses(t, token=tok) for t, tok in toks]
                 resp = np.concatenate([np.asarray(r["resp"], np.float32) for r in recs])
                 kinds_out = np.concatenate([np.asarray(r["kinds"]) for r in recs])
             else:
@@ -142,7 +153,7 @@ def serve(args: argparse.Namespace, hook: Optional[PhaseHook] = None) -> Dict[st
             print(f"pwb/op: {fs.stats['pwb'] / max(n_ops, 1):.3f}  "
                   f"pfence/op: {fs.stats['pfence'] / max(n_ops, 1):.3f}")
             out.update(pwb=fs.stats["pwb"], pfence=fs.stats["pfence"],
-                       pstats=fs.pstats.as_dict())
+                       pstats=fs.pstats.as_dict(), retire_wait_s=rt.retire_wait_s)
     return out
 
 

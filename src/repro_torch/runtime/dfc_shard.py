@@ -29,21 +29,24 @@ reference's, so either package recovers a root the other wrote::
   shard_{s}/slot{0,1}/...         alternating state slots, picked by parity
   shard_{s}/cEpoch                per-shard two-increment commit
 
-This slice ports the volatile ``step`` and the serial durable path.  The
-options of later slices raise ``NotImplementedError`` and name their slice:
-the pipelined and fused fabric (``depth > 1``, ``pipeline``, ``chain > 1``,
-``phase_loop``), per-side lanes (``split_lanes``), resharding
-(``split_shard``, ``merge_shards``, recovery of a resharded root) and
-observability (a live ``obs``).
+The volatile ``step``, the serial durable path, the depth-D pipelined
+durable path (``depth``, ``chain``: up to D-1 dispatched chains kept in
+flight, retired in commit order) and the fused K-phase ``phase_loop`` are
+ported.  The options of later slices raise ``NotImplementedError`` and name
+their slice: per-side lanes (``split_lanes``), resharding (``split_shard``,
+``merge_shards``, recovery of a resharded root) and observability (a live
+``obs``).
 """
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 import functools
 import hashlib
 import io
 import json
+import time
 from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
@@ -55,13 +58,16 @@ from repro_torch.core.torch_dfc import (
     OP_NONE,
     R_NONE,
     STRUCTS,
+    PhaseIntents,
     _mul_u32,
     _as_u32,
     init_announce_ring,
     init_sharded,
     map_state,
     ring_announce,
+    ring_announce_phases,
     ring_drain,
+    ring_drain_phases,
     ring_has_room,
     shard_slice,
     stack_shards,
@@ -71,6 +77,7 @@ from repro_torch.kernels.dfc_reduce.ops import (
     _one_sharded_combine,
     dfc_hetero_combine_step,
     dfc_hetero_multi_combine_step,
+    dfc_hetero_multi_phase_step,
     select_touched,
 )
 from repro_torch.obs import EV_EPOCH, NULL_OBS
@@ -81,7 +88,6 @@ R_OVERFLOW = 4
 
 _HASH_MULT = 2654435761  # Knuth multiplicative hashing constant
 
-_SLICE_PIPELINE = "the pipelined and fused fabric slice"
 _SLICE_LANES = "the per-side lanes slice"
 _SLICE_RESHARD = "the resharding slice"
 _SLICE_OBS = "the observability slice"
@@ -361,6 +367,90 @@ def hetero_multi_step(groups, table, keys, ops, params, meta, *,
     )
 
 
+def hetero_phase_loop_step(groups, table, keys, ops, params, meta, *,
+                           kinds: Tuple[str, ...], lanes: int, backend: str = "kernel",
+                           unroll: int = 1, phase_axis: str = "scan",
+                           donate: Optional[bool] = None):
+    """Route + combine K PHASES over a heterogeneous fabric, collecting each
+    phase's persist intents.
+
+    ``keys`` / ``ops`` / ``params`` are ``[K, L]``: K per-phase flat batches
+    padded with ``OP_NONE``.  Each phase is routed on its own, and every kind
+    group runs its K phases through ``dfc_hetero_multi_phase_step`` (one
+    K-phase kernel launch per kind with ``phase_axis="grid"``, one one-phase
+    launch per phase and kind with ``"scan"``): phase k+1 combines on top of
+    phase k, exactly as K ``hetero_step`` calls would.  ``unroll`` and
+    ``donate`` are the reference's scan-unroll and buffer-donation knobs;
+    PyTorch runs eagerly and frees what it no longer holds, so they change
+    nothing here.
+
+    Returns ``(new_groups, new_meta, responses [K, L], out_kinds [K, L],
+    states, epochs_before i32[S], intents)``: ``states[kind]`` carries the
+    per-phase states (leading K axis) and ``intents`` is the
+    :class:`PhaseIntents` log with its cumulative counters re-based on
+    ``meta``.
+    """
+    n_shards = len(kinds)
+    k_phases = ops.shape[0]
+    dev = ops.device
+    routed = [
+        route_batch(keys[j], ops[j], params[j], n_shards=n_shards, lanes=lanes,
+                    table=table)
+        for j in range(k_phases)
+    ]
+    shard_ops = torch.stack([r[0] for r in routed])  # [K, S, L]
+    shard_params = torch.stack([r[1] for r in routed])
+    shard_keys = torch.stack([r[6] for r in routed])
+    rows = _group_rows(kinds, dev)
+    multi = dfc_hetero_multi_phase_step(
+        groups,
+        {k: shard_ops[:, r] for k, r in rows.items()},
+        {k: shard_params[:, r] for k, r in rows.items()},
+        backend=backend, unroll=unroll, phase_axis=phase_axis,
+        group_keys={k: shard_keys[:, r] for k, r in rows.items()},
+    )
+
+    resp_mat = torch.zeros((k_phases, n_shards, lanes), dtype=torch.float32, device=dev)
+    kind_mat = torch.full((k_phases, n_shards, lanes), R_NONE, dtype=torch.int32,
+                          device=dev)
+    epochs = torch.zeros((k_phases, n_shards), dtype=torch.int32, device=dev)
+    epochs_before = torch.zeros((n_shards,), dtype=torch.int32, device=dev)
+    touched = torch.zeros((k_phases, n_shards), dtype=torch.bool, device=dev)
+    phases_cum = torch.zeros((k_phases, n_shards), dtype=torch.int32, device=dev)
+    ops_cum = torch.zeros((k_phases, n_shards), dtype=torch.int32, device=dev)
+    new_groups, states = {}, {}
+    for k in sorted(rows):
+        r = rows[k]
+        st, s_resp, s_kinds, intents = multi[k]
+        states[k] = st
+        new_groups[k] = map_state(lambda leaf: leaf[-1], st)
+        resp_mat[:, r] = s_resp
+        kind_mat[:, r] = s_kinds
+        epochs[:, r] = intents.epoch
+        epochs_before[r] = groups[k].epoch
+        touched[:, r] = intents.touched
+        # re-base the dispatch-relative counters on the durable meta: row k
+        # is then exactly what phase k's slot persist records
+        phases_cum[:, r] = meta["phases"][r][None] + intents.phases_cum
+        ops_cum[:, r] = meta["ops_combined"][r][None] + intents.ops_cum
+
+    new_meta = dict(meta)
+    new_meta["phases"] = phases_cum[-1]
+    new_meta["ops_combined"] = ops_cum[-1]
+    responses, out_kinds = [], []
+    for j, (_, _, shard, lane, ok, overflow, _) in enumerate(routed):
+        rsp, knd = _gather_flat(ok, overflow, shard, lane, resp_mat[j], kind_mat[j],
+                                n_shards, lanes)
+        responses.append(rsp)
+        out_kinds.append(knd)
+    intents_out = PhaseIntents(epoch=epochs, touched=touched, phases_cum=phases_cum,
+                               ops_cum=ops_cum)
+    return (
+        new_groups, new_meta, torch.stack(responses), torch.stack(out_kinds),
+        states, epochs_before, intents_out,
+    )
+
+
 # ============================================================== host oracle
 def sequential_hetero_reference(kinds, shard_lists, keys, ops, params, lanes,
                                 table=None, capacity=None):
@@ -441,7 +531,15 @@ class ShardedDFCRuntime:
     announcement across all shards and commits per shard; ``recover``
     rebuilds the fabric after a crash and reports per-thread, per-op
     detectability verdicts; ``replay_pending`` re-announces exactly the
-    not-applied ops.
+    not-applied ops.  ``phase_loop`` fuses a whole schedule of phases into
+    one device call and replays the serial durable schedule behind it.
+
+    ``depth`` is the pipeline depth: a ``combine_phase`` dispatches a fresh
+    chain and keeps up to ``depth - 1`` dispatched chains un-retired (their
+    persists and commits deferred, retired oldest first); ``depth=1`` is the
+    serial path and ``pipeline=True`` means ``depth=2``.  With ``chain > 1``
+    each ready thread's announcement is its own batch of one dispatch,
+    padded to ``chain`` batches with all-``OP_NONE`` pass-through batches.
 
     ``kind`` is one kind name (``rt.state`` is then the one shard-stacked
     state) or a per-shard list (``rt.state`` is the ``{kind: state}`` group
@@ -471,12 +569,6 @@ class ShardedDFCRuntime:
         obs=None,
         device="cuda",
     ):
-        if pipeline or (depth is not None and depth > 1):
-            raise NotImplementedError(f"depth > 1 / pipeline waits for {_SLICE_PIPELINE}")
-        if depth is not None and depth < 1:
-            raise ValueError("depth must be >= 1")
-        if chain > 1:
-            raise NotImplementedError(f"chain > 1 waits for {_SLICE_PIPELINE}")
         if split_lanes:
             raise NotImplementedError(f"split_lanes waits for {_SLICE_LANES}")
         if obs is not None and obs.enabled:
@@ -509,6 +601,13 @@ class ShardedDFCRuntime:
             raise ValueError("table must have n_buckets entries")
         self._table_dev = torch.from_numpy(self.table).to(self.device)
         self.r_epoch = 0  # routing epoch (even at rest; moves only on reshard)
+        if depth is None:
+            depth = 2 if pipeline else 1
+        if depth < 1:
+            raise ValueError("depth must be >= 1")
+        self.depth = int(depth)
+        self.pipeline = self.depth > 1
+        self.chain = max(1, int(chain))
         self.ring = (
             init_announce_ring(ring_slots, device=self.device)
             if fs is not None else None
@@ -516,7 +615,15 @@ class ShardedDFCRuntime:
         self._ring_tail = 0  # host mirror of the ring's absolute tail
         self._ring_spans: Dict[int, Tuple[int, int]] = {}  # thread -> (start, n)
         self._live: Dict[int, Dict[str, Any]] = {}  # thread -> announcement rec
-        # (thread, token) groups of the most recent dispatch
+        # host mirror of each announcement slot's token, read by the depth
+        # guard in ``announce``
+        self._slot_tokens: Dict[Tuple[int, int], int] = {}
+        # dispatched, not yet retired chains, oldest first (= commit order)
+        self._inflight: "collections.deque[Dict[str, Any]]" = collections.deque()
+        # seconds ``_retire`` spent waiting for a dispatched chain's results
+        # to reach the host
+        self.retire_wait_s = 0.0
+        # (thread, token) groups of the most recent dispatch, one per batch
         self.last_dispatch: List[Tuple[Tuple[int, int], ...]] = []
         self._elide: Dict[str, bytes] = {}  # rel path -> durable leaf digest
         self._elide_pending: Dict[str, bytes] = {}
@@ -616,7 +723,18 @@ class ShardedDFCRuntime:
         """Thread-side announcement (paper lines 2-12): double-buffered
         record + valid selector, parallel pwb/pfence, MSB publish; the
         payload also lands in the device announcement ring.  Per-thread
-        ``token``s must increase monotonically."""
+        ``token``s must increase monotonically.
+
+        Depth guard: the double-buffered records bound a thread to two
+        outstanding batches.  When the slot this announcement reuses still
+        belongs to a dispatched, un-retired chain, chains are retired in
+        commit order until that batch's responses are durable -- the serial
+        schedule's pwbs and pfences, only re-timed."""
+        if self._inflight:
+            n_op = 1 - (self._read_valid(thread) & 1)
+            old_tok = self._slot_tokens.get((thread, n_op), -1)
+            while old_tok >= 0 and self._chain_holding(thread, old_tok) is not None:
+                self._retire(self._inflight.popleft())
         n_op, ann = self._announce_durable(thread, token, keys, ops, params)
         self._register_live(thread, n_op, token, ann["keys"], ann["ops"], ann["params"])
 
@@ -677,6 +795,7 @@ class ShardedDFCRuntime:
             "keys": keys, "ops": ops, "params": params, "ring_start": start,
         }
         self._live[thread] = rec
+        self._slot_tokens[(thread, int(slot))] = int(token)
         return rec
 
     def ready_announcements(self) -> List[int]:
@@ -752,8 +871,22 @@ class ShardedDFCRuntime:
         self._elide_pending.clear()
 
     # --------------------------------------------------------- combine phase
+    def _chain_holding(self, thread: int, token: int) -> Optional[Dict[str, Any]]:
+        """The in-flight chain that dispatched (thread, token), if any."""
+        for fl in self._inflight:
+            for info in fl["batches"]:
+                for seg in info["threads"]:
+                    if seg["thread"] == thread and seg["token"] == token:
+                        return fl
+        return None
+
     def _collect_ready(self) -> List[Tuple[int, Dict[str, Any]]]:
-        """Ready announcements as (thread, live-record) pairs, thread order."""
+        """Ready announcements as (thread, live-record) pairs, thread order,
+        without the batches already dispatched into the pipeline."""
+        inflight = {
+            (seg["thread"], seg["token"])
+            for fl in self._inflight for info in fl["batches"] for seg in info["threads"]
+        }
         out = []
         for t in self.ready_announcements():
             rec = self._live.get(t)
@@ -765,7 +898,8 @@ class ShardedDFCRuntime:
                 rec = self._register_live(
                     t, v & 1, ann["token"], ann["keys"], ann["ops"], ann["params"]
                 )
-            out.append((t, rec))
+            if (t, rec["token"]) not in inflight:
+                out.append((t, rec))
         return out
 
     def _payload_view(self, rec: Dict[str, Any]):
@@ -783,69 +917,123 @@ class ShardedDFCRuntime:
         """One durable combining phase over every ready announcement.
 
         Concatenates the announced batches in thread order (the combiner's
-        walk over the announcement array), runs the device step on the
-        ring-resident payload, persists every touched shard into its
-        inactive slot, writes responses and per-op commit targets into the
-        combined announcements, pfences ONCE (paper line 80), then commits
-        each touched shard's epoch with the two-increment protocol (lines
-        81-83).  Returns the combined thread ids.
+        walk over the announcement array) and dispatches the device combine
+        on the ring-resident payload.  Retiring a chain persists every
+        touched shard into its inactive slot, writes responses and per-op
+        commit targets into the combined announcements, pfences ONCE (paper
+        line 80), then commits each touched shard's epoch with the
+        two-increment protocol (lines 81-83).
+
+        At ``depth`` 1 the chain retires here.  At ``depth`` D > 1 the
+        oldest chains are retired, in commit order, until at most D-1
+        dispatched chains remain un-retired; a chain's responses become
+        durable when it retires (a later ``combine_phase``, an ``announce``
+        reclaiming its slot, or ``flush``).  With ``chain`` > 1 each ready
+        thread's announcement is its own batch (the last one takes the
+        rest), padded to ``chain`` batches with pass-through batches that
+        cost no persistence op.  With nothing ready it flushes.  Returns the
+        combined thread ids.
         """
         assert self.fs is not None, "combine_phase needs a SimFS"
         ready = self._collect_ready()
         if not ready:
+            self.flush()
             return []
 
-        maxlen = sum(rec["n"] for _, rec in ready)
+        if self.chain > 1:
+            groups = [[r] for r in ready[: self.chain - 1]]
+            if ready[self.chain - 1:]:
+                groups.append(list(ready[self.chain - 1:]))
+            groups += [[] for _ in range(self.chain - len(groups))]
+        else:
+            groups = [ready]
+
+        maxlen = max(sum(rec["n"] for _, rec in g) for g in groups)
         pad = max(8, 1 << max(0, (maxlen - 1)).bit_length())
-        karrs, oarrs, parrs, segs, off = [], [], [], [], 0
-        for t, rec in ready:
-            k, o, p = self._payload_view(rec)
-            karrs.append(k)
-            oarrs.append(o)
-            parrs.append(p)
-            segs.append({"thread": t, "token": rec["token"], "slot": rec["slot"],
-                         "off": off, "n": rec["n"]})
-            off += rec["n"]
-            self._ring_spans.pop(t, None)  # span consumed at dispatch
-        fill = pad - off
-        if fill:
-            karrs.append(torch.zeros((fill,), dtype=torch.int32, device=self.device))
-            oarrs.append(torch.full((fill,), OP_NONE, dtype=torch.int32,
-                                    device=self.device))
-            parrs.append(torch.zeros((fill,), dtype=torch.float32, device=self.device))
-        host_keys = np.concatenate([rec["keys"] for _, rec in ready])
-        batches = [{
-            "threads": segs,
-            "shard": self.route_host(host_keys),
-            "ops": np.concatenate([rec["ops"] for _, rec in ready]),
-        }]
+        dev_keys, dev_ops, dev_params, batches = [], [], [], []
+        for g in groups:
+            karrs, oarrs, parrs, segs, off = [], [], [], [], 0
+            for t, rec in g:
+                k, o, p = self._payload_view(rec)
+                karrs.append(k)
+                oarrs.append(o)
+                parrs.append(p)
+                segs.append({"thread": t, "token": rec["token"], "slot": rec["slot"],
+                             "off": off, "n": rec["n"]})
+                off += rec["n"]
+                self._ring_spans.pop(t, None)  # span consumed at dispatch
+            fill = pad - off
+            if fill:
+                karrs.append(torch.zeros((fill,), dtype=torch.int32, device=self.device))
+                oarrs.append(torch.full((fill,), OP_NONE, dtype=torch.int32,
+                                        device=self.device))
+                parrs.append(torch.zeros((fill,), dtype=torch.float32, device=self.device))
+            dev_keys.append(torch.cat(karrs))
+            dev_ops.append(torch.cat(oarrs))
+            dev_params.append(torch.cat(parrs))
+            host_keys = (np.concatenate([rec["keys"] for _, rec in g])
+                         if g else np.zeros((0,), np.int64))
+            batches.append({"threads": segs, "shard": self.route_host(host_keys)})
 
         (
             self.groups, self.meta, resp, out_kinds,
             states, epochs_before, epochs, phases_cum, ops_cum,
         ) = hetero_multi_step(
             self.groups, self._table_dev,
-            torch.cat(karrs)[None], torch.cat(oarrs)[None], torch.cat(parrs)[None],
+            torch.stack(dev_keys), torch.stack(dev_ops), torch.stack(dev_params),
             self.meta, kinds=tuple(self.kinds), lanes=self.lanes,
             backend=self.backend,
         )
-        self.last_dispatch = [
-            tuple((seg["thread"], seg["token"]) for seg in info["threads"])
-            for info in batches
-        ]
-        self._retire({
+        self._inflight.append(self._stage_to_host({
             "batches": batches, "resp": resp, "kinds": out_kinds,
             "states": states, "epochs_before": epochs_before,
             "epochs": epochs, "phases_cum": phases_cum, "ops_cum": ops_cum,
             "repoch": self.r_epoch,
-        })
-        return [seg["thread"] for seg in segs]
+        }))
+        self.last_dispatch = [
+            tuple((seg["thread"], seg["token"]) for seg in info["threads"])
+            for info in batches
+            if info["threads"]
+        ]
+        # retire the oldest chains, in commit order, while the device
+        # combines: at most depth-1 chains stay in flight
+        while len(self._inflight) > self.depth - 1:
+            self._retire(self._inflight.popleft())
+        return [seg["thread"] for info in batches for seg in info["threads"]]
+
+    _STAGED = ("resp", "kinds", "epochs", "phases_cum", "ops_cum", "epochs_before")
+
+    def _stage_to_host(self, fl: Dict[str, Any]) -> Dict[str, Any]:
+        """Queue the copies of what ``_retire`` reads (responses, epochs,
+        counters, per-batch states) into pinned host memory right behind
+        the dispatch, and record an event after them.  ``_retire`` then waits
+        on that event alone, not on everything queued since (a later chain's
+        combine), so chain k's persistence overlaps chain k+1's combine on
+        the card.  On the CPU there is nothing to stage."""
+        if self.device.type != "cuda":
+            return fl
+
+        def pinned(t):
+            host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+            return host.copy_(t, non_blocking=True)
+
+        for key in self._STAGED:
+            fl[key] = pinned(fl[key])
+        fl["states"] = {k: map_state(pinned, st) for k, st in fl["states"].items()}
+        fl["ready"] = torch.cuda.Event()
+        fl["ready"].record()
+        return fl
 
     def _retire(self, fl: Dict[str, Any]) -> List[int]:
         """Persist + commit one dispatched chain, batch by batch: persist the
         touched shards into their inactive slots, write the responses into
         the combined announcements, ONE pfence, then the per-shard
-        two-increment epoch commits."""
+        two-increment epoch commits -- the schedule (and pwb/pfence counts)
+        of that many serial phases."""
+        if "ready" in fl:
+            t0 = time.perf_counter()
+            fl["ready"].synchronize()
+            self.retire_wait_s += time.perf_counter() - t0
         resp = _to_np(fl["resp"])
         kinds = _to_np(fl["kinds"])
         epochs = _to_np(fl["epochs"])  # [B, S]
@@ -864,54 +1052,171 @@ class ShardedDFCRuntime:
             e_b = epochs[b]
             touched = [int(s) for s in np.nonzero(e_b != prev_epochs)[0]]
             if not info["threads"] and not touched:
-                continue
-            shard = info["shard"]
-            files: List[str] = []
-            for s in touched:
-                files += self._persist_shard(
-                    s, int(e_b[s]), state=batch_shard_state(b, s),
-                    counters=(phases_cum[b][s], ops_cum[b][s]),
-                )
-            targets = [int(e) for e in e_b[shard]]  # per-op commit target
-            for seg in info["threads"]:
-                sl = slice(seg["off"], seg["off"] + seg["n"])
-                ann = self._read_ann(seg["thread"], seg["slot"])
-                ann["val"] = {
-                    "resp": [float(v) for v in resp[b][sl]],
-                    "kinds": [int(k) for k in kinds[b][sl]],
-                    "shards": [int(s) for s in shard[sl]],
-                    "targets": list(targets[sl]),
-                    "repoch": fl["repoch"],
-                }
-                rel = self._ann_path(seg["thread"], seg["slot"])
-                self.fs.write(rel, json.dumps(ann).encode(), tag="resp")
-                files.append(rel)
-                retired.append(seg["thread"])
-            self.fs.fsync(files, tag="phase")  # ONE pfence for slots + responses
-            self._promote_elision()
-            for s in touched:  # per-shard two-increment epoch commit
-                e = int(e_b[s])
-                self.fs.write(self._epoch_path(s), str(e - 1).encode(), tag="epoch")
-                self.fs.fsync([self._epoch_path(s)], tag="epoch")
-                self.fs.write(self._epoch_path(s), str(e).encode(), tag="epoch")
-                self.obs.event(EV_EPOCH, shard=s, epoch=e)
+                continue  # chain padding: no durable work
+            retired += self._commit_phase(
+                b, touched, e_b, info["shard"], info["threads"], resp, kinds,
+                phases_cum, ops_cum, batch_shard_state, fl["repoch"],
+            )
             prev_epochs = e_b
         return retired
 
+    def _commit_phase(self, b, touched, e_b, shard, segs, resp, kinds, phases_cum,
+                      ops_cum, shard_state, repoch) -> List[int]:
+        """The durable tail of one phase: slot persists of the touched
+        shards, response records of the combined announcements ``segs``, ONE
+        pfence, then the per-shard two-increment epoch commits.  Returns the
+        threads whose responses it wrote."""
+        files: List[str] = []
+        for s in touched:
+            files += self._persist_shard(
+                s, int(e_b[s]), state=shard_state(b, s),
+                counters=(phases_cum[b][s], ops_cum[b][s]),
+            )
+        targets = [int(e) for e in e_b[shard]]  # per-op commit target
+        for seg in segs:
+            sl = slice(seg["off"], seg["off"] + seg["n"])
+            ann = self._read_ann(seg["thread"], seg["slot"])
+            ann["val"] = {
+                "resp": [float(v) for v in resp[b][sl]],
+                "kinds": [int(k) for k in kinds[b][sl]],
+                "shards": [int(s) for s in shard[sl]],
+                "targets": list(targets[sl]),
+                "repoch": repoch,
+            }
+            rel = self._ann_path(seg["thread"], seg["slot"])
+            self.fs.write(rel, json.dumps(ann).encode(), tag="resp")
+            files.append(rel)
+        self.fs.fsync(files, tag="phase")  # ONE pfence for slots + responses
+        self._promote_elision()
+        for s in touched:  # per-shard two-increment epoch commit
+            e = int(e_b[s])
+            self.fs.write(self._epoch_path(s), str(e - 1).encode(), tag="epoch")
+            self.fs.fsync([self._epoch_path(s)], tag="epoch")
+            self.fs.write(self._epoch_path(s), str(e).encode(), tag="epoch")
+            self.obs.event(EV_EPOCH, shard=s, epoch=e)
+        return [seg["thread"] for seg in segs]
+
     def flush(self) -> List[int]:
-        """Retire every dispatched chain.  The serial fabric retires each
-        phase inside the ``combine_phase`` that dispatched it, so nothing is
-        ever in flight here: returns ``[]`` (the pipelined slice keeps
-        chains in flight)."""
-        return []
+        """Retire every in-flight chain, oldest first: persist their shard
+        states and responses and commit their epochs, in commit order.
+        Returns the thread ids whose announcements became durable."""
+        retired: List[int] = []
+        while self._inflight:
+            retired += self._retire(self._inflight.popleft())
+        return retired
 
     def _drain(self) -> None:
-        """Combine every ready announcement (the serial fabric retires it
-        at once)."""
+        """Combine every ready announcement AND retire the pipeline."""
         self.combine_phase()
+        self.flush()
 
-    def phase_loop(self, *args, **kwargs):
-        raise NotImplementedError(f"phase_loop waits for {_SLICE_PIPELINE}")
+    # ------------------------------------------------------ fused phase loop
+    def phase_loop(self, schedule: Sequence[Tuple[int, int, Any, Any, Any]], *,
+                   unroll: Optional[int] = None, phase_axis: str = "scan"
+                   ) -> List[Dict[str, Any]]:
+        """Fuse K combining phases into ONE device call, then drain the
+        per-phase persist intents on the host in serial order.
+
+        ``schedule`` is K entries ``(thread, token, keys, ops, params)``, each
+        one thread's batch combined as its OWN phase (phase order = schedule
+        order; per-thread tokens monotone, the ``announce`` contract).  The
+        device side routes and combines every phase through
+        ``hetero_phase_loop_step`` (``phase_axis="grid"``: one K-phase kernel
+        launch per kind group; ``"scan"``: one one-phase launch per phase and
+        kind), the schedule staged through the announcement ring in one
+        scatter when it fits.  The host then replays, phase by phase, the
+        serial durable schedule: the batch's durable announce (3 pwb + 2
+        pfence), the touched shards' slot persists, the response record,
+        ONE pfence, the per-shard two-increment epoch commits -- so commit
+        order and the pwb/pfence counts are the serial path's exactly, and a
+        crash anywhere in the drain leaves a log that ``recover`` /
+        ``replay_pending`` handle as a serial run's.  ``unroll`` is the
+        reference's scan-unroll knob and changes nothing here.
+
+        Returns one response record per phase, in phase order: ``{"thread",
+        "token", "resp", "kinds", "shards", "targets", "repoch"}``.
+        """
+        assert self.fs is not None, "phase_loop needs a SimFS"
+        self._drain()  # quiescent start: nothing ready, nothing in flight
+        if not schedule:
+            return []
+
+        k_phases = len(schedule)
+        batches = [
+            (int(t), int(tok), np.asarray(keys, np.int64), np.asarray(ops, np.int32),
+             np.asarray(params, np.float32))
+            for t, tok, keys, ops, params in schedule
+        ]
+        maxlen = max(b[3].shape[0] for b in batches)
+        pad = max(8, 1 << max(0, (maxlen - 1)).bit_length())
+        keys_h = np.zeros((k_phases, pad), np.int64)
+        ops_h = np.full((k_phases, pad), OP_NONE, np.int32)
+        params_h = np.zeros((k_phases, pad), np.float32)
+        for j, (_, _, keys, ops, params) in enumerate(batches):
+            n = ops.shape[0]
+            keys_h[j, :n] = keys
+            ops_h[j, :n] = ops
+            params_h[j, :n] = params
+        host = (torch.from_numpy(keys_h.astype(np.int32)), torch.from_numpy(ops_h),
+                torch.from_numpy(params_h))
+
+        # stage the whole schedule through the announcement ring (one scatter,
+        # one phase-axis gather) when it fits; a host upload otherwise
+        dev = None
+        if self.ring is not None and k_phases * pad:
+            slots = int(self.ring.keys.shape[0])
+            oldest = min((s0 for s0, _ in self._ring_spans.values()),
+                         default=self._ring_tail)
+            if ring_has_room(slots, self._ring_tail, oldest, k_phases * pad):
+                self.ring = ring_announce_phases(self.ring, *host)
+                start = self._ring_tail
+                self._ring_tail += k_phases * pad
+                dev = ring_drain_phases(self.ring, start, k_phases, pad)
+        if dev is None:
+            dev = tuple(t.to(self.device) for t in host)
+
+        (
+            self.groups, self.meta, resp, out_kinds, states, epochs_before, intents,
+        ) = hetero_phase_loop_step(
+            self.groups, self._table_dev, dev[0], dev[1], dev[2], self.meta,
+            kinds=tuple(self.kinds), lanes=self.lanes, backend=self.backend,
+            unroll=self.depth if unroll is None else int(unroll),
+            phase_axis=phase_axis,
+        )
+        self.last_dispatch = [((t, tok),) for t, tok, *_ in batches]
+
+        # the intent log on the host: one transfer per stacked leaf
+        resp_np = _to_np(resp)
+        kinds_np = _to_np(out_kinds)
+        epochs = _to_np(intents.epoch)  # [K, S]
+        phases_cum = _to_np(intents.phases_cum)
+        ops_cum = _to_np(intents.ops_cum)
+        prev_epochs = _to_np(epochs_before)
+        states_np = {k: map_state(_to_np, st) for k, st in states.items()}
+
+        def phase_shard_state(j, s):
+            k, r = self.kinds[s], self._row(s)
+            return map_state(lambda leaf: leaf[j, r], states_np[k])
+
+        out_records: List[Dict[str, Any]] = []
+        for j, (thread, token, keys, ops, params) in enumerate(batches):
+            n = ops.shape[0]
+            slot, _ = self._announce_durable(thread, token, keys, ops, params)
+            self._slot_tokens[(thread, slot)] = token
+            self._live[thread] = {
+                "token": token, "slot": slot, "n": n,
+                "keys": keys, "ops": ops, "params": params, "ring_start": None,
+            }
+            e_j = epochs[j]
+            touched = [int(s) for s in np.nonzero(e_j != prev_epochs)[0]]
+            seg = {"thread": thread, "token": token, "slot": slot, "off": 0, "n": n}
+            self._commit_phase(j, touched, e_j, self.route_host(keys), [seg], resp_np,
+                               kinds_np, phases_cum, ops_cum, phase_shard_state,
+                               self.r_epoch)
+            prev_epochs = e_j
+            out_records.append(
+                dict(self._read_ann(thread, slot)["val"], thread=thread, token=token))
+        return out_records
 
     def split_shard(self, *args, **kwargs):
         raise NotImplementedError(f"split_shard waits for {_SLICE_RESHARD}")

@@ -323,7 +323,8 @@ def test_wrappers_count_only_card_launches():
     TK.reset_launches()
     rng = np.random.default_rng(1)
     _check_ring("stack", *_ring_inputs(rng, "stack", 8), pallas=False)
-    assert TK.LAUNCHES == {"stack": 0, "queue": 0, "deque": 0, "map": 0}
+    assert TK.LAUNCHES == {k: 0 for k in ("stack", "queue", "deque", "map")} | {
+        f"phase_grid_{k}": 0 for k in ("stack", "queue", "deque", "map")}
     with pytest.raises(ValueError):
         TO._one_sharded_combine(
             "stack", "pallas", T.init_sharded("stack", 1, 8, device="cpu"),

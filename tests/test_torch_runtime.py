@@ -312,16 +312,15 @@ def test_serve_shards_runs_on_cpu():
 
 def test_later_slices_raise_and_device_is_explicit(tmp_path):
     fs = TC.SimFS(tmp_path)
-    for kw in ({"depth": 2}, {"pipeline": True}, {"chain": 2}, {"split_lanes": True}):
-        with pytest.raises(NotImplementedError):
-            TS.ShardedDFCRuntime("queue", 2, 16, 4, fs=fs, device="cpu", **kw)
+    with pytest.raises(NotImplementedError):
+        TS.ShardedDFCRuntime("queue", 2, 16, 4, fs=fs, device="cpu", split_lanes=True)
     rt = TS.ShardedDFCRuntime("queue", 2, 16, 4, fs=fs, device="cpu")
-    for call in (rt.phase_loop, rt.split_shard, rt.merge_shards):
+    for call in (rt.split_shard, rt.merge_shards):
         with pytest.raises(NotImplementedError):
             call()
     with pytest.raises(NotImplementedError):
         serve_shards.serve(serve_shards.build_parser().parse_args(
-            ["--depth", "2", "--device", "cpu"]))
+            ["--split-backlog", "8", "--device", "cpu"]))
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError):
             TS.ShardedDFCRuntime("queue", 2, 16, 4)
