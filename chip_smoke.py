@@ -45,7 +45,28 @@ script exits non-zero without printing a result):
                   pipelined; crashes at six persistence-op indices of the
                   serial, the pipelined (depth 3, chain 4) and the
                   ``phase_loop`` drives, then recover + replay_pending must
-                  apply every announced op exactly once.
+                  apply every announced op exactly once,
+  7. serve     -- the port's serving launcher (``launch/serve.py``) at the
+                  published widths, kernel backend: ``smollm-135m`` (batch 8,
+                  prompt 512, 32 tokens, 16 sessions), ``falcon-mamba-7b``
+                  (batch 4, prompt 512, 16 tokens, 8 sessions; 14.6 GB of
+                  bf16 weights drawn on the card), then ``smollm-135m
+                  --durable --priority`` run whole, crashed halfway through
+                  its persistence ops and resumed with
+                  ``--expect-exactly-once``.  Counters zeroed before and read
+                  after each run: RMSNorm launches 2L+1 per prefill and per
+                  decode step (dense) or L+1 (ssm), flash attention L per
+                  dense prefill, the scan L per ssm prefill, and the tier's
+                  combine kernels launch.  The first batch's prefill is
+                  replayed with the plain backend (last-position logits
+                  within a relative max-abs error of 5e-2 in bf16; greedy
+                  token agreement over the decode printed, not gated).  The
+                  three model kernels are timed at the path's shapes beside
+                  their bounds, plain versions and PyTorch calls.
+
+Phase 3 also holds the three model kernels (RMSNorm, flash attention, the
+selective scan) against their plain versions at model shapes, in bf16 and
+f32 (tolerances in ``MODEL_TOL``).  ``--phases`` runs a subset (default all).
 
 Then the card line (nvidia-smi), one JSON line with a record per kernel and,
 last, ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
@@ -66,6 +87,7 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
+ALL_PHASES = ("1", "2", "3", "4", "5", "6", "7")
 SOURCE = "src/repro_torch/kernels/dfc_reduce/csrc/dfc_reduce.cu"
 GRID_SOURCE = "src/repro_torch/kernels/dfc_reduce/csrc/phase_grid.cu"
 KINDS = ("stack", "queue", "deque", "map")
@@ -85,6 +107,30 @@ K_PHASES = 8  # phases per fused dispatch on the main path
 # rate outside the tensor cores, used for the kernels' 32-bit scalar ops
 HBM_BYTES_PER_S = 3.35e12
 SCALAR_OPS_PER_S = 67e12
+BF16_TENSOR_OPS_PER_S = 989e12
+# the model kernels: source, the TPU kernel each replaces, and the tolerance
+# against its plain version (absolute and relative, per dtype).  f32: both
+# sides compute in f32 and sum in another order; bf16: both round the same
+# f32 value to bf16, so they differ by at most a bf16 rounding (2^-8
+# relative), from a last-bit difference of the f32 sums.
+MODEL_KERNELS = {
+    "rmsnorm": ("src/repro_torch/kernels/rmsnorm/csrc/rmsnorm.cu",
+                "src/repro/kernels/rmsnorm/kernel.py:27"),
+    "flash_attention": ("src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
+                        "src/repro/kernels/flash_attention/kernel.py:77"),
+    "selective_scan": ("src/repro_torch/kernels/mamba_scan/csrc/selective_scan.cu",
+                       "src/repro/kernels/mamba_scan/kernel.py:51"),
+}
+MODEL_TOL = {"float32": 1e-5, "bfloat16": 1e-2}
+SCAN_TOL_F32 = 1e-4  # the scan: 512 dependent steps of rounding
+REPLAY_REL_TOL = 5e-2  # plain-backend replay of a bf16 prefill, whole model
+SERVE_RUNS = {
+    "smollm-135m": ["--arch", "smollm-135m", "--batch", "8", "--prompt-len", "512",
+                    "--gen", "32", "--sessions", "16", "--device", "cuda"],
+    "falcon-mamba-7b": ["--arch", "falcon-mamba-7b", "--batch", "4", "--prompt-len", "512",
+                        "--gen", "16", "--sessions", "8", "--device", "cuda"],
+}
+DURABLE_SERVE = ["--durable", "--priority", "--high-every", "3"]
 FULL = ["--mixed", "--shards", "256", "--batch", "16384", "--phases", "32",
         "--skew", "1.1", "--device", "cuda"]
 DURABLE = ["--mixed", "--durable", "--shards", "16", "--batch", "256",
@@ -333,15 +379,17 @@ def phase_kernels_adversarial(torch, T):
     # the single-object calls are kernels 1-3 at S = 1: their launch time
     single = {}
     for kind in ("stack", "queue", "deque"):
-        kfn = fns[kind][0]
+        kfn, pfn = fns[kind]
         args = cases[kind][-1]
         one = [a[:1].contiguous() for a in args]
-        single[kind] = (cuda_ms(lambda: kfn(*one), 20), *bound(kind, one))
+        single[kind] = (cuda_ms(lambda: kfn(*one), 20), cuda_ms(lambda: pfn(*one), 20),
+                        *bound(kind, one))
     # at this size the byte and operation bounds are far below a launch's
     # latency, which is what the time measures
     print("single-object kernels (S=1, N=64): "
-          + ", ".join(f"{NAMES[k]} {v[0]:.4f} ms (bound {v[1] * 1e6:.3f} ns by {v[2]})"
-                      for k, v in single.items()), flush=True)
+          + ", ".join(f"{NAMES[k]} {v[0]:.4f} ms (plain {v[1]:.4f} ms, bound "
+                      f"{v[2] * 1e6:.3f} ns by {v[3]})" for k, v in single.items()),
+          flush=True)
 
 
 def phase_grid_cases(torch, T, n, k_phases=3, s=3):
@@ -992,8 +1040,353 @@ def phase_durable(torch, T, K, serve_shards):
               f"{points(total)} recovered and replayed exactly once", flush=True)
 
 
+# ------------------------------------------------------------ model kernels
+def model_kernel_mods():
+    from repro_torch.kernels.flash_attention import kernel as FK
+    from repro_torch.kernels.mamba_scan import kernel as SK
+    from repro_torch.kernels.rmsnorm import kernel as RK
+    return {"rmsnorm": RK, "flash_attention": FK, "selective_scan": SK}
+
+
+def model_fns(name):
+    """(the kernel's wrapper, its plain version) for model kernel ``name``."""
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+    from repro_torch.kernels.mamba_scan.ref import selective_scan_ref
+    from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref
+    mods = model_kernel_mods()
+    return {"rmsnorm": (mods["rmsnorm"].rmsnorm, rmsnorm_ref),
+            "flash_attention": (mods["flash_attention"].flash_attention, attention_ref),
+            "selective_scan": (mods["selective_scan"].selective_scan,
+                               selective_scan_ref)}[name]
+
+
+def model_launches():
+    out = {}
+    for mod in model_kernel_mods().values():
+        out.update(mod.LAUNCHES)
+    return out
+
+
+def reset_model_launches():
+    for mod in model_kernel_mods().values():
+        mod.reset_launches()
+
+
+def model_inputs(torch, name, shape, dtype, seed=0):
+    """Random inputs of the model kernel ``name`` at ``shape``: RMSNorm (R,
+    D); flash (B, S, Hq, Hkv, hd); the scan (B, S, DI, N) with dt and x in
+    ``dtype`` and B, C in bf16 when ``dtype`` is f32 (the model path's
+    types) or in ``dtype``."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def rn(*s, dt=dtype, scale=0.5):
+        return (torch.randn(s, generator=g, device="cuda") * scale).to(dt)
+
+    if name == "rmsnorm":
+        r, d = shape
+        return rn(r, d), rn(d) + 1.0
+    if name == "flash_attention":
+        b, s, hq, hkv, hd = shape
+        return rn(b, s, hq, hd), rn(b, s, hkv, hd), rn(b, s, hkv, hd)
+    b, s, di, n = shape
+    bc = torch.bfloat16 if dtype == torch.float32 else dtype
+    dt = torch.nn.functional.softplus(rn(b, s, di, dt=torch.float32) - 2.0).to(dtype)
+    a_log = torch.rand((di, n), generator=g, device="cuda") * 0.5
+    return (dt, a_log, rn(b, s, n, dt=bc), rn(b, s, n, dt=bc), rn(b, s, di),
+            torch.ones(di, device="cuda"))
+
+
+def model_bound(name, shape, dtype_bytes):
+    """(least ms, what bounds it) of one call of a model kernel: each input
+    read once and each output written once at the HBM rate, against the
+    operations at the peak for their type (bf16 attention products on the
+    tensor cores, the rest at the f32 rate)."""
+    if name == "rmsnorm":
+        r, d = shape
+        nbytes = 2 * r * d * dtype_bytes + d * dtype_bytes
+        t_ops = r * d * 4 / SCALAR_OPS_PER_S
+    elif name == "flash_attention":
+        b, s, hq, hkv, hd = shape
+        nbytes = (2 * b * s * hq * hd + 2 * b * s * hkv * hd) * dtype_bytes
+        flops = 4 * b * hq * hd * (s * (s + 1) // 2)  # causal: key t <= query s
+        rate = BF16_TENSOR_OPS_PER_S if dtype_bytes == 2 else SCALAR_OPS_PER_S
+        t_ops = flops / rate
+    else:
+        b, s, di, n = shape
+        nbytes = 3 * b * s * di * 4 + 2 * b * s * n * 2 + di * n * 4 + di * 4 + b * di * n * 4
+        t_ops = b * s * di * n * 7 / SCALAR_OPS_PER_S  # exp, 2 mul, 2 FMA per state
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    return (t_bytes * 1e3, "bytes") if t_bytes >= t_ops else (t_ops * 1e3, "operations")
+
+
+def model_kernel_vs_plain(torch, name, shape, dtype):
+    """One call of the model kernel and of its plain version on the same
+    inputs; returns (max abs err, the tolerance it was held to)."""
+    fn, plain = model_fns(name)
+    args = model_inputs(torch, name, shape, dtype)
+    got = fn(*args)
+    torch.cuda.synchronize()
+    want = plain(*args)
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    key = "float32" if dtype == torch.float32 else "bfloat16"
+    tol = SCAN_TOL_F32 if name == "selective_scan" and key == "float32" else MODEL_TOL[key]
+    err = 0.0
+    for a, b in zip(got, want):
+        check(a.shape == b.shape and a.dtype == b.dtype,
+              f"{name} {shape} {key}: output shape/dtype differs from the plain version")
+        check(bool(torch.isfinite(a.float()).all()), f"{name} {shape} {key}: non-finite output")
+        diff = (a.float() - b.float()).abs()
+        err = max(err, float(diff.max()))
+        check(bool((diff <= tol + tol * b.float().abs()).all()),
+              f"{name} {shape} {key}: max abs err {float(diff.max()):.3g} over tolerance {tol}")
+    return err, tol
+
+
+def phase_model_kernels(torch):
+    """The three model kernels against their plain versions at the serving
+    path's shapes (and a ragged attention length), in bf16 and f32."""
+    cases = [("rmsnorm", (r, d)) for r in (8, 4096) for d in (576, 4096)]
+    cases += [("flash_attention", (8, 512, 9, 3, 64)), ("flash_attention", (8, 200, 9, 3, 64))]
+    cases += [("selective_scan", (4, 512, 8192, 16))]
+    lines = []
+    for name, shape in cases:
+        for dtype in (torch.bfloat16, torch.float32):
+            err, tol = model_kernel_vs_plain(torch, name, shape, dtype)
+            lines.append(f"{name}{shape} {str(dtype)[6:]} {err:.3g} (atol = rtol = {tol:g})")
+    print("model kernels vs plain, max abs err: " + "; ".join(lines), flush=True)
+
+
+# ------------------------------------------------------------------- serve
+def _run_serve(serve_mod, argv, params=None, hook=None):
+    """The port's launcher in-process, its report echoed."""
+    args = serve_mod.build_parser().parse_args(argv)
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        out = serve_mod.serve(args, params=params, hook=hook)
+    for line in buf.getvalue().splitlines():
+        print(f"  serve: {line}", flush=True)
+    return out
+
+
+def _expected_model_launches(cfg, batches, gen):
+    """Model-kernel launches of ``batches`` served batches of ``gen`` tokens
+    (one prefill and gen-1 decode steps each)."""
+    L = cfg.n_layers
+    norms = 2 * L + 1 if cfg.family == "dense" else L + 1
+    return {"rmsnorm": batches * gen * norms,
+            "flash_attention": batches * L if cfg.family == "dense" else 0,
+            "selective_scan": batches * L if cfg.family == "ssm" else 0}
+
+
+def serve_and_check(torch, serve_mod, K, argv, params=None):
+    """Drive one launcher run with every counter zeroed just before and read
+    just after; check the model-kernel launches against the count the served
+    batches imply and that the tier's combine kernels ran.  Returns the run
+    record, the first batch (prompts, last logits, tokens) and the counts."""
+    first = {}
+
+    def hook(sids, prompts, last, tokens):
+        if not first:
+            first.update(prompts=prompts.clone(), last=last.clone(), tokens=tokens.clone())
+
+    K.reset_launches()
+    reset_model_launches()
+    out = _run_serve(serve_mod, argv, params=params, hook=hook)
+    model = model_launches()
+    fabric = dict(K.LAUNCHES)
+    args = serve_mod.build_parser().parse_args(argv)
+    check(not out["crashed"], f"{args.arch}: the run crashed")
+    want = _expected_model_launches(out["cfg"], out["batches"], args.gen)
+    check(out["batches"] > 0 and model == want,
+          f"{args.arch}: model-kernel launches {model}, expected {want} for "
+          f"{out['batches']} batches of {args.gen} tokens")
+    tier_kinds = ("queue" if not args.priority else "deque", "stack", "map")
+    check(all(fabric[k] > 0 for k in tier_kinds),
+          f"{args.arch}: the tier's combine kernels did not all launch: {fabric}")
+    print(f"serve {args.arch}: launches {model} (as expected for {out['batches']} "
+          f"batches), tier combine kernels {fabric}", flush=True)
+    return out, first, model
+
+
+def replay_first_batch(torch, out, first, gen):
+    """The first batch's prefill and greedy decode again with the plain
+    backend on the same params: last-position logits within REPLAY_REL_TOL
+    (relative max-abs error), token agreement printed."""
+    from repro_torch.launch.steps import make_prefill_step, make_serve_step
+    cfg, params = out["cfg"], out["params"]
+    before = model_launches()
+    prompts = first["prompts"]
+    max_len = prompts.shape[1] + gen + 8
+    last, cache = make_prefill_step(cfg, max_len, backend="ref")(params, {"tokens": prompts})
+    serve_step = make_serve_step(cfg, backend="ref")
+    tok = torch.argmax(last[:, -1], dim=-1)[:, None]
+    toks = [tok]
+    for _ in range(gen - 1):
+        step, cache = serve_step(params, cache, {"tokens": tok})
+        tok = step["next_token"][:, None]
+        toks.append(tok)
+    torch.cuda.synchronize()
+    check(model_launches() == before, "the plain-backend replay launched a kernel")
+    a, b = first["last"].float(), last.float()
+    check(bool(torch.isfinite(a).all()) and a.shape == (prompts.shape[0], 1, cfg.vocab),
+          f"{cfg.name}: last logits not finite or of the wrong shape {tuple(a.shape)}")
+    rel = float((a - b).abs().max() / b.abs().max())
+    agree = float((first["tokens"] == torch.cat(toks, 1)).float().mean())
+    check(rel <= REPLAY_REL_TOL,
+          f"{cfg.name}: kernel prefill vs plain replay relative max-abs error {rel:.3g} "
+          f"over {REPLAY_REL_TOL}")
+    print(f"serve {cfg.name}: plain-backend replay of batch 1 -- last logits relative "
+          f"max-abs error {rel:.4g} (tol {REPLAY_REL_TOL}), greedy tokens agree on "
+          f"{agree:.1%} of {gen} x {prompts.shape[0]} (not gated)", flush=True)
+    return rel, agree
+
+
+def profile_calls(torch, label, fn, n):
+    """Device busy share and device time by kernel over ``n`` calls of
+    ``fn`` (after one warm-up call), from ``torch.profiler``."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    dev = {}
+    for ev in prof.key_averages():
+        if ev.device_type == torch.autograd.DeviceType.CUDA:
+            dev[ev.key] = dev.get(ev.key, 0.0) + float(ev.self_device_time_total)
+    total = sum(dev.values())
+    if not total:
+        print(f"profile {label}: the profiler recorded no device time (busy share not "
+              "measured)", flush=True)
+        return
+    top = sorted(dev.items(), key=lambda kv: -kv[1])[:6]
+    print(f"profile {label} ({n} calls): device busy {total / n / 1e3:.3f} ms per call of "
+          f"{wall_us / n / 1e3:.3f} ms wall ({total / wall_us:.1%} busy); top: "
+          + "; ".join(f"{k[:40]} {v / n / 1e3:.3f} ms" for k, v in top), flush=True)
+
+
+def profile_model(torch, out, first, gen):
+    """The first batch's prefill and a decode step under the profiler."""
+    from repro_torch.launch.steps import make_prefill_step, make_serve_step
+    cfg, params, prompts = out["cfg"], out["params"], first["prompts"]
+    prefill_step = make_prefill_step(cfg, prompts.shape[1] + gen + 8)
+    serve_step = make_serve_step(cfg)
+    profile_calls(torch, f"{cfg.name} prefill", lambda: prefill_step(params, {"tokens": prompts}), 2)
+    _, cache = prefill_step(params, {"tokens": prompts})
+    tok = first["tokens"][:, :1]
+    profile_calls(torch, f"{cfg.name} decode step",
+                  lambda: serve_step(params, dict(cache), {"tokens": tok}), 4)
+
+
+def time_model_kernel(torch, name, shape, dtype, launches):
+    """A model kernel's record at the serving path's ``shape``: card time,
+    plain version's time, one PyTorch call's time where one computes the
+    same function, and the bound."""
+    import torch.nn.functional as F
+    fn, plain = model_fns(name)
+    err, tol = model_kernel_vs_plain(torch, name, shape, dtype)
+    args = model_inputs(torch, name, shape, dtype)
+    ms = cuda_ms(lambda: fn(*args), 20)
+    plain_ms = cuda_ms(lambda: plain(*args), 3 if name == "selective_scan" else 10)
+    library_ms = None
+    if name == "rmsnorm":
+        x, w = args
+        library_ms = cuda_ms(lambda: F.rms_norm(x, (x.shape[-1],), weight=w, eps=1e-6), 20)
+    elif name == "flash_attention":
+        q, k, v = args
+        group = q.shape[2] // k.shape[2]
+        qt = q.transpose(1, 2).contiguous()
+        kt = k.repeat_interleave(group, dim=2).transpose(1, 2).contiguous()
+        vt = v.repeat_interleave(group, dim=2).transpose(1, 2).contiguous()
+        library_ms = cuda_ms(
+            lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True), 20)
+    bound_ms, bound_by = model_bound(name, shape, 2 if dtype == torch.bfloat16 else 4)
+    src, replaces = MODEL_KERNELS[name]
+    rec = {"name": name, "route": "cuda", "source": src, "replaces": replaces,
+           "launches": launches, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+           "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms,
+           "shape": list(shape), "dtype": str(dtype)[6:], "tolerance": tol}
+    print(f"kernel {name} {shape} {str(dtype)[6:]}: {ms:.4f} ms (plain {plain_ms:.4f} ms, "
+          f"library {'none' if library_ms is None else f'{library_ms:.4f} ms'}, bound "
+          f"{bound_ms:.4f} ms by {bound_by}), max abs err {err:.3g}, {launches} launches "
+          "on the serve path", flush=True)
+    return rec
+
+
+def phase_serve(torch, K, records):
+    """Both models served at full width through the kernels, the durable
+    priority tier crashed and resumed exactly once, and the model kernels'
+    records at the path's shapes."""
+    from repro_torch.launch import serve as serve_mod
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    totals = {"rmsnorm": 0, "flash_attention": 0, "selective_scan": 0}
+    for arch, argv in SERVE_RUNS.items():
+        torch.cuda.reset_peak_memory_stats()  # the peak of this run alone
+        out, first, model = serve_and_check(torch, serve_mod, K, argv)
+        gen = serve_mod.build_parser().parse_args(argv).gen
+        for k, v in model.items():
+            totals[k] += v
+        replay_first_batch(torch, out, first, gen)
+        profile_model(torch, out, first, gen)
+        prefill_s = statistics.median(out["prefill_s"])
+        print(f"serve {arch}: prefill {prefill_s * 1e3:.3f} ms per batch median "
+              f"({first['prompts'].numel() / prefill_s:.0f} tok/s), decode "
+              f"{statistics.median(out['decode_step_s']) * 1e3:.3f} ms per step median over "
+              f"{len(out['decode_step_s'])} steps, {out['decoded_tokens'] / out['seconds']:.1f} "
+              f"tok/s end to end, peak memory "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
+        if arch == "smollm-135m":
+            smollm_params = out["params"]
+        del out, first
+        torch.cuda.empty_cache()
+
+    # the durable priority tier: whole, then crashed halfway and resumed
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_serve_") as tmp:
+        base = SERVE_RUNS["smollm-135m"] + DURABLE_SERVE
+        out, _, _ = serve_and_check(torch, serve_mod, K,
+                                    base + ["--state-dir", f"{tmp}/whole"], smollm_params)
+        total = out["tier"].rt.fs.injector.count
+        p = out["tier"].persistence_stats()
+        crash = total // 2
+        out = _run_serve(serve_mod, base + ["--state-dir", f"{tmp}/crash",
+                                            "--crash-at", str(crash)], smollm_params)
+        check(out["crashed"], f"durable serve did not crash at persistence op {crash}")
+        out = _run_serve(serve_mod, base + ["--state-dir", f"{tmp}/crash", "--resume",
+                                            "--expect-exactly-once"], smollm_params)
+        check(not out["crashed"] and out["completed"] == 16,
+              "durable serve resume did not complete 16 sessions")
+        print(f"serve durable: {total} persistence ops per run, pwb/op "
+              f"{p['pwb_per_op']:.4f} pfence/op {p['pfence_per_op']:.4f}; crash at op "
+              f"{crash}, resumed, every session served exactly once", flush=True)
+    del smollm_params
+    torch.cuda.empty_cache()
+
+    shapes = {"rmsnorm": (8 * 512, 576), "flash_attention": (8, 512, 9, 3, 64),
+              "selective_scan": (4, 512, 8192, 16)}
+    dtypes = {"rmsnorm": torch.bfloat16, "flash_attention": torch.bfloat16,
+              "selective_scan": torch.float32}
+    for name in shapes:
+        records[name] = time_model_kernel(torch, name, shapes[name], dtypes[name], totals[name])
+    # the decode shapes RMSNorm sees most often: one row per batch row
+    for shape in ((8, 576), (4, 4096)):
+        args = model_inputs(torch, "rmsnorm", shape, torch.bfloat16)
+        ms = cuda_ms(lambda: model_fns("rmsnorm")[0](*args), 20)
+        b, by = model_bound("rmsnorm", shape, 2)
+        records["rmsnorm"][f"ms_rows_{shape[0]}x{shape[1]}"] = ms
+        print(f"kernel rmsnorm {shape} bfloat16 (a decode step's rows): {ms:.4f} ms "
+              f"(bound {b:.6f} ms by {by}; launch latency is the real bound)", flush=True)
+
+
 def main(argv=None) -> int:
-    argparse.ArgumentParser(description="Smoke run of the port on one card").parse_args(argv)
+    ap = argparse.ArgumentParser(description="Smoke run of the port on one card")
+    ap.add_argument("--phases", default=",".join(ALL_PHASES),
+                    help="comma-separated phases to run (default: all; 1 and 2 always run)")
+    run = set(ap.parse_args(argv).phases.split(",")) | {"1", "2"}
     if not (ROOT / "src" / "repro_torch").is_dir():
         raise SmokeFailure(f"no src/repro_torch next to {Path(__file__).name}: "
                            "run this script from a checkout of the repository")
@@ -1013,36 +1406,52 @@ def main(argv=None) -> int:
         print(card, flush=True)
 
     from repro_torch.core import torch_dfc as T
+    from repro_torch.kernels import nvcc
     from repro_torch.kernels.dfc_reduce import kernel as K
     from repro_torch.launch import serve_shards
 
     with phase("2 build"):
         t0 = time.perf_counter()
         log = io.StringIO()
+        libraries = list(K.LIBRARIES)
+        for mod in model_kernel_mods().values():
+            libraries += mod.LIBRARIES
         with contextlib.redirect_stdout(log):
-            libs = K.build(verbose=True)
+            libs = nvcc.build(libraries, verbose=True)
         usage = [ln.strip() for ln in log.getvalue().splitlines()
                  if "registers" in ln or "Compiling entry" in ln]
         print(f"build: {', '.join(str(p.relative_to(ROOT)) for p in libs.values())} in "
               f"{time.perf_counter() - t0:.1f} s; " + "; ".join(usage), flush=True)
 
-    with phase("3 kernels"):
-        phase_kernels_adversarial(torch, T)
-        phase_grid_adversarial(torch, T)
+    if "3" in run:
+        with phase("3 kernels"):
+            phase_kernels_adversarial(torch, T)
+            phase_grid_adversarial(torch, T)
+            phase_model_kernels(torch)
 
     records = {}
-    with phase("4 volatile"):
-        batches = phase_volatile(torch, T, K, serve_shards, records)
+    if "4" in run or "5" in run:
+        with phase("4 volatile"):
+            batches = phase_volatile(torch, T, K, serve_shards, records)
 
-    with phase("5 fused"):
-        phase_fused(torch, T, K, serve_shards, records, batches)
+    if "5" in run:
+        with phase("5 fused"):
+            phase_fused(torch, T, K, serve_shards, records, batches)
 
-    with phase("6 durable"):
-        phase_durable(torch, T, K, serve_shards)
+    if "6" in run:
+        with phase("6 durable"):
+            phase_durable(torch, T, K, serve_shards)
+
+    if "7" in run:
+        with phase("7 serve"):
+            phase_serve(torch, K, records)
 
     print(card, flush=True)
-    order = list(KINDS) + [f"phase_grid_{k}" for k in KINDS]
-    print(json.dumps({"kernels": [records[k] for k in order]}), flush=True)
+    order = list(KINDS) + [f"phase_grid_{k}" for k in KINDS] + list(MODEL_KERNELS)
+    print(json.dumps({"kernels": [records[k] for k in order if k in records]}), flush=True)
+    if run != set(ALL_PHASES):
+        print(f"partial run (phases {sorted(run)}): no result line", flush=True)
+        return 0
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -50,6 +50,14 @@ OP_PUSHL = 1
 OP_POPL = 2
 OP_PUSHR = 3
 OP_POPR = 4
+# serving-tier aliases: priority admission runs a request shard as a deque --
+# a normal arrival joins the BACK of the line (pushR), admission drains the
+# FRONT (popL), and a high-priority arrival jumps the line (pushL).
+# OP_POP_FRONT == OP_DEQ == 2, so one admission op code serves both queue
+# and deque request shards.
+OP_PUSH_BACK = OP_PUSHR
+OP_PUSH_FRONT = OP_PUSHL
+OP_POP_FRONT = OP_POPL
 # response kinds
 R_NONE = 0
 R_ACK = 1

@@ -18,33 +18,27 @@ raises if the launch reports an error, and adds one to its count in
 
 The libraries are built at first use with ``nvcc`` for ``sm_90a`` -- one
 ``nvcc`` per source, all started together -- into ``build/dfc_reduce/`` under
-the repository root, and loaded with ``ctypes``.  Nothing is built or loaded
-when this module is imported.
+the repository root (``kernels/nvcc.py``), and loaded with ``ctypes``.
+Nothing is built or loaded when this module is imported.
 """
 
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import tempfile
 from pathlib import Path
 from typing import Dict
 
 import torch
 
 from repro_torch.core.torch_dfc import STRUCTS, map_geometry
+from repro_torch.kernels import nvcc
 from repro_torch.kernels.dfc_reduce import ref
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = {"dfc_reduce": CSRC / "dfc_reduce.cu", "phase_grid": CSRC / "phase_grid.cu"}
-HEADERS = (CSRC / "combine_common.cuh",)
-BUILD_ROOT = Path(__file__).resolve().parents[4] / "build" / "dfc_reduce"
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC",
+_HEADERS = (CSRC / "combine_common.cuh",)
+LIBRARIES = (
+    nvcc.Library("dfc_reduce", CSRC / "dfc_reduce.cu", _HEADERS),
+    nvcc.Library("dfc_reduce", CSRC / "phase_grid.cu", _HEADERS),
 )
 # launches per kernel since the last reset (only real CUDA launches count):
 # the one-phase kernels by kind, the K-phase kernel as phase_grid_<kind>
@@ -63,56 +57,9 @@ def reset_launches() -> None:
         LAUNCHES[k] = 0
 
 
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    cand = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "nvcc"
-    if cand.exists():
-        return str(cand)
-    raise RuntimeError("nvcc not found: the CUDA combine kernels cannot be built")
-
-
-def library_path(name: str) -> Path:
-    """Where the library built from the current source ``name`` lives."""
-    digest = hashlib.sha256(SOURCES[name].read_bytes())
-    for h in HEADERS:
-        digest.update(h.read_bytes())
-    digest.update(" ".join(NVCC_FLAGS).encode())
-    return BUILD_ROOT / f"{name}-{digest.hexdigest()[:16]}" / f"lib{name}.so"
-
-
 def build(verbose: bool = False) -> Dict[str, Path]:
-    """Compile every library not yet built (cached by a hash of sources and
-    flags), one ``nvcc`` per source, all started together; returns each
-    library's path.  ``verbose`` rebuilds with ``-Xptxas -v`` and prints the
-    compiler's report of registers and shared memory."""
-    outs = {name: library_path(name) for name in SOURCES}
-    jobs = []
-    for name, out in outs.items():
-        if out.exists() and not verbose:
-            continue
-        out.parent.mkdir(parents=True, exist_ok=True)
-        fd, tmp = tempfile.mkstemp(suffix=".so", dir=out.parent)
-        os.close(fd)
-        cmd = [_nvcc(), *NVCC_FLAGS, *(("-Xptxas", "-v") if verbose else ()),
-               "-o", tmp, str(SOURCES[name])]
-        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
-                                text=True)
-        jobs.append((name, out, tmp, proc))
-    failures = []
-    for name, out, tmp, proc in jobs:
-        _, err = proc.communicate()
-        if proc.returncode != 0:
-            os.unlink(tmp)
-            failures.append(f"nvcc {name} failed ({proc.returncode}):\n{err}")
-            continue
-        if verbose:
-            print(err, end="")
-        os.replace(tmp, out)
-    if failures:
-        raise RuntimeError("\n".join(failures))
-    return outs
+    """Compile both libraries if not yet built (see ``kernels/nvcc.py``)."""
+    return nvcc.build(LIBRARIES, verbose)
 
 
 def _lib(name: str) -> ctypes.CDLL:
@@ -137,14 +84,7 @@ def _lib(name: str) -> ctypes.CDLL:
 
 
 def _check(name: str, t: torch.Tensor, dtype: torch.dtype, shape, device) -> None:
-    if t.device != device:
-        raise ValueError(f"{name} is on {t.device}, expected {device}")
-    if t.dtype != dtype:
-        raise TypeError(f"{name} has dtype {t.dtype}, expected {dtype}")
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {tuple(shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
+    nvcc.check_tensor(name, t, (dtype,), shape, device)
 
 
 def _check_lanes(n: int) -> None:
@@ -161,8 +101,7 @@ def _ptrs(*ts):
     return [t.data_ptr() for t in ts]
 
 
-def _stream(device) -> int:
-    return torch.cuda.current_stream(device).cuda_stream
+_stream = nvcc.stream
 
 
 def _ring_call(kind, fn_name, ops, params, windows, sizes, n_seg):

@@ -1,0 +1,42 @@
+// Shared by the model kernels (rmsnorm.cu, flash_attention.cu,
+// selective_scan.cu): element conversions between the storage types the
+// wrappers accept (float, __nv_bfloat16) and the f32 the kernels compute in,
+// and 16-byte vector loads and stores of eight bf16 or four f32 values.
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace model {
+
+__device__ __forceinline__ float to_f(float v) { return v; }
+__device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
+
+template <typename T> __device__ __forceinline__ T from_f(float v);
+template <> __device__ __forceinline__ float from_f<float>(float v) { return v; }
+template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
+  return __float2bfloat16_rn(v);
+}
+
+// elements of T in one 16-byte vector
+template <typename T> struct Vec16 { static constexpr int N = 16 / sizeof(T); };
+
+template <typename T>
+__device__ __forceinline__ void load16(const T* p, float* f) {
+  const uint4 u = *reinterpret_cast<const uint4*>(p);
+  const T* e = reinterpret_cast<const T*>(&u);
+#pragma unroll
+  for (int i = 0; i < Vec16<T>::N; ++i) f[i] = to_f(e[i]);
+}
+
+template <typename T>
+__device__ __forceinline__ void store16(T* p, const float* f) {
+  uint4 u;
+  T* e = reinterpret_cast<T*>(&u);
+#pragma unroll
+  for (int i = 0; i < Vec16<T>::N; ++i) e[i] = from_f<T>(f[i]);
+  *reinterpret_cast<uint4*>(p) = u;
+}
+
+}  // namespace model

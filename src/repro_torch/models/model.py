@@ -1,0 +1,262 @@
+"""The model, for the ``dense`` and ``ssm`` families (counterpart of the JAX
+package's ``models/model.py``).
+
+  dense : L identical pre-norm blocks (attention + MLP)
+  ssm   : L mamba1 blocks
+
+Parameters keep the reference's names, shapes and dtypes: a nested dict of
+tensors whose per-layer leaves are stacked along a leading layer axis.  The
+reference's scan over that axis is a Python loop here, each layer reading
+views ``leaf[i]``.  Entry points:
+
+  forward(params, cfg, batch)                 -> (logits, aux)
+  init_cache(cfg, batch, max_len)             -> cache dict
+  prefill(params, cfg, batch, max_len)        -> (last_logits, cache)
+  decode_step(params, cfg, cache, batch)      -> (logits, cache)
+
+``backend="kernel"`` (the default) runs RMSNorm, prefill attention and the
+selective scan through the hand-written kernels (their plain versions for
+CPU tensors); ``backend="ref"`` runs the plain versions wherever the tensors
+lie, for a replay on the card.  Caches are updated in place.  The moe, vlm,
+hybrid and audio families raise ``NotImplementedError`` naming their slice;
+the reference's rolling-window decode (``window``) waits for the
+long-context slice.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.models.config import ModelConfig
+from repro_torch.models.layers import apply_norm, attention_block, mlp_block
+from repro_torch.models.mamba import mamba1_block
+from repro_torch.runtime.dfc_shard import resolve_device
+
+Params = Dict[str, Any]
+FAMILIES = ("dense", "ssm")
+_SLICES = {"moe": "the MoE slice", "vlm": "the vlm slice",
+           "hybrid": "the hybrid slice", "audio": "the audio slice"}
+
+
+def _check_family(cfg: ModelConfig) -> None:
+    if cfg.family not in FAMILIES:
+        slice_ = _SLICES.get(cfg.family)
+        if slice_ is None:
+            raise ValueError(cfg.family)
+        raise NotImplementedError(f"the {cfg.family} family waits for {slice_}")
+
+
+# ============================================================== initialization
+# A leaf is (shape, dtype, init), init one of ("normal", scale), ("zeros",),
+# ("ones",), ("full", value), ("a_log",): the reference's init for that leaf.
+def param_spec(cfg: ModelConfig) -> Dict[str, Any]:
+    """The parameter tree's leaves, as the reference's ``init_params`` makes
+    them: names, shapes, dtypes and initializers."""
+    _check_family(cfg)
+    dt = cfg.act_dtype()
+    f32 = torch.float32
+    d, v, L = cfg.d_model, cfg.vocab, cfg.n_layers
+
+    def dense(shape, scale=0.02, dtype=dt):
+        return (tuple(shape), dtype, ("normal", scale))
+
+    def norm(*lead):
+        if cfg.norm == "rmsnorm":
+            return ((*lead, d), dt, ("ones",))
+        return ((*lead, 0), dt, ("zeros",))  # non-parametric: empty leaf
+
+    spec: Dict[str, Any] = {"embed": dense((v, d)), "final_norm": norm()}
+    if not cfg.tie_embeddings:
+        spec["lm_head"] = dense((d, v))
+    if cfg.family == "dense":
+        hq, hkv, hd, f = cfg.n_heads, cfg.n_kv_heads, cfg.hd(), cfg.d_ff
+        attn = {
+            "wq": dense((L, d, hq * hd)),
+            "wk": dense((L, d, hkv * hd)),
+            "wv": dense((L, d, hkv * hd)),
+            "wo": dense((L, hq * hd, d)),
+        }
+        if cfg.qkv_bias:
+            for name, width in (("bq", hq * hd), ("bk", hkv * hd), ("bv", hkv * hd)):
+                attn[name] = ((L, width), dt, ("zeros",))
+        mlp = {"w1": dense((L, d, f)), "w2": dense((L, f, d))}
+        if cfg.mlp == "swiglu":
+            mlp["w3"] = dense((L, d, f))
+        spec["blocks"] = {"norm1": norm(L), "norm2": norm(L), "attn": attn, "mlp": mlp}
+    else:
+        if cfg.ssm_version != 1:
+            raise NotImplementedError(f"mamba2 layers wait for {_SLICES['hybrid']}")
+        di, n, dtr = cfg.d_inner(), cfg.ssm_state, cfg.dtr()
+        spec["blocks"] = {
+            "norm1": norm(L),
+            "mamba": {
+                "in_proj": dense((L, d, 2 * di)),
+                "conv_w": dense((L, di, cfg.d_conv), 0.1),
+                "conv_b": ((L, di), dt, ("zeros",)),
+                "x_proj": dense((L, di, dtr + 2 * n)),
+                "dt_proj": dense((L, dtr, di)),
+                "dt_bias": ((L, di), dt, ("full", -4.6)),  # softplus^-1(0.01)
+                "A_log": ((L, di, n), f32, ("a_log",)),
+                "D_skip": ((L, di), f32, ("ones",)),
+                "out_proj": dense((L, di, d)),
+            },
+        }
+    return spec
+
+
+def _init_leaf(leaf, gen: torch.Generator, device) -> torch.Tensor:
+    shape, dtype, (kind, *arg) = leaf
+    if kind == "normal":
+        out = torch.empty(shape, dtype=dtype, device=device)
+        # draw a layer at a time, so the f32 draw never holds a whole stack
+        rows = out.reshape(-1, *shape[-2:]) if len(shape) > 2 else out[None]
+        for r in rows:
+            r.copy_(torch.randn(r.shape, generator=gen, device=device) * arg[0])
+        return out
+    if kind == "zeros":
+        return torch.zeros(shape, dtype=dtype, device=device)
+    if kind == "ones":
+        return torch.ones(shape, dtype=dtype, device=device)
+    if kind == "full":
+        return torch.full(shape, arg[0], dtype=dtype, device=device)
+    # a_log: log(1..N) on every channel of every layer
+    n = shape[-1]
+    row = torch.from_numpy(np.log(np.arange(1, n + 1, dtype=np.float32)))
+    return row.to(device).expand(shape).contiguous()
+
+
+def _map_spec(fn, spec):
+    if isinstance(spec, dict):
+        return {k: _map_spec(fn, v) for k, v in spec.items()}
+    return fn(spec)
+
+
+def init_params(cfg: ModelConfig, seed: int = 0, device="cuda") -> Params:
+    """Random parameters drawn on ``device`` from ``torch.Generator(seed)``:
+    the reference's names, shapes, dtypes and scales (normal x 0.02, conv
+    weights x 0.1), not its numbers (the two generators differ)."""
+    dev = resolve_device(device)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    return _map_spec(lambda leaf: _init_leaf(leaf, gen, dev), param_spec(cfg))
+
+
+def _layer(tree, i: int):
+    """Layer ``i``'s parameters (or cache rows): views of the stacked leaves."""
+    if isinstance(tree, dict):
+        return {k: _layer(v, i) for k, v in tree.items()}
+    return tree[i]
+
+
+# ================================================================ block bodies
+def _self_block(h, bp, cfg, positions, cache=None, backend="kernel"):
+    """Pre-norm attention + MLP.  Returns (h, new_cache); the reference's
+    third output, the MoE auxiliary loss, is zero for a dense block."""
+    x = apply_norm(cfg.norm, h, bp["norm1"], backend)
+    attn_out, new_cache = attention_block(
+        x, bp["attn"], cfg, positions, kv_cache=cache, backend=backend
+    )
+    h = h + attn_out
+    x = apply_norm(cfg.norm, h, bp["norm2"], backend)
+    return h + mlp_block(x, bp["mlp"], kind=cfg.mlp), new_cache
+
+
+def _mamba_layer(h, bp, cfg, state=None, backend="kernel"):
+    x = apply_norm(cfg.norm, h, bp["norm1"], backend)
+    out, new_state = mamba1_block(x, bp["mamba"], cfg, state, backend)
+    return h + out, new_state
+
+
+# ===================================================================== forward
+def _embed(params, cfg, batch):
+    if cfg.embedding_inputs:
+        raise NotImplementedError(f"embedding inputs wait for {_SLICES['audio']}")
+    return params["embed"][batch["tokens"].long()]
+
+
+def _logits(params, cfg, h, backend="kernel"):
+    h = apply_norm(cfg.norm, h, params["final_norm"], backend)
+    if cfg.tie_embeddings:
+        return torch.matmul(h, params["embed"].t())
+    return torch.matmul(h, params["lm_head"])
+
+
+def forward(params: Params, cfg: ModelConfig, batch, backend: str = "kernel"
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Full-sequence causal forward.  Returns (logits, aux)."""
+    _check_family(cfg)
+    h = _embed(params, cfg, batch)
+    positions = torch.arange(h.shape[1], device=h.device)
+    for i in range(cfg.n_layers):
+        bp = _layer(params["blocks"], i)
+        if cfg.family == "dense":
+            h, _ = _self_block(h, bp, cfg, positions, backend=backend)
+        else:
+            h, _ = _mamba_layer(h, bp, cfg, backend=backend)
+    aux = torch.zeros((), dtype=torch.float32, device=h.device)  # no MoE loss
+    return _logits(params, cfg, h, backend), aux
+
+
+# ====================================================================== decode
+def init_cache(cfg: ModelConfig, batch_size: int, max_len: int, device="cuda"):
+    """Zero decode caches: per-layer K/V buffers (dense) or the SSM state and
+    conv tail (ssm), and the filled length."""
+    _check_family(cfg)
+    dev = resolve_device(device)
+    dtype = cfg.act_dtype()
+    L = cfg.n_layers
+    if cfg.family == "dense":
+        shape = (L, batch_size, max_len, cfg.n_kv_heads, cfg.hd())
+        return {"k": torch.zeros(shape, dtype=dtype, device=dev),
+                "v": torch.zeros(shape, dtype=dtype, device=dev), "len": 0}
+    di, n = cfg.d_inner(), cfg.ssm_state
+    return {
+        "ssm": torch.zeros((L, batch_size, di, n), dtype=torch.float32, device=dev),
+        "conv": torch.zeros((L, batch_size, cfg.d_conv - 1, di), dtype=dtype, device=dev),
+        "len": 0,
+    }
+
+
+def decode_step(params: Params, cfg: ModelConfig, cache, batch, backend: str = "kernel"):
+    """One-token decode.  batch: {tokens (B, 1)}.  Returns (logits, cache);
+    the cache's tensors are updated in place."""
+    _check_family(cfg)
+    h = _embed(params, cfg, batch)
+    length = int(cache["len"])
+    positions = torch.full((1,), length, dtype=torch.int64, device=h.device)
+    for i in range(cfg.n_layers):
+        bp = _layer(params["blocks"], i)
+        if cfg.family == "dense":
+            h, _ = _self_block(h, bp, cfg, positions,
+                               cache=(cache["k"][i], cache["v"][i], length),
+                               backend=backend)
+        else:
+            h, (ns, nc) = _mamba_layer(h, bp, cfg, state=(cache["ssm"][i], cache["conv"][i]),
+                                       backend=backend)
+            cache["ssm"][i].copy_(ns)
+            cache["conv"][i].copy_(nc)
+    return _logits(params, cfg, h, backend), dict(cache, len=length + 1)
+
+
+def prefill(params: Params, cfg: ModelConfig, batch, max_len: int, backend: str = "kernel"):
+    """Full-sequence forward that also fills the decode cache: K/V of the
+    prompt (dense) or the scan's final state and conv tail (ssm).  Returns
+    (last_logits (B, 1, V), cache)."""
+    _check_family(cfg)
+    h = _embed(params, cfg, batch)
+    b, s, _ = h.shape
+    positions = torch.arange(s, device=h.device)
+    cache = init_cache(cfg, b, max_len, device=h.device)
+    for i in range(cfg.n_layers):
+        bp = _layer(params["blocks"], i)
+        if cfg.family == "dense":
+            h, _ = _self_block(h, bp, cfg, positions,
+                               cache=(cache["k"][i], cache["v"][i], 0), backend=backend)
+        else:
+            h, (ns, nc) = _mamba_layer(h, bp, cfg, backend=backend)
+            cache["ssm"][i].copy_(ns)
+            cache["conv"][i].copy_(nc)
+    cache["len"] = s
+    return _logits(params, cfg, h[:, -1:], backend), cache

@@ -150,6 +150,62 @@ def zipf_keys(rng, n: int, universe: int, skew: float) -> np.ndarray:
     return rng.choice(universe, size=n, p=p)
 
 
+def weighted_cycle(weights) -> List[int]:
+    """The deterministic weighted-round-robin cycle over priority classes.
+
+    Class ``c`` (higher = more urgent) appears ``weights[c]`` times; classes
+    are laid out highest-first with each class's slots CONTIGUOUS, so within
+    one cycle the urgent classes drain their whole credit burst before the
+    next class starts, and the lowest class's credits sit at the cycle's
+    tail.  The contiguity is what makes the starvation bound of
+    :func:`weighted_dequeue_plan` tight: between two credits of class ``c``
+    there are exactly ``sum(weights) - weights[c]`` foreign credits.
+    """
+    ws = [int(w) for w in weights]
+    if not ws or any(w < 1 for w in ws):
+        raise ValueError(f"class weights must all be >= 1, got {list(weights)}")
+    cyc: List[int] = []
+    for c in range(len(ws) - 1, -1, -1):
+        cyc.extend([c] * ws[c])
+    return cyc
+
+
+def weighted_dequeue_plan(
+    backlogs, weights, n: int, cursor: int = 0
+) -> Tuple[List[int], int]:
+    """Plan ``n`` dequeues across per-class shards by weighted round-robin.
+
+    ``backlogs[c]`` is class ``c``'s committed shard backlog, ``weights[c]``
+    its per-cycle dequeue credit, ``cursor`` the persistent position in the
+    weighted cycle (thread it through successive calls).  Returns
+    ``(plan, new_cursor)`` where ``plan`` lists the class shard to dequeue
+    for each of up to ``n`` slots.  The walk is work-conserving: a credit
+    landing on an empty class is skipped, so the plan emits
+    ``min(n, sum(backlogs))`` dequeues.
+
+    Starvation bound: between two consecutive dequeues of a class ``c`` that
+    stays backlogged, at most ``sum(weights) - weights[c]`` other dequeues
+    are emitted, across plan-call boundaries, for any backlog mix.
+    """
+    left = [int(b) for b in backlogs]
+    cyc = weighted_cycle(weights)
+    if len(left) != len(set(cyc)):
+        raise ValueError(
+            f"backlogs ({len(left)} classes) must parallel weights "
+            f"({len(set(cyc))} classes)"
+        )
+    w_total = len(cyc)
+    cursor = int(cursor) % w_total
+    plan: List[int] = []
+    while len(plan) < n and any(v > 0 for v in left):
+        c = cyc[cursor]
+        cursor = (cursor + 1) % w_total
+        if left[c] > 0:
+            plan.append(c)
+            left[c] -= 1
+    return plan, cursor
+
+
 def route_batch(keys, ops, params, *, n_shards: int, lanes: int, table=None):
     """Bucket a flat announced batch into per-shard op lists, on the device
     of ``ops``.
