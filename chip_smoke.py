@@ -62,11 +62,22 @@ script exits non-zero without printing a result):
                   within a relative max-abs error of 5e-2 in bf16; greedy
                   token agreement over the decode printed, not gated).  The
                   three model kernels are timed at the path's shapes beside
-                  their bounds, plain versions and PyTorch calls.
+                  their bounds, plain versions and PyTorch calls (RMSNorm
+                  also at falcon's prefill rows and both decode rows), each
+                  kernel in turns with its PyTorch call (library, kernel,
+                  kernel, library): ``ms`` one call per CUDA-event pair,
+                  ``device_ms`` device time per call (the profiler's median
+                  launch of each kernel over 20 calls, or events around 20
+                  calls in one CUDA graph), ``host_us`` host time per call
+                  (200 calls without a synchronize).
 
 Phase 3 also holds the three model kernels (RMSNorm, flash attention, the
 selective scan) against their plain versions at model shapes, in bf16 and
-f32 (tolerances in ``MODEL_TOL``).  ``--phases`` runs a subset (default all).
+f32 (tolerances in ``MODEL_TOL``): flash attention at every head dim, a
+ragged S, S = T = 1, non-causal, Hq = Hkv and a group of 4; RMSNorm at both
+models' prefill and decode rows and a D off the 16-byte vector; an unaligned
+input to both; and a launch under ``torch.cuda.stream`` runs on that stream.
+``--phases`` runs a subset (default all).
 
 Then the card line (nvidia-smi), one JSON line with a record per kernel and,
 last, ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
@@ -79,6 +90,7 @@ import contextlib
 import hashlib
 import io
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -1119,42 +1131,95 @@ def model_bound(name, shape, dtype_bytes):
     return (t_bytes * 1e3, "bytes") if t_bytes >= t_ops else (t_ops * 1e3, "operations")
 
 
-def model_kernel_vs_plain(torch, name, shape, dtype):
+def model_kernel_vs_plain(torch, name, shape, dtype, args=None, **kw):
     """One call of the model kernel and of its plain version on the same
-    inputs; returns (max abs err, the tolerance it was held to)."""
+    inputs (``args``, or ``model_inputs`` at ``shape``), keyword arguments
+    ``kw`` to both; returns (max abs err, the tolerance it was held to)."""
     fn, plain = model_fns(name)
-    args = model_inputs(torch, name, shape, dtype)
-    got = fn(*args)
+    args = model_inputs(torch, name, shape, dtype) if args is None else args
+    got = fn(*args, **kw)
     torch.cuda.synchronize()
-    want = plain(*args)
+    want = plain(*args, **kw)
     got = got if isinstance(got, tuple) else (got,)
     want = want if isinstance(want, tuple) else (want,)
     key = "float32" if dtype == torch.float32 else "bfloat16"
     tol = SCAN_TOL_F32 if name == "selective_scan" and key == "float32" else MODEL_TOL[key]
+    what = f"{name} {shape} {key} {kw or ''}"
     err = 0.0
     for a, b in zip(got, want):
         check(a.shape == b.shape and a.dtype == b.dtype,
-              f"{name} {shape} {key}: output shape/dtype differs from the plain version")
-        check(bool(torch.isfinite(a.float()).all()), f"{name} {shape} {key}: non-finite output")
+              f"{what}: output shape/dtype differs from the plain version")
+        check(bool(torch.isfinite(a.float()).all()), f"{what}: non-finite output")
         diff = (a.float() - b.float()).abs()
         err = max(err, float(diff.max()))
         check(bool((diff <= tol + tol * b.float().abs()).all()),
-              f"{name} {shape} {key}: max abs err {float(diff.max()):.3g} over tolerance {tol}")
+              f"{what}: max abs err {float(diff.max()):.3g} over tolerance {tol}")
     return err, tol
 
 
+def unaligned(torch, shape, dtype):
+    """An input of ``shape`` whose data pointer is 2 bytes past a 16-byte
+    boundary: the contiguous slice [1:] of a flat buffer."""
+    g = torch.Generator(device="cuda").manual_seed(1)
+    n = math.prod(shape)
+    flat = (torch.randn(n + 1, generator=g, device="cuda") * 0.5).to(dtype)
+    x = flat[1:].view(shape)
+    check(x.data_ptr() % 16 != 0 and x.is_contiguous(), "the unaligned input is aligned")
+    return x
+
+
 def phase_model_kernels(torch):
-    """The three model kernels against their plain versions at the serving
-    path's shapes (and a ragged attention length), in bf16 and f32."""
-    cases = [("rmsnorm", (r, d)) for r in (8, 4096) for d in (576, 4096)]
-    cases += [("flash_attention", (8, 512, 9, 3, 64)), ("flash_attention", (8, 200, 9, 3, 64))]
-    cases += [("selective_scan", (4, 512, 8192, 16))]
+    """The three model kernels against their plain versions in bf16 and
+    f32: at the serving path's shapes and around them (flash attention at
+    every head dim, a ragged S, S = T = 1, non-causal, no grouping and a
+    group of 4 over 2 blocks; RMSNorm at both models' prefill and decode
+    rows, a D off the 16-byte vector; an unaligned input to both); then a
+    kernel launched under ``torch.cuda.stream`` runs on that stream."""
+    from repro_torch.kernels import nvcc
+    from repro_torch.kernels.flash_attention.kernel import HEAD_DIMS
+    cases = [("rmsnorm", (r, d), {}) for r, d in
+             ((4096, 576), (2048, 4096), (8, 576), (4, 4096), (64, 100))]
+    cases += [("flash_attention", (8, 512, 9, 3, 64), {}),
+              ("flash_attention", (8, 200, 9, 3, 64), {})]
+    cases += [("flash_attention", (2, 512, 9, 3, hd), {}) for hd in HEAD_DIMS if hd != 64]
+    cases += [("flash_attention", (2, 1, 9, 3, 64), {}),
+              ("flash_attention", (2, 200, 9, 3, 64), {"causal": False}),
+              ("flash_attention", (2, 512, 4, 4, 64), {}),
+              ("flash_attention", (2, 256, 8, 2, 32), {}),
+              ("flash_attention", (1, 100, 4, 4, 128), {"causal": False})]
+    cases += [("selective_scan", (4, 512, 8192, 16), {})]
     lines = []
-    for name, shape in cases:
+    for name, shape, kw in cases:
         for dtype in (torch.bfloat16, torch.float32):
-            err, tol = model_kernel_vs_plain(torch, name, shape, dtype)
-            lines.append(f"{name}{shape} {str(dtype)[6:]} {err:.3g} (atol = rtol = {tol:g})")
+            err, tol = model_kernel_vs_plain(torch, name, shape, dtype, **kw)
+            lines.append(f"{name}{shape}{kw or ''} {str(dtype)[6:]} {err:.3g} "
+                         f"(atol = rtol = {tol:g})")
+    for dtype in (torch.bfloat16, torch.float32):
+        x = unaligned(torch, (4096, 576), dtype)
+        w = model_inputs(torch, "rmsnorm", (4096, 576), dtype)[1]
+        err, tol = model_kernel_vs_plain(torch, "rmsnorm", (4096, 576), dtype, args=(x, w))
+        lines.append(f"rmsnorm(4096, 576) unaligned {str(dtype)[6:]} {err:.3g} "
+                     f"(atol = rtol = {tol:g})")
+        _, k, v = model_inputs(torch, "flash_attention", (2, 200, 9, 3, 64), dtype)
+        q = unaligned(torch, (2, 200, 9, 64), dtype)
+        err, tol = model_kernel_vs_plain(torch, "flash_attention", (2, 200, 9, 3, 64), dtype,
+                                         args=(q, k, v))
+        lines.append(f"flash_attention(2, 200, 9, 3, 64) unaligned q {str(dtype)[6:]} "
+                     f"{err:.3g} (atol = rtol = {tol:g})")
     print("model kernels vs plain, max abs err: " + "; ".join(lines), flush=True)
+
+    side = torch.cuda.Stream()
+    fn, plain = model_fns("flash_attention")
+    args = model_inputs(torch, "flash_attention", (8, 512, 9, 3, 64), torch.bfloat16)
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        check(nvcc.stream(args[0].device) == side.cuda_stream,
+              "nvcc.stream does not follow torch.cuda.stream")
+        got = fn(*args)
+    side.synchronize()
+    check(bool(torch.equal(got, fn(*args))), "flash attention on a side stream differs")
+    print("model kernels follow torch.cuda.stream: the launch ran on the side stream",
+          flush=True)
 
 
 # ------------------------------------------------------------------- serve
@@ -1282,38 +1347,149 @@ def profile_model(torch, out, first, gen):
                   lambda: serve_step(params, dict(cache), {"tokens": tok}), 4)
 
 
-def time_model_kernel(torch, name, shape, dtype, launches):
-    """A model kernel's record at the serving path's ``shape``: card time,
-    plain version's time, one PyTorch call's time where one computes the
-    same function, and the bound."""
+DEVICE_CALLS = 20  # calls per profiler window: a model kernel's device_ms
+HOST_CALLS = 200  # calls per host-clock window: its host_us
+
+
+def profiler_device_ms(torch, fn, n=DEVICE_CALLS):
+    """(device ms per call of ``fn`` from ``torch.profiler`` over ``n``
+    calls, the fewest launches it kept of any kernel): each kernel's median
+    launch, times its launches per call, summed over the call's kernels.
+    The profiler drops some launches of so short a window (in a whole run of
+    this script, after phases 4-6, most or all), so the time is None unless
+    it kept at least half of each kernel's."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    launches = {}
+    for ev in prof.events():
+        if ev.device_type == torch.autograd.DeviceType.CUDA:
+            launches.setdefault(ev.name, []).append(ev.time_range.elapsed_us())
+    kept = min(map(len, launches.values()), default=0)
+    if 2 * kept < n:
+        return None, kept
+    us = sum(statistics.median(d) * max(1, round(len(d) / n)) for d in launches.values())
+    return us / 1e3, kept
+
+
+def graph_device_ms(torch, fn, n=DEVICE_CALLS):
+    """Device ms per call of ``fn``: CUDA events around ``n`` calls captured
+    in one CUDA graph (the gaps between the graph's kernels included)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()  # warm up on a side stream before the capture, as CUDA graphs need
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(n):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / n
+
+
+def host_us_per_call(torch, fn, n=HOST_CALLS):
+    """The host's time per call of ``fn`` in microseconds: the host clock
+    over ``n`` calls with no synchronize between them, then one."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) / n * 1e6
+
+
+def in_turns(torch, kernel, library):
+    """The kernel's and the library call's timings, taken in turns (library,
+    kernel, kernel, library; the kernel alone where there is no library
+    call), each number the mean of its turns: ``ms``, one call per
+    CUDA-event pair (median of 20, as ``cuda_ms``); ``device_ms``, device
+    time per call, from the profiler where it kept enough launches in every
+    turn, else from CUDA graphs for all turns (``device_ms_by``);
+    ``host_us``, host time per call.  Returns (kernel's, library's or
+    None)."""
+    fns = (kernel,) if library is None else (library, kernel, kernel, library)
+    dev, kept = zip(*(profiler_device_ms(torch, fn) for fn in fns))
+    how = f"{'/'.join(map(str, kept))} of {DEVICE_CALLS} launches kept by the profiler"
+    if None in dev:
+        dev, how = [graph_device_ms(torch, fn) for fn in fns], f"graph; {how}"
+    else:
+        how = f"profiler; {how}"
+    turns = [{"ms": cuda_ms(fn, 20), "device_ms": d, "device_ms_by": how,
+              "host_us": host_us_per_call(torch, fn)} for fn, d in zip(fns, dev)]
+    if library is None:
+        return turns[0], None
+
+    def mean(a, b):
+        return {k: (a[k] + b[k]) / 2 if isinstance(a[k], float) else a[k] for k in a}
+    return mean(turns[1], turns[2]), mean(turns[0], turns[3])
+
+
+def library_call(torch, name, args):
+    """One PyTorch call computing the model kernel's function on ``args``
+    (its inputs laid out as the call wants them beforehand), or None.  A
+    yardstick only: the port never calls these."""
     import torch.nn.functional as F
-    fn, plain = model_fns(name)
-    err, tol = model_kernel_vs_plain(torch, name, shape, dtype)
-    args = model_inputs(torch, name, shape, dtype)
-    ms = cuda_ms(lambda: fn(*args), 20)
-    plain_ms = cuda_ms(lambda: plain(*args), 3 if name == "selective_scan" else 10)
-    library_ms = None
     if name == "rmsnorm":
         x, w = args
-        library_ms = cuda_ms(lambda: F.rms_norm(x, (x.shape[-1],), weight=w, eps=1e-6), 20)
-    elif name == "flash_attention":
+        return lambda: F.rms_norm(x, (x.shape[-1],), weight=w, eps=1e-6)
+    if name == "flash_attention":
         q, k, v = args
         group = q.shape[2] // k.shape[2]
         qt = q.transpose(1, 2).contiguous()
         kt = k.repeat_interleave(group, dim=2).transpose(1, 2).contiguous()
         vt = v.repeat_interleave(group, dim=2).transpose(1, 2).contiguous()
-        library_ms = cuda_ms(
-            lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True), 20)
+        return lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+    return None
+
+
+def measure_model_kernel(torch, name, shape, dtype):
+    """A model kernel at ``shape``: held against its plain version, then
+    timed in turns with the library call (``in_turns``), beside its
+    bound.  Returns the fields of its record."""
+    fn, plain = model_fns(name)
+    err, tol = model_kernel_vs_plain(torch, name, shape, dtype)
+    args = model_inputs(torch, name, shape, dtype)
+    lib = library_call(torch, name, args)
+    kern, libt = in_turns(torch, lambda: fn(*args), lib)
+    plain_ms = cuda_ms(lambda: plain(*args), 3 if name == "selective_scan" else 10)
     bound_ms, bound_by = model_bound(name, shape, 2 if dtype == torch.bfloat16 else 4)
+    rec = {"max_abs_err": err, **kern, "plain_ms": plain_ms, "bound_ms": bound_ms,
+           "bound_by": bound_by, "library_ms": None if libt is None else libt["ms"],
+           "library_device_ms": None if libt is None else libt["device_ms"],
+           "library_host_us": None if libt is None else libt["host_us"],
+           "shape": list(shape), "dtype": str(dtype)[6:], "tolerance": tol}
+    lib_txt = "none" if libt is None else (
+        f"{libt['ms']:.4f} ms, device {libt['device_ms']:.4f} ms, host "
+        f"{libt['host_us']:.1f} us")
+    print(f"kernel {name} {shape} {str(dtype)[6:]}: {kern['ms']:.4f} ms, device "
+          f"{kern['device_ms']:.4f} ms ({kern['device_ms_by']}), host "
+          f"{kern['host_us']:.1f} us per call; library {lib_txt}; plain {plain_ms:.4f} ms; "
+          f"bound {bound_ms:.6f} ms by {bound_by}; max abs err {err:.3g}", flush=True)
+    return rec
+
+
+def time_model_kernel(torch, name, shape, dtype, launches, more_shapes=()):
+    """A model kernel's record at the serving path's ``shape``, with the
+    same fields at ``more_shapes`` under ``at``."""
     src, replaces = MODEL_KERNELS[name]
     rec = {"name": name, "route": "cuda", "source": src, "replaces": replaces,
-           "launches": launches, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-           "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms,
-           "shape": list(shape), "dtype": str(dtype)[6:], "tolerance": tol}
-    print(f"kernel {name} {shape} {str(dtype)[6:]}: {ms:.4f} ms (plain {plain_ms:.4f} ms, "
-          f"library {'none' if library_ms is None else f'{library_ms:.4f} ms'}, bound "
-          f"{bound_ms:.4f} ms by {bound_by}), max abs err {err:.3g}, {launches} launches "
-          "on the serve path", flush=True)
+           "launches": launches, **measure_model_kernel(torch, name, shape, dtype)}
+    if more_shapes:
+        rec["at"] = {"x".join(map(str, s)): measure_model_kernel(torch, name, s, dtype)
+                     for s in more_shapes}
     return rec
 
 
@@ -1370,16 +1546,11 @@ def phase_serve(torch, K, records):
               "selective_scan": (4, 512, 8192, 16)}
     dtypes = {"rmsnorm": torch.bfloat16, "flash_attention": torch.bfloat16,
               "selective_scan": torch.float32}
+    # RMSNorm also at falcon's prefill rows and at a decode step's rows
+    more = {"rmsnorm": ((2048, 4096), (8, 576), (4, 4096))}
     for name in shapes:
-        records[name] = time_model_kernel(torch, name, shapes[name], dtypes[name], totals[name])
-    # the decode shapes RMSNorm sees most often: one row per batch row
-    for shape in ((8, 576), (4, 4096)):
-        args = model_inputs(torch, "rmsnorm", shape, torch.bfloat16)
-        ms = cuda_ms(lambda: model_fns("rmsnorm")[0](*args), 20)
-        b, by = model_bound("rmsnorm", shape, 2)
-        records["rmsnorm"][f"ms_rows_{shape[0]}x{shape[1]}"] = ms
-        print(f"kernel rmsnorm {shape} bfloat16 (a decode step's rows): {ms:.4f} ms "
-              f"(bound {b:.6f} ms by {by}; launch latency is the real bound)", flush=True)
+        records[name] = time_model_kernel(torch, name, shapes[name], dtypes[name],
+                                          totals[name], more.get(name, ()))
 
 
 def main(argv=None) -> int:

@@ -1,33 +1,72 @@
-// Hand-written Hopper (sm_90a) kernel for GQA flash attention (forward).
+// Hand-written Hopper (sm_90a) kernels for GQA flash attention (forward).
 //
 // Replaces (JAX package) kernels/flash_attention/kernel.py::flash_attention
 // (:77, pallas_call :95).  Computes softmax(q k^T / sqrt(hd)) v per query
 // head, query head h reading kv head h / (Hq / Hkv), with f32 scores,
 // running max, denominator and accumulator, the output stored in q's dtype
 // (f32 or bf16).  With `causal`, key t is visible to query s iff t <= s, both
-// counted from position 0.  Plain C interface (extern "C", raw pointers, the
-// stream as void*), built by nvcc at first use and bound with ctypes by
-// ../kernel.py; the entry point returns cudaGetLastError() of its launch.
+// counted from position 0.  The last query tile may be ragged (S % 64 != 0):
+// its missing rows load zeros, take part in the tiles and store nothing.
+// (The TPU kernel drops those rows instead: n_q = S // blk_q.)  The final
+// divide is by max(l, 1e-30).  Plain C interface (extern "C", raw pointers,
+// the stream as void*), built by nvcc at first use and bound with ctypes by
+// ../kernel.py; the entry point returns the CUDA error of its launch.
+//
+// bf16: flash_mma_kernel, on the tensor cores.
 //
 // What bounds it on this card.  At the serving path's prefill (B 8, S = T
-// 512, Hq 9, Hkv 3, hd 64, causal, bf16) the work is 2.4 GFLOP per layer
-// against 12.6 MB of q, k, v and out: 3.8 us for the bytes at 3.35 TB/s,
-// 2.4 us for the operations on the bf16 tensor cores -- so the card's bound
-// is bytes.  This kernel does its products as scalar f32 FMAs, whose peak
-// (67 TFLOP/s) puts its own floor at 36 us: operations bound it.
+// 512, Hq 9, Hkv 3, hd 64, causal) the work is 2.4 GFLOP per layer against
+// 12.6 MB of q, k, v and out: 3.8 us for the bytes at 3.35 TB/s, 2.4 us for
+// the products at the bf16 tensor cores' 989 TFLOP/s, so the card's bound is
+// bytes.  Both are small next to the kernel's own latency (a block walks up
+// to 8 key tiles one after another), so the design aims at keeping the
+// tensor cores fed and every SM busy rather than at the last byte.  Measured
+// (chip_smoke.py phase 7, NVIDIA H100 80GB HBM3 at a 700 W power limit):
+// 0.0204 ms of device time per launch, 5.4x the byte bound and 1.3x
+// scaled_dot_product_attention's 0.0153 ms on the same inputs; the scalar
+// kernel it replaces took 0.3892 ms on the same card.
 //
-// Design.  One block per (query tile of 64 rows, query head, batch row);
-// one thread per query row, holding its q row and its f32 accumulator in
-// registers.  The block walks the key tiles (64 keys; 32 for hd 128, to stay
-// under 48 KB of static shared memory) up to the diagonal -- tiles wholly
-// above it are never loaded -- staging each K and V tile in shared memory as
-// f32, read by all threads as broadcasts.  Keys are taken 16 at a time: 16
-// scores, one rescale of the accumulator by exp(m_old - m_new), then the 16
-// weighted V rows.  The last query tile may be ragged (S % 64 != 0): its
-// missing rows take part in the tile loads and store nothing.  (The TPU
-// kernel drops those rows instead: n_q = S // blk_q.)  The final divide is
-// by max(l, 1e-30).  The products are scalar f32 FMAs; wgmma/mma.sync tiles,
-// TMA loads and pipelining are later work.
+// Design.  One block per (64 query positions, HB query heads of one kv
+// head, batch row), HB = 3 or 2 where it divides the group Hq / Hkv, else 1;
+// at the serving shape HB = 3, all the group's heads, so a block holds 3 x
+// 64 query rows and there are 8 tiles x 3 kv heads x 8 batch rows = 192
+// blocks.  The block has 4 x HB warps: each owns 16 positions of one head,
+// so its f32 accumulator (hd / 2 floats a lane) stays in registers however
+// many heads the block serves.  The heaviest (last, most key tiles) query
+// tiles are handed out first.  Shared memory holds the block's Q rows and
+// two K/V tiles of 64 keys, filled by cp.async (16 bytes a thread,
+// zero-filled past S and T) and double-buffered: tile i+1 loads while tile i
+// is used.  Each K/V tile is read from device memory once for all HB query
+// heads.  Rows are padded by 16 bytes (hd + 8 bf16), so the 8 row addresses
+// of every ldmatrix fall in 8 different 16-byte bank groups: no bank
+// conflicts at any hd of 16..128.  Per tile a warp computes S = Q K^T (16 x
+// 64) with mma.sync.m16n8k16 (bf16 in, f32 accumulate; Q and K fragments by
+// ldmatrix), scales it into the exp2 domain (scale * log2 e), masks keys
+// t >= T and, on tiles that reach past the warp's first row, keys t > s to
+// -inf before the row max, reduces the max over the 4 lanes of a quad with
+// __shfl_xor_sync, rescales its accumulator by exp2(m_old - m_new) (0 on the
+// first tile, where m_old = -inf; a row with no visible key yet uses 0 as
+// its base, so -inf - -inf never occurs), and multiplies P, rounded to bf16
+// in the registers that held S, by V (fragments by ldmatrix.trans) into the
+// f32 accumulator.  Tiles wholly above the diagonal are never loaded.  The
+// output is staged through the warp's own Q rows and stored as 16-byte rows.
+// At hd 64, HB 3: 384 threads of 124 registers (no spills; 168 at hd 128),
+// 64.5 KB of dynamic shared memory (cudaFuncSetAttribute before the first
+// launch), so one block is resident per SM, by registers, and the 192 blocks
+// run as 132 and then 60 (the lightest).
+//
+// Numerics.  Q K^T multiplies bf16 by bf16 exactly into f32 (8-bit
+// significands, 16-bit products), as the reference's f32 dot of bf16-valued
+// inputs does, and sums in another order.  P is rounded to bf16 for the PV
+// product, at most 2^-8 relative error per weight (bf16 keeps 8 significant
+// bits), while the denominator l sums the unrounded f32 weights; the output
+// then rounds to bf16.  Held to atol = rtol = 1e-2 against the plain version
+// (chip_smoke.py).
+//
+// f32: flash_scalar_kernel, exact to 1e-5 and on no serving path.  One
+// thread per query row holding its q row and f32 accumulator in registers,
+// K and V tiles in shared memory as f32, keys 16 at a time per rescale; its
+// products are scalar f32 FMAs, whose peak (67 TFLOP/s) bounds it.
 
 #include <math.h>
 
@@ -35,14 +74,17 @@
 
 namespace {
 
+typedef __nv_bfloat16 bf16;
+
+// ------------------------------------------------------------ f32, scalar
 constexpr int kBQ = 64;  // query rows per block = threads per block
 constexpr int kChunk = 16;  // keys per online-softmax rescale
 
 template <typename T, int HD>
 __global__ void __launch_bounds__(kBQ)
-flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ out, int S, int Tk, int Hq,
-                 int Hkv, int causal, float scale) {
+flash_scalar_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                    const T* __restrict__ v, T* __restrict__ out, int S, int Tk, int Hq,
+                    int Hkv, int causal, float scale) {
   constexpr int BK = HD >= 128 ? 32 : 64;  // keys per shared-memory tile
   constexpr int H4 = HD / 4;
   __shared__ float4 Ks[BK * H4];
@@ -142,36 +184,286 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int d = 0; d < HD; ++d) op[d] = model::from_f<T>(acc[d] * inv);
 }
 
-template <typename T, int HD>
-int launch(const void* q, const void* k, const void* v, void* out, int B, int S, int Tk,
-           int Hq, int Hkv, int causal, float scale, cudaStream_t stream) {
+template <int HD>
+int launch_scalar(const void* q, const void* k, const void* v, void* out, int B, int S,
+                  int Tk, int Hq, int Hkv, int causal, float scale, cudaStream_t stream) {
   const dim3 grid((S + kBQ - 1) / kBQ, Hq, B);
-  flash_fwd_kernel<T, HD><<<grid, kBQ, 0, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(out), S, Tk, Hq, Hkv, causal, scale);
+  flash_scalar_kernel<float, HD><<<grid, kBQ, 0, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(out), S, Tk, Hq, Hkv, causal, scale);
   return (int)cudaGetLastError();
 }
 
-template <typename T>
-int dispatch(const void* q, const void* k, const void* v, void* out, int B, int S, int Tk,
-             int Hq, int Hkv, int HD, int causal, float scale, cudaStream_t stream) {
-  switch (HD) {
-    case 16: return launch<T, 16>(q, k, v, out, B, S, Tk, Hq, Hkv, causal, scale, stream);
-    case 32: return launch<T, 32>(q, k, v, out, B, S, Tk, Hq, Hkv, causal, scale, stream);
-    case 64: return launch<T, 64>(q, k, v, out, B, S, Tk, Hq, Hkv, causal, scale, stream);
-    case 128: return launch<T, 128>(q, k, v, out, B, S, Tk, Hq, Hkv, causal, scale, stream);
-    default: return (int)cudaErrorInvalidValue;
+// ------------------------------------------------------ bf16, tensor cores
+constexpr int kPosWarps = 4;         // warps along the query positions of one head
+constexpr int kRows = 16 * kPosWarps;  // query positions per block
+constexpr int kKeys = 64;            // keys per K/V tile
+
+template <int HD, int HB> constexpr int smem_bytes() {
+  return (HB * kRows + 4 * kKeys) * (HD + 8) * (int)sizeof(bf16);
+}
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes global -> shared, zero-filled where src_bytes is 0
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
+               "l"(src), "r"(src_bytes));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+template <int N> __device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// four 8x8 b16 matrices; lanes 8i..8i+7 address the rows of matrix i
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)));
+}
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], const bf16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)));
+}
+
+// d (16x8 f32) += a (16x16 bf16, row) * b (16x8 bf16, col)
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, "
+      "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+__device__ __forceinline__ float quad_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+}
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  return x + __shfl_xor_sync(0xffffffffu, x, 2);
+}
+
+// Fragment layouts of mma.m16n8k16 (lane = 4 * g + c): the accumulator's
+// [0], [1] are row g, columns 2c, 2c+1 and [2], [3] row g + 8, the same
+// columns.  S's accumulators of key blocks 2j and 2j+1 are, packed to bf16,
+// the A operand of key step j of P V.  Warp w serves query head h0 + w / 4,
+// positions q0 + 16 (w % 4) .. + 15.
+template <int HD, int HB>
+__global__ void __launch_bounds__(32 * kPosWarps * HB)
+flash_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                 const bf16* __restrict__ v, bf16* __restrict__ out, int B, int S, int Tk,
+                 int Hq, int Hkv, int causal, float scale_log2) {
+  constexpr int NT = 32 * kPosWarps * HB;  // threads
+  constexpr int LD = HD + 8;   // bf16 per shared row: 16 bytes of padding
+  constexpr int CH = HD / 8;   // 16-byte chunks per row
+  constexpr int KS = HD / 16;  // k-steps of Q K^T
+  constexpr int DB = HD / 8;   // 8-wide column blocks of the accumulator
+  extern __shared__ __align__(16) unsigned char smem[];
+  bf16* Qs = reinterpret_cast<bf16*>(smem);  // [HB][kRows][LD]
+  bf16* Ks = Qs + HB * kRows * LD;           // [2][kKeys][LD]
+  bf16* Vs = Ks + 2 * kKeys * LD;            // [2][kKeys][LD]
+
+  const int group = Hq / Hkv;
+  const int head_blocks = Hkv * (group / HB);
+  const int n_qt = (S + kRows - 1) / kRows;
+  const int qt = n_qt - 1 - (int)(blockIdx.x / (head_blocks * B));  // heaviest first
+  const int rest = blockIdx.x % (head_blocks * B);
+  const int b = rest / head_blocks;
+  const int hb = rest % head_blocks;
+  const int kvh = hb / (group / HB);
+  const int h0 = kvh * group + hb % (group / HB) * HB;  // the block's first query head
+  const int q0 = qt * kRows;
+  const int tid = threadIdx.x, lane = tid % 32;
+  const int head = tid / 32 / kPosWarps;           // of the block's HB heads
+  const int p0 = 16 * (tid / 32 % kPosWarps);      // the warp's first position in the tile
+
+  // the block's Q rows (zeros past S), then K/V tile 0
+  for (int c = tid; c < HB * kRows * CH; c += NT) {
+    const int j = c / (kRows * CH), r = c / CH % kRows, ch = c % CH;
+    const int s = q0 + r;
+    const bf16* src = q + (((size_t)b * S + min(s, S - 1)) * Hq + h0 + j) * HD + ch * 8;
+    cp_async16(Qs + (j * kRows + r) * LD + ch * 8, src, s < S ? 16 : 0);
   }
+  auto load_kv = [&](int tile, int buf) {
+    for (int c = tid; c < kKeys * CH; c += NT) {
+      const int r = c / CH, ch = c % CH;
+      const int t = tile * kKeys + r;
+      const size_t off = (((size_t)b * Tk + min(t, Tk - 1)) * Hkv + kvh) * HD + ch * 8;
+      const int n = t < Tk ? 16 : 0;
+      cp_async16(Ks + (buf * kKeys + r) * LD + ch * 8, k + off, n);
+      cp_async16(Vs + (buf * kKeys + r) * LD + ch * 8, v + off, n);
+    }
+  };
+  const int q_end = min(S, q0 + kRows);  // one past the block's last query
+  const int kv_end = causal ? min(Tk, q_end) : Tk;
+  const int n_tiles = (kv_end + kKeys - 1) / kKeys;
+  load_kv(0, 0);
+  cp_async_commit();
+
+  const bf16* Qw = Qs + (head * kRows + p0) * LD;  // the warp's 16 Q rows
+  float o[DB][4];
+#pragma unroll
+  for (int d = 0; d < DB; ++d) o[d][0] = o[d][1] = o[d][2] = o[d][3] = 0.f;
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+  const int row_lo = q0 + p0 + lane / 4;  // this lane's rows: row_lo, row_lo + 8
+
+  for (int it = 0; it < n_tiles; ++it) {
+    if (it + 1 < n_tiles) load_kv(it + 1, (it + 1) & 1);
+    cp_async_commit();
+    cp_async_wait<1>();  // tile it (and Q) have landed
+    __syncthreads();
+    const bf16* Kt = Ks + (it & 1) * kKeys * LD;
+    const bf16* Vt = Vs + (it & 1) * kKeys * LD;
+    const int k0 = it * kKeys;
+    const bool masked = k0 + kKeys > Tk || (causal && k0 + kKeys - 1 > q0 + p0);
+
+    float sc[8][4];
+#pragma unroll
+    for (int nb = 0; nb < 8; ++nb) sc[nb][0] = sc[nb][1] = sc[nb][2] = sc[nb][3] = 0.f;
+#pragma unroll
+    for (int ks = 0; ks < KS; ++ks) {
+      uint32_t a[4];
+      ldsm_x4(a, Qw + (lane & 15) * LD + ks * 16 + (lane >> 4) * 8);
+#pragma unroll
+      for (int np = 0; np < 4; ++np) {
+        uint32_t kb[4];
+        ldsm_x4(kb, Kt + (np * 16 + (lane & 7) + (lane >> 4) * 8) * LD + ks * 16 +
+                        ((lane >> 3) & 1) * 8);
+        mma_bf16(sc[2 * np], a, kb[0], kb[1]);
+        mma_bf16(sc[2 * np + 1], a, kb[2], kb[3]);
+      }
+    }
+    float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int nb = 0; nb < 8; ++nb) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float x = sc[nb][e] * scale_log2;
+        if (masked) {
+          const int t = k0 + nb * 8 + (lane & 3) * 2 + (e & 1);
+          const int s = row_lo + (e >> 1) * 8;
+          if (t >= Tk || (causal && t > s)) x = -INFINITY;
+        }
+        sc[nb][e] = x;
+        mx[e >> 1] = fmaxf(mx[e >> 1], x);
+      }
+    }
+    float base[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const float m_new = fmaxf(m[r], quad_max(mx[r]));
+      base[r] = m_new == -INFINITY ? 0.f : m_new;
+      const float alpha = exp2f(m[r] - base[r]);
+      m[r] = m_new;
+      l[r] *= alpha;
+#pragma unroll
+      for (int d = 0; d < DB; ++d) {
+        o[d][2 * r] *= alpha;
+        o[d][2 * r + 1] *= alpha;
+      }
+    }
+    uint32_t pa[4][4];  // P as the A operand of key steps 0..3
+#pragma unroll
+    for (int nb = 0; nb < 8; ++nb) {
+      const float e0 = exp2f(sc[nb][0] - base[0]), e1 = exp2f(sc[nb][1] - base[0]);
+      const float e2 = exp2f(sc[nb][2] - base[1]), e3 = exp2f(sc[nb][3] - base[1]);
+      l[0] += e0 + e1;
+      l[1] += e2 + e3;
+      pa[nb / 2][(nb & 1) * 2] = pack_bf16(e0, e1);
+      pa[nb / 2][(nb & 1) * 2 + 1] = pack_bf16(e2, e3);
+    }
+#pragma unroll
+    for (int ks = 0; ks < 4; ++ks) {
+#pragma unroll
+      for (int dp = 0; dp < DB / 2; ++dp) {
+        uint32_t vb[4];
+        ldsm_x4_trans(vb, Vt + (ks * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * LD +
+                              dp * 16 + (lane >> 4) * 8);
+        mma_bf16(o[2 * dp], pa[ks], vb[0], vb[1]);
+        mma_bf16(o[2 * dp + 1], pa[ks], vb[2], vb[3]);
+      }
+    }
+    __syncthreads();  // buffer it & 1 is refilled at the top of iteration it + 1
+  }
+  cp_async_wait<0>();
+
+  // O / l, staged through the warp's own Q rows, stored as 16-byte rows
+  __syncwarp();
+  bf16* st = Qs + (head * kRows + p0) * LD;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const float inv = 1.f / fmaxf(quad_sum(l[r]), 1e-30f);
+    bf16* row = st + (lane / 4 + 8 * r) * LD + (lane & 3) * 2;
+#pragma unroll
+    for (int d = 0; d < DB; ++d)
+      *reinterpret_cast<uint32_t*>(row + d * 8) =
+          pack_bf16(o[d][2 * r] * inv, o[d][2 * r + 1] * inv);
+  }
+  __syncwarp();
+  for (int c = lane; c < 16 * CH; c += 32) {
+    const int r = c / CH, ch = c % CH;
+    const int s = q0 + p0 + r;
+    if (s < S)
+      *reinterpret_cast<uint4*>(out + (((size_t)b * S + s) * Hq + h0 + head) * HD + ch * 8) =
+          *reinterpret_cast<const uint4*>(st + r * LD + ch * 8);
+  }
+}
+
+template <int HD, int HB>
+int launch_mma(const void* q, const void* k, const void* v, void* out, int B, int S, int Tk,
+               int Hq, int Hkv, int causal, float scale, cudaStream_t stream) {
+  constexpr int smem = smem_bytes<HD, HB>();
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      flash_mma_kernel<HD, HB>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (attr != cudaSuccess) return (int)attr;
+  const long long blocks =
+      (long long)((S + kRows - 1) / kRows) * (Hkv * (Hq / Hkv / HB)) * B;
+  flash_mma_kernel<HD, HB><<<(unsigned)blocks, 32 * kPosWarps * HB, smem, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+      static_cast<bf16*>(out), B, S, Tk, Hq, Hkv, causal, scale * 1.4426950408889634f);
+  return (int)cudaGetLastError();
+}
+
+// HB, the query heads of a group one block serves: 3 or 2 where they divide
+// the group, else 1
+template <int HD>
+int launch_mma_hd(const void* q, const void* k, const void* v, void* out, int B, int S,
+                  int Tk, int Hq, int Hkv, int causal, float scale, cudaStream_t stream) {
+  const int group = Hq / Hkv;
+  if (group % 3 == 0)
+    return launch_mma<HD, 3>(q, k, v, out, B, S, Tk, Hq, Hkv, causal, scale, stream);
+  if (group % 2 == 0)
+    return launch_mma<HD, 2>(q, k, v, out, B, S, Tk, Hq, Hkv, causal, scale, stream);
+  return launch_mma<HD, 1>(q, k, v, out, B, S, Tk, Hq, Hkv, causal, scale, stream);
 }
 
 }  // namespace
 
-// q (B,S,Hq,HD), k/v (B,Tk,Hkv,HD), out (B,S,Hq,HD); one dtype for all four
+// q (B,S,Hq,HD), k/v (B,Tk,Hkv,HD), out (B,S,Hq,HD); one dtype for all four;
+// bf16 pointers 16-byte aligned
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, void* out,
                                    int B, int S, int Tk, int Hq, int Hkv, int HD,
-                                   int causal, float scale, int bf16, void* stream) {
+                                   int causal, float scale, int is_bf16, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (bf16)
-    return dispatch<__nv_bfloat16>(q, k, v, out, B, S, Tk, Hq, Hkv, HD, causal, scale, s);
-  return dispatch<float>(q, k, v, out, B, S, Tk, Hq, Hkv, HD, causal, scale, s);
+#define FLASH_ARGS q, k, v, out, B, S, Tk, Hq, Hkv, causal, scale, s
+  switch (HD) {
+    case 16: return is_bf16 ? launch_mma_hd<16>(FLASH_ARGS) : launch_scalar<16>(FLASH_ARGS);
+    case 32: return is_bf16 ? launch_mma_hd<32>(FLASH_ARGS) : launch_scalar<32>(FLASH_ARGS);
+    case 64: return is_bf16 ? launch_mma_hd<64>(FLASH_ARGS) : launch_scalar<64>(FLASH_ARGS);
+    case 128: return is_bf16 ? launch_mma_hd<128>(FLASH_ARGS) : launch_scalar<128>(FLASH_ARGS);
+    default: return (int)cudaErrorInvalidValue;
+  }
+#undef FLASH_ARGS
 }

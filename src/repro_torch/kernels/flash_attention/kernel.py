@@ -15,7 +15,7 @@ from __future__ import annotations
 import ctypes
 import math
 from pathlib import Path
-from typing import Dict, Optional
+from typing import Dict
 
 import torch
 
@@ -28,7 +28,8 @@ LIBRARIES = (nvcc.Library("flash_attention", _HERE / "csrc" / "flash_attention.c
 LAUNCHES: Dict[str, int] = {"flash_attention": 0}
 HEAD_DIMS = (16, 32, 64, 128)  # the head widths the kernel is instantiated for
 _DTYPES = (torch.float32, torch.bfloat16)
-_LIB: Optional[ctypes.CDLL] = None
+_BF16 = torch.bfloat16
+_FWD = None  # the C entry point, resolved once, at the first launch
 
 
 def reset_launches() -> None:
@@ -39,15 +40,16 @@ def build(verbose: bool = False) -> Dict[str, Path]:
     return nvcc.build(LIBRARIES, verbose)
 
 
-def _lib() -> ctypes.CDLL:
-    global _LIB
-    if _LIB is None:
-        lib = ctypes.CDLL(str(build()["flash_attention"]))
+def _fwd():
+    global _FWD
+    if _FWD is None:
+        # PyDLL keeps the GIL through the call: a launch takes microseconds
+        fn = ctypes.PyDLL(str(build()["flash_attention"])).flash_attention_fwd
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.flash_attention_fwd.argtypes = [p] * 4 + [i] * 7 + [ctypes.c_float, i, p]
-        lib.flash_attention_fwd.restype = ctypes.c_int
-        _LIB = lib
-    return _LIB
+        fn.argtypes = [p] * 4 + [i] * 7 + [ctypes.c_float, i, p]
+        fn.restype = ctypes.c_int
+        _FWD = fn
+    return _FWD
 
 
 def flash_attention(q, k, v, *, causal: bool = True):
@@ -55,13 +57,14 @@ def flash_attention(q, k, v, *, causal: bool = True):
     multiple of Hkv (query head h reads kv head h // (Hq/Hkv)) ->
     (B, S, Hq, hd) in q's dtype.  Any S: a ragged last query tile is masked,
     never dropped.  The arguments are checked on either device, so the CPU
-    path takes only what the kernel takes."""
+    path takes only what the kernel takes.  bf16 runs on the tensor cores,
+    f32 on the scalar kernel."""
     b, s, hq, hd = q.shape
     t, hkv = k.shape[1], k.shape[2]
     dev = q.device
-    nvcc.check_tensor("q", q, _DTYPES, (b, s, hq, hd), dev)
-    nvcc.check_tensor("k", k, (q.dtype,), (b, t, hkv, hd), dev)
-    nvcc.check_tensor("v", v, (q.dtype,), (b, t, hkv, hd), dev)
+    nvcc.check_tensors(dev, ("q", q, _DTYPES, (b, s, hq, hd)),
+                       ("k", k, (q.dtype,), (b, t, hkv, hd)),
+                       ("v", v, (q.dtype,), (b, t, hkv, hd)))
     if hkv == 0 or hq % hkv:
         raise ValueError(f"{hq} query heads do not group over {hkv} kv heads")
     if hd not in HEAD_DIMS:
@@ -73,11 +76,11 @@ def flash_attention(q, k, v, *, causal: bool = True):
         return out
     if t == 0:
         raise ValueError("attention over an empty key sequence")
-    err = _lib().flash_attention_fwd(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        b, s, t, hq, hkv, hd, int(causal), 1.0 / math.sqrt(hd),
-        int(q.dtype == torch.bfloat16), nvcc.stream(dev),
-    )
+    bf16 = q.dtype == _BF16
+    if bf16:  # the tensor-core kernel copies 16-byte rows: align an offset view
+        q, k, v = (x if x.data_ptr() % 16 == 0 else x.clone() for x in (q, k, v))
+    err = _fwd()(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, s, t, hq,
+                 hkv, hd, causal, 1.0 / math.sqrt(hd), bf16, nvcc.stream(q.get_device()))
     if err:
         raise RuntimeError(f"flash attention kernel launch failed: CUDA error {err}")
     LAUNCHES["flash_attention"] += 1

@@ -106,8 +106,27 @@ def check_tensor(name: str, t, dtypes, shape, device) -> None:
         raise ValueError(f"{name} must be contiguous")
 
 
-def stream(device) -> int:
-    """The current CUDA stream of ``device``, as the C entry points take it."""
-    import torch
+def check_tensors(device, *specs) -> None:
+    """One pass over ``(name, tensor, dtypes, shape)`` specs: raise, as
+    :func:`check_tensor` words it, unless each tensor lies on ``device``,
+    has one of its ``dtypes``, its ``shape`` and a contiguous layout."""
+    for name, t, dtypes, shape in specs:
+        if (t.device != device or t.dtype not in dtypes or t.shape != shape
+                or not t.is_contiguous()):
+            check_tensor(name, t, dtypes, shape, device)
 
-    return torch.cuda.current_stream(device).cuda_stream
+
+_CURRENT_RAW_STREAM = None
+
+
+def stream(device) -> int:
+    """The handle of the current CUDA stream of ``device`` (a
+    ``torch.device`` or its index), as the C entry points take it: the
+    stream that ``torch.cuda.stream(...)`` or ``torch.cuda.set_stream`` made
+    current, read without building a ``torch.cuda.Stream``."""
+    global _CURRENT_RAW_STREAM
+    if _CURRENT_RAW_STREAM is None:
+        import torch
+
+        _CURRENT_RAW_STREAM = torch._C._cuda_getCurrentRawStream
+    return _CURRENT_RAW_STREAM(device if isinstance(device, int) else device.index)

@@ -1,34 +1,112 @@
-// Hand-written Hopper (sm_90a) kernel for row RMSNorm.
+// Hand-written Hopper (sm_90a) kernels for row RMSNorm.
 //
 // Replaces (JAX package) kernels/rmsnorm/kernel.py::rmsnorm (:27, pallas_call
 // :33): out = x * rsqrt(mean(x^2) + eps) * w per row, computed in f32 and
 // stored in x's dtype.  Takes x and w in f32 or bf16 (independently).  Plain
 // C interface (extern "C", raw pointers, the stream as void*), built by nvcc
 // at first use and bound with ctypes by ../kernel.py; the entry point returns
-// cudaGetLastError() of its launch.
+// the CUDA error of its launch.
 //
-// What bounds it on this card, and what the design does about it: a few
-// flops per element, so bytes (x read once, out written once, w read once):
-// at the model's shapes 9.4 MB (prefill, 4096 x 576 bf16) down to 9 KB
-// (decode, 8 x 576), where the launch itself is the bound.  The TPU kernel
-// holds a block of rows in VMEM and reduces it there; here each row is owned
-// by one warp (D <= 1024) or by all eight warps of a 256-thread block
-// (larger D), read with 16-byte loads, its sum of squares reduced with warp
-// shuffles (and shared memory across the row's warps), then read again --
-// from L1/L2, the row is at most 32 KB -- to scale and store.  A single pass
-// that kept the row in registers would save the second read from cache, not
-// from device memory.  The order is the reference's: (x * r) * w.
+// What bounds it on this card: a few flops per element, so bytes (x read
+// once, out written once, w read once): 9.4 MB at smollm's prefill (4096 x
+// 576 bf16, 2.8 us at 3.35 TB/s), 33.6 MB at falcon's (2048 x 4096, 10.0
+// us), 9 KB at a decode step's 8 x 576 rows, where the launch itself is the
+// bound.  Measured (chip_smoke.py phase 7, NVIDIA H100 80GB HBM3 at a 700 W
+// power limit): 0.0035 ms of device time per launch at 4096 x 576, 0.0080
+// ms at 2048 x 4096 (under the HBM bound: the repeated calls find their
+// input in the 50 MB L2), 0.0022 ms at 8 x 576.
+//
+// Design (rmsnorm_row_kernel, the path of every row whose 16-byte vectors
+// line up: D * sizeof(x) a multiple of 16, x and out 16-byte aligned, at most
+// 1024 vectors).  One pass: each row is read from device memory once, into
+// registers, its sum of squares reduced with warp shuffles (and shared
+// memory across the row's warps), then scaled and stored from the same
+// registers.  A row of D <= 1024 bf16 has one warp; a wider row enough warps
+// (a power of two up to 8) that a thread holds at most 4 vectors (32 bf16
+// as f32): 4 warps at D = 4096.  The vectors per thread are a compile-time
+// 1..4, chosen at launch (3 at D = 576: 72 vectors over 32 lanes, so lanes
+// past the row's last vector hold zeros and store nothing).  The weight
+// vector is converted to f32 into shared memory once per block, and each
+// block of 256 threads strides over rows: a grid of at most 4 blocks per SM
+// (one sweep at both prefill shapes), one block at the decode rows.  Other
+// rows (a D that is not a multiple of the vector, an unaligned pointer,
+// wider rows) take rmsnorm_generic_kernel: the same layout with scalar or
+// vector loads and a second read of the row, from L1/L2, to scale.  The
+// order is the reference's: (x * r) * w.
 
 #include "../../model_common.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;
+constexpr int kBlocksPerSM = 4;
+constexpr int kMaxVecs = 4;  // 16-byte vectors a thread holds on the one-pass path
+
+__device__ __forceinline__ float warp_sum(float x) {
+#pragma unroll
+  for (int o = 16; o; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
+  return x;
+}
+
+template <typename T, typename W, int VPT>
+__global__ void __launch_bounds__(kThreads)
+rmsnorm_row_kernel(const T* __restrict__ x, const W* __restrict__ w, T* __restrict__ out,
+                   int R, int D, int warps_per_row, float eps) {
+  constexpr int V = model::Vec16<T>::N;
+  extern __shared__ float ws[];  // w as f32, [D]
+  __shared__ float partial[kThreads / 32];
+  for (int c = threadIdx.x; c < D; c += kThreads) ws[c] = model::to_f(w[c]);
+  __syncthreads();
+
+  const int group = 32 * warps_per_row;  // threads that own one row
+  const int rows_per_block = kThreads / group;
+  const int gi = threadIdx.x / group;
+  const int t = threadIdx.x % group;
+  const int nvec = D / V;
+  for (long long base = (long long)blockIdx.x * rows_per_block; base < R;
+       base += (long long)gridDim.x * rows_per_block) {
+    const long long row = base + gi;
+    const bool live = row < R;
+    float f[VPT][V];
+    float ss = 0.f;
+#pragma unroll
+    for (int i = 0; i < VPT; ++i) {
+      const int c = t + i * group;
+      if (live && c < nvec) {
+        model::load16(x + (size_t)row * D + (size_t)c * V, f[i]);
+      } else {
+#pragma unroll
+        for (int e = 0; e < V; ++e) f[i][e] = 0.f;
+      }
+#pragma unroll
+      for (int e = 0; e < V; ++e) ss = fmaf(f[i][e], f[i][e], ss);
+    }
+    ss = warp_sum(ss);
+    if (warps_per_row > 1) {
+      if ((threadIdx.x & 31) == 0) partial[threadIdx.x / 32] = ss;
+      __syncthreads();
+      ss = 0.f;
+      for (int i = 0; i < warps_per_row; ++i) ss += partial[gi * warps_per_row + i];
+      __syncthreads();  // partial is written again for the next row
+    }
+    if (!live) continue;
+    const float r = rsqrtf(ss / (float)D + eps);
+#pragma unroll
+    for (int i = 0; i < VPT; ++i) {
+      const int c = t + i * group;
+      if (c < nvec) {
+#pragma unroll
+        for (int e = 0; e < V; ++e) f[i][e] = (f[i][e] * r) * ws[c * V + e];
+        model::store16(out + (size_t)row * D + (size_t)c * V, f[i]);
+      }
+    }
+  }
+}
 
 template <typename T, typename W>
 __global__ void __launch_bounds__(kThreads)
-rmsnorm_kernel(const T* __restrict__ x, const W* __restrict__ w, T* __restrict__ out,
-               int R, int D, int warps_per_row, int vec, float eps) {
+rmsnorm_generic_kernel(const T* __restrict__ x, const W* __restrict__ w, T* __restrict__ out,
+                       int R, int D, int warps_per_row, int vec, float eps) {
   __shared__ float partial[kThreads / 32];
   const int group = 32 * warps_per_row;  // threads that own one row
   const int gi = threadIdx.x / group;
@@ -55,8 +133,7 @@ rmsnorm_kernel(const T* __restrict__ x, const W* __restrict__ w, T* __restrict__
       }
     }
   }
-#pragma unroll
-  for (int o = 16; o; o >>= 1) ss += __shfl_xor_sync(0xffffffffu, ss, o);
+  ss = warp_sum(ss);
   if (warps_per_row > 1) {
     if ((threadIdx.x & 31) == 0) partial[threadIdx.x / 32] = ss;
     __syncthreads();
@@ -80,19 +157,55 @@ rmsnorm_kernel(const T* __restrict__ x, const W* __restrict__ w, T* __restrict__
   }
 }
 
-template <typename T, typename W>
-int launch(const void* x, const void* w, void* out, int R, int D, float eps,
-           cudaStream_t stream) {
-  const int warps_per_row = D <= 1024 ? 1 : kThreads / 32;
+int sm_count() {
+  static const int n = [] {
+    int dev = 0, count = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&count, cudaDevAttrMultiProcessorCount, dev);
+    return count > 0 ? count : 1;
+  }();
+  return n;
+}
+
+template <typename T, typename W, int VPT>
+int launch_row(const T* x, const W* w, T* out, int R, int D, int warps_per_row, float eps,
+               cudaStream_t stream) {
   const int rows_per_block = kThreads / (32 * warps_per_row);
-  const int blocks = (R + rows_per_block - 1) / rows_per_block;
+  const long long need = ((long long)R + rows_per_block - 1) / rows_per_block;
+  const int blocks = (int)(need < (long long)kBlocksPerSM * sm_count()
+                               ? need : (long long)kBlocksPerSM * sm_count());
+  rmsnorm_row_kernel<T, W, VPT><<<blocks, kThreads, D * sizeof(float), stream>>>(
+      x, w, out, R, D, warps_per_row, eps);
+  return (int)cudaGetLastError();
+}
+
+template <typename T, typename W>
+int launch(const void* xv, const void* wv, void* outv, int R, int D, float eps,
+           cudaStream_t stream) {
+  const T* x = static_cast<const T*>(xv);
+  const W* w = static_cast<const W*>(wv);
+  T* out = static_cast<T*>(outv);
+  constexpr int V = model::Vec16<T>::N;
   // 16-byte vectors need every row start aligned: D * sizeof(T) a multiple
   // of 16 and both base pointers 16-byte aligned
   const int vec = (D * (int)sizeof(T)) % 16 == 0 && (uintptr_t)x % 16 == 0 &&
                   (uintptr_t)out % 16 == 0;
-  rmsnorm_kernel<T, W><<<blocks, kThreads, 0, stream>>>(
-      static_cast<const T*>(x), static_cast<const W*>(w), static_cast<T*>(out), R, D,
-      warps_per_row, vec, eps);
+  const int nvec = D / V;
+  if (vec && nvec <= kMaxVecs * kThreads) {
+    int warps_per_row = 1;
+    while (32 * warps_per_row * kMaxVecs < nvec) warps_per_row *= 2;
+    switch ((nvec + 32 * warps_per_row - 1) / (32 * warps_per_row)) {
+      case 1: return launch_row<T, W, 1>(x, w, out, R, D, warps_per_row, eps, stream);
+      case 2: return launch_row<T, W, 2>(x, w, out, R, D, warps_per_row, eps, stream);
+      case 3: return launch_row<T, W, 3>(x, w, out, R, D, warps_per_row, eps, stream);
+      default: return launch_row<T, W, 4>(x, w, out, R, D, warps_per_row, eps, stream);
+    }
+  }
+  const int warps_per_row = D <= 1024 ? 1 : kThreads / 32;
+  const int rows_per_block = kThreads / (32 * warps_per_row);
+  const int blocks = (R + rows_per_block - 1) / rows_per_block;
+  rmsnorm_generic_kernel<T, W><<<blocks, kThreads, 0, stream>>>(x, w, out, R, D,
+                                                                warps_per_row, vec, eps);
   return (int)cudaGetLastError();
 }
 

@@ -13,7 +13,7 @@ from __future__ import annotations
 
 import ctypes
 from pathlib import Path
-from typing import Dict, Optional
+from typing import Dict
 
 import torch
 
@@ -24,7 +24,8 @@ _HERE = Path(__file__).resolve().parent
 LIBRARIES = (nvcc.Library("rmsnorm", _HERE / "csrc" / "rmsnorm.cu", (nvcc.MODEL_COMMON,)),)
 LAUNCHES: Dict[str, int] = {"rmsnorm": 0}
 _DTYPES = (torch.float32, torch.bfloat16)
-_LIB: Optional[ctypes.CDLL] = None
+_BF16 = torch.bfloat16
+_FWD = None  # the C entry point, resolved once, at the first launch
 
 
 def reset_launches() -> None:
@@ -35,15 +36,16 @@ def build(verbose: bool = False) -> Dict[str, Path]:
     return nvcc.build(LIBRARIES, verbose)
 
 
-def _lib() -> ctypes.CDLL:
-    global _LIB
-    if _LIB is None:
-        lib = ctypes.CDLL(str(build()["rmsnorm"]))
+def _fwd():
+    global _FWD
+    if _FWD is None:
+        # PyDLL keeps the GIL through the call: a launch takes microseconds
+        fn = ctypes.PyDLL(str(build()["rmsnorm"])).rmsnorm_fwd
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.rmsnorm_fwd.argtypes = [p, p, p, i, i, i, i, ctypes.c_float, p]
-        lib.rmsnorm_fwd.restype = ctypes.c_int
-        _LIB = lib
-    return _LIB
+        fn.argtypes = [p, p, p, i, i, i, i, ctypes.c_float, p]
+        fn.restype = ctypes.c_int
+        _FWD = fn
+    return _FWD
 
 
 def rmsnorm(x, w, *, eps: float = 1e-6):
@@ -51,18 +53,14 @@ def rmsnorm(x, w, *, eps: float = 1e-6):
     The arguments are checked on either device, so the CPU path takes only
     what the kernel takes."""
     r, d = x.shape
-    nvcc.check_tensor("x", x, _DTYPES, (r, d), x.device)
-    nvcc.check_tensor("w", w, _DTYPES, (d,), x.device)
+    nvcc.check_tensors(x.device, ("x", x, _DTYPES, (r, d)), ("w", w, _DTYPES, (d,)))
     if not x.is_cuda:
         return rmsnorm_ref(x, w, eps)
     out = torch.empty_like(x)
     if r == 0 or d == 0:
         return out
-    err = _lib().rmsnorm_fwd(
-        x.data_ptr(), w.data_ptr(), out.data_ptr(), r, d,
-        int(x.dtype == torch.bfloat16), int(w.dtype == torch.bfloat16), eps,
-        nvcc.stream(x.device),
-    )
+    err = _fwd()(x.data_ptr(), w.data_ptr(), out.data_ptr(), r, d, x.dtype == _BF16,
+                 w.dtype == _BF16, eps, nvcc.stream(x.get_device()))
     if err:
         raise RuntimeError(f"rmsnorm kernel launch failed: CUDA error {err}")
     LAUNCHES["rmsnorm"] += 1

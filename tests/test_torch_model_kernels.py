@@ -106,6 +106,35 @@ def test_flash_attention_ragged_length_matches_attention_ref(s):
     _close(FK.flash_attention(tq, tk, tv), want, TOL[F32])
 
 
+def test_bf16_weights_in_pv_fit_the_chip_gate():
+    """The bf16 kernel rounds the softmax weights P to bf16 for the P V
+    product (at most 2^-8 relative per weight: bf16 keeps 8 significant
+    bits; the denominator sums the unrounded weights).  That attention,
+    computed here in f32 from the same bf16 inputs, stays within half of the
+    bf16 gate chip_smoke.py holds the kernel to (atol = rtol = 1e-2) of the
+    JAX package's Pallas kernel."""
+    b, s, hq, hkv, hd = 1, 256, 9, 3, 64
+    rng = np.random.default_rng(14)
+    jq, tq = _pair(rng.normal(0, 0.5, (b, s, hq, hd)), BF16)
+    jk, tk = _pair(rng.normal(0, 0.5, (b, s, hkv, hd)), BF16)
+    jv, tv = _pair(rng.normal(0, 0.5, (b, s, hkv, hd)), BF16)
+    want = j_flash(jq, jk, jv, causal=True, blk_q=128, blk_k=128, interpret=True)
+    g = hq // hkv
+    qf = tq.float().reshape(b, s, hkv, g, hd)
+    scores = torch.einsum("bskgd,btkd->bkgst", qf, tk.float()) / np.sqrt(hd)
+    scores = scores.masked_fill(torch.ones(s, s, dtype=torch.bool).triu(1), float("-inf"))
+    p = torch.exp(scores - scores.amax(-1, keepdim=True))
+    p_bf16 = p.to(torch.bfloat16).float()
+    assert float(((p_bf16 - p).abs() / p.clamp_min(1e-30)).max()) <= 2.0 ** -8
+    out = torch.einsum("bkgst,btkd->bskgd", p_bf16, tv.float()) / p.sum(-1)[..., None].permute(
+        0, 3, 1, 2, 4)
+    got = out.reshape(b, s, hq, hd).to(torch.bfloat16).float().numpy()
+    ref = _np(want)
+    tol = 1e-2  # chip_smoke.py's bf16 gate
+    used = np.abs(got - ref) / (tol + tol * np.abs(ref))
+    assert used.max() < 0.5, f"the worst element uses {used.max():.3f} of the gate"
+
+
 # ------------------------------------------------------------ selective scan
 def _scan_inputs(rng, b, s, di, n, dtype):
     dt = np.log1p(np.exp(rng.normal(0, 0.5, (b, s, di)) - 2))  # softplus
@@ -205,6 +234,25 @@ def test_cpu_calls_launch_nothing_and_check_like_the_kernels():
         RK.rmsnorm(x.double(), torch.ones(16))
     with pytest.raises(ValueError, match="head dim"):
         FK.flash_attention(*([torch.randn(1, 4, 1, 24)] * 3))
+    # every check of the one-pass argument check, on each argument after
+    # the first: device, dtype, shape, layout
+    meta = torch.empty(kv.shape, device="meta")
+    with pytest.raises(ValueError, match="k is on meta"):
+        FK.flash_attention(q, meta, kv)
+    with pytest.raises(TypeError, match="v has dtype"):
+        FK.flash_attention(q, kv, kv.bfloat16())
+    with pytest.raises(ValueError, match="v has shape"):
+        FK.flash_attention(q, kv, kv[:, :4].contiguous())
+    with pytest.raises(ValueError, match="v must be contiguous"):
+        FK.flash_attention(q, kv, torch.randn(1, 8, 2, 16)[:, :, :1])
+    with pytest.raises(ValueError, match="w is on meta"):
+        RK.rmsnorm(x, torch.ones(16, device="meta"))
+    with pytest.raises(TypeError, match="w has dtype"):
+        RK.rmsnorm(x, torch.ones(16, dtype=torch.float64))
+    with pytest.raises(ValueError, match="w has shape"):
+        RK.rmsnorm(x, torch.ones(8))
+    with pytest.raises(ValueError, match="w must be contiguous"):
+        RK.rmsnorm(x, torch.ones(32)[::2])
     with pytest.raises(ValueError, match="state size"):
         SK.selective_scan(torch.rand(1, 4, 8), torch.rand(8, 17), torch.randn(1, 4, 17),
                           torch.randn(1, 4, 17), torch.randn(1, 4, 8), torch.ones(8))
