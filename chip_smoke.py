@@ -1172,7 +1172,7 @@ def phase_model_kernels(torch):
     """The three model kernels against their plain versions in bf16 and
     f32: at the serving path's shapes and around them (flash attention at
     every head dim, a ragged S, S = T = 1, non-causal, no grouping and a
-    group of 4 over 2 blocks; RMSNorm at both models' prefill and decode
+    group of 4; RMSNorm at both models' prefill and decode
     rows, a D off the 16-byte vector; an unaligned input to both); then a
     kernel launched under ``torch.cuda.stream`` runs on that stream."""
     from repro_torch.kernels import nvcc

@@ -22,24 +22,24 @@
 // to 8 key tiles one after another), so the design aims at keeping the
 // tensor cores fed and every SM busy rather than at the last byte.  Measured
 // (chip_smoke.py phase 7, NVIDIA H100 80GB HBM3 at a 700 W power limit):
-// 0.0204 ms of device time per launch, 5.4x the byte bound and 1.3x
-// scaled_dot_product_attention's 0.0153 ms on the same inputs; the scalar
-// kernel it replaces took 0.3892 ms on the same card.
+// 0.0199-0.0202 ms of device time per launch, 5.3x the byte bound and 1.3x
+// scaled_dot_product_attention's 0.0152-0.0153 ms on the same inputs; the
+// scalar kernel it replaces took 0.3698-0.3875 ms in the same run.
 //
-// Design.  One block per (64 query positions, HB query heads of one kv
-// head, batch row), HB = 3 or 2 where it divides the group Hq / Hkv, else 1;
-// at the serving shape HB = 3, all the group's heads, so a block holds 3 x
-// 64 query rows and there are 8 tiles x 3 kv heads x 8 batch rows = 192
-// blocks.  The block has 4 x HB warps: each owns 16 positions of one head,
-// so its f32 accumulator (hd / 2 floats a lane) stays in registers however
-// many heads the block serves.  The heaviest (last, most key tiles) query
-// tiles are handed out first.  Shared memory holds the block's Q rows and
-// two K/V tiles of 64 keys, filled by cp.async (16 bytes a thread,
-// zero-filled past S and T) and double-buffered: tile i+1 loads while tile i
-// is used.  Each K/V tile is read from device memory once for all HB query
-// heads.  Rows are padded by 16 bytes (hd + 8 bf16), so the 8 row addresses
-// of every ldmatrix fall in 8 different 16-byte bank groups: no bank
-// conflicts at any hd of 16..128.  Per tile a warp computes S = Q K^T (16 x
+// Design.  One block per (64 query positions, query head, batch row): 8
+// tiles x 9 heads x 8 batch rows = 576 blocks at the serving shape, the
+// heaviest (last, most key tiles) query tiles handed out first.  The block's
+// 4 warps own 16 positions each, so a warp's f32 accumulator (hd / 2 floats
+// a lane) stays in registers.  The query heads of a GQA group load their kv
+// head's K/V tiles in blocks of their own: the repeated reads come from the
+// 50 MB L2 (all of K and V is 3.1 MB at the serving shape), and blocks that
+// served the whole group (3 heads, 192 blocks) measured no faster on the
+// card (PERF.md).  Shared memory holds the block's Q rows and two K/V tiles
+// of 64 keys, filled by cp.async (16 bytes a thread, zero-filled past S and
+// T) and double-buffered: tile i+1 loads while tile i is used.  Rows are
+// padded by 16 bytes (hd + 8 bf16), so the 8 row addresses of every ldmatrix
+// fall in 8 different 16-byte bank groups: no bank conflicts at any hd of
+// 16..128.  Per tile a warp computes S = Q K^T (16 x
 // 64) with mma.sync.m16n8k16 (bf16 in, f32 accumulate; Q and K fragments by
 // ldmatrix), scales it into the exp2 domain (scale * log2 e), masks keys
 // t >= T and, on tiles that reach past the warp's first row, keys t > s to
@@ -50,10 +50,11 @@
 // in the registers that held S, by V (fragments by ldmatrix.trans) into the
 // f32 accumulator.  Tiles wholly above the diagonal are never loaded.  The
 // output is staged through the warp's own Q rows and stored as 16-byte rows.
-// At hd 64, HB 3: 384 threads of 124 registers (no spills; 168 at hd 128),
-// 64.5 KB of dynamic shared memory (cudaFuncSetAttribute before the first
-// launch), so one block is resident per SM, by registers, and the 192 blocks
-// run as 132 and then 60 (the lightest).
+// At hd 64: 128 threads of 121 registers (no spills; 168 at hd 128) and 45
+// KB of dynamic shared memory (85 KB at hd 128; cudaFuncSetAttribute before
+// the first launch), so 4 blocks are resident per SM, by registers and
+// shared memory alike, and the 576 blocks run as 528 and then the 48
+// lightest; at hd 128, 2 blocks per SM, by shared memory.
 //
 // Numerics.  Q K^T multiplies bf16 by bf16 exactly into f32 (8-bit
 // significands, 16-bit products), as the reference's f32 dot of bf16-valued
@@ -199,8 +200,8 @@ constexpr int kPosWarps = 4;         // warps along the query positions of one h
 constexpr int kRows = 16 * kPosWarps;  // query positions per block
 constexpr int kKeys = 64;            // keys per K/V tile
 
-template <int HD, int HB> constexpr int smem_bytes() {
-  return (HB * kRows + 4 * kKeys) * (HD + 8) * (int)sizeof(bf16);
+template <int HD> constexpr int smem_bytes() {
+  return (kRows + 4 * kKeys) * (HD + 8) * (int)sizeof(bf16);
 }
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
@@ -258,43 +259,38 @@ __device__ __forceinline__ float quad_sum(float x) {
 // Fragment layouts of mma.m16n8k16 (lane = 4 * g + c): the accumulator's
 // [0], [1] are row g, columns 2c, 2c+1 and [2], [3] row g + 8, the same
 // columns.  S's accumulators of key blocks 2j and 2j+1 are, packed to bf16,
-// the A operand of key step j of P V.  Warp w serves query head h0 + w / 4,
-// positions q0 + 16 (w % 4) .. + 15.
-template <int HD, int HB>
-__global__ void __launch_bounds__(32 * kPosWarps * HB)
+// the A operand of key step j of P V.  Warp w serves positions q0 + 16 w ..
+// + 15 of the block's query head.
+template <int HD>
+__global__ void __launch_bounds__(32 * kPosWarps)
 flash_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                  const bf16* __restrict__ v, bf16* __restrict__ out, int B, int S, int Tk,
                  int Hq, int Hkv, int causal, float scale_log2) {
-  constexpr int NT = 32 * kPosWarps * HB;  // threads
+  constexpr int NT = 32 * kPosWarps;  // threads
   constexpr int LD = HD + 8;   // bf16 per shared row: 16 bytes of padding
   constexpr int CH = HD / 8;   // 16-byte chunks per row
   constexpr int KS = HD / 16;  // k-steps of Q K^T
   constexpr int DB = HD / 8;   // 8-wide column blocks of the accumulator
   extern __shared__ __align__(16) unsigned char smem[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem);  // [HB][kRows][LD]
-  bf16* Ks = Qs + HB * kRows * LD;           // [2][kKeys][LD]
+  bf16* Qs = reinterpret_cast<bf16*>(smem);  // [kRows][LD]
+  bf16* Ks = Qs + kRows * LD;                // [2][kKeys][LD]
   bf16* Vs = Ks + 2 * kKeys * LD;            // [2][kKeys][LD]
 
-  const int group = Hq / Hkv;
-  const int head_blocks = Hkv * (group / HB);
   const int n_qt = (S + kRows - 1) / kRows;
-  const int qt = n_qt - 1 - (int)(blockIdx.x / (head_blocks * B));  // heaviest first
-  const int rest = blockIdx.x % (head_blocks * B);
-  const int b = rest / head_blocks;
-  const int hb = rest % head_blocks;
-  const int kvh = hb / (group / HB);
-  const int h0 = kvh * group + hb % (group / HB) * HB;  // the block's first query head
+  const int qt = n_qt - 1 - (int)(blockIdx.x / (Hq * B));  // heaviest first
+  const int b = blockIdx.x % (Hq * B) / Hq;
+  const int h = blockIdx.x % Hq;
+  const int kvh = h / (Hq / Hkv);
   const int q0 = qt * kRows;
   const int tid = threadIdx.x, lane = tid % 32;
-  const int head = tid / 32 / kPosWarps;           // of the block's HB heads
-  const int p0 = 16 * (tid / 32 % kPosWarps);      // the warp's first position in the tile
+  const int p0 = 16 * (tid / 32);  // the warp's first position in the tile
 
   // the block's Q rows (zeros past S), then K/V tile 0
-  for (int c = tid; c < HB * kRows * CH; c += NT) {
-    const int j = c / (kRows * CH), r = c / CH % kRows, ch = c % CH;
+  for (int c = tid; c < kRows * CH; c += NT) {
+    const int r = c / CH, ch = c % CH;
     const int s = q0 + r;
-    const bf16* src = q + (((size_t)b * S + min(s, S - 1)) * Hq + h0 + j) * HD + ch * 8;
-    cp_async16(Qs + (j * kRows + r) * LD + ch * 8, src, s < S ? 16 : 0);
+    const bf16* src = q + (((size_t)b * S + min(s, S - 1)) * Hq + h) * HD + ch * 8;
+    cp_async16(Qs + r * LD + ch * 8, src, s < S ? 16 : 0);
   }
   auto load_kv = [&](int tile, int buf) {
     for (int c = tid; c < kKeys * CH; c += NT) {
@@ -312,7 +308,7 @@ flash_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   load_kv(0, 0);
   cp_async_commit();
 
-  const bf16* Qw = Qs + (head * kRows + p0) * LD;  // the warp's 16 Q rows
+  const bf16* Qw = Qs + p0 * LD;  // the warp's 16 Q rows
   float o[DB][4];
 #pragma unroll
   for (int d = 0; d < DB; ++d) o[d][0] = o[d][1] = o[d][2] = o[d][3] = 0.f;
@@ -401,7 +397,7 @@ flash_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
   // O / l, staged through the warp's own Q rows, stored as 16-byte rows
   __syncwarp();
-  bf16* st = Qs + (head * kRows + p0) * LD;
+  bf16* st = Qs + p0 * LD;
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const float inv = 1.f / fmaxf(quad_sum(l[r]), 1e-30f);
@@ -416,37 +412,26 @@ flash_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     const int r = c / CH, ch = c % CH;
     const int s = q0 + p0 + r;
     if (s < S)
-      *reinterpret_cast<uint4*>(out + (((size_t)b * S + s) * Hq + h0 + head) * HD + ch * 8) =
+      *reinterpret_cast<uint4*>(out + (((size_t)b * S + s) * Hq + h) * HD + ch * 8) =
           *reinterpret_cast<const uint4*>(st + r * LD + ch * 8);
   }
 }
 
-template <int HD, int HB>
+template <int HD>
 int launch_mma(const void* q, const void* k, const void* v, void* out, int B, int S, int Tk,
                int Hq, int Hkv, int causal, float scale, cudaStream_t stream) {
-  constexpr int smem = smem_bytes<HD, HB>();
+  // the kernel copies 16-byte rows
+  if (((uintptr_t)q | (uintptr_t)k | (uintptr_t)v | (uintptr_t)out) % 16)
+    return (int)cudaErrorMisalignedAddress;
+  constexpr int smem = smem_bytes<HD>();
   static const cudaError_t attr = cudaFuncSetAttribute(
-      flash_mma_kernel<HD, HB>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      flash_mma_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (attr != cudaSuccess) return (int)attr;
-  const long long blocks =
-      (long long)((S + kRows - 1) / kRows) * (Hkv * (Hq / Hkv / HB)) * B;
-  flash_mma_kernel<HD, HB><<<(unsigned)blocks, 32 * kPosWarps * HB, smem, stream>>>(
+  const long long blocks = (long long)((S + kRows - 1) / kRows) * Hq * B;
+  flash_mma_kernel<HD><<<(unsigned)blocks, 32 * kPosWarps, smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
       static_cast<bf16*>(out), B, S, Tk, Hq, Hkv, causal, scale * 1.4426950408889634f);
   return (int)cudaGetLastError();
-}
-
-// HB, the query heads of a group one block serves: 3 or 2 where they divide
-// the group, else 1
-template <int HD>
-int launch_mma_hd(const void* q, const void* k, const void* v, void* out, int B, int S,
-                  int Tk, int Hq, int Hkv, int causal, float scale, cudaStream_t stream) {
-  const int group = Hq / Hkv;
-  if (group % 3 == 0)
-    return launch_mma<HD, 3>(q, k, v, out, B, S, Tk, Hq, Hkv, causal, scale, stream);
-  if (group % 2 == 0)
-    return launch_mma<HD, 2>(q, k, v, out, B, S, Tk, Hq, Hkv, causal, scale, stream);
-  return launch_mma<HD, 1>(q, k, v, out, B, S, Tk, Hq, Hkv, causal, scale, stream);
 }
 
 }  // namespace
@@ -459,10 +444,10 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, 
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define FLASH_ARGS q, k, v, out, B, S, Tk, Hq, Hkv, causal, scale, s
   switch (HD) {
-    case 16: return is_bf16 ? launch_mma_hd<16>(FLASH_ARGS) : launch_scalar<16>(FLASH_ARGS);
-    case 32: return is_bf16 ? launch_mma_hd<32>(FLASH_ARGS) : launch_scalar<32>(FLASH_ARGS);
-    case 64: return is_bf16 ? launch_mma_hd<64>(FLASH_ARGS) : launch_scalar<64>(FLASH_ARGS);
-    case 128: return is_bf16 ? launch_mma_hd<128>(FLASH_ARGS) : launch_scalar<128>(FLASH_ARGS);
+    case 16: return is_bf16 ? launch_mma<16>(FLASH_ARGS) : launch_scalar<16>(FLASH_ARGS);
+    case 32: return is_bf16 ? launch_mma<32>(FLASH_ARGS) : launch_scalar<32>(FLASH_ARGS);
+    case 64: return is_bf16 ? launch_mma<64>(FLASH_ARGS) : launch_scalar<64>(FLASH_ARGS);
+    case 128: return is_bf16 ? launch_mma<128>(FLASH_ARGS) : launch_scalar<128>(FLASH_ARGS);
     default: return (int)cudaErrorInvalidValue;
   }
 #undef FLASH_ARGS

@@ -43,8 +43,7 @@ def build(verbose: bool = False) -> Dict[str, Path]:
 def _fwd():
     global _FWD
     if _FWD is None:
-        # PyDLL keeps the GIL through the call: a launch takes microseconds
-        fn = ctypes.PyDLL(str(build()["flash_attention"])).flash_attention_fwd
+        fn = ctypes.CDLL(str(build()["flash_attention"])).flash_attention_fwd
         p, i = ctypes.c_void_p, ctypes.c_int
         fn.argtypes = [p] * 4 + [i] * 7 + [ctypes.c_float, i, p]
         fn.restype = ctypes.c_int

@@ -12,27 +12,28 @@
 // 576 bf16, 2.8 us at 3.35 TB/s), 33.6 MB at falcon's (2048 x 4096, 10.0
 // us), 9 KB at a decode step's 8 x 576 rows, where the launch itself is the
 // bound.  Measured (chip_smoke.py phase 7, NVIDIA H100 80GB HBM3 at a 700 W
-// power limit): 0.0035 ms of device time per launch at 4096 x 576, 0.0080
-// ms at 2048 x 4096 (under the HBM bound: the repeated calls find their
-// input in the 50 MB L2), 0.0022 ms at 8 x 576.
+// power limit): 0.0036 ms of device time per launch at 4096 x 576,
+// 0.0078-0.0080 ms at 2048 x 4096 (under the HBM bound: the repeated calls
+// find their input in the 50 MB L2), 0.0022-0.0023 ms at 8 x 576.
 //
 // Design (rmsnorm_row_kernel, the path of every row whose 16-byte vectors
-// line up: D * sizeof(x) a multiple of 16, x and out 16-byte aligned, at most
-// 1024 vectors).  One pass: each row is read from device memory once, into
-// registers, its sum of squares reduced with warp shuffles (and shared
-// memory across the row's warps), then scaled and stored from the same
-// registers.  A row of D <= 1024 bf16 has one warp; a wider row enough warps
-// (a power of two up to 8) that a thread holds at most 4 vectors (32 bf16
-// as f32): 4 warps at D = 4096.  The vectors per thread are a compile-time
-// 1..4, chosen at launch (3 at D = 576: 72 vectors over 32 lanes, so lanes
-// past the row's last vector hold zeros and store nothing).  The weight
-// vector is converted to f32 into shared memory once per block, and each
-// block of 256 threads strides over rows: a grid of at most 4 blocks per SM
-// (one sweep at both prefill shapes), one block at the decode rows.  Other
-// rows (a D that is not a multiple of the vector, an unaligned pointer,
-// wider rows) take rmsnorm_generic_kernel: the same layout with scalar or
-// vector loads and a second read of the row, from L1/L2, to scale.  The
-// order is the reference's: (x * r) * w.
+// line up: D * sizeof(x) a multiple of 16, at most 1024 vectors; x and out
+// must then be 16-byte aligned, as ../kernel.py sees to, else the launch
+// returns cudaErrorMisalignedAddress).  One pass: each row is read from
+// device memory once, into registers, its sum of squares reduced with warp
+// shuffles (and shared memory across the row's warps), then scaled and
+// stored from the same registers.  A row of D <= 1024 bf16 has one warp; a
+// wider row enough warps (a power of two up to 8) that a thread holds at
+// most 4 vectors (32 bf16 as f32): 4 warps at D = 4096.  The vectors per
+// thread are a compile-time 1..4, chosen at launch (3 at D = 576: 72
+// vectors over 32 lanes, so lanes past the row's last vector hold zeros and
+// store nothing).  The weight vector is converted to f32 into shared memory
+// once per block, and each block of 256 threads strides over rows: a grid
+// of at most 4 blocks per SM (one sweep at both prefill shapes), one block
+// at the decode rows.  Rows off the vector (D * sizeof(x) not a multiple of
+// 16) or over 1024 vectors take rmsnorm_generic_kernel: the same layout with
+// scalar or vector loads and a second read of the row, from L1/L2, to
+// scale.  The order is the reference's: (x * r) * w.
 
 #include "../../model_common.cuh"
 
@@ -188,8 +189,8 @@ int launch(const void* xv, const void* wv, void* outv, int R, int D, float eps,
   constexpr int V = model::Vec16<T>::N;
   // 16-byte vectors need every row start aligned: D * sizeof(T) a multiple
   // of 16 and both base pointers 16-byte aligned
-  const int vec = (D * (int)sizeof(T)) % 16 == 0 && (uintptr_t)x % 16 == 0 &&
-                  (uintptr_t)out % 16 == 0;
+  const int vec = (D * (int)sizeof(T)) % 16 == 0;
+  if (vec && ((uintptr_t)x | (uintptr_t)out) % 16) return (int)cudaErrorMisalignedAddress;
   const int nvec = D / V;
   if (vec && nvec <= kMaxVecs * kThreads) {
     int warps_per_row = 1;

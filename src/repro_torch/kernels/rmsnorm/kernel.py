@@ -39,8 +39,7 @@ def build(verbose: bool = False) -> Dict[str, Path]:
 def _fwd():
     global _FWD
     if _FWD is None:
-        # PyDLL keeps the GIL through the call: a launch takes microseconds
-        fn = ctypes.PyDLL(str(build()["rmsnorm"])).rmsnorm_fwd
+        fn = ctypes.CDLL(str(build()["rmsnorm"])).rmsnorm_fwd
         p, i = ctypes.c_void_p, ctypes.c_int
         fn.argtypes = [p, p, p, i, i, i, i, ctypes.c_float, p]
         fn.restype = ctypes.c_int
@@ -59,6 +58,8 @@ def rmsnorm(x, w, *, eps: float = 1e-6):
     out = torch.empty_like(x)
     if r == 0 or d == 0:
         return out
+    if x.data_ptr() % 16:  # the kernels read 16-byte vectors: align an offset view
+        x = x.clone()
     err = _fwd()(x.data_ptr(), w.data_ptr(), out.data_ptr(), r, d, x.dtype == _BF16,
                  w.dtype == _BF16, eps, nvcc.stream(x.get_device()))
     if err:
