@@ -63,7 +63,9 @@ script exits non-zero without printing a result):
                   token agreement over the decode printed, not gated).  The
                   three model kernels are timed at the path's shapes beside
                   their bounds, plain versions and PyTorch calls (RMSNorm
-                  also at falcon's prefill rows and both decode rows), each
+                  also at falcon's prefill rows and both decode rows; the
+                  scan in its fused mode, and in its base mode with f32 dt
+                  and x under ``at``), each
                   kernel in turns with its PyTorch call (library, kernel,
                   kernel, library): ``ms`` one call per CUDA-event pair,
                   ``device_ms`` device time per call (the profiler's median
@@ -76,7 +78,10 @@ selective scan) against their plain versions at model shapes, in bf16 and
 f32 (tolerances in ``MODEL_TOL``): flash attention at every head dim, a
 ragged S, S = T = 1, non-causal, Hq = Hkv and a group of 4; RMSNorm at both
 models' prefill and decode rows and a D off the 16-byte vector; an unaligned
-input to both; and a launch under ``torch.cuda.stream`` runs on that stream.
+input to both; the scan in its base and fused modes, y and h_S, at the
+serving shape, a ragged S, N = 8, S = 1 and DI, N off the 16-byte vector,
+the fused mode's z the strided half of an xz (and once contiguous); and a
+launch under ``torch.cuda.stream`` runs on that stream.
 ``--phases`` runs a subset (default all).
 
 Then the card line (nvidia-smi), one JSON line with a record per kernel and,
@@ -120,6 +125,11 @@ K_PHASES = 8  # phases per fused dispatch on the main path
 HBM_BYTES_PER_S = 3.35e12
 SCALAR_OPS_PER_S = 67e12
 BF16_TENSOR_OPS_PER_S = 989e12
+# Hopper's special-function units (exp2, log2, reciprocal): 16 results per
+# SM per clock; the rate is this times the SM count and the max SM clock
+# the card reports (phase 1 fills CARD)
+SFU_PER_SM_CLOCK = 16
+CARD = {"sms": None, "sm_clock_hz": None}
 # the model kernels: source, the TPU kernel each replaces, and the tolerance
 # against its plain version (absolute and relative, per dtype).  f32: both
 # sides compute in f32 and sum in another order; bf16: both round the same
@@ -135,6 +145,8 @@ MODEL_KERNELS = {
 }
 MODEL_TOL = {"float32": 1e-5, "bfloat16": 1e-2}
 SCAN_TOL_F32 = 1e-4  # the scan: 512 dependent steps of rounding
+SCAN_SHAPES = ((4, 512, 8192, 16), (4, 200, 8192, 16), (2, 512, 8192, 8), (4, 1, 8192, 16),
+               (2, 70, 100, 5))  # (B, S, DI, N) checked in phase 3
 REPLAY_REL_TOL = 5e-2  # plain-backend replay of a bf16 prefill, whole model
 SERVE_RUNS = {
     "smollm-135m": ["--arch", "smollm-135m", "--batch", "8", "--prompt-len", "512",
@@ -1108,11 +1120,48 @@ def model_inputs(torch, name, shape, dtype, seed=0):
             torch.ones(di, device="cuda"))
 
 
-def model_bound(name, shape, dtype_bytes):
+def scan_case(torch, shape, dtype, fused=False, z_layout="half"):
+    """(args, keyword args) of the selective scan at (B, S, DI, N).  Base
+    mode: ``model_inputs``.  Fused mode, as the mamba1 block calls it:
+    dt_pre ~ N(0, 1), dt_bias in [-4.6, -1] with every 97th channel at 21
+    (past softplus's threshold of 20), x, B, C and z in ``dtype``; z is the
+    second half of an (B, S, 2 DI) ``xz`` (``z_layout="half"``, row stride
+    2 DI, as the block passes it) or a tensor of its own."""
+    if not fused:
+        return model_inputs(torch, "selective_scan", shape, dtype), {}
+    g = torch.Generator(device="cuda").manual_seed(2)
+    b, s, di, n = shape
+
+    def rn(*sz, scale=0.5):
+        return (torch.randn(sz, generator=g, device="cuda") * scale).to(dtype)
+
+    dt_pre = rn(b, s, di, scale=1.0)
+    bias = torch.rand(di, generator=g, device="cuda") * 3.6 - 4.6
+    bias[::97] = 21.0
+    xz = rn(b, s, 2 * di)
+    z = xz[..., di:] if z_layout == "half" else rn(b, s, di)
+    a_log = torch.rand((di, n), generator=g, device="cuda") * 0.5
+    args = (dt_pre, a_log, rn(b, s, n), rn(b, s, n), xz[..., :di].contiguous(),
+            torch.ones(di, device="cuda"))
+    return args, {"dt_bias": bias.to(dtype), "z": z}
+
+
+def sfu_per_s():
+    """Special-function results per second: SMs x 16 x the max SM clock."""
+    return CARD["sms"] * SFU_PER_SM_CLOCK * CARD["sm_clock_hz"]
+
+
+def model_bound(name, shape, dtype_bytes, fused=False):
     """(least ms, what bounds it) of one call of a model kernel: each input
     read once and each output written once at the HBM rate, against the
     operations at the peak for their type (bf16 attention products on the
-    tensor cores, the rest at the f32 rate)."""
+    tensor cores, the scan's exps on the special-function units, the rest
+    at the f32 rate).  The scan: base mode as the model path called it
+    before the fused mode (dt, x, y in ``dtype_bytes``, B and C in bf16);
+    fused mode (``fused``) dt_pre, x, z, y, B, C and dt_bias in
+    ``dtype_bytes``, with a sigmoid (an exp) per element beside the exp per
+    state, and in f32 a softplus (exp, log1p) too: a bf16 softplus is a
+    lookup in a table of its 65536 inputs."""
     if name == "rmsnorm":
         r, d = shape
         nbytes = 2 * r * d * dtype_bytes + d * dtype_bytes
@@ -1125,8 +1174,17 @@ def model_bound(name, shape, dtype_bytes):
         t_ops = flops / rate
     else:
         b, s, di, n = shape
-        nbytes = 3 * b * s * di * 4 + 2 * b * s * n * 2 + di * n * 4 + di * 4 + b * di * n * 4
-        t_ops = b * s * di * n * 7 / SCALAR_OPS_PER_S  # exp, 2 mul, 2 FMA per state
+        elems = b * s * di
+        small = di * n * 4 + di * 4 + b * di * n * 4  # a_log, D, h_S
+        if fused:
+            nbytes = 4 * elems * dtype_bytes + 2 * b * s * n * dtype_bytes + di * dtype_bytes
+            sfu = elems * (n + (1 if dtype_bytes == 2 else 3))
+        else:
+            nbytes = 3 * elems * dtype_bytes + 2 * b * s * n * 2
+            sfu = elems * n
+        nbytes += small
+        # per state and step: 2 multiplies and 2 FMAs (6 flops) beside its exp
+        t_ops = max(sfu / sfu_per_s(), elems * n * 6 / SCALAR_OPS_PER_S)
     t_bytes = nbytes / HBM_BYTES_PER_S
     return (t_bytes * 1e3, "bytes") if t_bytes >= t_ops else (t_ops * 1e3, "operations")
 
@@ -1144,7 +1202,8 @@ def model_kernel_vs_plain(torch, name, shape, dtype, args=None, **kw):
     want = want if isinstance(want, tuple) else (want,)
     key = "float32" if dtype == torch.float32 else "bfloat16"
     tol = SCAN_TOL_F32 if name == "selective_scan" and key == "float32" else MODEL_TOL[key]
-    what = f"{name} {shape} {key} {kw or ''}"
+    opts = {k: tuple(v.shape) if hasattr(v, "shape") else v for k, v in kw.items()}
+    what = f"{name} {shape} {key} {opts or ''}"
     err = 0.0
     for a, b in zip(got, want):
         check(a.shape == b.shape and a.dtype == b.dtype,
@@ -1187,12 +1246,24 @@ def phase_model_kernels(torch):
               ("flash_attention", (2, 512, 4, 4, 64), {}),
               ("flash_attention", (2, 256, 8, 2, 32), {}),
               ("flash_attention", (1, 100, 4, 4, 128), {"causal": False})]
-    cases += [("selective_scan", (4, 512, 8192, 16), {})]
     lines = []
     for name, shape, kw in cases:
         for dtype in (torch.bfloat16, torch.float32):
             err, tol = model_kernel_vs_plain(torch, name, shape, dtype, **kw)
             lines.append(f"{name}{shape}{kw or ''} {str(dtype)[6:]} {err:.3g} "
+                         f"(atol = rtol = {tol:g})")
+    # the scan, both modes (y and h_S): the serving shape, a ragged S, N = 8,
+    # S = 1, and DI and N off the 16-byte vector (the element-wise copies);
+    # the fused mode's z the strided half of an xz, and once contiguous
+    scan = [(shape, fused, "half") for shape in SCAN_SHAPES for fused in (False, True)]
+    scan.append(((4, 512, 8192, 16), True, "contiguous"))
+    for shape, fused, z_layout in scan:
+        for dtype in (torch.bfloat16, torch.float32):
+            args, kw = scan_case(torch, shape, dtype, fused, z_layout)
+            err, tol = model_kernel_vs_plain(torch, "selective_scan", shape, dtype,
+                                             args=args, **kw)
+            mode = f"fused, z {z_layout}" if fused else "base"
+            lines.append(f"selective_scan{shape} {mode} {str(dtype)[6:]} {err:.3g} "
                          f"(atol = rtol = {tol:g})")
     for dtype in (torch.bfloat16, torch.float32):
         x = unaligned(torch, (4096, 576), dtype)
@@ -1455,41 +1526,47 @@ def library_call(torch, name, args):
     return None
 
 
-def measure_model_kernel(torch, name, shape, dtype):
-    """A model kernel at ``shape``: held against its plain version, then
-    timed in turns with the library call (``in_turns``), beside its
-    bound.  Returns the fields of its record."""
+def measure_model_kernel(torch, name, shape, dtype, fused=False):
+    """A model kernel at ``shape`` (the scan in its fused mode where
+    ``fused``): held against its plain version, then timed in turns with the
+    library call (``in_turns``), beside its bound.  Returns the fields of
+    its record."""
     fn, plain = model_fns(name)
-    err, tol = model_kernel_vs_plain(torch, name, shape, dtype)
-    args = model_inputs(torch, name, shape, dtype)
+    if name == "selective_scan":
+        args, kw = scan_case(torch, shape, dtype, fused)
+    else:
+        args, kw = model_inputs(torch, name, shape, dtype), {}
+    err, tol = model_kernel_vs_plain(torch, name, shape, dtype, args=args, **kw)
     lib = library_call(torch, name, args)
-    kern, libt = in_turns(torch, lambda: fn(*args), lib)
-    plain_ms = cuda_ms(lambda: plain(*args), 3 if name == "selective_scan" else 10)
-    bound_ms, bound_by = model_bound(name, shape, 2 if dtype == torch.bfloat16 else 4)
+    kern, libt = in_turns(torch, lambda: fn(*args, **kw), lib)
+    plain_ms = cuda_ms(lambda: plain(*args, **kw), 3 if name == "selective_scan" else 10)
+    bound_ms, bound_by = model_bound(name, shape, 2 if dtype == torch.bfloat16 else 4, fused)
     rec = {"max_abs_err": err, **kern, "plain_ms": plain_ms, "bound_ms": bound_ms,
            "bound_by": bound_by, "library_ms": None if libt is None else libt["ms"],
            "library_device_ms": None if libt is None else libt["device_ms"],
            "library_host_us": None if libt is None else libt["host_us"],
            "shape": list(shape), "dtype": str(dtype)[6:], "tolerance": tol}
+    if name == "selective_scan":
+        rec["mode"] = "fused" if fused else "base"
     lib_txt = "none" if libt is None else (
         f"{libt['ms']:.4f} ms, device {libt['device_ms']:.4f} ms, host "
         f"{libt['host_us']:.1f} us")
-    print(f"kernel {name} {shape} {str(dtype)[6:]}: {kern['ms']:.4f} ms, device "
-          f"{kern['device_ms']:.4f} ms ({kern['device_ms_by']}), host "
-          f"{kern['host_us']:.1f} us per call; library {lib_txt}; plain {plain_ms:.4f} ms; "
+    print(f"kernel {name} {shape} {str(dtype)[6:]}{' fused' if fused else ''}: "
+          f"{kern['ms']:.4f} ms, device {kern['device_ms']:.4f} ms ({kern['device_ms_by']}), "
+          f"host {kern['host_us']:.1f} us per call; library {lib_txt}; plain {plain_ms:.4f} ms; "
           f"bound {bound_ms:.6f} ms by {bound_by}; max abs err {err:.3g}", flush=True)
     return rec
 
 
-def time_model_kernel(torch, name, shape, dtype, launches, more_shapes=()):
+def time_model_kernel(torch, name, shape, dtype, launches, fused=False, more=()):
     """A model kernel's record at the serving path's ``shape``, with the
-    same fields at ``more_shapes`` under ``at``."""
+    same fields under ``at`` for each ``(key, shape, dtype, fused)`` of
+    ``more``."""
     src, replaces = MODEL_KERNELS[name]
     rec = {"name": name, "route": "cuda", "source": src, "replaces": replaces,
-           "launches": launches, **measure_model_kernel(torch, name, shape, dtype)}
-    if more_shapes:
-        rec["at"] = {"x".join(map(str, s)): measure_model_kernel(torch, name, s, dtype)
-                     for s in more_shapes}
+           "launches": launches, **measure_model_kernel(torch, name, shape, dtype, fused)}
+    if more:
+        rec["at"] = {key: measure_model_kernel(torch, name, s, dt, f) for key, s, dt, f in more}
     return rec
 
 
@@ -1542,15 +1619,22 @@ def phase_serve(torch, K, records):
     del smollm_params
     torch.cuda.empty_cache()
 
-    shapes = {"rmsnorm": (8 * 512, 576), "flash_attention": (8, 512, 9, 3, 64),
-              "selective_scan": (4, 512, 8192, 16)}
-    dtypes = {"rmsnorm": torch.bfloat16, "flash_attention": torch.bfloat16,
-              "selective_scan": torch.float32}
-    # RMSNorm also at falcon's prefill rows and at a decode step's rows
-    more = {"rmsnorm": ((2048, 4096), (8, 576), (4, 4096))}
-    for name in shapes:
-        records[name] = time_model_kernel(torch, name, shapes[name], dtypes[name],
-                                          totals[name], more.get(name, ()))
+    bf16 = torch.bfloat16
+    scan_shape = (4, 512, 8192, 16)
+    # the path's shape and dtype; the scan in its fused mode, as the mamba1
+    # prefill calls it
+    runs = {"rmsnorm": ((8 * 512, 576), False), "flash_attention": ((8, 512, 9, 3, 64), False),
+            "selective_scan": (scan_shape, True)}
+    # RMSNorm also at falcon's prefill rows and at a decode step's rows; the
+    # scan also in its base mode with f32 dt and x, as the path called it
+    # before the fused mode
+    more = {"rmsnorm": [("x".join(map(str, s)), s, bf16, False)
+                        for s in ((2048, 4096), (8, 576), (4, 4096))],
+            "selective_scan": [("base " + "x".join(map(str, scan_shape)) + " float32",
+                                scan_shape, torch.float32, False)]}
+    for name, (shape, fused) in runs.items():
+        records[name] = time_model_kernel(torch, name, shape, bf16, totals[name], fused,
+                                          more.get(name, ()))
 
 
 def main(argv=None) -> int:
@@ -1572,7 +1656,14 @@ def main(argv=None) -> int:
              "--format=csv,noheader"], capture_output=True, text=True, timeout=60)
         check(smi.returncode == 0, f"nvidia-smi failed: {smi.stderr.strip()}")
         card = smi.stdout.strip()
-        print(f"device: {name}; torch {torch.__version__} cuda {torch.version.cuda}",
+        clk = subprocess.run(
+            ["nvidia-smi", "-i", "0", "--query-gpu=clocks.max.sm",
+             "--format=csv,noheader,nounits"], capture_output=True, text=True, timeout=60)
+        check(clk.returncode == 0, f"nvidia-smi failed: {clk.stderr.strip()}")
+        CARD["sms"] = torch.cuda.get_device_properties(0).multi_processor_count
+        CARD["sm_clock_hz"] = float(clk.stdout.strip()) * 1e6
+        print(f"device: {name}; torch {torch.__version__} cuda {torch.version.cuda}; "
+              f"{CARD['sms']} SMs, max SM clock {CARD['sm_clock_hz'] / 1e6:.0f} MHz",
               flush=True)
         print(card, flush=True)
 

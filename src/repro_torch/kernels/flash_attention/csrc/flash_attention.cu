@@ -204,21 +204,10 @@ template <int HD> constexpr int smem_bytes() {
   return (kRows + 4 * kKeys) * (HD + 8) * (int)sizeof(bf16);
 }
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16 bytes global -> shared, zero-filled where src_bytes is 0
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
-               "l"(src), "r"(src_bytes));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-template <int N> __device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
+using model::cp_async16;
+using model::cp_async_commit;
+using model::cp_async_wait;
+using model::smem_addr;
 
 // four 8x8 b16 matrices; lanes 8i..8i+7 address the rows of matrix i
 __device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* p) {

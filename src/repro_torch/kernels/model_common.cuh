@@ -1,7 +1,8 @@
 // Shared by the model kernels (rmsnorm.cu, flash_attention.cu,
 // selective_scan.cu): element conversions between the storage types the
 // wrappers accept (float, __nv_bfloat16) and the f32 the kernels compute in,
-// and 16-byte vector loads and stores of eight bf16 or four f32 values.
+// 16-byte vector loads and stores of eight bf16 or four f32 values, and
+// cp.async copies of 16 bytes from global to shared memory.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -37,6 +38,22 @@ __device__ __forceinline__ void store16(T* p, const float* f) {
 #pragma unroll
   for (int i = 0; i < Vec16<T>::N; ++i) e[i] = from_f<T>(f[i]);
   *reinterpret_cast<uint4*>(p) = u;
+}
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes global -> shared, zero-filled where src_bytes is 0
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
+               "l"(src), "r"(src_bytes));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+template <int N> __device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 }  // namespace model

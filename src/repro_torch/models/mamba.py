@@ -1,10 +1,11 @@
 """Mamba blocks (counterpart of the JAX package's ``models/mamba.py``).
 
 mamba1 (falcon-mamba-7b): a prefill or full-sequence forward runs the
-recurrence through the selective-scan kernel (``kernels/mamba_scan``), which
-also returns the final state the decode cache keeps; a decode step (one
-token with a carried state) is one step of the recurrence in plain PyTorch,
-as the reference computes it in jnp.  ``mamba1_scan`` is the plain
+softplus, the recurrence and the gate through the selective-scan kernel's
+fused mode (``kernels/mamba_scan``), which also returns the final state the
+decode cache keeps; a decode step (one token with a carried state) is one
+step of the recurrence in plain PyTorch, as the reference computes it in
+jnp.  ``mamba1_scan`` is the plain
 recurrence over precomputed ``(abar, bx)``.  mamba2 (zamba2's SSD) waits for
 the hybrid slice.
 """
@@ -55,7 +56,9 @@ def mamba1_block(x, p, cfg, state: Optional[Tuple] = None, backend: str = "kerne
     """x: (B, S, D).  state: (ssm_h (B, DI, N) f32, conv_tail) for decode.
 
     Returns (out, (new_h, new_tail)).  The scan sees dt and x in f32, so y
-    stays f32 up to the gate, as in the reference."""
+    stays f32 up to the gate, as in the reference.  A prefill runs the
+    softplus, the scan and the gate in the scan kernel's fused mode, which
+    reads z in place as the second half of ``xz``."""
     b, s, _ = x.shape
     n = cfg.ssm_state
     xz = torch.matmul(x, p["in_proj"])  # (B, S, 2*DI)
@@ -67,9 +70,10 @@ def mamba1_block(x, p, cfg, state: Optional[Tuple] = None, backend: str = "kerne
     proj = torch.matmul(xpart, p["x_proj"])  # (B, S, dtr + 2N)
     dtr = cfg.dtr()
     dt_raw, b_ssm, c_ssm = torch.split(proj, [dtr, n, n], dim=-1)
-    dt = F.softplus(torch.matmul(dt_raw, p["dt_proj"]) + p["dt_bias"])  # (B, S, DI)
+    dt_pre = torch.matmul(dt_raw, p["dt_proj"])  # (B, S, DI)
 
     if state is not None and s == 1:
+        dt = F.softplus(dt_pre + p["dt_bias"])
         a = -torch.exp(p["A_log"].float())  # (DI, N)
         dt0 = dt[:, 0].float()
         abar = torch.exp(dt0[..., None] * a[None])  # (B, DI, N)
@@ -77,13 +81,13 @@ def mamba1_block(x, p, cfg, state: Optional[Tuple] = None, backend: str = "kerne
         h = abar * state[0] + bx
         y = torch.einsum("bdn,bn->bd", h, c_ssm[:, 0].float())[:, None]
         y = y + p["D_skip"].float() * xpart.float()
+        y = (y * F.silu(z.float())).to(x.dtype)
         new_h = h
     else:
         y, new_h = selective_scan_op(
-            dt.float(), p["A_log"], b_ssm.contiguous(), c_ssm.contiguous(),
-            xpart.float(), p["D_skip"], backend=backend,
+            dt_pre, p["A_log"], b_ssm.contiguous(), c_ssm.contiguous(), xpart, p["D_skip"],
+            dt_bias=p["dt_bias"], z=z, backend=backend,
         )
-    y = (y * F.silu(z.float())).to(x.dtype)
     out = torch.matmul(y, p["out_proj"])
     return out, (new_h, new_tail)
 
