@@ -15,7 +15,18 @@ script exits non-zero without printing a result):
                   against ``phase_grid_combine_ref`` for every kind at S=3,
                   K=3, N in {64, 1024} (a pass-through phase, an untouched
                   shard, committed -0.0, a negative deque ``left``, a full
-                  map bucket): bit-equal,
+                  map bucket), then on the stress cases of
+                  ``kernels/dfc_reduce/cases.py`` (``STRESS``: K = 1 and 8,
+                  ring slots pushed in one phase and overwritten by a later
+                  one with the ring wrapping, pops of earlier phases'
+                  pushes, a map bucket hit by every lane of a shard and
+                  filled to R_FULL, a stored -0.0 read through a lookup and
+                  a CAS, more distinct buckets in a shard than the map
+                  kernels' cache holds, a row of 16,384 live lanes, rows
+                  past one 16,384-lane tile and off the 16-byte vector, a
+                  shard untouched in every phase), and the one-phase map
+                  kernel on the map stress cases' first phase: bit-equal;
+                  kernels 1-3 at S=1 timed (``ms``, ``device_ms``, ``host_us``),
   4. volatile  -- the port's main path at full width: ``serve_shards --mixed
                   --shards 256 --batch 16384 --phases 32 --skew 1.1`` on the
                   card with the kernel backend; launch counters zeroed just
@@ -25,7 +36,9 @@ script exits non-zero without printing a result):
                   backend (bit-equal states and responses); the 4 kernels are
                   then held bit for bit against their plain versions at the
                   main path's shapes (a routed batch of phase 3 on the state
-                  after phase 2) and timed, beside the other parts of a step,
+                  after phase 2) and timed, beside the other parts of a step
+                  (``ms`` one call per CUDA-event pair, ``device_ms`` and
+                  ``host_us`` as for the model kernels below),
   5. fused     -- the fused path at the same width on phase 4's 32
                   batches: (a) 32 ``rt.step``, (b) 4 x
                   ``hetero_phase_loop_step(K=8, phase_axis="scan")``, (c) 4 x
@@ -33,8 +46,11 @@ script exits non-zero without printing a result):
                   kinds, final state and meta; counters zeroed before and
                   read after each run ((c) launches B5 4 times per kind and
                   no one-phase kernel); per-phase times; B5 timed at K=8
-                  beside its bound, and held against its plain version on
-                  one K=2 dispatch (the state after phase 2, phases 3-4),
+                  beside its bound (with the map's live lanes per phase), and
+                  held against its plain version on one K=2 dispatch (the
+                  state after phase 2, phases 3-4) and timed there; B5's
+                  ``device_ms`` sums its two launches (the broadcast copy,
+                  then the phases) over 5 calls, ``host_us`` over 20,
   6. durable   -- ``serve_shards --mixed --durable --shards 16 --batch 256
                   --phases 50 --threads 4`` (the seeded multi-thread driver)
                   at ``--depth 1`` and ``--depth 3`` (pwb/op, pfence/op, how
@@ -82,7 +98,10 @@ input to both; the scan in its base and fused modes, y and h_S, at the
 serving shape, a ragged S, N = 8, S = 1 and DI, N off the 16-byte vector,
 the fused mode's z the strided half of an xz (and once contiguous); and a
 launch under ``torch.cuda.stream`` runs on that stream.
-``--phases`` runs a subset (default all).
+``--phases`` runs a subset (default all).  ``--turns DIR`` also builds the
+combine kernels of the checkout at DIR and times each of them in turns with
+this tree's (DIR's, this, this, DIR's) on the same inputs in phases 4 and 5,
+after holding their outputs bit for bit (``turns_tree`` in the records).
 
 Then the card line (nvidia-smi), one JSON line with a record per kernel and,
 last, ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
@@ -120,6 +139,13 @@ NAMES = {"stack": "dfc_stack_reduce", "queue": "dfc_queue_reduce",
          "deque": "dfc_deque_reduce", "map": "dfc_map_reduce"}
 GRID_NAMES = {k: f"dfc_phase_{k}" for k in KINDS}
 K_PHASES = 8  # phases per fused dispatch on the main path
+# (K, N, kinds) of phase 3's stress cases for B5 (kernels/dfc_reduce/cases.py):
+# K = 1 and 8, every lane of a 16,384-lane row live, ring rows past one tile
+# of 16,384 lanes, N off the 16-byte vector.  The map's plain version walks
+# lane by lane, so the map runs at K <= 2 at full width
+STRESS = ((1, 1024, KINDS), (8, 1024, KINDS), (2, 16384, KINDS), (8, 16384, KINDS[:3]),
+          (3, 1003, KINDS), (2, 20000, KINDS[:3]))
+MAP_STRESS_N = (1024, 16384)  # the one-phase map kernel on map_hot's phase 0
 # H100 SXM published peaks (NVIDIA data sheet): HBM3 bytes/s, and the f32
 # rate outside the tensor cores, used for the kernels' 32-bit scalar ops
 HBM_BYTES_PER_S = 3.35e12
@@ -159,6 +185,8 @@ FULL = ["--mixed", "--shards", "256", "--batch", "16384", "--phases", "32",
         "--skew", "1.1", "--device", "cuda"]
 DURABLE = ["--mixed", "--durable", "--shards", "16", "--batch", "256",
            "--phases", "50", "--threads", "4", "--device", "cuda"]
+DEVICE_CALLS = 20  # calls per profiler window: a kernel's device_ms
+HOST_CALLS = 200  # calls per host-clock window: its host_us
 
 
 class SmokeFailure(RuntimeError):
@@ -309,7 +337,9 @@ def bound(kind, args):
 def phase_kernels_adversarial(torch, T):
     """Adversarial batches (empty, all pushes, pops past the bottom, drained
     queue pairs, deque right pops of left pushes, full bucket, CAS hit and
-    miss, key 0, -0.0) and the single-object steps at S=1."""
+    miss, key 0, -0.0, the map stress cases) and the single-object steps at
+    S=1."""
+    import numpy as np
     from repro_torch.kernels.dfc_reduce import ops as O
     dev = torch.device("cuda")
     fns = calls()
@@ -379,12 +409,25 @@ def phase_kernels_adversarial(torch, T):
         torch.zeros((s, cap), dtype=torch.int32), torch.zeros((s,), dtype=torch.int32),
         lk, mo, mp)]]
 
+    # map: the stress cases' phase 0 (cases.py): a hot bucket filled to
+    # R_FULL, a stored -0.0 read through a lookup and a CAS (+0.0 here, the
+    # masked window sum), every lane of a row live, more buckets than the
+    # kernel's cache holds
+    from repro_torch.kernels.dfc_reduce import cases as C
+    for n_map in MAP_STRESS_N:
+        cases["map"].append([torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+                             for a in C.map_reduce_args(C.map_hot(1, n_map))])
+
     for kind, kcases in cases.items():
         kfn, pfn = fns[kind]
         for i, args in enumerate(kcases):
             outs_k = kfn(*args)
             torch.cuda.synchronize()
             compare_outputs(f"{kind} adversarial case {i}", outs_k, pfn(*args))
+            if kind == "map" and i > 0:
+                check(bits(outs_k[4][0, 0]).item() == 0 and outs_k[5][0, 0].item() == T.R_VALUE
+                      and outs_k[5][0, 3].item() == T.R_FULL,
+                      f"map adversarial case {i}: +0.0 or R_FULL lost")
 
     # kernels 1-3 at S = 1: the single-object steps
     steps = {"stack": O.dfc_combine_step, "queue": O.dfc_queue_combine_step,
@@ -407,12 +450,12 @@ def phase_kernels_adversarial(torch, T):
         args = cases[kind][-1]
         one = [a[:1].contiguous() for a in args]
         single[kind] = (cuda_ms(lambda: kfn(*one), 20), cuda_ms(lambda: pfn(*one), 20),
-                        *bound(kind, one))
+                        *bound(kind, one), time_combine(torch, f"{NAMES[kind]} S=1", kfn, one))
     # at this size the byte and operation bounds are far below a launch's
     # latency, which is what the time measures
     print("single-object kernels (S=1, N=64): "
-          + ", ".join(f"{NAMES[k]} {v[0]:.4f} ms (plain {v[1]:.4f} ms, bound "
-                      f"{v[2] * 1e6:.3f} ns by {v[3]})" for k, v in single.items()),
+          + ", ".join(f"{NAMES[k]} {v[0]:.4f} ms, {timing_text(*v[4])} (plain {v[1]:.4f} ms, "
+                      f"bound {v[2] * 1e6:.3f} ns by {v[3]})" for k, v in single.items()),
           flush=True)
 
 
@@ -513,8 +556,33 @@ def phase_grid_adversarial(torch, T):
                       and kinds[0, 0, 0].item() == T.R_VALUE, f"{kind}: -0.0 lost")
             if kind == "map":
                 check(kinds[0, 1, 0].item() == T.R_FULL, "map: full bucket not R_FULL")
+    from repro_torch.kernels.dfc_reduce import cases as C
+    for k_phases, n, kinds in STRESS:
+        for name, kind, leaves, keys, ops, params in C.grid_cases(k_phases, n):
+            if kind not in kinds:
+                continue
+            state = T.state_from_numpy(kind, leaves, device="cuda")
+            ops, params, keys = (torch.from_numpy(a).cuda() for a in (ops, params, keys))
+            outs_k = K.phase_grid_call(kind, state, ops, params, keys)
+            torch.cuda.synchronize()
+            outs_p = R.phase_grid_combine_ref(kind, state, ops, params, keys)
+            what = f"phase grid {name} {kind} K={k_phases} N={n}"
+            compare_grid(what, outs_k, outs_p)
+            st, resp, knd = outs_k
+            check(not bool((knd[:, C.S - 1] != T.R_NONE).any()) and not bool(
+                (st.epoch[:, C.S - 1] != state.epoch[C.S - 1]).any()), f"{what}: shard 2 moved")
+            if kind == "map":  # the stored -0.0 reads back as -0.0 here
+                check(bits(resp[0, 0, 0]).item() == bits(torch.tensor(-0.0)).item()
+                      and knd[0, 0, 3].item() == T.R_FULL, f"{what}: -0.0 or R_FULL lost")
+                nb = T.map_geometry(leaves[0].shape[1])[1]
+                buckets = [len(set(T.map_bucket_host(keys[j, 1].cpu().numpy(), nb).tolist()))
+                           for j in range(k_phases)]
+                print(f"  {what}: {buckets} distinct buckets in shard 1 per phase, "
+                      f"{int((knd == T.R_FULL).sum())} R_FULL", flush=True)
+            del outs_k, outs_p
     print("phase grid kernel: bit-equal to its plain version for every kind at "
-          "S=3, K=3, N in (64, 1024)", flush=True)
+          "S=3, K=3, N in (64, 1024), and on the stress cases (K, N) "
+          f"{[(k, n) for k, n, _ in STRESS]}", flush=True)
 
 
 def compare_grid(what, outs_k, outs_p):
@@ -538,6 +606,40 @@ def grid_bound(kind, state, g_ops):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = nops / SCALAR_OPS_PER_S * 1e3
     return (float(t_bytes), "bytes") if t_bytes >= t_ops else (float(t_ops), "operations")
+
+
+PARENT = {"K": None}  # the combine-kernel module of the tree given by --turns
+B5_DEVICE_CALLS, B5_HOST_CALLS = 5, 20  # B5 outputs K full states a call
+
+
+def flat_outputs(outs):
+    return [t for o in outs for t in (o.leaves() if hasattr(o, "leaves") else [o])]
+
+
+def time_combine(torch, what, fn, args, n_dev=DEVICE_CALLS, n_host=HOST_CALLS, ms_reps=20):
+    """``device_ms``, ``device_ms_by`` and ``host_us`` of the combine
+    kernel's wrapper ``fn`` on ``args`` (``in_turns``); with ``--turns``, in
+    turns with the same wrapper of that tree (P C C P), whose outputs are
+    first held bit for bit against this tree's.  Returns (this tree's
+    fields, that tree's ``ms`` / ``device_ms`` / ``host_us`` or None)."""
+    other = None
+    if PARENT["K"] is not None:
+        pfn = getattr(PARENT["K"], fn.__name__)
+        for i, (a, b) in enumerate(zip(flat_outputs(pfn(*args)), flat_outputs(fn(*args)))):
+            check(same_bits(a, b), f"{what}: output {i} differs from the --turns tree's")
+        other = lambda: pfn(*args)  # noqa: E731
+    cur, par = in_turns(torch, lambda: fn(*args), other, n_dev, n_host, ms_reps)
+    fields = {k: cur[k] for k in ("device_ms", "device_ms_by", "host_us")}
+    return fields, None if par is None else {k: par[k] for k in ("ms", "device_ms", "host_us")}
+
+
+def timing_text(fields, parent):
+    text = (f"device {fields['device_ms']:.4f} ms ({fields['device_ms_by']}), host "
+            f"{fields['host_us']:.1f} us per call")
+    if parent is not None:
+        text += (f"; --turns tree: {parent['ms']:.4f} ms, device {parent['device_ms']:.4f} "
+                 f"ms, host {parent['host_us']:.1f} us")
+    return text
 
 
 def phase_fused(torch, T, K, serve_shards, records, batches):
@@ -630,6 +732,29 @@ def phase_fused(torch, T, K, serve_shards, records, batches):
           f"{[round(x, 4) for x in fused['grid'][3]]})", flush=True)
     grid_launches = fused["grid"][4]
     del fused, rt_a
+    if PARENT["K"] is not None:  # the whole grid dispatch with either tree's B5
+        own = K.phase_grid_call
+
+        def dispatch_ms(b5):
+            K.phase_grid_call = b5  # ops.py looks it up at each call
+            try:
+                rt, ms = fabric(), []
+                for k_t, o_t, p_t in chunks:
+                    t0 = time.perf_counter()
+                    out = hetero_phase_loop_step(
+                        rt.groups, rt._table_dev, k_t, o_t, p_t, rt.meta,
+                        kinds=tuple(rt.kinds), lanes=rt.lanes, phase_axis="grid")
+                    torch.cuda.synchronize()
+                    ms.append((time.perf_counter() - t0) * 1e3)
+                    rt.groups, rt.meta = out[0], out[1]
+                    del out
+            finally:
+                K.phase_grid_call = own
+            return statistics.median(ms)
+        other = PARENT["K"].phase_grid_call
+        p1, c1, c2, p2 = (dispatch_ms(b5) for b5 in (other, own, own, other))
+        print(f"fused: grid dispatch of {K_PHASES} phases, median ms in turns with the --turns "
+              f"tree's B5 (P C C P): {p1:.3f} {c1:.3f} {c2:.3f} {p2:.3f}", flush=True)
 
     def routed_groups(lo, hi):
         rows = {k_: torch.tensor([s for s, kk in enumerate(kinds) if kk == k_],
@@ -653,11 +778,24 @@ def phase_fused(torch, T, K, serve_shards, records, batches):
         st = after_d1[k_]
         ms8 = cuda_ms(lambda: K.phase_grid_call(k_, st, g_ops, g_params, g_keys), 3)
         b8, by8 = grid_bound(k_, st, g_ops)
+        t8, p8 = time_combine(torch, f"{GRID_NAMES[k_]} K={K_PHASES}", K.phase_grid_call,
+                              (k_, st, g_ops, g_params, g_keys), B5_DEVICE_CALLS,
+                              B5_HOST_CALLS, 5)
+        extra = ""
+        if k_ == "map":
+            live = [map_live(g_ops[j]) for j in range(K_PHASES)]
+            extra = (", serial lane chain per phase: longest "
+                     f"{[int(x.max()) for x in live]} live lanes in a shard, "
+                     f"{[int(x.sum()) for x in live]} in all")
         print(f"kernel {GRID_NAMES[k_]} K,S,N={tuple(g_ops.shape)}: {ms8:.4f} ms per "
               f"launch, {ms8 / K_PHASES:.4f} ms per phase (bound {b8:.4f} ms by {by8}), "
-              f"{grid_launches[f'phase_grid_{k_}']} launches on the main path "
-              f"({K_PHASES} phases each)", flush=True)
-        records[f"phase_grid_{k_}"] = {"ms_k8": ms8, "bound_ms_k8": b8}
+              f"{timing_text(t8, p8)}; {grid_launches[f'phase_grid_{k_}']} launches on the "
+              f"main path ({K_PHASES} phases each){extra}", flush=True)
+        records[f"phase_grid_{k_}"] = {
+            "ms_k8": ms8, "bound_ms_k8": b8, "device_ms_k8": t8["device_ms"],
+            "device_ms_by_k8": t8["device_ms_by"], "host_us_k8": t8["host_us"]}
+        if p8 is not None:
+            records[f"phase_grid_{k_}"]["turns_tree_k8"] = p8
     del g8, after_d1
 
     # B5 against its plain version: one K=2 dispatch (phases 3-4) on the
@@ -677,16 +815,21 @@ def phase_fused(torch, T, K, serve_shards, records, batches):
         del outs_k, outs_p
         ms = cuda_ms(lambda: K.phase_grid_call(k_, st, g_ops, g_params, g_keys), 5)
         bound_ms, bound_by = grid_bound(k_, st, g_ops)
+        t2, p2 = time_combine(torch, f"{GRID_NAMES[k_]} K=2", K.phase_grid_call,
+                              (k_, st, g_ops, g_params, g_keys), B5_DEVICE_CALLS,
+                              B5_HOST_CALLS, 5)
         records[f"phase_grid_{k_}"].update({
             "name": GRID_NAMES[k_], "route": "cuda", "source": GRID_SOURCE,
             "replaces": GRID_REPLACES, "launches": grid_launches[f"phase_grid_{k_}"],
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
             "bound_by": bound_by, "library_ms": None, "bit_equal": True,
-            "k_phases": 2,
+            "k_phases": 2, **t2,
         })
+        if p2 is not None:
+            records[f"phase_grid_{k_}"]["turns_tree"] = p2
         print(f"kernel {GRID_NAMES[k_]} K,S,N={tuple(g_ops.shape)}: bit-equal to its plain "
-              f"version; {ms:.4f} ms (plain {plain_ms:.1f} ms, bound {bound_ms:.4f} ms "
-              f"by {bound_by})", flush=True)
+              f"version; {ms:.4f} ms, {timing_text(t2, p2)} (plain {plain_ms:.1f} ms, bound "
+              f"{bound_ms:.4f} ms by {bound_by})", flush=True)
 
 
 def phase_volatile(torch, T, K, serve_shards, records):
@@ -770,6 +913,7 @@ def phase_volatile(torch, T, K, serve_shards, records):
         compare_outputs(f"{kind} at main-path shapes", outs_k, outs_p)
         reps, preps = (3, 2) if kind == "map" else (20, 3)
         ms = cuda_ms(lambda: kfn(*kargs), reps)
+        timing, other = time_combine(torch, NAMES[kind], kfn, kargs)
         plain_ms = cuda_ms(lambda: pfn(*kargs), preps, warmup=0)
         bound_ms, bound_by = bound(kind, kargs)
         touched = (g[0] != T.OP_NONE).any(1)
@@ -790,13 +934,15 @@ def phase_volatile(torch, T, K, serve_shards, records):
             "replaces": REPLACES[kind], "launches": launches[kind],
             "max_abs_err": max_abs_err(outs_k, outs_p), "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": None, "bit_equal": True,
+            "library_ms": None, "bit_equal": True, **timing,
         }
+        if other is not None:
+            records[kind]["turns_tree"] = other
         extra = (f", serial lane chain: longest {int(map_live(kargs[5]).max())} live "
                  f"lanes in a shard, {int(map_live(kargs[5]).sum())} in all"
                  if kind == "map" else "")
-        print(f"kernel {NAMES[kind]} S,N={shape}: {ms:.4f} ms (plain {plain_ms:.3f} ms, "
-              f"bound {bound_ms:.5f} ms by {bound_by}), "
+        print(f"kernel {NAMES[kind]} S,N={shape}: {ms:.4f} ms, {timing_text(timing, other)} "
+              f"(plain {plain_ms:.3f} ms, bound {bound_ms:.5f} ms by {bound_by}), "
               f"{launches[kind] / out['phases']:.0f} launch/step{extra}", flush=True)
     parts.update(windows=windows_ms, splices=splice_ms, touched_select=select_ms)
     kern = sum(records[k]["ms"] for k in kinds_all)
@@ -1418,10 +1564,6 @@ def profile_model(torch, out, first, gen):
                   lambda: serve_step(params, dict(cache), {"tokens": tok}), 4)
 
 
-DEVICE_CALLS = 20  # calls per profiler window: a model kernel's device_ms
-HOST_CALLS = 200  # calls per host-clock window: its host_us
-
-
 def profiler_device_ms(torch, fn, n=DEVICE_CALLS):
     """(device ms per call of ``fn`` from ``torch.profiler`` over ``n``
     calls, the fewest launches it kept of any kernel): each kernel's median
@@ -1482,25 +1624,27 @@ def host_us_per_call(torch, fn, n=HOST_CALLS):
     return (t1 - t0) / n * 1e6
 
 
-def in_turns(torch, kernel, library):
-    """The kernel's and the library call's timings, taken in turns (library,
-    kernel, kernel, library; the kernel alone where there is no library
-    call), each number the mean of its turns: ``ms``, one call per
-    CUDA-event pair (median of 20, as ``cuda_ms``); ``device_ms``, device
-    time per call, from the profiler where it kept enough launches in every
-    turn, else from CUDA graphs for all turns (``device_ms_by``);
-    ``host_us``, host time per call.  Returns (kernel's, library's or
-    None)."""
-    fns = (kernel,) if library is None else (library, kernel, kernel, library)
-    dev, kept = zip(*(profiler_device_ms(torch, fn) for fn in fns))
-    how = f"{'/'.join(map(str, kept))} of {DEVICE_CALLS} launches kept by the profiler"
+def in_turns(torch, kernel, other, n_dev=DEVICE_CALLS, n_host=HOST_CALLS, ms_reps=20):
+    """The kernel's and another call's timings, taken in turns (other,
+    kernel, kernel, other; the kernel alone where there is no other call),
+    each number the mean of its turns: ``ms``, one call per CUDA-event pair
+    (median of ``ms_reps``, as ``cuda_ms``); ``device_ms``, device time per
+    call, from the profiler over ``n_dev`` calls where it kept enough
+    launches in every turn, else from CUDA graphs of ``n_dev`` calls for all
+    turns (``device_ms_by``); ``host_us``, host time per call over
+    ``n_host`` calls.  The other call is a model kernel's PyTorch call, or
+    a combine kernel of the tree given by ``--turns``.  Returns (kernel's,
+    other's or None)."""
+    fns = (kernel,) if other is None else (other, kernel, kernel, other)
+    dev, kept = zip(*(profiler_device_ms(torch, fn, n_dev) for fn in fns))
+    how = f"{'/'.join(map(str, kept))} of {n_dev} launches kept by the profiler"
     if None in dev:
-        dev, how = [graph_device_ms(torch, fn) for fn in fns], f"graph; {how}"
+        dev, how = [graph_device_ms(torch, fn, n_dev) for fn in fns], f"graph; {how}"
     else:
         how = f"profiler; {how}"
-    turns = [{"ms": cuda_ms(fn, 20), "device_ms": d, "device_ms_by": how,
-              "host_us": host_us_per_call(torch, fn)} for fn, d in zip(fns, dev)]
-    if library is None:
+    turns = [{"ms": cuda_ms(fn, ms_reps), "device_ms": d, "device_ms_by": how,
+              "host_us": host_us_per_call(torch, fn, n_host)} for fn, d in zip(fns, dev)]
+    if other is None:
         return turns[0], None
 
     def mean(a, b):
@@ -1637,11 +1781,29 @@ def phase_serve(torch, K, records):
                                           more.get(name, ()))
 
 
+def turns_kernels(root):
+    """The combine-kernel wrappers (``kernel.py``) of the repository checkout
+    at ``root``, loaded beside this tree's: its ``csrc`` sources build into
+    this tree's ``build/`` under their own content hash."""
+    import importlib.util
+    path = Path(root).resolve() / "src/repro_torch/kernels/dfc_reduce/kernel.py"
+    check(path.is_file(), f"--turns {root}: no {path}")
+    spec = importlib.util.spec_from_file_location("turns_dfc_kernel", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description="Smoke run of the port on one card")
     ap.add_argument("--phases", default=",".join(ALL_PHASES),
                     help="comma-separated phases to run (default: all; 1 and 2 always run)")
-    run = set(ap.parse_args(argv).phases.split(",")) | {"1", "2"}
+    ap.add_argument("--turns", metavar="DIR",
+                    help="also time the combine kernels of the repository checkout at DIR "
+                         "in turns with this tree's (DIR's, this, this, DIR's) in phases 4 "
+                         "and 5, on the same inputs, after holding their outputs bit for bit")
+    opts = ap.parse_args(argv)
+    run = set(opts.phases.split(",")) | {"1", "2"}
     if not (ROOT / "src" / "repro_torch").is_dir():
         raise SmokeFailure(f"no src/repro_torch next to {Path(__file__).name}: "
                            "run this script from a checkout of the repository")
@@ -1680,6 +1842,9 @@ def main(argv=None) -> int:
             libraries += mod.LIBRARIES
         with contextlib.redirect_stdout(log):
             libs = nvcc.build(libraries, verbose=True)
+            if opts.turns:
+                PARENT["K"] = turns_kernels(opts.turns)
+                libs.update({f"{k} (--turns)": v for k, v in PARENT["K"].build().items()})
         usage = [ln.strip() for ln in log.getvalue().splitlines()
                  if "registers" in ln or "Compiling entry" in ln]
         print(f"build: {', '.join(str(p.relative_to(ROOT)) for p in libs.values())} in "

@@ -5,7 +5,7 @@
 // bit for bit, what the plain PyTorch versions in ../ref.py compute.  Plain C
 // interface (extern "C", raw pointers, the stream as void*), built by nvcc at
 // first use and bound with ctypes by ../kernel.py; every entry point returns
-// cudaGetLastError() of its launch.
+// cudaGetLastError() of its launches.
 //
 // Replaces (JAX package, kernels/dfc_reduce/kernel.py):
 //   dfc_stack_reduce  <- dfc_reduce_grid_call        :539 (math _stack_reduce_math :98)
@@ -31,18 +31,26 @@
 //   responses) re-read ops from L2 instead of holding ranks in shared
 //   memory.  Routed values are stored as v + 0.0f so that a pushed -0.0
 //   lands as +0.0, as the reference's scatter-add into zeros gives it.
-// * Map.  Map ops do not commute, so one shard's lanes form a serial chain
-//   of N dependent bucket probes: the bound is the latency of that chain,
-//   not bytes.  One warp walks the lanes in announcement order, skipping
-//   lanes without a map op (a routed row is mostly OP_NONE padding); for
-//   each live lane, 8 threads read the key's 8-slot bucket and __ballot_sync gives the
-//   hit and free masks (first set bit, or offset 0 when empty, as the
-//   reference's argmax gives it).  Lane inputs are fetched 32 at a time and
-//   broadcast with shuffles, so the chain waits only on the bucket loads.
-//   Before the walk the whole block copies the shard's table row (keys,
-//   values, occupied) into the output row with 16-byte loads, as the TPU
-//   design carries the whole table in and out; that copy is the map's byte
-//   cost (12 bytes per slot, read and written).
+// * Map (dfc_map_reduce: two launches on the caller's stream).  The output
+//   contract is the whole table, so the bound is bytes: the 415 MB of a
+//   64-shard group at capacity 540,672 read once and written once, 0.25 ms
+//   at 3.35 TB/s.  Map ops do not commute, so one shard's live lanes also
+//   form a serial chain of dependent bucket probes (some hundreds in the
+//   busiest shard at the main path's Zipf-1.1 traffic).  The design splits
+//   the two: broadcast_kernel (combine_common.cuh) copies the three table
+//   leaves into the output with a grid over every SM, 16-byte streaming
+//   loads and stores; then map_kernel, one block per shard, runs map_phase
+//   (combine_common.cuh): the block compacts the lanes into shared memory
+//   (live lanes only; padding and foreign codes get R_NONE), and warp 0
+//   walks them in announcement order with the key's bucket in registers
+//   (one slot a lane, ballots for the first hit / free slot, offset 0 when
+//   there is none, as the reference's argmax gives it; a run of lanes on one
+//   key skips the ballots) and the buckets it touches cached in shared
+//   memory, so a probe costs shared-memory latency and not an L2/HBM round
+//   trip; a changed bucket is stored into the output row when it is evicted
+//   or the walk ends, and the block answers the lanes after the walk.  A hit
+//   reads the masked window sum, +0.0 plus the hit (the hit alone for a
+//   one-slot window).
 
 #include "combine_common.cuh"
 
@@ -344,27 +352,22 @@ deque_kernel(const int* __restrict__ ops, const float* __restrict__ params,
 
 // -------------------------------------------------------------------- map
 __global__ void __launch_bounds__(kMapThreads)
-map_kernel(const int* __restrict__ mkeys, const float* __restrict__ mvals,
-           const int* __restrict__ mocc, const int* __restrict__ counts_in,
-           const int* __restrict__ lkeys, const int* __restrict__ ops,
-           const float* __restrict__ params, int* keys_out, float* vals_out,
-           int* occ_out, int* count_out, float* resp, int* kinds, int C, int N,
-           int bslots, unsigned n_buckets) {
+map_kernel(const int* __restrict__ counts_in, const int* __restrict__ lkeys,
+           const int* __restrict__ ops, const float* __restrict__ params, int* keys_out,
+           float* vals_out, int* occ_out, int* count_out, float* resp, int* kinds, int C,
+           int N, int bslots, unsigned n_buckets) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  MapSmem& sm = *reinterpret_cast<MapSmem*>(smem);
   const size_t trow = (size_t)blockIdx.x * C;
   const size_t lrow = (size_t)blockIdx.x * N;
-  int* tk = keys_out + trow;
-  float* tv = vals_out + trow;
-  int* to = occ_out + trow;
-  copy_row(mkeys + trow, tk, C);
-  copy_row(mvals + trow, tv, C);
-  copy_row(mocc + trow, to, C);
+  map_cache_init(sm);
   __syncthreads();
-  if (threadIdx.x >= 32) return;  // the serial lane chain is one warp's
-
-  const int cnt = map_walk<true>(tk, tv, to, lkeys + lrow, ops + lrow, params + lrow,
-                                 resp + lrow, kinds + lrow, N, bslots, n_buckets,
-                                 counts_in[blockIdx.x]);
-  if (threadIdx.x == 0) count_out[blockIdx.x] = cnt;
+  MapCursor cur;
+  cur.cnt = counts_in[blockIdx.x];
+  const MapRows rows{keys_out + trow, vals_out + trow, occ_out + trow, 0, 1};
+  map_phase<true>(sm, cur, rows, lkeys + lrow, ops + lrow, params + lrow, resp + lrow,
+                  kinds + lrow, N, bslots, n_buckets);
+  if (threadIdx.x == 0) count_out[blockIdx.x] = cur.cnt;
 }
 
 }  // namespace
@@ -411,11 +414,13 @@ int dfc_map_reduce(const void* mkeys, const void* mvals, const void* mocc,
                    const void* params, void* keys_out, void* vals_out, void* occ_out,
                    void* count_out, void* resp, void* kinds, int S, int C, int N,
                    int bslots, int n_buckets, void* stream) {
-  map_kernel<<<S, kMapThreads, 0, (cudaStream_t)stream>>>(
-      (const int*)mkeys, (const float*)mvals, (const int*)mocc, (const int*)counts_in,
-      (const int*)lkeys, (const int*)ops, (const float*)params, (int*)keys_out,
-      (float*)vals_out, (int*)occ_out, (int*)count_out, (float*)resp, (int*)kinds, C,
-      N, bslots, (unsigned)n_buckets);
+  if (int err = set_smem((const void*)map_kernel, sizeof(MapSmem))) return err;
+  const Leaves lv{{mkeys, mvals, mocc}, {keys_out, vals_out, occ_out}};
+  if (int err = launch_broadcast(lv, 3, (size_t)S * C, 1, (cudaStream_t)stream)) return err;
+  map_kernel<<<S, kMapThreads, sizeof(MapSmem), (cudaStream_t)stream>>>(
+      (const int*)counts_in, (const int*)lkeys, (const int*)ops, (const float*)params,
+      (int*)keys_out, (float*)vals_out, (int*)occ_out, (int*)count_out, (float*)resp,
+      (int*)kinds, C, N, bslots, (unsigned)n_buckets);
   return (int)cudaGetLastError();
 }
 

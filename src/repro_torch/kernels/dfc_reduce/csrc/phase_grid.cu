@@ -2,47 +2,58 @@
 //
 // Replaces the JAX package's _phase_grid_combine
 // (src/repro/kernels/dfc_reduce/ops.py:482, pallas_call at :565): K combining
-// phases of one kind group in ONE launch.  On the TPU the grid is (K,): step
-// k runs phase k over every shard of the group with the vectorized
+// phases of one kind group in ONE call.  On the TPU the grid is (K,): step k
+// runs phase k over every shard of the group with the vectorized
 // STRUCTS[kind].combine, the shard-stacked state carried in VMEM across the
-// sequential grid.  Here the grid is one thread block per SHARD (grid = S),
-// and the K phases are a loop inside the block: shards never read each
-// other's state, so nothing crosses blocks.  The semantics are those of the
-// vectorized combine (../../../core/torch_dfc.py), NOT of the one-phase
-// kernels in dfc_reduce.cu: a map hit reads the hit slot's own value (a
-// stored -0.0 stays -0.0) and ring pops read the committed slots directly.
-// They compute, bit for bit, what ../ref.py phase_grid_combine_ref computes.
+// sequential grid.  The semantics are those of the vectorized combine
+// (../../../core/torch_dfc.py), NOT of the one-phase kernels in
+// dfc_reduce.cu: a map hit reads the hit slot's own value (a stored -0.0
+// stays -0.0) and ring pops read the committed slots directly.  They
+// compute, bit for bit, what ../ref.py phase_grid_combine_ref computes.
 // Plain C interface, built by nvcc at first use and bound with ctypes by
-// ../kernel.py; every entry point returns cudaGetLastError() of its launch.
-//
-// Working state.  A full-width shard row (2.16 MB for a ring kind, 6.5 MB for
-// a map at capacity 540,672) does not fit in 227 KB of shared memory, so the
-// working state is the block's own OUTPUT row.  For phase k the block
-//   1. copies row k-1 (the input state at k = 0) into row k with 16-byte
-//      loads, then __syncthreads();
-//   2. counts the phase's ops with block-wide ballot ranks (tile_rank) --
-//      which also tells whether the shard is touched at all;
-//   3. routes pushes by rank: eliminated ones into a shared-memory buffer of
-//      ceil(N/2) floats, the surplus straight into row k at its ring slot;
-//   4. writes responses and kinds, reading pops from row k-1 (the committed
-//      state; the deque's right pops read row k, which already holds this
-//      phase's left pushes, as the vectorized combine reads them);
-//   5. thread 0 writes the double-buffered root (the inactive size / ends /
-//      count) and the epoch +2 -- or copies them when the phase left the
-//      shard untouched (all OP_NONE: state and epoch stay, responses are
-//      R_NONE with 0.0);
-//   6. __syncthreads(), so phase k+1 reads a complete row k.
-// Row k of shard s starts at (k*S + s)*cap elements: 2.8e8 at K = 8, S = 64,
-// cap = 540,672, so every offset is size_t.
+// ../kernel.py; every entry point returns cudaGetLastError() of its launches.
 //
 // What bounds it on this card.  The output contract demands every phase's
-// full state: at 256 mixed shards, capacity 540,672 and K = 8 the kernel
-// reads the 0.83 GB input state once and writes 8 x 0.83 GB of per-phase
-// states, plus about 84 MB a phase of ops, params, keys, responses and
-// kinds: about 8.1 GB, 2.4 ms at 3.35 TB/s (0.30 ms a phase).  Bytes, not
-// operations: the combine is a few integer ops per lane.  This first
-// version copies each row with one block per shard (64 blocks per kind
-// group) and is simple rather than fast.
+// full state: at 256 mixed shards, capacity 540,672 and K = 8, a ring group
+// reads its 138 MB state once and writes 8 x 138 MB of per-phase rows, a map
+// group 415 MB and 8 x 415 MB, plus about 10-20 MB a phase of ops, params,
+// keys, responses and kinds.  So the bound is bytes: 0.41 ms a ring group,
+// 1.17 ms the map group at 3.35 TB/s.  The combine itself is a few integer
+// ops per lane, and the map's serial lane chain is some hundreds of
+// dependent bucket probes a phase in the busiest shard at the main path's
+// Zipf-1.1 traffic.
+//
+// What the design does about it.  Each entry point makes two launches on
+// the caller's stream:
+//   1. broadcast_kernel (combine_common.cuh), a grid over every SM, reads
+//      each 16-byte vector of the input state once and stores it into all K
+//      output rows with streaming stores: the bound's state term, and all of
+//      the call's bulk bytes;
+//   2. the phase kernel, one block per shard (grid = S) looping over the K
+//      phases, which writes only what each phase changes.  Stream order
+//      gives it the complete broadcast.
+// Ring kinds (stack, queue, deque).  A phase holds its lanes in registers
+// (LaneTile: quads of lanes interleaved over the threads, so every 16-byte
+// load and store of a warp is contiguous; one block-wide scan of per-thread
+// counts ranks them), so the counts, the push routing and the responses
+// read the ops and params once.  A push that survives elimination is stored
+// into its slot of rows k..K-1 (store_forward); a later phase's push to the
+// same slot overwrites rows j..K-1 after it, in program order, behind the
+// barrier that ends each phase.  So row k-1 holds the input plus every
+// earlier phase's pushes -- the committed state that pops read -- and the
+// deque's right pops read row k, which holds this phase's left pushes.
+// Pops clear nothing, so untouched slots cost nothing.  Eliminated pairs
+// meet in a shared-memory buffer of ceil(N/2) floats.  Thread 0 writes the
+// double-buffered root (the inactive size / ends / count) and the epoch +2,
+// or copies them when the phase left the shard untouched (all OP_NONE:
+// state and epoch stay, responses are R_NONE with 0.0).
+// Map.  map_phase (combine_common.cuh): the block compacts the live lanes
+// into shared memory and warp 0 walks only those, in announcement order,
+// with the buckets it touches in a shared-memory cache that lives for the
+// whole launch (a hot bucket is read from global memory once) and a dirty
+// bucket stored into rows k..K-1 when it is evicted or the phase ends.
+// Row k of shard s starts at (k*S + s)*cap elements: 2.8e8 at K = 8, S = 64,
+// cap = 540,672, so every offset is size_t.
 
 #include "combine_common.cuh"
 
@@ -57,6 +68,15 @@ __device__ __forceinline__ size_t ring_slot(long long pos, int cap) {
   return (size_t)(m < 0 ? m + cap : m);
 }
 
+// Whether any lane of the row holds a non-zero op code (the same in every
+// thread): a phase with none leaves the shard's state and epoch as they are.
+__device__ __forceinline__ int row_live(const LaneTile& lt) {
+  int any = 0;
+#pragma unroll
+  for (int q = 0; q < kQ; ++q) any |= lt.op[q] != 0u;
+  return any;
+}
+
 // ------------------------------------------------------------------ stack
 __global__ void __launch_bounds__(kThreads)
 phase_stack_kernel(const float* __restrict__ values_in, const int* __restrict__ size_in,
@@ -65,31 +85,33 @@ phase_stack_kernel(const float* __restrict__ values_in, const int* __restrict__ 
                    int* epoch_out, float* resp, int* kinds, int K, int S, int cap,
                    int N) {
   extern __shared__ float elim_buf[];  // push params by rank < n_elim
-  __shared__ int sm[3 * 32];
+  __shared__ int sm[2 * kQ * 32];
   const int s = blockIdx.x;
+  const size_t stride = (size_t)S * cap;
+  const int ntiles = (N + kTile - 1) / kTile;
+  auto flags = [](int o, bool (&f)[2]) { f[0] = o == OP_PUSH, f[1] = o == OP_POP; };
+  LaneTile lt;
+  auto code = [&](int j) { return lt.code(j); };
+  int base[2][kQ], tsum[2];
   for (int k = 0; k < K; ++k) {
     const size_t ph = (size_t)k * S + s, prev = ph - S;
     const float* src = k ? values_out + prev * cap : values_in + (size_t)s * cap;
     const int* src_size = k ? size_out + prev * 2 : size_in + (size_t)s * 2;
     const int epoch = k ? epoch_out[prev] : epoch_in[s];
     float* dst = values_out + ph * cap;
-    copy_row(src, dst, cap);
-    __syncthreads();
     const size_t row = ph * N;
     const int* op = ops + row;
     const float* par = params + row;
 
-    int p_total = 0, q_total = 0, live = 0;
-    for (int base = 0; base < N; base += blockDim.x) {
-      const int i = base + threadIdx.x;
-      const int o = i < N ? op[i] : 0;
-      const bool f[3] = {o == OP_PUSH, o == OP_POP, o != 0};
-      int r[3], t[3];
-      tile_rank<3>(f, r, t, sm);
-      p_total += t[0];
-      q_total += t[1];
-      live += t[2];
+    int p_total = 0, q_total = 0, any = 0;
+    for (int t = 0; t < ntiles; ++t) {
+      lt.load(op, par, N, t);
+      any |= row_live(lt);
+      rank_quads<2>(code, flags, base, tsum, sm);
+      p_total += tsum[0];
+      q_total += tsum[1];
     }
+    const int live = __syncthreads_or(any);
     const int old = src_size[active_slot(epoch)];
     const int n_elim = min(p_total, q_total);
     const int n_push_surplus = p_total - n_elim;
@@ -98,57 +120,69 @@ phase_stack_kernel(const float* __restrict__ values_in, const int* __restrict__ 
     const int start = min(max(old, 0), cap - N);
 
     int carry = 0;
-    for (int base = 0; base < N; base += blockDim.x) {
-      const int i = base + threadIdx.x;
-      const int o = i < N ? op[i] : 0;
-      const bool f[1] = {o == OP_PUSH};
-      int r[1], t[1];
-      tile_rank<1>(f, r, t, sm);
-      if (f[0]) {
-        const int rk = carry + r[0];
-        const float v = par[i] + 0.0f;  // routed -0.0 lands as +0.0
-        if (rk < n_elim) {
-          elim_buf[rk] = v;
-        } else {
-          const int pos = start + rk - n_elim;
-          if (pos >= old && pos < old + n_push_surplus) dst[pos] = v;
+    for (int t = 0; t < ntiles; ++t) {
+      if (ntiles > 1) {
+        lt.load(op, par, N, t);
+        rank_quads<2>(code, flags, base, tsum, sm);
+      }
+#pragma unroll
+      for (int q = 0; q < kQ; ++q) {
+        int rk = carry + base[0][q];
+#pragma unroll
+        for (int b = 0; b < 4; ++b) {
+          if (lt.code(4 * q + b) != OP_PUSH) continue;
+          const float v = lt.par[4 * q + b] + 0.0f;  // routed -0.0 lands as +0.0
+          if (rk < n_elim) {
+            elim_buf[rk] = v;
+          } else {
+            const int pos = start + rk - n_elim;
+            if (pos >= old && pos < old + n_push_surplus)
+              store_forward(dst, stride, K - k, pos, v);
+          }
+          ++rk;
         }
       }
-      carry += t[0];
+      carry += tsum[0];
     }
     __syncthreads();
 
     carry = 0;
-    for (int base = 0; base < N; base += blockDim.x) {
-      const int i = base + threadIdx.x;
-      const int o = i < N ? op[i] : 0;
-      const bool f[1] = {o == OP_POP};
-      int r[1], t[1];
-      tile_rank<1>(f, r, t, sm);
-      if (i < N) {
-        int kind = R_NONE;
-        float v = 0.0f;
-        if (o == OP_PUSH) {
-          kind = R_ACK;
-        } else if (f[0]) {
-          const int rk = carry + r[0];
-          if (rk < n_elim) {
-            kind = R_VALUE;
-            v = elim_buf[rk];
-          } else {
-            const int src_pos = old - 1 - (rk - n_elim);
-            if (src_pos >= 0) {
-              kind = R_VALUE;
-              v = src[min(src_pos, cap - 1)];
+    for (int t = 0; t < ntiles; ++t) {
+      if (ntiles > 1) {
+        lt.load(op, par, N, t);
+        rank_quads<2>(code, flags, base, tsum, sm);
+      }
+#pragma unroll
+      for (int q = 0; q < kQ; ++q) {
+        int rk = carry + base[1][q];
+        float v[4];
+        int kind[4];
+#pragma unroll
+        for (int b = 0; b < 4; ++b) {
+          const int o = lt.code(4 * q + b);
+          kind[b] = R_NONE;
+          v[b] = 0.0f;
+          if (o == OP_PUSH) {
+            kind[b] = R_ACK;
+          } else if (o == OP_POP) {
+            if (rk < n_elim) {
+              kind[b] = R_VALUE;
+              v[b] = elim_buf[rk];
             } else {
-              kind = R_EMPTY;
+              const int src_pos = old - 1 - (rk - n_elim);
+              if (src_pos >= 0) {
+                kind[b] = R_VALUE;
+                v[b] = src[min(src_pos, cap - 1)];
+              } else {
+                kind[b] = R_EMPTY;
+              }
             }
+            ++rk;
           }
         }
-        resp[row + i] = v;
-        kinds[row + i] = kind;
+        store_quad(resp + row, kinds + row, N, t, q, v, kind);
       }
-      carry += t[0];
+      carry += tsum[1];
     }
     if (threadIdx.x == 0) {
       int* so = size_out + ph * 2;
@@ -172,31 +206,33 @@ phase_queue_kernel(const float* __restrict__ values_in, const int* __restrict__ 
                    int* epoch_out, float* resp, int* kinds, int K, int S, int cap,
                    int N) {
   extern __shared__ float elim_buf[];  // enq params by rank < n_elim
-  __shared__ int sm[3 * 32];
+  __shared__ int sm[2 * kQ * 32];
   const int s = blockIdx.x;
+  const size_t stride = (size_t)S * cap;
+  const int ntiles = (N + kTile - 1) / kTile;
+  auto flags = [](int o, bool (&f)[2]) { f[0] = o == OP_PUSH, f[1] = o == OP_POP; };
+  LaneTile lt;
+  auto code = [&](int j) { return lt.code(j); };
+  int base[2][kQ], tsum[2];
   for (int k = 0; k < K; ++k) {
     const size_t ph = (size_t)k * S + s, prev = ph - S;
     const float* src = k ? values_out + prev * cap : values_in + (size_t)s * cap;
     const int* src_ends = k ? ends_out + prev * 4 : ends_in + (size_t)s * 4;
     const int epoch = k ? epoch_out[prev] : epoch_in[s];
     float* dst = values_out + ph * cap;
-    copy_row(src, dst, cap);
-    __syncthreads();
     const size_t row = ph * N;
     const int* op = ops + row;
     const float* par = params + row;
 
-    int p_total = 0, q_total = 0, live = 0;
-    for (int base = 0; base < N; base += blockDim.x) {
-      const int i = base + threadIdx.x;
-      const int o = i < N ? op[i] : 0;
-      const bool f[3] = {o == OP_PUSH, o == OP_POP, o != 0};
-      int r[3], t[3];
-      tile_rank<3>(f, r, t, sm);
-      p_total += t[0];
-      q_total += t[1];
-      live += t[2];
+    int p_total = 0, q_total = 0, any = 0;
+    for (int t = 0; t < ntiles; ++t) {
+      lt.load(op, par, N, t);
+      any |= row_live(lt);
+      rank_quads<2>(code, flags, base, tsum, sm);
+      p_total += tsum[0];
+      q_total += tsum[1];
     }
+    const int live = __syncthreads_or(any);
     const int a = active_slot(epoch);
     const long long head = src_ends[2 * a], tail = src_ends[2 * a + 1];
     const long long size = tail - head;
@@ -205,50 +241,61 @@ phase_queue_kernel(const float* __restrict__ values_in, const int* __restrict__ 
     const long long n_enq_surplus = p_total - n_elim;
 
     int carry = 0;
-    for (int base = 0; base < N; base += blockDim.x) {
-      const int i = base + threadIdx.x;
-      const int o = i < N ? op[i] : 0;
-      const bool f[1] = {o == OP_PUSH};
-      int r[1], t[1];
-      tile_rank<1>(f, r, t, sm);
-      if (f[0]) {
-        const int rk = carry + r[0];
-        const float v = par[i] + 0.0f;
-        if (rk < n_elim) elim_buf[rk] = v;
-        else dst[ring_slot(tail + rk - n_elim, cap)] = v;  // appended at the tail
+    for (int t = 0; t < ntiles; ++t) {
+      if (ntiles > 1) {
+        lt.load(op, par, N, t);
+        rank_quads<2>(code, flags, base, tsum, sm);
       }
-      carry += t[0];
+#pragma unroll
+      for (int q = 0; q < kQ; ++q) {
+        int rk = carry + base[0][q];
+#pragma unroll
+        for (int b = 0; b < 4; ++b) {
+          if (lt.code(4 * q + b) != OP_PUSH) continue;
+          const float v = lt.par[4 * q + b] + 0.0f;
+          if (rk < n_elim) elim_buf[rk] = v;
+          else store_forward(dst, stride, K - k, ring_slot(tail + rk - n_elim, cap), v);
+          ++rk;
+        }
+      }
+      carry += tsum[0];
     }
     __syncthreads();
 
     carry = 0;
-    for (int base = 0; base < N; base += blockDim.x) {
-      const int i = base + threadIdx.x;
-      const int o = i < N ? op[i] : 0;
-      const bool f[1] = {o == OP_POP};
-      int r[1], t[1];
-      tile_rank<1>(f, r, t, sm);
-      if (i < N) {
-        int kind = R_NONE;
-        float v = 0.0f;
-        if (o == OP_PUSH) {
-          kind = R_ACK;
-        } else if (f[0]) {
-          const long long rk = carry + r[0];
-          if (rk < size) {  // served FIFO from the committed ring
-            kind = R_VALUE;
-            v = src[ring_slot(head + rk, cap)];
-          } else if (rk - size < n_elim) {  // drained: pairs with enq rank rk-size
-            kind = R_VALUE;
-            v = elim_buf[rk - size];
-          } else {
-            kind = R_EMPTY;
+    for (int t = 0; t < ntiles; ++t) {
+      if (ntiles > 1) {
+        lt.load(op, par, N, t);
+        rank_quads<2>(code, flags, base, tsum, sm);
+      }
+#pragma unroll
+      for (int q = 0; q < kQ; ++q) {
+        long long rk = carry + base[1][q];
+        float v[4];
+        int kind[4];
+#pragma unroll
+        for (int b = 0; b < 4; ++b) {
+          const int o = lt.code(4 * q + b);
+          kind[b] = R_NONE;
+          v[b] = 0.0f;
+          if (o == OP_PUSH) {
+            kind[b] = R_ACK;
+          } else if (o == OP_POP) {
+            if (rk < size) {  // served FIFO from the committed ring
+              kind[b] = R_VALUE;
+              v[b] = src[ring_slot(head + rk, cap)];
+            } else if (rk - size < n_elim) {  // drained: pairs with enq rank rk-size
+              kind[b] = R_VALUE;
+              v[b] = elim_buf[rk - size];
+            } else {
+              kind[b] = R_EMPTY;
+            }
+            ++rk;
           }
         }
-        resp[row + i] = v;
-        kinds[row + i] = kind;
+        store_quad(resp + row, kinds + row, N, t, q, v, kind);
       }
-      carry += t[0];
+      carry += tsum[1];
     }
     if (threadIdx.x == 0) {
       int* eo = ends_out + ph * 4;
@@ -273,34 +320,37 @@ phase_deque_kernel(const float* __restrict__ values_in, const int* __restrict__ 
                    int N) {
   // [0, nl_elim): pushL params by rank; [nl_elim, nl_elim + nr_elim): pushR
   extern __shared__ float elim_buf[];
-  __shared__ int sm[5 * 32];
+  __shared__ int sm[4 * kQ * 32];
   const int s = blockIdx.x;
+  const size_t stride = (size_t)S * cap;
+  const int ntiles = (N + kTile - 1) / kTile;
+  auto flags = [](int o, bool (&f)[4]) {
+    f[0] = o == OP_PUSHL, f[1] = o == OP_POPL, f[2] = o == OP_PUSHR, f[3] = o == OP_POPR;
+  };
+  LaneTile lt;
+  auto code = [&](int j) { return lt.code(j); };
+  int base[4][kQ], tsum[4];
   for (int k = 0; k < K; ++k) {
     const size_t ph = (size_t)k * S + s, prev = ph - S;
     const float* src = k ? values_out + prev * cap : values_in + (size_t)s * cap;
     const int* src_ends = k ? ends_out + prev * 4 : ends_in + (size_t)s * 4;
     const int epoch = k ? epoch_out[prev] : epoch_in[s];
     float* dst = values_out + ph * cap;
-    copy_row(src, dst, cap);
-    __syncthreads();
     const size_t row = ph * N;
     const int* op = ops + row;
     const float* par = params + row;
 
-    int npl = 0, nql = 0, npr = 0, nqr = 0, live = 0;
-    for (int base = 0; base < N; base += blockDim.x) {
-      const int i = base + threadIdx.x;
-      const int o = i < N ? op[i] : 0;
-      const bool f[5] = {o == OP_PUSHL, o == OP_POPL, o == OP_PUSHR, o == OP_POPR,
-                         o != 0};
-      int r[5], t[5];
-      tile_rank<5>(f, r, t, sm);
-      npl += t[0];
-      nql += t[1];
-      npr += t[2];
-      nqr += t[3];
-      live += t[4];
+    int npl = 0, nql = 0, npr = 0, nqr = 0, any = 0;
+    for (int t = 0; t < ntiles; ++t) {
+      lt.load(op, par, N, t);
+      any |= row_live(lt);
+      rank_quads<4>(code, flags, base, tsum, sm);
+      npl += tsum[0];
+      nql += tsum[1];
+      npr += tsum[2];
+      nqr += tsum[3];
     }
+    const int live = __syncthreads_or(any);
     const int a = active_slot(epoch);
     const long long left = src_ends[2 * a], right = src_ends[2 * a + 1];
     const long long size = right - left;
@@ -316,75 +366,91 @@ phase_deque_kernel(const float* __restrict__ values_in, const int* __restrict__ 
     // left pushes (and both sides' eliminated pushes): push j of the left
     // surplus lands at left-1-j
     int cl = 0, cr = 0;
-    for (int base = 0; base < N; base += blockDim.x) {
-      const int i = base + threadIdx.x;
-      const int o = i < N ? op[i] : 0;
-      const bool f[2] = {o == OP_PUSHL, o == OP_PUSHR};
-      int r[2], t[2];
-      tile_rank<2>(f, r, t, sm);
-      if (f[0]) {
-        const int rk = cl + r[0];
-        const float v = par[i] + 0.0f;
-        if (rk < nl_elim) buf_l[rk] = v;
-        else dst[ring_slot(left - 1 - (rk - nl_elim), cap)] = v;
-      } else if (f[1]) {
-        const int rk = cr + r[1];
-        if (rk < nr_elim) buf_r[rk] = par[i] + 0.0f;
+    for (int t = 0; t < ntiles; ++t) {
+      if (ntiles > 1) {
+        lt.load(op, par, N, t);
+        rank_quads<4>(code, flags, base, tsum, sm);
       }
-      cl += t[0];
-      cr += t[1];
+#pragma unroll
+      for (int q = 0; q < kQ; ++q) {
+        int rl = cl + base[0][q], rr = cr + base[2][q];
+#pragma unroll
+        for (int b = 0; b < 4; ++b) {
+          const int j = 4 * q + b;
+          const int o = lt.code(j);
+          if (o == OP_PUSHL) {
+            const float v = lt.par[j] + 0.0f;
+            if (rl < nl_elim) buf_l[rl] = v;
+            else store_forward(dst, stride, K - k, ring_slot(left - 1 - (rl - nl_elim), cap), v);
+            ++rl;
+          } else if (o == OP_PUSHR) {
+            if (rr < nr_elim) buf_r[rr] = lt.par[j] + 0.0f;
+            ++rr;
+          }
+        }
+      }
+      cl += tsum[0];
+      cr += tsum[2];
     }
     __syncthreads();  // row k now holds this phase's left pushes
 
     // responses; right surplus pushes land at right+j after the left ones
     // (a phase with right surplus pushes has no right surplus pops)
     int ql = 0, qr = 0, pr = 0;
-    for (int base = 0; base < N; base += blockDim.x) {
-      const int i = base + threadIdx.x;
-      const int o = i < N ? op[i] : 0;
-      const bool f[3] = {o == OP_POPL, o == OP_POPR, o == OP_PUSHR};
-      int r[3], t[3];
-      tile_rank<3>(f, r, t, sm);
-      if (i < N) {
-        int kind = R_NONE;
-        float v = 0.0f;
-        if (o == OP_PUSHL) {
-          kind = R_ACK;
-        } else if (f[2]) {
-          kind = R_ACK;
-          const int rk = pr + r[2];
-          if (rk >= nr_elim)
-            dst[ring_slot(right + (rk - nr_elim), cap)] = par[i] + 0.0f;
-        } else if (f[0]) {
-          const int rk = ql + r[0];
-          if (rk < nl_elim) {
-            kind = R_VALUE;
-            v = buf_l[rk];
-          } else if (rk - nl_elim < size) {
-            kind = R_VALUE;
-            v = src[ring_slot(left + (rk - nl_elim), cap)];
-          } else {
-            kind = R_EMPTY;
-          }
-        } else if (f[1]) {
-          const int rk = qr + r[1];
-          if (rk < nr_elim) {
-            kind = R_VALUE;
-            v = buf_r[rk];
-          } else if (rk - nr_elim < size_after) {
-            // committed slots first, then this phase's left pushes
-            kind = R_VALUE;
-            v = dst[ring_slot(right - 1 - (rk - nr_elim), cap)];
-          } else {
-            kind = R_EMPTY;
+    for (int t = 0; t < ntiles; ++t) {
+      if (ntiles > 1) {
+        lt.load(op, par, N, t);
+        rank_quads<4>(code, flags, base, tsum, sm);
+      }
+#pragma unroll
+      for (int q = 0; q < kQ; ++q) {
+        int rql = ql + base[1][q], rqr = qr + base[3][q], rpr = pr + base[2][q];
+        float v[4];
+        int kind[4];
+#pragma unroll
+        for (int b = 0; b < 4; ++b) {
+          const int j = 4 * q + b;
+          const int o = lt.code(j);
+          kind[b] = R_NONE;
+          v[b] = 0.0f;
+          if (o == OP_PUSHL) {
+            kind[b] = R_ACK;
+          } else if (o == OP_PUSHR) {
+            kind[b] = R_ACK;
+            if (rpr >= nr_elim)
+              store_forward(dst, stride, K - k, ring_slot(right + (rpr - nr_elim), cap),
+                            lt.par[j] + 0.0f);
+            ++rpr;
+          } else if (o == OP_POPL) {
+            if (rql < nl_elim) {
+              kind[b] = R_VALUE;
+              v[b] = buf_l[rql];
+            } else if (rql - nl_elim < size) {
+              kind[b] = R_VALUE;
+              v[b] = src[ring_slot(left + (rql - nl_elim), cap)];
+            } else {
+              kind[b] = R_EMPTY;
+            }
+            ++rql;
+          } else if (o == OP_POPR) {
+            if (rqr < nr_elim) {
+              kind[b] = R_VALUE;
+              v[b] = buf_r[rqr];
+            } else if (rqr - nr_elim < size_after) {
+              // committed slots first, then this phase's left pushes
+              kind[b] = R_VALUE;
+              v[b] = dst[ring_slot(right - 1 - (rqr - nr_elim), cap)];
+            } else {
+              kind[b] = R_EMPTY;
+            }
+            ++rqr;
           }
         }
-        resp[row + i] = v;
-        kinds[row + i] = kind;
+        store_quad(resp + row, kinds + row, N, t, q, v, kind);
       }
-      ql += t[0];
-      qr += t[1];
-      pr += t[2];
+      ql += tsum[1];
+      qr += tsum[3];
+      pr += tsum[2];
     }
     if (threadIdx.x == 0) {
       int* eo = ends_out + ph * 4;
@@ -402,40 +468,33 @@ phase_deque_kernel(const float* __restrict__ values_in, const int* __restrict__ 
 
 // -------------------------------------------------------------------- map
 __global__ void __launch_bounds__(kMapThreads)
-phase_map_kernel(const int* __restrict__ keys_in, const float* __restrict__ vals_in,
-                 const int* __restrict__ occ_in, const int* __restrict__ count_in,
-                 const int* __restrict__ epoch_in, const int* __restrict__ lkeys,
-                 const int* __restrict__ ops, const float* __restrict__ params,
-                 int* keys_out, float* vals_out, int* occ_out, int* count_out,
-                 int* epoch_out, float* resp, int* kinds, int K, int S, int C, int N,
-                 int bslots, unsigned n_buckets) {
+phase_map_kernel(const int* __restrict__ count_in, const int* __restrict__ epoch_in,
+                 const int* __restrict__ lkeys, const int* __restrict__ ops,
+                 const float* __restrict__ params, int* keys_out, float* vals_out,
+                 int* occ_out, int* count_out, int* epoch_out, float* resp, int* kinds,
+                 int K, int S, int C, int N, int bslots, unsigned n_buckets) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  MapSmem& sm = *reinterpret_cast<MapSmem*>(smem);
   const int s = blockIdx.x;
+  map_cache_init(sm);
+  __syncthreads();
+  MapCursor cur;
   for (int k = 0; k < K; ++k) {
     const size_t ph = (size_t)k * S + s, prev = ph - S;
-    const size_t src_row = k ? prev * C : (size_t)s * C;
     const int* src_count = k ? count_out + prev * 2 : count_in + (size_t)s * 2;
     const int epoch = k ? epoch_out[prev] : epoch_in[s];
-    int* tk = keys_out + ph * C;
-    float* tv = vals_out + ph * C;
-    int* to = occ_out + ph * C;
-    copy_row(k ? keys_out + src_row : keys_in + src_row, tk, C);
-    copy_row(k ? vals_out + src_row : vals_in + src_row, tv, C);
-    copy_row(k ? occ_out + src_row : occ_in + src_row, to, C);
+    const MapRows rows{keys_out + ph * C, vals_out + ph * C, occ_out + ph * C,
+                       (size_t)S * C, K - k};
+    cur.cnt = src_count[active_slot(epoch)];
     const size_t row = ph * N;
-    int any = 0;
-    for (int i = threadIdx.x; i < N; i += blockDim.x) any |= ops[row + i] != 0;
-    const int live = __syncthreads_or(any);  // also publishes the row copies
-    if (threadIdx.x < 32) {  // the serial lane chain is one warp's
-      const int cnt = map_walk<false>(tk, tv, to, lkeys + row, ops + row, params + row,
-                                      resp + row, kinds + row, N, bslots, n_buckets,
-                                      src_count[active_slot(epoch)]);
-      if (threadIdx.x == 0) {
-        int* co = count_out + ph * 2;
-        co[0] = src_count[0];
-        co[1] = src_count[1];
-        if (live) co[inactive_slot(epoch)] = cnt;
-        epoch_out[ph] = live ? epoch + 2 : epoch;
-      }
+    const int live = map_phase<false>(sm, cur, rows, lkeys + row, ops + row, params + row,
+                                      resp + row, kinds + row, N, bslots, n_buckets);
+    if (threadIdx.x == 0) {
+      int* co = count_out + ph * 2;
+      co[0] = src_count[0];
+      co[1] = src_count[1];
+      if (live) co[inactive_slot(epoch)] = cur.cnt;
+      epoch_out[ph] = live ? epoch + 2 : epoch;
     }
     __syncthreads();
   }
@@ -448,6 +507,9 @@ int launch_ring(Kernel kernel, const void* values_in, const void* root_in,
                 void* kinds, int K, int S, int cap, int N, void* stream) {
   const size_t smem = elim_bytes(N);
   if (int err = set_smem((const void*)kernel, smem)) return err;
+  const Leaves lv{{values_in, nullptr, nullptr}, {values_out, nullptr, nullptr}};
+  if (int err = launch_broadcast(lv, 1, (size_t)S * cap, K, (cudaStream_t)stream))
+    return err;
   kernel<<<S, kThreads, smem, (cudaStream_t)stream>>>(
       (const float*)values_in, (const int*)root_in, (const int*)epoch_in,
       (const int*)ops, (const float*)params, (float*)values_out, (int*)root_out,
@@ -495,8 +557,11 @@ int dfc_phase_map(const void* keys_in, const void* vals_in, const void* occ_in,
                   void* occ_out, void* count_out, void* epoch_out, void* resp,
                   void* kinds, int K, int S, int C, int N, int bslots, int n_buckets,
                   void* stream) {
-  phase_map_kernel<<<S, kMapThreads, 0, (cudaStream_t)stream>>>(
-      (const int*)keys_in, (const float*)vals_in, (const int*)occ_in,
+  if (int err = set_smem((const void*)phase_map_kernel, sizeof(MapSmem))) return err;
+  const Leaves lv{{keys_in, vals_in, occ_in}, {keys_out, vals_out, occ_out}};
+  if (int err = launch_broadcast(lv, 3, (size_t)S * C, K, (cudaStream_t)stream))
+    return err;
+  phase_map_kernel<<<S, kMapThreads, sizeof(MapSmem), (cudaStream_t)stream>>>(
       (const int*)count_in, (const int*)epoch_in, (const int*)lkeys, (const int*)ops,
       (const float*)params, (int*)keys_out, (float*)vals_out, (int*)occ_out,
       (int*)count_out, (int*)epoch_out, (float*)resp, (int*)kinds, K, S, C, N, bslots,

@@ -2,18 +2,21 @@
 
 Two libraries, one per source:
 
-  * ``csrc/dfc_reduce.cu`` -- one combining phase per launch, one wrapper per
+  * ``csrc/dfc_reduce.cu`` -- one combining phase per call, one wrapper per
     kind, each the counterpart of a ``dfc_*_reduce_grid_call`` of the JAX
     package (one program instance -- here one thread block -- per shard);
-  * ``csrc/phase_grid.cu`` -- K fused phases per launch
+  * ``csrc/phase_grid.cu`` -- K fused phases per call
     (:func:`phase_grid_call`), the counterpart of the JAX package's
     ``_phase_grid_combine`` (one thread block per shard, a loop over the
     phases inside it).
 
-For a CUDA tensor a wrapper checks device, dtype, shape and contiguity,
-allocates its outputs with ``torch.empty``, launches on the current stream,
-raises if the launch reports an error, and adds one to its count in
-``LAUNCHES``.  For a CPU tensor it returns the plain PyTorch version from
+The map wrapper and :func:`phase_grid_call` make two launches per call on
+the current stream: a broadcast copy of the input state into every output
+row (a grid over all SMs), then the combine kernel, which writes only what
+each phase changes.  For a CUDA tensor a wrapper checks device, dtype,
+shape and contiguity, allocates its outputs with ``torch.empty``, launches
+on the current stream, raises if a launch reports an error, and adds one to
+its count in ``LAUNCHES`` (one per call, whatever its launches).  For a CPU tensor it returns the plain PyTorch version from
 ``ref.py``; there is no fallback from the card to the CPU.
 
 The libraries are built at first use with ``nvcc`` for ``sm_90a`` -- one

@@ -5,8 +5,10 @@ them bit for bit against these plain versions there).  Here, on the CPU,
 the kernel wrappers take their plain versions (the tensors lie on the CPU),
 and those are held bit for bit against ``jax.vmap`` of the JAX package's
 ``ref.py`` and against its Pallas grid kernels in interpret mode, at S=3 and
-N in {8, 32, 128}, plus adversarial batches.  The sharded, single-object
-and chained combine steps are held against their JAX counterparts.
+N in {8, 32, 128}, plus adversarial batches and the map stress cases of
+``kernels/dfc_reduce/cases.py`` (the inputs ``chip_smoke.py`` holds the card's
+map kernel to, here at small sizes).  The sharded, single-object and chained
+combine steps are held against their JAX counterparts.
 """
 
 import numpy as np
@@ -22,6 +24,7 @@ from repro.kernels.dfc_reduce import kernel as JK  # noqa: E402
 from repro.kernels.dfc_reduce import ops as JO  # noqa: E402
 from repro.kernels.dfc_reduce import ref as JR  # noqa: E402
 from repro_torch.core import torch_dfc as T  # noqa: E402
+from repro_torch.kernels.dfc_reduce import cases as TC  # noqa: E402
 from repro_torch.kernels.dfc_reduce import kernel as TK  # noqa: E402
 from repro_torch.kernels.dfc_reduce import ops as TO  # noqa: E402
 
@@ -123,6 +126,25 @@ def test_map_plain_matches_jax_ref_and_pallas(n):
     assert_outs(jax.vmap(JR.dfc_map_reduce_ref)(*jargs), touts)
     pk = JK.dfc_map_reduce_grid_call(*jargs, interpret=True)
     assert_outs(pk[:3] + (pk[3][:, 0],) + pk[4:], touts)
+
+
+@pytest.mark.parametrize("n", [16, 100, 256])
+def test_map_stress_cases_match_jax_ref_and_pallas(n):
+    """The map stress case's first phase: every lane of shard 0 on one
+    bucket's keys (R_FULL until a delete frees a slot), a stored -0.0 read
+    through a lookup and a CAS (+0.0 here: the masked window sum), shard 1's
+    lanes over many buckets with foreign codes, shard 2 untouched."""
+    args = TC.map_reduce_args(TC.map_hot(1, n))
+    touts = TK.dfc_map_reduce_grid_call(*_t(*args))
+    jargs = [jnp.asarray(a) for a in args]
+    assert_outs(jax.vmap(JR.dfc_map_reduce_ref)(*jargs), touts)
+    pk = JK.dfc_map_reduce_grid_call(*jargs, interpret=True)
+    assert_outs(pk[:3] + (pk[3][:, 0],) + pk[4:], touts)
+    resp, kinds = touts[4].numpy(), touts[5].numpy()
+    assert kinds[0, 0] == T.R_VALUE and resp[0, 0] == 0 and not np.signbit(resp[0, 0])
+    assert list(kinds[0, 1:7]) == [T.R_VALUE, T.R_VALUE, T.R_FULL, T.R_VALUE, T.R_ACK,
+                                   T.R_VALUE]
+    assert (kinds[2] == T.R_NONE).all()
 
 
 def _ring_case(kind, rows, n=8, sizes=(0, 0, 0), windows=None):

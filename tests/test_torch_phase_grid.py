@@ -8,7 +8,10 @@ JAX package's ``dfc_multi_phase_step(backend="pallas", phase_axis="grid")``
 kinds: per-phase states, responses, kinds and ``PhaseIntents``.  The
 adversarial cases carry a pass-through phase, a shard untouched in every
 phase, committed ``-0.0`` values, a deque with a negative ``left`` and a map
-bucket filled to ``R_FULL``.  Grid and scan axes of the port agree.
+bucket filled to ``R_FULL``.  The stress cases of
+``kernels/dfc_reduce/cases.py`` (the inputs ``chip_smoke.py`` holds the card's
+kernels to, here at small sizes) run at K = 1, 3 and 8.  Grid and scan axes
+of the port agree.
 """
 
 import numpy as np
@@ -22,6 +25,7 @@ import jax.numpy as jnp  # noqa: E402
 from repro.core import jax_dfc as J  # noqa: E402
 from repro.kernels.dfc_reduce import ops as JO  # noqa: E402
 from repro_torch.core import torch_dfc as T  # noqa: E402
+from repro_torch.kernels.dfc_reduce import cases as TC  # noqa: E402
 from repro_torch.kernels.dfc_reduce import kernel as TK  # noqa: E402
 from repro_torch.kernels.dfc_reduce import ops as TO  # noqa: E402
 
@@ -188,6 +192,31 @@ def test_grid_matches_jax_pallas_grid_adversarial(kind):
         assert kinds[0, 1, 3] == T.R_FULL
     elif kind == "stack":
         assert np.signbit(resp[0, 0, 0].item()) and kinds[0, 0, 0] == T.R_VALUE
+
+
+@pytest.mark.parametrize("k_phases, n", [(1, 32), (3, 100), (8, 32)])
+@pytest.mark.parametrize("kind", KINDS)
+def test_grid_stress_cases_match_jax_pallas_grid(kind, k_phases, n):
+    """The stress cases: ring slots pushed in one phase and overwritten by a
+    later phase with the ring wrapping, pops of earlier phases' pushes, a
+    map bucket hit by every lane of a shard and filled to R_FULL, a stored
+    -0.0 read through a lookup and a CAS, keys over many buckets, an
+    untouched shard; bit for bit against JAX's Pallas grid."""
+    _, _, arrays, keys, ops, params = next(
+        c for c in TC.grid_cases(k_phases, n) if c[1] == kind)
+    jout = _run_jax_grid(kind, arrays, keys, ops, params)
+    for backend in ("kernel", "ref"):
+        tout = _run_port(kind, arrays, keys, ops, params, backend=backend,
+                         phase_axis="grid")
+        _assert_step_same(jout, tout)
+    states, resp, kinds, intents = tout
+    assert not intents.touched[:, TC.S - 1].any()
+    assert (kinds[:, TC.S - 1] == T.R_NONE).all() and (resp[:, TC.S - 1] == 0).all()
+    if kind == "map":  # the slot's own value: the stored -0.0 stays -0.0
+        assert np.signbit(resp[0, 0, 0].item()) and kinds[0, 0, 0] == T.R_VALUE
+        assert kinds[0, 0, 3] == T.R_FULL
+    elif k_phases > 1:  # phase 1's pops read slots that phase 0 pushed
+        assert (kinds[1, 0] == T.R_VALUE).sum() > n // 4
 
 
 @pytest.mark.parametrize("kind", KINDS)
