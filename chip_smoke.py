@@ -24,9 +24,16 @@ script exits non-zero without printing a result):
                   a CAS, more distinct buckets in a shard than the map
                   kernels' cache holds, a row of 16,384 live lanes, rows
                   past one 16,384-lane tile and off the 16-byte vector, a
-                  shard untouched in every phase), and the one-phase map
-                  kernel on the map stress cases' first phase: bit-equal;
-                  kernels 1-3 at S=1 timed (``ms``, ``device_ms``, ``host_us``),
+                  shard untouched in every phase; B5's ring kinds also at
+                  K = 1 and the largest N the ring kernels take,
+                  ``kernel.MAX_LANES``), the one-phase map kernel on the map
+                  stress cases' first phase, and the one-phase ring kernels
+                  on ``ring_forward``'s and ``ring_edges``' first phase at N in
+                  ``RING_STRESS_N`` and ``MAX_LANES`` (exactly N/2 lanes
+                  eliminated, every pop past the window, rows of two and
+                  more tiles, N off the 16-byte vector, the deque's whole
+                  shared-memory budget): bit-equal; kernels 1-3 at S=1 timed
+                  (``ms``, ``device_ms``, ``host_us``),
   4. volatile  -- the port's main path at full width: ``serve_shards --mixed
                   --shards 256 --batch 16384 --phases 32 --skew 1.1`` on the
                   card with the kernel backend; launch counters zeroed just
@@ -38,7 +45,9 @@ script exits non-zero without printing a result):
                   main path's shapes (a routed batch of phase 3 on the state
                   after phase 2) and timed, beside the other parts of a step
                   (``ms`` one call per CUDA-event pair, ``device_ms`` and
-                  ``host_us`` as for the model kernels below),
+                  ``host_us`` as for the model kernels below; the three ring
+                  kernels' ``device_ms``, ``host_us`` and bound also side by
+                  side on one line),
   5. fused     -- the fused path at the same width on phase 4's 32
                   batches: (a) 32 ``rt.step``, (b) 4 x
                   ``hetero_phase_loop_step(K=8, phase_axis="scan")``, (c) 4 x
@@ -146,6 +155,9 @@ K_PHASES = 8  # phases per fused dispatch on the main path
 STRESS = ((1, 1024, KINDS), (8, 1024, KINDS), (2, 16384, KINDS), (8, 16384, KINDS[:3]),
           (3, 1003, KINDS), (2, 20000, KINDS[:3]))
 MAP_STRESS_N = (1024, 16384)  # the one-phase map kernel on map_hot's phase 0
+# the one-phase ring kernels on ring_forward's and ring_edges' phase 0, and at
+# kernel.MAX_LANES: one tile, two tiles (the second ragged), N off the vector
+RING_STRESS_N = (64, 1001, 16384, 20000)
 # H100 SXM published peaks (NVIDIA data sheet): HBM3 bytes/s, and the f32
 # rate outside the tensor cores, used for the kernels' 32-bit scalar ops
 HBM_BYTES_PER_S = 3.35e12
@@ -316,9 +328,27 @@ def map_live(ops):
     return ((ops >= 1) & (ops <= 4)).sum(1).cpu().numpy()
 
 
+def ring_reads(kind, ops, sizes):
+    """(params, window values) that this batch's ring combine must read:
+    a param for each push, a window value for each pop that elimination
+    leaves and the window serves (the deque's right pops past the right
+    window read this phase's left pushes, an output)."""
+    import torch
+    sizes = sizes.long()
+    p, q, pr, qr = ((ops == c).sum(1).long() for c in (1, 2, 3, 4))
+    if kind == "queue":
+        return int(p.sum()), int(torch.minimum(q, sizes).sum())
+    deep_l = torch.minimum(q - torch.minimum(p, q), sizes)
+    if kind == "stack":
+        return int(p.sum()), int(deep_l.sum())
+    deep_r = torch.minimum(qr - torch.minimum(pr, qr), sizes)
+    return int((p + pr).sum()), int((deep_l + deep_r).sum())
+
+
 def bound(kind, args):
-    """(least ms, what bounds it): each input read once and each output
-    written once at the HBM rate, against the scalar ops at their peak."""
+    """(least ms, what bounds it): each input that the batch needs read once
+    and each output written once at the HBM rate, against the scalar ops at
+    their peak."""
     s, n = args[0].shape if kind != "map" else args[5].shape
     if kind == "map":
         c = args[0].shape[1]
@@ -326,8 +356,11 @@ def bound(kind, args):
         nops = map_live(args[5]).sum() * 64  # per live lane: probe, compare, update
     else:
         wins = 2 if kind == "deque" else 1
-        nbytes = s * n * (8 + 4 * wins) + s * 4 + s * n * (8 + 4 * wins) + s * 16 * wins
-        nops = s * n * 40  # three rank passes over every lane
+        n_par, n_win = ring_reads(kind, args[0], args[-1])
+        # ops and sizes in; responses, kinds, segment rows and counts out
+        nbytes = (s * n * 4 + 4 * (n_par + n_win) + s * 4 + s * n * (8 + 4 * wins)
+                  + s * 16 * wins)
+        nops = s * n * 40  # flags, ranks and routing: some 40 integer ops a lane
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = nops / SCALAR_OPS_PER_S * 1e3
     return (float(t_bytes), "bytes") if t_bytes >= t_ops else (float(t_ops), "operations")
@@ -428,6 +461,28 @@ def phase_kernels_adversarial(torch, T):
                 check(bits(outs_k[4][0, 0]).item() == 0 and outs_k[5][0, 0].item() == T.R_VALUE
                       and outs_k[5][0, 3].item() == T.R_FULL,
                       f"map adversarial case {i}: +0.0 or R_FULL lost")
+
+    # the ring kernels on the stress cases' first phase (cases.py): exactly
+    # N/2 lanes eliminated, every pop past the window, one and more tiles, N
+    # off the 16-byte vector, and MAX_LANES, where the deque's elimination
+    # buffer and rank scratch fill a block's shared memory
+    from repro_torch.kernels.dfc_reduce import kernel as K
+    ring_ns = RING_STRESS_N + (K.MAX_LANES,)
+    for n_ring in ring_ns:
+        for kind in ("stack", "queue", "deque"):
+            kfn, pfn = fns[kind]
+            for case in (C.ring_forward(kind, 1, n_ring), C.ring_edges(kind, n_ring)):
+                args = [torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+                        for a in C.ring_reduce_args(case)]
+                outs_k = kfn(*args)
+                torch.cuda.synchronize()
+                what = f"{kind} {case[0]} N={n_ring}"
+                compare_outputs(what, outs_k, pfn(*args))
+                check(not bool((outs_k[1][C.S - 1] != T.R_NONE).any()),
+                      f"{what}: the untouched shard answered")
+                del outs_k, args
+    print(f"one-phase ring kernels: bit-equal to their plain versions on ring_forward and "
+          f"ring_edges at N in {ring_ns}", flush=True)
 
     # kernels 1-3 at S = 1: the single-object steps
     steps = {"stack": O.dfc_combine_step, "queue": O.dfc_queue_combine_step,
@@ -557,7 +612,8 @@ def phase_grid_adversarial(torch, T):
             if kind == "map":
                 check(kinds[0, 1, 0].item() == T.R_FULL, "map: full bucket not R_FULL")
     from repro_torch.kernels.dfc_reduce import cases as C
-    for k_phases, n, kinds in STRESS:
+    stress = STRESS + ((1, K.MAX_LANES, KINDS[:3]),)
+    for k_phases, n, kinds in stress:
         for name, kind, leaves, keys, ops, params in C.grid_cases(k_phases, n):
             if kind not in kinds:
                 continue
@@ -582,7 +638,7 @@ def phase_grid_adversarial(torch, T):
             del outs_k, outs_p
     print("phase grid kernel: bit-equal to its plain version for every kind at "
           "S=3, K=3, N in (64, 1024), and on the stress cases (K, N) "
-          f"{[(k, n) for k, n, _ in STRESS]}", flush=True)
+          f"{[(k, n) for k, n, _ in stress]}", flush=True)
 
 
 def compare_grid(what, outs_k, outs_p):
@@ -944,6 +1000,17 @@ def phase_volatile(torch, T, K, serve_shards, records):
         print(f"kernel {NAMES[kind]} S,N={shape}: {ms:.4f} ms, {timing_text(timing, other)} "
               f"(plain {plain_ms:.3f} ms, bound {bound_ms:.5f} ms by {bound_by}), "
               f"{launches[kind] / out['phases']:.0f} launch/step{extra}", flush=True)
+    ring_line = []
+    for k in ("stack", "queue", "deque"):
+        r = records[k]
+        text = (f"{NAMES[k]} {r['device_ms']:.4f} / {r['host_us']:.1f} / {r['bound_ms']:.4f} "
+                f"({r['device_ms'] / r['bound_ms']:.2f}x)")
+        if "turns_tree" in r:
+            text += (f" [--turns tree {r['turns_tree']['device_ms']:.4f} / "
+                     f"{r['turns_tree']['host_us']:.1f}]")
+        ring_line.append(text)
+    print("ring kernels at the main path's shapes, device ms / host us / bound ms (device "
+          "over bound): " + ", ".join(ring_line), flush=True)
     parts.update(windows=windows_ms, splices=splice_ms, touched_select=select_ms)
     kern = sum(records[k]["ms"] for k in kinds_all)
     # each part is timed alone (its own launches and gaps), so the parts do
@@ -1846,7 +1913,7 @@ def main(argv=None) -> int:
                 PARENT["K"] = turns_kernels(opts.turns)
                 libs.update({f"{k} (--turns)": v for k, v in PARENT["K"].build().items()})
         usage = [ln.strip() for ln in log.getvalue().splitlines()
-                 if "registers" in ln or "Compiling entry" in ln]
+                 if "registers" in ln or "Compiling entry" in ln or "spill" in ln]
         print(f"build: {', '.join(str(p.relative_to(ROOT)) for p in libs.values())} in "
               f"{time.perf_counter() - t0:.1f} s; " + "; ".join(usage), flush=True)
 

@@ -12,14 +12,20 @@ the lane arrays ``[K, S, N]``.  The last shard is untouched in every phase.
   the same launch and a later phase's pushes overwrite the slots of an
   earlier one, with the ring wrapping (a queue's head near the end, a
   deque's ``left`` crossing 0); shard 1 takes random ops and foreign codes.
+* ``ring_edges`` (stack, queue, deque; one phase): shard 0 alternates
+  pushes and pops on an empty object, so exactly N/2 lanes are eliminated
+  at an even N (a deque cycles pushL, popL, pushR, popR, so its two sides
+  fill the shared elimination buffer together); shard 1 sends every lane a
+  pop against a committed size of 2 (a ``-0.0`` on top), so all but two
+  pops run past the window.
 * ``map_hot``: shard 0 sends every lane to the keys of one bucket (filled
   to ``R_FULL``, then freed by deletes), a quarter of them in a run on one
   key, and reads a stored ``-0.0`` back through a lookup and a CAS; shard 1 sends every lane live with keys drawn
   from a wide universe, so its buckets outnumber a cache of some thousand
   sets, within a phase and across phases.
 
-:func:`map_reduce_args` turns a map case's first phase into the one-phase
-map kernel's arguments.
+:func:`ring_reduce_args` and :func:`map_reduce_args` turn a case's first
+phase into the one-phase kernel's arguments.
 """
 
 from __future__ import annotations
@@ -80,9 +86,38 @@ def ring_forward(kind: str, k_phases: int, n: int, seed: int = 0) -> Case:
     # distinct values per phase, so an overwritten slot reads differently
     params = (rng.integers(1, 1000, ops.shape)
               + 1000 * np.arange(1, k_phases + 1)[:, None, None]).astype(np.float32)
-    params[0, 0, :4] = -0.0  # pushed -0.0 lands as +0.0
+    # pushed -0.0 lands as +0.0: early lanes meet pops, late ones are surplus
+    params[0, 0, :4] = params[0, 0, -4:] = -0.0
     keys = np.zeros(ops.shape, np.int32)
     return ("ring_forward", kind, [values, root, EPOCH.copy()], keys, ops, params)
+
+
+def ring_edges(kind: str, n: int, seed: int = 0) -> Case:
+    rng = np.random.default_rng(seed)
+    cap = 2 * n
+    active = (EPOCH // 2) % 2
+    rows = np.arange(S)
+    values = rng.integers(1, 1000, (S, cap)).astype(np.float32)
+    if kind == "stack":
+        root = np.zeros((S, 2), np.int32)
+        root[rows, active] = [0, 2, 2]
+        values[1, 1] = -0.0  # shard 1's committed top
+        cycle, pops = [OP_PUSH, OP_POP], [OP_POP]
+    else:
+        root = np.zeros((S, 2, 2), np.int32)
+        root[rows, active] = [[5, 5], [cap - 1, cap + 1], [0, 2]]  # shard 1 wraps
+        values[1, cap - 1] = -0.0  # shard 1's head (queue) and left end (deque)
+        if kind == "queue":
+            cycle, pops = [OP_PUSH, OP_POP], [OP_POP]
+        else:
+            cycle, pops = [OP_PUSHL, OP_POPL, OP_PUSHR, OP_POPR], [OP_POPL, OP_POPR]
+    ops = np.zeros((1, S, n), np.int32)
+    ops[0, 0] = np.resize(np.asarray(cycle, np.int32), n)
+    ops[0, 1] = np.resize(np.asarray(pops, np.int32), n)
+    params = rng.integers(1, 1000, ops.shape).astype(np.float32)
+    params[0, 0, :4] = -0.0  # pushed -0.0 lands as +0.0
+    keys = np.zeros(ops.shape, np.int32)
+    return ("ring_edges", kind, [values, root, EPOCH.copy()], keys, ops, params)
 
 
 def _bucket_keys(n_buckets, bucket, count, start=1000):
@@ -152,6 +187,22 @@ def grid_cases(k_phases: int, n: int, seed: int = 0) -> List[Case]:
     """Every kind's case at ``k_phases`` phases of ``n`` lanes."""
     return [ring_forward(kind, k_phases, n, seed) for kind in ("stack", "queue", "deque")] + [
         map_hot(k_phases, n, seed)]
+
+
+def ring_reduce_args(case: Case):
+    """The one-phase ring kernel's arguments from a ring case's phase 0, the
+    windows built from the state as the combine step builds them: (ops,
+    params, window [S,N], sizes [S]), a deque's (ops, params, window_l,
+    window_r, sizes)."""
+    from repro_torch.core.torch_dfc import state_from_numpy
+    from repro_torch.kernels.dfc_reduce import ops as O
+
+    _, kind, leaves, _, ops, params = case
+    state = state_from_numpy(kind, leaves, device="cpu")
+    n = ops.shape[2]
+    windows = {"stack": O._stack_window, "queue": O._queue_window,
+               "deque": O._deque_windows}[kind](state, n)
+    return (ops[0], params[0], *(w.numpy() for w in windows))
 
 
 def map_reduce_args(case: Case):

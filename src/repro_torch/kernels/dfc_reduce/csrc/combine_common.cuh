@@ -73,8 +73,10 @@ __device__ __forceinline__ void block_scan(const int (&v)[F], int (&excl)[F],
       if (lane >= o) x += t;
     }
     inc[f] = x;
-    if (lane == 31) sm[f * 32 + warp] = x;
   }
+#pragma unroll
+  for (int f = 0; f < F; ++f)
+    if (lane == 31) sm[f * 32 + warp] = inc[f];
   __syncthreads();
   if (warp == 0) {
 #pragma unroll
@@ -186,8 +188,14 @@ __device__ __forceinline__ int quad_lo(int tile, int q) {
   return tile * kTile + (q * blockDim.x + threadIdx.x) * 4;
 }
 
+// Whether the quads q of tile ``tile`` of this thread's whole warp lie past
+// the row's N lanes (the same in every thread of the warp).
+__device__ __forceinline__ bool warp_past(int tile, int q, int N) {
+  return tile * kTile + (q * blockDim.x + (threadIdx.x & ~31)) * 4 >= N;
+}
+
 // The ring kinds' tile: op codes as bytes (codes above 5 and negative codes
-// read as 5: live, no ring op) and params.
+// read as 5: live, no ring op; lanes past the row's end as 0) and params.
 struct LaneTile {
   unsigned op[kQ];  // quad q's four op codes, a byte each
   float par[kV];
@@ -196,29 +204,51 @@ struct LaneTile {
     return (op[j >> 2] >> (8 * (j & 3))) & 0xff;
   }
 
+  // this thread's lanes of quad q with op code c (1-5), by one byte-wise
+  // compare of the quad's four codes
+  __device__ __forceinline__ int count(int q, int c) const {
+    return __popc(__vcmpeq4(op[q], 0x01010101u * (unsigned)c)) >> 3;
+  }
+
+  // Load tile ``tile`` of a row of N lanes: every lane's op code, and the
+  // params of the quads that hold a push (an odd code up to F: the stack's
+  // and the queue's push, the deque's pushL and pushR); no other lane's
+  // param is used, so the other quads' read as 0.0 and cost no bytes.
+  template <int F>
   __device__ __forceinline__ void load(const int* __restrict__ ops,
-                                       const float* __restrict__ params, int N,
-                                       int tile) {
+                                       const float* __restrict__ params, int N, int tile) {
+    int o[kQ][4];
+#pragma unroll
+    for (int q = 0; q < kQ; ++q) {  // every op load in flight before any is used
+      const int lo = quad_lo(tile, q);
+      if (warp_past(tile, q, N)) {
+        o[q][0] = o[q][1] = o[q][2] = o[q][3] = 0;
+      } else if (lo + 4 <= N && aligned16(ops + lo)) {
+        const int4 a = *reinterpret_cast<const int4*>(ops + lo);
+        o[q][0] = a.x, o[q][1] = a.y, o[q][2] = a.z, o[q][3] = a.w;
+      } else {
+#pragma unroll
+        for (int b = 0; b < 4; ++b) o[q][b] = lo + b < N ? ops[lo + b] : 0;
+      }
+    }
 #pragma unroll
     for (int q = 0; q < kQ; ++q) {
+      unsigned w = 0;
+#pragma unroll
+      for (int b = 0; b < 4; ++b) w |= (unsigned)min((unsigned)o[q][b], 5u) << (8 * b);
+      op[q] = w;
+      unsigned push = __vcmpeq4(w, 0x01010101u);
+      if (F == 4) push |= __vcmpeq4(w, 0x03030303u);
       const int lo = quad_lo(tile, q);
-      int o[4];
-      if (lo + 4 <= N && aligned16(ops + lo) && aligned16(params + lo)) {
-        const int4 a = *reinterpret_cast<const int4*>(ops + lo);
+      if (push == 0u) {
+        par[4 * q] = par[4 * q + 1] = par[4 * q + 2] = par[4 * q + 3] = 0.0f;
+      } else if (lo + 4 <= N && aligned16(params + lo)) {
         const float4 b = *reinterpret_cast<const float4*>(params + lo);
-        o[0] = a.x, o[1] = a.y, o[2] = a.z, o[3] = a.w;
         par[4 * q] = b.x, par[4 * q + 1] = b.y, par[4 * q + 2] = b.z, par[4 * q + 3] = b.w;
       } else {
 #pragma unroll
-        for (int b = 0; b < 4; ++b) {
-          o[b] = lo + b < N ? ops[lo + b] : 0;
-          par[4 * q + b] = lo + b < N ? params[lo + b] : 0.0f;
-        }
+        for (int b = 0; b < 4; ++b) par[4 * q + b] = lo + b < N ? params[lo + b] : 0.0f;
       }
-      unsigned w = 0;
-#pragma unroll
-      for (int b = 0; b < 4; ++b) w |= (unsigned)min((unsigned)o[b], 5u) << (8 * b);
-      op[q] = w;
     }
   }
 };
@@ -238,33 +268,55 @@ __device__ __forceinline__ void store_quad(float* resp, int* kinds, int N, int t
   }
 }
 
-// Rank a tile's lanes under F flags (``flags(code, f)``) block-wide:
-// ``base[i][q]`` is the number of flag-i lanes of the tile before this
-// thread's quad q, ``tsum[i]`` the tile's count.  ``sm`` holds F x kQ x 32
-// ints; every thread of the block must call it.
-template <int F, typename Code, typename Flags>
-__device__ __forceinline__ void rank_quads(Code code, Flags flags, int (&base)[F][kQ],
-                                           int (&tsum)[F], int* sm) {
-  int c[F * kQ] = {};
+// Rank a tile's lanes under F flags block-wide (``count(i, q)``: this
+// thread's lanes of quad q under flag i): ``base[i][q]`` is the number of
+// flag-i lanes of the tile before this thread's quad q, ``tsum[i]`` the
+// tile's count.  A sub-tile holds 4 x blockDim <= 4096 lanes, so two counts
+// share a 32-bit word (16 bits each) through the scan: F x kQ / 2 words a
+// thread.  ``sm`` holds kRankInts<F> ints; every thread of the block must
+// call it.
+template <int F>
+constexpr int kRankInts = F * kQ / 2 * 32;
+
+template <int F, typename Count>
+__device__ __forceinline__ void rank_quads(Count count, int (&base)[F][kQ], int (&tsum)[F],
+                                           int* sm) {
+  constexpr int kW = F * kQ / 2;  // count c = i * kQ + q sits in word c / 2, half c % 2
+  int w[kW] = {};
 #pragma unroll
-  for (int j = 0; j < kV; ++j) {
-    bool f[F];
-    flags(code(j), f);
+  for (int i = 0; i < F; ++i) {
 #pragma unroll
-    for (int i = 0; i < F; ++i) c[i * kQ + (j >> 2)] += f[i];
+    for (int q = 0; q < kQ; ++q) {
+      const int c = i * kQ + q;
+      w[c >> 1] += count(i, q) << (16 * (c & 1));
+    }
   }
-  int ex[F * kQ], tot[F * kQ];
-  block_scan<F * kQ>(c, ex, tot, sm);
+  int ex[kW], tot[kW];
+  block_scan<kW>(w, ex, tot, sm);
 #pragma unroll
   for (int i = 0; i < F; ++i) {
     int run = 0;
 #pragma unroll
     for (int q = 0; q < kQ; ++q) {
-      base[i][q] = ex[i * kQ + q] + run;
-      run += tot[i * kQ + q];
+      const int c = i * kQ + q, sh = 16 * (c & 1);
+      base[i][q] = ((ex[c >> 1] >> sh) & 0xffff) + run;
+      run += (tot[c >> 1] >> sh) & 0xffff;
     }
     tsum[i] = run;
   }
+}
+
+// Zero row[0, N), the whole block: 16-byte stores where the row starts on a
+// 16-byte boundary.
+__device__ __forceinline__ void zero_row(float* row, int N) {
+  int done = 0;
+  if (aligned16(row)) {
+    done = N & ~3;
+    float4* v = reinterpret_cast<float4*>(row);
+    for (int i = threadIdx.x; i < (done >> 2); i += blockDim.x)
+      v[i] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  }
+  for (int k = done + threadIdx.x; k < N; k += blockDim.x) row[k] = 0.0f;
 }
 
 // A ring push that survives elimination lands in its slot of the phase's
@@ -273,6 +325,236 @@ __device__ __forceinline__ void rank_quads(Code code, Flags flags, int (&base)[F
 __device__ __forceinline__ void store_forward(float* row_k, size_t stride, int n_rows,
                                               size_t slot, float v) {
   for (int r = 0; r < n_rows; ++r) row_k[r * stride + slot] = v;
+}
+
+// ------------------------------------------------------------ ring phases
+// One combining phase of a stack or a deque over a row of ``n`` lanes, one
+// block, in the steps every ring kernel takes: count (the totals), the push
+// routing, a barrier (the caller's), and the answers.  The kernels differ
+// only in where a surviving push lands and where a pop past elimination
+// reads, which they pass in as callables.  A row of one tile is loaded and
+// ranked once; a row of more tiles is reloaded and re-ranked in each step.  Every thread of the block calls each step.
+template <int F>
+struct RingLanes {
+  const int* op;
+  const float* par;
+  float* resp;  // this block's lanes' responses and kinds
+  int* kinds;
+  int n, ntiles;
+  int* sm;  // kRankInts<F> ints of scan scratch
+  LaneTile lt;
+  int base[F][kQ], tsum[F];
+
+  __device__ __forceinline__ RingLanes(const int* op_, const float* par_, float* resp_,
+                                       int* kinds_, int n_, int* sm_)
+      : op(op_), par(par_), resp(resp_), kinds(kinds_), n(n_),
+        ntiles((n_ + kTile - 1) / kTile), sm(sm_) {}
+
+  __device__ __forceinline__ void scan() {
+    rank_quads<F>([&](int i, int q) { return lt.count(q, i + 1); }, base, tsum, sm);
+  }
+  // tile t again, for a step after the count
+  __device__ __forceinline__ void again(int t) {
+    if (ntiles > 1) {
+      lt.load<F>(op, par, n, t);
+      scan();
+    }
+  }
+  // whether quad q holds no op of the kind (codes 1..F)
+  __device__ __forceinline__ bool quiet(int q) const {
+    unsigned m = 0u;
+#pragma unroll
+    for (int c = 1; c <= F; ++c) m |= __vcmpeq4(lt.op[q], 0x01010101u * (unsigned)c);
+    return m == 0u;
+  }
+
+  // The totals of flags i (op code i + 1) over the lanes.  A quiet quad is
+  // answered here, R_NONE with 0.0, as soon as it is loaded, so most of the
+  // response stores overlap the scan; the answer step skips it.  Returns
+  // whether this thread saw a non-zero op code.
+  __device__ __forceinline__ int count(int (&total)[F]) {
+    int any = 0;
+#pragma unroll
+    for (int i = 0; i < F; ++i) total[i] = 0;
+    for (int t = 0; t < ntiles; ++t) {
+      lt.load<F>(op, par, n, t);
+#pragma unroll
+      for (int q = 0; q < kQ; ++q) {
+        any |= lt.op[q] != 0u;
+        if (warp_past(t, q, n) || !quiet(q)) continue;
+        const float v[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+        const int kind[4] = {R_NONE, R_NONE, R_NONE, R_NONE};
+        store_quad(resp, kinds, n, t, q, v, kind);
+      }
+      scan();
+#pragma unroll
+      for (int i = 0; i < F; ++i) total[i] += tsum[i];
+    }
+    return any;
+  }
+};
+
+// Stack pushes by rank: rank < n_elim meets its pop (elim(rank, v)), the
+// surplus goes to sink(rank - n_elim, v); v is the param + 0.0f, so a
+// routed -0.0 lands as +0.0.
+template <typename Elim, typename Sink>
+__device__ __forceinline__ void stack_pushes(RingLanes<2>& rl, int n_elim, Elim elim,
+                                             Sink sink) {
+  int carry = 0;
+  for (int t = 0; t < rl.ntiles; ++t) {
+    rl.again(t);
+#pragma unroll
+    for (int q = 0; q < kQ; ++q) {
+      if (warp_past(t, q, rl.n)) continue;
+      int rk = carry + rl.base[0][q];
+#pragma unroll
+      for (int b = 0; b < 4; ++b) {
+        if (rl.lt.code(4 * q + b) != OP_PUSH) continue;
+        const float v = rl.lt.par[4 * q + b] + 0.0f;
+        if (rk < n_elim) elim(rk, v); else sink(rk - n_elim, v);
+        ++rk;
+      }
+    }
+    carry += rl.tsum[0];
+  }
+}
+
+// Stack answers: a push R_ACK, a pop of rank < n_elim its partner's value,
+// the pop ``depth`` past elimination deep(depth) while depth < limit, else
+// R_EMPTY; other codes R_NONE with 0.0 (quiet quads were answered by the
+// count).
+template <typename Deep>
+__device__ __forceinline__ void stack_answers(RingLanes<2>& rl, int n_elim,
+                                              const float* elim_buf, int limit, Deep deep) {
+  int carry = 0;
+  for (int t = 0; t < rl.ntiles; ++t) {
+    rl.again(t);
+#pragma unroll
+    for (int q = 0; q < kQ; ++q) {
+      if (warp_past(t, q, rl.n) || rl.quiet(q)) continue;
+      int rk = carry + rl.base[1][q];
+      float v[4];
+      int kind[4];
+#pragma unroll
+      for (int b = 0; b < 4; ++b) {
+        const int o = rl.lt.code(4 * q + b);
+        kind[b] = R_NONE;
+        v[b] = 0.0f;
+        if (o == OP_PUSH) {
+          kind[b] = R_ACK;
+        } else if (o == OP_POP) {
+          if (rk < n_elim) {
+            kind[b] = R_VALUE;
+            v[b] = elim_buf[rk];
+          } else if (rk - n_elim < limit) {
+            kind[b] = R_VALUE;
+            v[b] = deep(rk - n_elim);
+          } else {
+            kind[b] = R_EMPTY;
+          }
+          ++rk;
+        }
+      }
+      store_quad(rl.resp, rl.kinds, rl.n, t, q, v, kind);
+    }
+    carry += rl.tsum[1];
+  }
+}
+
+// Deque, before the barrier: pushL of rank < nl_elim -> elim_l(rank, v),
+// pushR of rank < nr_elim -> elim_r(rank, v), the left surplus ->
+// sink_l(rank - nl_elim, v).  The right surplus lands after the barrier
+// (deque_answers), as the reference applies the right side after the left.
+template <typename ElimL, typename ElimR, typename SinkL>
+__device__ __forceinline__ void deque_pushes(RingLanes<4>& rl, int nl_elim, int nr_elim,
+                                             ElimL elim_l, ElimR elim_r, SinkL sink_l) {
+  int cl = 0, cr = 0;
+  for (int t = 0; t < rl.ntiles; ++t) {
+    rl.again(t);
+#pragma unroll
+    for (int q = 0; q < kQ; ++q) {
+      if (warp_past(t, q, rl.n)) continue;
+      int rl_ = cl + rl.base[0][q], rr = cr + rl.base[2][q];
+#pragma unroll
+      for (int b = 0; b < 4; ++b) {
+        const int j = 4 * q + b;
+        const int o = rl.lt.code(j);
+        if (o == OP_PUSHL) {
+          const float v = rl.lt.par[j] + 0.0f;
+          if (rl_ < nl_elim) elim_l(rl_, v); else sink_l(rl_ - nl_elim, v);
+          ++rl_;
+        } else if (o == OP_PUSHR) {
+          if (rr < nr_elim) elim_r(rr, rl.lt.par[j] + 0.0f);
+          ++rr;
+        }
+      }
+    }
+    cl += rl.tsum[0];
+    cr += rl.tsum[2];
+  }
+}
+
+// Deque answers (after the barrier that publishes the left pushes): pushes
+// R_ACK, the right surplus to sink_r(rank - nr_elim, v); a popL of rank <
+// nl_elim buf_l[rank], then pop_l(k) for k = rank - nl_elim < size; a popR
+// of rank < nr_elim buf_r[rank], then pop_r(k) for k < size_after (the
+// committed slots, then this phase's left pushes); else R_EMPTY.
+template <typename SinkR, typename PopL, typename PopR>
+__device__ __forceinline__ void deque_answers(RingLanes<4>& rl, int nl_elim, int nr_elim,
+                                              const float* buf_l, const float* buf_r,
+                                              long long size, long long size_after,
+                                              SinkR sink_r, PopL pop_l, PopR pop_r) {
+  int ql = 0, qr = 0, pr = 0;
+  for (int t = 0; t < rl.ntiles; ++t) {
+    rl.again(t);
+#pragma unroll
+    for (int q = 0; q < kQ; ++q) {
+      if (warp_past(t, q, rl.n) || rl.quiet(q)) continue;
+      int rql = ql + rl.base[1][q], rqr = qr + rl.base[3][q], rpr = pr + rl.base[2][q];
+      float v[4];
+      int kind[4];
+#pragma unroll
+      for (int b = 0; b < 4; ++b) {
+        const int j = 4 * q + b;
+        const int o = rl.lt.code(j);
+        kind[b] = R_NONE;
+        v[b] = 0.0f;
+        if (o == OP_PUSHL) {
+          kind[b] = R_ACK;
+        } else if (o == OP_PUSHR) {
+          kind[b] = R_ACK;
+          if (rpr >= nr_elim) sink_r(rpr - nr_elim, rl.lt.par[j] + 0.0f);
+          ++rpr;
+        } else if (o == OP_POPL) {
+          if (rql < nl_elim) {
+            kind[b] = R_VALUE;
+            v[b] = buf_l[rql];
+          } else if (rql - nl_elim < size) {
+            kind[b] = R_VALUE;
+            v[b] = pop_l(rql - nl_elim);
+          } else {
+            kind[b] = R_EMPTY;
+          }
+          ++rql;
+        } else if (o == OP_POPR) {
+          if (rqr < nr_elim) {
+            kind[b] = R_VALUE;
+            v[b] = buf_r[rqr];
+          } else if (rqr - nr_elim < size_after) {
+            kind[b] = R_VALUE;
+            v[b] = pop_r(rqr - nr_elim);
+          } else {
+            kind[b] = R_EMPTY;
+          }
+          ++rqr;
+        }
+      }
+      store_quad(rl.resp, rl.kinds, rl.n, t, q, v, kind);
+    }
+    ql += rl.tsum[1];
+    qr += rl.tsum[3];
+    pr += rl.tsum[2];
+  }
 }
 
 // ------------------------------------------------------------- map walk
@@ -302,7 +584,7 @@ struct MapSmem {
   int l_io[kMapTile];  // live lanes in order: index | op << 28
   float l_resp[kMapTile];         // the hit value
   unsigned char l_kind[kMapTile];  // MAP_HIT | MAP_FREE | MAP_CAS_OK
-  int scan[kQ * 32];
+  int scan[kRankInts<1>];
 };
 
 // The table rows one phase writes: the phase's row of the shard and the
@@ -369,9 +651,14 @@ __device__ __forceinline__ int map_compact(MapSmem& sm, const int* __restrict__ 
       }
     }
   }
-  auto live = [](int c, bool (&f)[1]) { f[0] = c >= OP_MAP_INSERT && c <= OP_MAP_CAS; };
+  auto live = [&](int, int q) {
+    int n = 0;
+#pragma unroll
+    for (int b = 0; b < 4; ++b) n += o[4 * q + b] >= OP_MAP_INSERT && o[4 * q + b] <= OP_MAP_CAS;
+    return n;
+  };
   int base[1][kQ], total[1];
-  rank_quads<1>([&](int j) { return o[j]; }, live, base, total, sm.scan);
+  rank_quads<1>(live, base, total, sm.scan);
 #pragma unroll
   for (int q = 0; q < kQ; ++q) {
     const int lo = quad_lo(tile, q);

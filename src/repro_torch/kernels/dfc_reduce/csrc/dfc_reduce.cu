@@ -18,19 +18,39 @@
 // What bounds them on this card, and what the design does about it:
 //
 // * Stack, queue, deque.  The work is a few integer ops per lane, so the
-//   bound is bytes: each lane's op, param and window value read once, its
-//   response, kind and segment value written once (about 24-28 bytes per
-//   lane).  The TPU kernels route values with one-hot f32 matrix products
-//   (an N x N matrix per shard); here ranks are a block-wide exclusive
-//   prefix sum (warp ballots + popcounts, a per-warp carry in shared memory,
-//   looping over tiles of the N lanes) and values move by indexed stores.
-//   Eliminated pairs meet in a shared-memory buffer of ceil(N/2) floats
-//   (n_elim <= N/2 for every kind; the deque's two sides share it, since
-//   nl_elim + nr_elim <= N/2); surplus values are stored straight into the
-//   output segment row.  Three passes over the lanes (totals, push routing,
-//   responses) re-read ops from L2 instead of holding ranks in shared
-//   memory.  Routed values are stored as v + 0.0f so that a pushed -0.0
-//   lands as +0.0, as the reference's scatter-add into zeros gives it.
+//   bound is bytes: each lane's op read once, a param for each push and a
+//   window value for each pop the window serves, each lane's response, kind
+//   and segment value written once (about 16-20 bytes a lane at the main
+//   path's mostly idle lanes).  The TPU kernels route values with one-hot
+//   f32 matrix products (an N x N matrix per shard); here lanes are ranked
+//   by block-wide prefix sums and values move by indexed stores.  Eliminated pairs meet in a
+//   shared-memory buffer of ceil(N/2) floats (n_elim <= N/2 for every kind;
+//   the deque's two sides share it, since nl_elim + nr_elim <= N/2); surplus
+//   values are stored straight into the output segment row, and routed
+//   values are stored as v + 0.0f so that a pushed -0.0 lands as +0.0, as
+//   the reference's scatter-add into zeros gives it.  A block's steps
+//   depend on each other (the pushes and pops are routed by ranks over the
+//   whole row), so what bounds the stack and the deque is the card's bytes
+//   in each step plus the chain between them.  Each block loads a tile of
+//   16,384 lanes (the main path's whole row) once into registers (LaneTile:
+//   quads of lanes interleaved over the threads, 16-byte loads; a quad's
+//   params only if it holds a push), answers every quad with no op of its
+//   kind at once (R_NONE with 0.0: most of the row at the main path, whose
+//   rows are mostly padding), so those stores overlap the scan, ranks the
+//   tile with one block-wide scan (rank_quads: the totals and every quad's
+//   base for the pushes and the pops), routes its pushes from the
+//   registers, and after one barrier answers the rest from the same
+//   registers with 16-byte stores (store_quad).  The segment rows are zeroed
+//   whole at the start, beside the loads, and the surplus pushes overwrite
+//   their slots.  These steps (RingLanes,
+//   stack_pushes, stack_answers, deque_pushes, deque_answers in
+//   combine_common.cuh) are also the K-phase kernels' (phase_grid.cu),
+//   which differ only in where a surviving push lands and where a pop past
+//   elimination reads.  A row of more tiles is reloaded and re-ranked in
+//   each step.  Splitting a row over a cluster of two blocks, so that 128
+//   SMs carry the 64 rows, timed no faster at the main path: the steps are
+//   bound by the card's bytes, not one SM's.  The queue still runs three
+//   passes of tile_rank over tiles of 1,024 lanes.
 // * Map (dfc_map_reduce: two launches on the caller's stream).  The output
 //   contract is the whole table, so the bound is bytes: the 415 MB of a
 //   64-shard group at capacity 540,672 read once and written once, 0.25 ms
@@ -62,85 +82,34 @@ stack_kernel(const int* __restrict__ ops, const float* __restrict__ params,
              const float* __restrict__ windows, const int* __restrict__ sizes,
              float* resp, int* kinds, float* segments, int* counts, int N) {
   extern __shared__ float elim_buf[];  // push params by rank < n_elim
-  __shared__ int sm[2 * 32];
+  __shared__ int sm[kRankInts<2>];
   const size_t row = (size_t)blockIdx.x * N;
-  const int* op = ops + row;
-  const float* par = params + row;
   const float* win = windows + row;
   float* seg = segments + row;
   const int size = sizes[blockIdx.x];
-
-  int p_total = 0, q_total = 0;
-  for (int base = 0; base < N; base += blockDim.x) {
-    const int i = base + threadIdx.x;
-    const int o = i < N ? op[i] : 0;
-    const bool f[2] = {o == OP_PUSH, o == OP_POP};
-    int r[2], t[2];
-    tile_rank<2>(f, r, t, sm);
-    p_total += t[0];
-    q_total += t[1];
-  }
-  const int n_elim = min(p_total, q_total);
-  const int n_push_surplus = max(p_total - n_elim, 0);
-  for (int k = n_push_surplus + threadIdx.x; k < N; k += blockDim.x) seg[k] = 0.0f;
-
-  // pushes by rank: eliminated ones meet their pop in shared memory, the
-  // surplus is rank-compacted into the segment row
-  int carry = 0;
-  for (int base = 0; base < N; base += blockDim.x) {
-    const int i = base + threadIdx.x;
-    const int o = i < N ? op[i] : 0;
-    const bool f[1] = {o == OP_PUSH};
-    int r[1], t[1];
-    tile_rank<1>(f, r, t, sm);
-    if (f[0]) {
-      const int rk = carry + r[0];
-      const float v = par[i] + 0.0f;
-      if (rk < n_elim) elim_buf[rk] = v; else seg[rk - n_elim] = v;
-    }
-    carry += t[0];
-  }
+  // the segment row is zero past the surplus: zeroed whole first, so these
+  // stores overlap the loads and the scan, and the surplus pushes overwrite
+  // their slots behind the scan's barriers
+  zero_row(seg, N);
+  RingLanes<2> rl(ops + row, params + row, resp + row, kinds + row, N, sm);
+  int tot[2];
+  rl.count(tot);
+  const int n_elim = min(tot[0], tot[1]);
+  const int n_push_surplus = tot[0] - n_elim;
+  // eliminated pushes meet their pops in shared memory; the surplus is
+  // rank-compacted into the segment row
+  stack_pushes(rl, n_elim, [&](int j, float v) { elim_buf[j] = v; },
+               [&](int j, float v) { seg[j] = v; });
   __syncthreads();
-
-  carry = 0;
-  for (int base = 0; base < N; base += blockDim.x) {
-    const int i = base + threadIdx.x;
-    const int o = i < N ? op[i] : 0;
-    const bool f[1] = {o == OP_POP};
-    int r[1], t[1];
-    tile_rank<1>(f, r, t, sm);
-    if (i < N) {
-      int kind = R_NONE;
-      float v = 0.0f;
-      if (o == OP_PUSH) {
-        kind = R_ACK;
-      } else if (f[0]) {
-        const int rk = carry + r[0];
-        if (rk < n_elim) {
-          kind = R_VALUE;
-          v = elim_buf[rk];
-        } else {
-          const int depth = rk - n_elim;
-          const int src = N - 1 - depth;  // window[N-1] is the committed top
-          if (src >= 0 && depth < size) {
-            kind = R_VALUE;
-            v = win[src];
-          } else {
-            kind = R_EMPTY;
-          }
-        }
-      }
-      resp[row + i] = v;
-      kinds[row + i] = kind;
-    }
-    carry += t[0];
-  }
+  // window[N-1] is the committed top
+  stack_answers(rl, n_elim, elim_buf, size,
+                [&](int depth) { return win[N - 1 - depth]; });
   if (threadIdx.x == 0) {
     int* c = counts + (size_t)blockIdx.x * 4;
     c[0] = n_push_surplus;
-    c[1] = min(max(q_total - n_elim, 0), size);
+    c[1] = min(max(tot[1] - n_elim, 0), size);
     c[2] = n_elim;
-    c[3] = q_total;
+    c[3] = tot[1];
   }
 }
 
@@ -235,108 +204,34 @@ deque_kernel(const int* __restrict__ ops, const float* __restrict__ params,
              float* segs_l, float* segs_r, int* counts, int N) {
   // [0, nl_elim): pushL params by rank; [nl_elim, nl_elim + nr_elim): pushR
   extern __shared__ float elim_buf[];
-  __shared__ int sm[4 * 32];
+  __shared__ int sm[kRankInts<4>];
   const size_t row = (size_t)blockIdx.x * N;
-  const int* op = ops + row;
-  const float* par = params + row;
   const float* wl = windows_l + row;
   const float* wr = windows_r + row;
   float* sgl = segs_l + row;
   float* sgr = segs_r + row;
   const int size = sizes[blockIdx.x];
-
-  int npl = 0, nql = 0, npr = 0, nqr = 0;
-  for (int base = 0; base < N; base += blockDim.x) {
-    const int i = base + threadIdx.x;
-    const int o = i < N ? op[i] : 0;
-    const bool f[4] = {o == OP_PUSHL, o == OP_POPL, o == OP_PUSHR, o == OP_POPR};
-    int r[4], t[4];
-    tile_rank<4>(f, r, t, sm);
-    npl += t[0];
-    nql += t[1];
-    npr += t[2];
-    nqr += t[3];
-  }
-  const int nl_elim = min(npl, nql);
-  const int nr_elim = min(npr, nqr);
-  const int sl = max(npl - nl_elim, 0);
-  const int tl = max(nql - nl_elim, 0);
-  const int dl = min(tl, size);
+  zero_row(sgl, N);  // as the stack's segment row
+  zero_row(sgr, N);
+  RingLanes<4> rl(ops + row, params + row, resp + row, kinds + row, N, sm);
+  int tot[4];
+  rl.count(tot);
+  const int nl_elim = min(tot[0], tot[1]);
+  const int nr_elim = min(tot[2], tot[3]);
+  const int sl = tot[0] - nl_elim;
+  const int dl = min(tot[1] - nl_elim, size);
   const int size_after = size + sl - dl;
-  const int sr = max(npr - nr_elim, 0);
-  const int tr = max(nqr - nr_elim, 0);
-  const int dr = min(tr, size_after);
-  float* buf_l = elim_buf;
+  const int sr = tot[2] - nr_elim;
+  const int dr = min(tot[3] - nr_elim, size_after);
   float* buf_r = elim_buf + nl_elim;
-  for (int k = sl + threadIdx.x; k < N; k += blockDim.x) sgl[k] = 0.0f;
-  for (int k = sr + threadIdx.x; k < N; k += blockDim.x) sgr[k] = 0.0f;
-
-  int cl = 0, cr = 0;
-  for (int base = 0; base < N; base += blockDim.x) {
-    const int i = base + threadIdx.x;
-    const int o = i < N ? op[i] : 0;
-    const bool f[2] = {o == OP_PUSHL, o == OP_PUSHR};
-    int r[2], t[2];
-    tile_rank<2>(f, r, t, sm);
-    if (f[0]) {
-      const int rk = cl + r[0];
-      const float v = par[i] + 0.0f;
-      if (rk < nl_elim) buf_l[rk] = v; else sgl[rk - nl_elim] = v;
-    } else if (f[1]) {
-      const int rk = cr + r[1];
-      const float v = par[i] + 0.0f;
-      if (rk < nr_elim) buf_r[rk] = v; else sgr[rk - nr_elim] = v;
-    }
-    cl += t[0];
-    cr += t[1];
-  }
+  deque_pushes(rl, nl_elim, nr_elim, [&](int j, float v) { elim_buf[j] = v; },
+               [&](int j, float v) { buf_r[j] = v; }, [&](int j, float v) { sgl[j] = v; });
   __syncthreads();  // also publishes the seg_l row to the right pops below
-
-  cl = cr = 0;
-  for (int base = 0; base < N; base += blockDim.x) {
-    const int i = base + threadIdx.x;
-    const int o = i < N ? op[i] : 0;
-    const bool f[2] = {o == OP_POPL, o == OP_POPR};
-    int r[2], t[2];
-    tile_rank<2>(f, r, t, sm);
-    if (i < N) {
-      int kind = R_NONE;
-      float v = 0.0f;
-      if (o == OP_PUSHL || o == OP_PUSHR) {
-        kind = R_ACK;
-      } else if (f[0]) {
-        const int rk = cl + r[0];
-        if (rk < nl_elim) {
-          kind = R_VALUE;
-          v = buf_l[rk];
-        } else if (rk - nl_elim < size) {
-          kind = R_VALUE;
-          v = wl[min(rk - nl_elim, N - 1)];
-        } else {
-          kind = R_EMPTY;
-        }
-      } else if (f[1]) {
-        const int rk = cr + r[1];
-        if (rk < nr_elim) {
-          kind = R_VALUE;
-          v = buf_r[rk];
-        } else {
-          const int kr = rk - nr_elim;
-          if (kr < size_after) {
-            kind = R_VALUE;
-            // committed window first, then this phase's left pushes
-            v = kr < size ? wr[min(kr, N - 1)] : sgl[min(max(kr - size, 0), N - 1)];
-          } else {
-            kind = R_EMPTY;
-          }
-        }
-      }
-      resp[row + i] = v;
-      kinds[row + i] = kind;
-    }
-    cl += t[0];
-    cr += t[1];
-  }
+  deque_answers(rl, nl_elim, nr_elim, elim_buf, buf_r, size, size_after,
+                [&](int j, float v) { sgr[j] = v; },
+                [&](int k) { return wl[min(k, N - 1)]; },
+                // the committed window first, then this phase's left pushes
+                [&](int k) { return k < size ? wr[min(k, N - 1)] : sgl[min(k - size, N - 1)]; });
   if (threadIdx.x == 0) {
     int* c = counts + (size_t)blockIdx.x * 8;
     c[0] = sl;

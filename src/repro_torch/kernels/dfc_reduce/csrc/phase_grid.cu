@@ -33,10 +33,14 @@
 //      phases, which writes only what each phase changes.  Stream order
 //      gives it the complete broadcast.
 // Ring kinds (stack, queue, deque).  A phase holds its lanes in registers
-// (LaneTile: quads of lanes interleaved over the threads, so every 16-byte
-// load and store of a warp is contiguous; one block-wide scan of per-thread
+// (RingLanes, combine_common.cuh: quads of lanes interleaved over the
+// threads, so every 16-byte load and store of a warp is contiguous; a
+// quad's params only if it holds a push; one block-wide scan of per-thread
 // counts ranks them), so the counts, the push routing and the responses
-// read the ops and params once.  A push that survives elimination is stored
+// read the ops once, and a quad with no op of the kind is answered as soon
+// as it is loaded.  The stack and the deque run the one-phase kernels'
+// steps (stack_pushes / stack_answers, deque_pushes / deque_answers) with
+// their own push stores and pop reads.  A push that survives elimination is stored
 // into its slot of rows k..K-1 (store_forward); a later phase's push to the
 // same slot overwrites rows j..K-1 after it, in program order, behind the
 // barrier that ends each phase.  So row k-1 holds the input plus every
@@ -68,15 +72,6 @@ __device__ __forceinline__ size_t ring_slot(long long pos, int cap) {
   return (size_t)(m < 0 ? m + cap : m);
 }
 
-// Whether any lane of the row holds a non-zero op code (the same in every
-// thread): a phase with none leaves the shard's state and epoch as they are.
-__device__ __forceinline__ int row_live(const LaneTile& lt) {
-  int any = 0;
-#pragma unroll
-  for (int q = 0; q < kQ; ++q) any |= lt.op[q] != 0u;
-  return any;
-}
-
 // ------------------------------------------------------------------ stack
 __global__ void __launch_bounds__(kThreads)
 phase_stack_kernel(const float* __restrict__ values_in, const int* __restrict__ size_in,
@@ -85,14 +80,9 @@ phase_stack_kernel(const float* __restrict__ values_in, const int* __restrict__ 
                    int* epoch_out, float* resp, int* kinds, int K, int S, int cap,
                    int N) {
   extern __shared__ float elim_buf[];  // push params by rank < n_elim
-  __shared__ int sm[2 * kQ * 32];
+  __shared__ int sm[kRankInts<2>];
   const int s = blockIdx.x;
   const size_t stride = (size_t)S * cap;
-  const int ntiles = (N + kTile - 1) / kTile;
-  auto flags = [](int o, bool (&f)[2]) { f[0] = o == OP_PUSH, f[1] = o == OP_POP; };
-  LaneTile lt;
-  auto code = [&](int j) { return lt.code(j); };
-  int base[2][kQ], tsum[2];
   for (int k = 0; k < K; ++k) {
     const size_t ph = (size_t)k * S + s, prev = ph - S;
     const float* src = k ? values_out + prev * cap : values_in + (size_t)s * cap;
@@ -100,96 +90,30 @@ phase_stack_kernel(const float* __restrict__ values_in, const int* __restrict__ 
     const int epoch = k ? epoch_out[prev] : epoch_in[s];
     float* dst = values_out + ph * cap;
     const size_t row = ph * N;
-    const int* op = ops + row;
-    const float* par = params + row;
-
-    int p_total = 0, q_total = 0, any = 0;
-    for (int t = 0; t < ntiles; ++t) {
-      lt.load(op, par, N, t);
-      any |= row_live(lt);
-      rank_quads<2>(code, flags, base, tsum, sm);
-      p_total += tsum[0];
-      q_total += tsum[1];
-    }
-    const int live = __syncthreads_or(any);
+    RingLanes<2> rl(ops + row, params + row, resp + row, kinds + row, N, sm);
+    int tot[2];
+    const int live = __syncthreads_or(rl.count(tot));
     const int old = src_size[active_slot(epoch)];
-    const int n_elim = min(p_total, q_total);
-    const int n_push_surplus = p_total - n_elim;
+    const int n_elim = min(tot[0], tot[1]);
+    const int n_push_surplus = tot[0] - n_elim;
     // the surplus segment lands at clip(old, 0, cap - N); only the slots in
     // [old, old + n_push_surplus) are kept
     const int start = min(max(old, 0), cap - N);
-
-    int carry = 0;
-    for (int t = 0; t < ntiles; ++t) {
-      if (ntiles > 1) {
-        lt.load(op, par, N, t);
-        rank_quads<2>(code, flags, base, tsum, sm);
-      }
-#pragma unroll
-      for (int q = 0; q < kQ; ++q) {
-        int rk = carry + base[0][q];
-#pragma unroll
-        for (int b = 0; b < 4; ++b) {
-          if (lt.code(4 * q + b) != OP_PUSH) continue;
-          const float v = lt.par[4 * q + b] + 0.0f;  // routed -0.0 lands as +0.0
-          if (rk < n_elim) {
-            elim_buf[rk] = v;
-          } else {
-            const int pos = start + rk - n_elim;
-            if (pos >= old && pos < old + n_push_surplus)
-              store_forward(dst, stride, K - k, pos, v);
-          }
-          ++rk;
-        }
-      }
-      carry += tsum[0];
-    }
+    stack_pushes(rl, n_elim, [&](int j, float v) { elim_buf[j] = v; },
+                 [&](int j, float v) {
+                   const int pos = start + j;
+                   if (pos >= old && pos < old + n_push_surplus)
+                     store_forward(dst, stride, K - k, pos, v);
+                 });
     __syncthreads();
-
-    carry = 0;
-    for (int t = 0; t < ntiles; ++t) {
-      if (ntiles > 1) {
-        lt.load(op, par, N, t);
-        rank_quads<2>(code, flags, base, tsum, sm);
-      }
-#pragma unroll
-      for (int q = 0; q < kQ; ++q) {
-        int rk = carry + base[1][q];
-        float v[4];
-        int kind[4];
-#pragma unroll
-        for (int b = 0; b < 4; ++b) {
-          const int o = lt.code(4 * q + b);
-          kind[b] = R_NONE;
-          v[b] = 0.0f;
-          if (o == OP_PUSH) {
-            kind[b] = R_ACK;
-          } else if (o == OP_POP) {
-            if (rk < n_elim) {
-              kind[b] = R_VALUE;
-              v[b] = elim_buf[rk];
-            } else {
-              const int src_pos = old - 1 - (rk - n_elim);
-              if (src_pos >= 0) {
-                kind[b] = R_VALUE;
-                v[b] = src[min(src_pos, cap - 1)];
-              } else {
-                kind[b] = R_EMPTY;
-              }
-            }
-            ++rk;
-          }
-        }
-        store_quad(resp + row, kinds + row, N, t, q, v, kind);
-      }
-      carry += tsum[1];
-    }
+    stack_answers(rl, n_elim, elim_buf, old,
+                  [&](int depth) { return src[min(old - 1 - depth, cap - 1)]; });
     if (threadIdx.x == 0) {
       int* so = size_out + ph * 2;
       so[0] = src_size[0];
       so[1] = src_size[1];
       if (live) {
-        const int n_popped = min(max(q_total - n_elim, 0), old);
+        const int n_popped = min(max(tot[1] - n_elim, 0), old);
         so[inactive_slot(epoch)] = old + n_push_surplus - n_popped;
       }
       epoch_out[ph] = live ? epoch + 2 : epoch;
@@ -206,14 +130,9 @@ phase_queue_kernel(const float* __restrict__ values_in, const int* __restrict__ 
                    int* epoch_out, float* resp, int* kinds, int K, int S, int cap,
                    int N) {
   extern __shared__ float elim_buf[];  // enq params by rank < n_elim
-  __shared__ int sm[2 * kQ * 32];
+  __shared__ int sm[kRankInts<2>];
   const int s = blockIdx.x;
   const size_t stride = (size_t)S * cap;
-  const int ntiles = (N + kTile - 1) / kTile;
-  auto flags = [](int o, bool (&f)[2]) { f[0] = o == OP_PUSH, f[1] = o == OP_POP; };
-  LaneTile lt;
-  auto code = [&](int j) { return lt.code(j); };
-  int base[2][kQ], tsum[2];
   for (int k = 0; k < K; ++k) {
     const size_t ph = (size_t)k * S + s, prev = ph - S;
     const float* src = k ? values_out + prev * cap : values_in + (size_t)s * cap;
@@ -221,18 +140,14 @@ phase_queue_kernel(const float* __restrict__ values_in, const int* __restrict__ 
     const int epoch = k ? epoch_out[prev] : epoch_in[s];
     float* dst = values_out + ph * cap;
     const size_t row = ph * N;
-    const int* op = ops + row;
-    const float* par = params + row;
-
-    int p_total = 0, q_total = 0, any = 0;
-    for (int t = 0; t < ntiles; ++t) {
-      lt.load(op, par, N, t);
-      any |= row_live(lt);
-      rank_quads<2>(code, flags, base, tsum, sm);
-      p_total += tsum[0];
-      q_total += tsum[1];
-    }
-    const int live = __syncthreads_or(any);
+    RingLanes<2> rl(ops + row, params + row, resp + row, kinds + row, N, sm);
+    const LaneTile& lt = rl.lt;
+    const int (&base)[2][kQ] = rl.base;
+    const int (&tsum)[2] = rl.tsum;
+    const int ntiles = rl.ntiles;
+    int tot[2];
+    const int live = __syncthreads_or(rl.count(tot));
+    const int p_total = tot[0], q_total = tot[1];
     const int a = active_slot(epoch);
     const long long head = src_ends[2 * a], tail = src_ends[2 * a + 1];
     const long long size = tail - head;
@@ -242,10 +157,7 @@ phase_queue_kernel(const float* __restrict__ values_in, const int* __restrict__ 
 
     int carry = 0;
     for (int t = 0; t < ntiles; ++t) {
-      if (ntiles > 1) {
-        lt.load(op, par, N, t);
-        rank_quads<2>(code, flags, base, tsum, sm);
-      }
+      rl.again(t);
 #pragma unroll
       for (int q = 0; q < kQ; ++q) {
         int rk = carry + base[0][q];
@@ -264,12 +176,10 @@ phase_queue_kernel(const float* __restrict__ values_in, const int* __restrict__ 
 
     carry = 0;
     for (int t = 0; t < ntiles; ++t) {
-      if (ntiles > 1) {
-        lt.load(op, par, N, t);
-        rank_quads<2>(code, flags, base, tsum, sm);
-      }
+      rl.again(t);
 #pragma unroll
       for (int q = 0; q < kQ; ++q) {
+        if (rl.quiet(q)) continue;  // answered by the count
         long long rk = carry + base[1][q];
         float v[4];
         int kind[4];
@@ -320,16 +230,9 @@ phase_deque_kernel(const float* __restrict__ values_in, const int* __restrict__ 
                    int N) {
   // [0, nl_elim): pushL params by rank; [nl_elim, nl_elim + nr_elim): pushR
   extern __shared__ float elim_buf[];
-  __shared__ int sm[4 * kQ * 32];
+  __shared__ int sm[kRankInts<4>];
   const int s = blockIdx.x;
   const size_t stride = (size_t)S * cap;
-  const int ntiles = (N + kTile - 1) / kTile;
-  auto flags = [](int o, bool (&f)[4]) {
-    f[0] = o == OP_PUSHL, f[1] = o == OP_POPL, f[2] = o == OP_PUSHR, f[3] = o == OP_POPR;
-  };
-  LaneTile lt;
-  auto code = [&](int j) { return lt.code(j); };
-  int base[4][kQ], tsum[4];
   for (int k = 0; k < K; ++k) {
     const size_t ph = (size_t)k * S + s, prev = ph - S;
     const float* src = k ? values_out + prev * cap : values_in + (size_t)s * cap;
@@ -337,121 +240,35 @@ phase_deque_kernel(const float* __restrict__ values_in, const int* __restrict__ 
     const int epoch = k ? epoch_out[prev] : epoch_in[s];
     float* dst = values_out + ph * cap;
     const size_t row = ph * N;
-    const int* op = ops + row;
-    const float* par = params + row;
-
-    int npl = 0, nql = 0, npr = 0, nqr = 0, any = 0;
-    for (int t = 0; t < ntiles; ++t) {
-      lt.load(op, par, N, t);
-      any |= row_live(lt);
-      rank_quads<4>(code, flags, base, tsum, sm);
-      npl += tsum[0];
-      nql += tsum[1];
-      npr += tsum[2];
-      nqr += tsum[3];
-    }
-    const int live = __syncthreads_or(any);
+    RingLanes<4> rl(ops + row, params + row, resp + row, kinds + row, N, sm);
+    int tot[4];
+    const int live = __syncthreads_or(rl.count(tot));
     const int a = active_slot(epoch);
     const long long left = src_ends[2 * a], right = src_ends[2 * a + 1];
     const long long size = right - left;
-    const int nl_elim = min(npl, nql), nr_elim = min(npr, nqr);
-    const long long sl = npl - nl_elim, tl = nql - nl_elim;
-    const long long sr = npr - nr_elim, tr = nqr - nr_elim;
+    const int nl_elim = min(tot[0], tot[1]), nr_elim = min(tot[2], tot[3]);
+    const long long sl = tot[0] - nl_elim, tl = tot[1] - nl_elim;
+    const long long sr = tot[2] - nr_elim, tr = tot[3] - nr_elim;
     const long long dl = min(tl, size);
     const long long size_after = size + sl - dl;
     const long long dr = min(tr, size_after);
-    float* buf_l = elim_buf;
     float* buf_r = elim_buf + nl_elim;
-
-    // left pushes (and both sides' eliminated pushes): push j of the left
-    // surplus lands at left-1-j
-    int cl = 0, cr = 0;
-    for (int t = 0; t < ntiles; ++t) {
-      if (ntiles > 1) {
-        lt.load(op, par, N, t);
-        rank_quads<4>(code, flags, base, tsum, sm);
-      }
-#pragma unroll
-      for (int q = 0; q < kQ; ++q) {
-        int rl = cl + base[0][q], rr = cr + base[2][q];
-#pragma unroll
-        for (int b = 0; b < 4; ++b) {
-          const int j = 4 * q + b;
-          const int o = lt.code(j);
-          if (o == OP_PUSHL) {
-            const float v = lt.par[j] + 0.0f;
-            if (rl < nl_elim) buf_l[rl] = v;
-            else store_forward(dst, stride, K - k, ring_slot(left - 1 - (rl - nl_elim), cap), v);
-            ++rl;
-          } else if (o == OP_PUSHR) {
-            if (rr < nr_elim) buf_r[rr] = lt.par[j] + 0.0f;
-            ++rr;
-          }
-        }
-      }
-      cl += tsum[0];
-      cr += tsum[2];
-    }
+    // left push j of the surplus lands at left-1-j, right push j at right+j
+    // (after the barrier: the reference applies the right side after the left)
+    deque_pushes(rl, nl_elim, nr_elim, [&](int j, float v) { elim_buf[j] = v; },
+                 [&](int j, float v) { buf_r[j] = v; },
+                 [&](int j, float v) {
+                   store_forward(dst, stride, K - k, ring_slot(left - 1 - j, cap), v);
+                 });
     __syncthreads();  // row k now holds this phase's left pushes
-
-    // responses; right surplus pushes land at right+j after the left ones
-    // (a phase with right surplus pushes has no right surplus pops)
-    int ql = 0, qr = 0, pr = 0;
-    for (int t = 0; t < ntiles; ++t) {
-      if (ntiles > 1) {
-        lt.load(op, par, N, t);
-        rank_quads<4>(code, flags, base, tsum, sm);
-      }
-#pragma unroll
-      for (int q = 0; q < kQ; ++q) {
-        int rql = ql + base[1][q], rqr = qr + base[3][q], rpr = pr + base[2][q];
-        float v[4];
-        int kind[4];
-#pragma unroll
-        for (int b = 0; b < 4; ++b) {
-          const int j = 4 * q + b;
-          const int o = lt.code(j);
-          kind[b] = R_NONE;
-          v[b] = 0.0f;
-          if (o == OP_PUSHL) {
-            kind[b] = R_ACK;
-          } else if (o == OP_PUSHR) {
-            kind[b] = R_ACK;
-            if (rpr >= nr_elim)
-              store_forward(dst, stride, K - k, ring_slot(right + (rpr - nr_elim), cap),
-                            lt.par[j] + 0.0f);
-            ++rpr;
-          } else if (o == OP_POPL) {
-            if (rql < nl_elim) {
-              kind[b] = R_VALUE;
-              v[b] = buf_l[rql];
-            } else if (rql - nl_elim < size) {
-              kind[b] = R_VALUE;
-              v[b] = src[ring_slot(left + (rql - nl_elim), cap)];
-            } else {
-              kind[b] = R_EMPTY;
-            }
-            ++rql;
-          } else if (o == OP_POPR) {
-            if (rqr < nr_elim) {
-              kind[b] = R_VALUE;
-              v[b] = buf_r[rqr];
-            } else if (rqr - nr_elim < size_after) {
-              // committed slots first, then this phase's left pushes
-              kind[b] = R_VALUE;
-              v[b] = dst[ring_slot(right - 1 - (rqr - nr_elim), cap)];
-            } else {
-              kind[b] = R_EMPTY;
-            }
-            ++rqr;
-          }
-        }
-        store_quad(resp + row, kinds + row, N, t, q, v, kind);
-      }
-      ql += tsum[1];
-      qr += tsum[3];
-      pr += tsum[2];
-    }
+    // a phase with right surplus pushes has no right surplus pops
+    deque_answers(rl, nl_elim, nr_elim, elim_buf, buf_r, size, size_after,
+                  [&](int j, float v) {
+                    store_forward(dst, stride, K - k, ring_slot(right + j, cap), v);
+                  },
+                  [&](int j) { return src[ring_slot(left + j, cap)]; },
+                  // committed slots first, then this phase's left pushes
+                  [&](int j) { return dst[ring_slot(right - 1 - j, cap)]; });
     if (threadIdx.x == 0) {
       int* eo = ends_out + ph * 4;
       for (int j = 0; j < 4; ++j) eo[j] = src_ends[j];

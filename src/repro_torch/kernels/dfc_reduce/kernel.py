@@ -50,7 +50,10 @@ LAUNCHES: Dict[str, int] = {
     **{f"phase_grid_{k}": 0 for k in ("stack", "queue", "deque", "map")},
 }
 # shared memory a block may use on Hopper, minus the static rank scratch
+# (at most kRankInts<4>: 1 KB); the elimination buffer takes ceil(N/2)
+# floats, so MAX_LANES is the largest N a ring kernel takes
 _MAX_ELIM_BYTES = 232448 - 1024
+MAX_LANES = 2 * (_MAX_ELIM_BYTES // 4)
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 
@@ -91,7 +94,7 @@ def _check(name: str, t: torch.Tensor, dtype: torch.dtype, shape, device) -> Non
 
 
 def _check_lanes(n: int) -> None:
-    if (n + 1) // 2 * 4 > _MAX_ELIM_BYTES:
+    if n > MAX_LANES:
         raise ValueError(f"{n} lanes exceed the kernel's shared-memory budget")
 
 

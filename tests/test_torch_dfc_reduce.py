@@ -5,10 +5,11 @@ them bit for bit against these plain versions there).  Here, on the CPU,
 the kernel wrappers take their plain versions (the tensors lie on the CPU),
 and those are held bit for bit against ``jax.vmap`` of the JAX package's
 ``ref.py`` and against its Pallas grid kernels in interpret mode, at S=3 and
-N in {8, 32, 128}, plus adversarial batches and the map stress cases of
-``kernels/dfc_reduce/cases.py`` (the inputs ``chip_smoke.py`` holds the card's
-map kernel to, here at small sizes).  The sharded, single-object and chained
-combine steps are held against their JAX counterparts.
+N in {8, 32, 128}, plus adversarial batches and the ring and map stress cases
+of ``kernels/dfc_reduce/cases.py`` (the inputs ``chip_smoke.py`` holds the
+card's ring and map kernels to, here at small sizes).  The sharded,
+single-object and chained combine steps are held against their JAX
+counterparts.
 """
 
 import numpy as np
@@ -145,6 +146,38 @@ def test_map_stress_cases_match_jax_ref_and_pallas(n):
     assert list(kinds[0, 1:7]) == [T.R_VALUE, T.R_VALUE, T.R_FULL, T.R_VALUE, T.R_ACK,
                                    T.R_VALUE]
     assert (kinds[2] == T.R_NONE).all()
+
+
+@pytest.mark.parametrize("n", [8, 33, 128])
+@pytest.mark.parametrize("kind", ["stack", "queue", "deque"])
+@pytest.mark.parametrize("case", ["ring_forward", "ring_edges"])
+def test_ring_stress_cases_match_jax_ref_and_pallas(case, kind, n):
+    """The one-phase ring kernels' stress inputs (``cases.ring_reduce_args``):
+    ``ring_forward``'s first phase (mostly pushes, -0.0 pushed early and
+    late, random ops with foreign codes) and ``ring_edges`` (N/2 lanes
+    eliminated at an even N; every pop of shard 1 but two past the window,
+    the first reading a committed -0.0), shard 2 untouched.  Bit for bit
+    against ``jax.vmap`` of the JAX ``ref.py``; against its Pallas kernel too,
+    whose one-hot sums start at +0.0, so a committed -0.0 read through a
+    window comes back +0.0 there (``test_stack_adversarial``): the responses
+    are held to it as ``resp + 0.0``, every other output as it is."""
+    made = TC.ring_forward(kind, 1, n) if case == "ring_forward" else TC.ring_edges(kind, n)
+    args = TC.ring_reduce_args(made)
+    windows = np.stack(args[2:-1])
+    touts = _check_ring(kind, args[0], args[1], windows, args[-1], pallas=False)
+    jargs = [jnp.asarray(a) for a in args]
+    jgrid = {"stack": JK.dfc_reduce_grid_call, "queue": JK.dfc_queue_reduce_grid_call,
+             "deque": JK.dfc_deque_reduce_grid_call}[kind]
+    pk = jgrid(*jargs, interpret=True)
+    assert_outs(pk, (touts[0] + 0.0,) + tuple(touts[1:]))
+    resp, kinds, counts = touts[0].numpy(), touts[1].numpy(), touts[-1].numpy()
+    assert (kinds[2] == T.R_NONE).all()
+    if case == "ring_edges":
+        n_elim = counts[0, 4] + counts[0, 5] if kind == "deque" else counts[0, 2]
+        if n % (4 if kind == "deque" else 2) == 0:
+            assert n_elim == n // 2
+        assert list(np.bincount(kinds[1], minlength=4)[[T.R_VALUE, T.R_EMPTY]]) == [2, n - 2]
+        assert kinds[1, 0] == T.R_VALUE and np.signbit(resp[1, 0])
 
 
 def _ring_case(kind, rows, n=8, sizes=(0, 0, 0), windows=None):
