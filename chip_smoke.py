@@ -26,13 +26,15 @@ script exits non-zero without printing a result):
                   past one 16,384-lane tile and off the 16-byte vector, a
                   shard untouched in every phase; B5's ring kinds also at
                   K = 1 and the largest N the ring kernels take,
-                  ``kernel.MAX_LANES``), the one-phase map kernel on the map
-                  stress cases' first phase, and the one-phase ring kernels
-                  on ``ring_forward``'s and ``ring_edges``' first phase at N in
+                  ``kernel.MAX_LANES``, and on ``ring_drain`` at K = 1), the
+                  one-phase map kernel on the map stress cases' first phase,
+                  and the one-phase ring kernels on ``ring_forward``'s,
+                  ``ring_edges``' and ``ring_drain``'s first phase at N in
                   ``RING_STRESS_N`` and ``MAX_LANES`` (exactly N/2 lanes
-                  eliminated, every pop past the window, rows of two and
-                  more tiles, N off the 16-byte vector, the deque's whole
-                  shared-memory budget): bit-equal; kernels 1-3 at S=1 timed
+                  eliminated, every pop past the window, pops served, paired
+                  and run empty in one row, a committed size past N, rows of
+                  two and more tiles, N off the 16-byte vector, the deque's
+                  whole shared-memory budget): bit-equal; kernels 1-3 at S=1 timed
                   (``ms``, ``device_ms``, ``host_us``),
   4. volatile  -- the port's main path at full width: ``serve_shards --mixed
                   --shards 256 --batch 16384 --phases 32 --skew 1.1`` on the
@@ -155,8 +157,9 @@ K_PHASES = 8  # phases per fused dispatch on the main path
 STRESS = ((1, 1024, KINDS), (8, 1024, KINDS), (2, 16384, KINDS), (8, 16384, KINDS[:3]),
           (3, 1003, KINDS), (2, 20000, KINDS[:3]))
 MAP_STRESS_N = (1024, 16384)  # the one-phase map kernel on map_hot's phase 0
-# the one-phase ring kernels on ring_forward's and ring_edges' phase 0, and at
-# kernel.MAX_LANES: one tile, two tiles (the second ragged), N off the vector
+# the one-phase ring kernels on ring_forward's, ring_edges' and ring_drain's
+# phase 0, and at kernel.MAX_LANES: one tile, two tiles (the second ragged), N
+# off the vector
 RING_STRESS_N = (64, 1001, 16384, 20000)
 # H100 SXM published peaks (NVIDIA data sheet): HBM3 bytes/s, and the f32
 # rate outside the tensor cores, used for the kernels' 32-bit scalar ops
@@ -463,15 +466,17 @@ def phase_kernels_adversarial(torch, T):
                       f"map adversarial case {i}: +0.0 or R_FULL lost")
 
     # the ring kernels on the stress cases' first phase (cases.py): exactly
-    # N/2 lanes eliminated, every pop past the window, one and more tiles, N
-    # off the 16-byte vector, and MAX_LANES, where the deque's elimination
-    # buffer and rank scratch fill a block's shared memory
+    # N/2 lanes eliminated, every pop past the window, pops served, paired
+    # and run empty in one row, one and more tiles, N off the 16-byte vector,
+    # and MAX_LANES, where the deque's elimination buffer and rank scratch
+    # fill a block's shared memory
     from repro_torch.kernels.dfc_reduce import kernel as K
     ring_ns = RING_STRESS_N + (K.MAX_LANES,)
     for n_ring in ring_ns:
         for kind in ("stack", "queue", "deque"):
             kfn, pfn = fns[kind]
-            for case in (C.ring_forward(kind, 1, n_ring), C.ring_edges(kind, n_ring)):
+            for case in (C.ring_forward(kind, 1, n_ring), C.ring_edges(kind, n_ring),
+                         C.ring_drain(kind, n_ring)):
                 args = [torch.from_numpy(np.ascontiguousarray(a)).to(dev)
                         for a in C.ring_reduce_args(case)]
                 outs_k = kfn(*args)
@@ -481,8 +486,8 @@ def phase_kernels_adversarial(torch, T):
                 check(not bool((outs_k[1][C.S - 1] != T.R_NONE).any()),
                       f"{what}: the untouched shard answered")
                 del outs_k, args
-    print(f"one-phase ring kernels: bit-equal to their plain versions on ring_forward and "
-          f"ring_edges at N in {ring_ns}", flush=True)
+    print(f"one-phase ring kernels: bit-equal to their plain versions on ring_forward, "
+          f"ring_edges and ring_drain at N in {ring_ns}", flush=True)
 
     # kernels 1-3 at S = 1: the single-object steps
     steps = {"stack": O.dfc_combine_step, "queue": O.dfc_queue_combine_step,
@@ -613,32 +618,41 @@ def phase_grid_adversarial(torch, T):
                 check(kinds[0, 1, 0].item() == T.R_FULL, "map: full bucket not R_FULL")
     from repro_torch.kernels.dfc_reduce import cases as C
     stress = STRESS + ((1, K.MAX_LANES, KINDS[:3]),)
-    for k_phases, n, kinds in stress:
-        for name, kind, leaves, keys, ops, params in C.grid_cases(k_phases, n):
-            if kind not in kinds:
-                continue
-            state = T.state_from_numpy(kind, leaves, device="cuda")
-            ops, params, keys = (torch.from_numpy(a).cuda() for a in (ops, params, keys))
-            outs_k = K.phase_grid_call(kind, state, ops, params, keys)
-            torch.cuda.synchronize()
-            outs_p = R.phase_grid_combine_ref(kind, state, ops, params, keys)
-            what = f"phase grid {name} {kind} K={k_phases} N={n}"
-            compare_grid(what, outs_k, outs_p)
-            st, resp, knd = outs_k
-            check(not bool((knd[:, C.S - 1] != T.R_NONE).any()) and not bool(
-                (st.epoch[:, C.S - 1] != state.epoch[C.S - 1]).any()), f"{what}: shard 2 moved")
-            if kind == "map":  # the stored -0.0 reads back as -0.0 here
-                check(bits(resp[0, 0, 0]).item() == bits(torch.tensor(-0.0)).item()
-                      and knd[0, 0, 3].item() == T.R_FULL, f"{what}: -0.0 or R_FULL lost")
-                nb = T.map_geometry(leaves[0].shape[1])[1]
-                buckets = [len(set(T.map_bucket_host(keys[j, 1].cpu().numpy(), nb).tolist()))
-                           for j in range(k_phases)]
-                print(f"  {what}: {buckets} distinct buckets in shard 1 per phase, "
-                      f"{int((knd == T.R_FULL).sum())} R_FULL", flush=True)
-            del outs_k, outs_p
+    drain_ns = RING_STRESS_N + (K.MAX_LANES,)
+
+    def grid():  # every case of STRESS, then ring_drain at K = 1 on each ring kind
+        for k_phases, n, kinds in stress:
+            for case in C.grid_cases(k_phases, n):
+                if case[1] in kinds:
+                    yield k_phases, n, case
+        for n in drain_ns:
+            for kind in KINDS[:3]:
+                yield 1, n, C.ring_drain(kind, n)
+
+    for k_phases, n, (name, kind, leaves, keys, ops, params) in grid():
+        state = T.state_from_numpy(kind, leaves, device="cuda")
+        ops, params, keys = (torch.from_numpy(a).cuda() for a in (ops, params, keys))
+        outs_k = K.phase_grid_call(kind, state, ops, params, keys)
+        torch.cuda.synchronize()
+        outs_p = R.phase_grid_combine_ref(kind, state, ops, params, keys)
+        what = f"phase grid {name} {kind} K={k_phases} N={n}"
+        compare_grid(what, outs_k, outs_p)
+        st, resp, knd = outs_k
+        check(not bool((knd[:, C.S - 1] != T.R_NONE).any()) and not bool(
+            (st.epoch[:, C.S - 1] != state.epoch[C.S - 1]).any()), f"{what}: shard 2 moved")
+        if kind == "map":  # the stored -0.0 reads back as -0.0 here
+            check(bits(resp[0, 0, 0]).item() == bits(torch.tensor(-0.0)).item()
+                  and knd[0, 0, 3].item() == T.R_FULL, f"{what}: -0.0 or R_FULL lost")
+            nb = T.map_geometry(leaves[0].shape[1])[1]
+            buckets = [len(set(T.map_bucket_host(keys[j, 1].cpu().numpy(), nb).tolist()))
+                       for j in range(k_phases)]
+            print(f"  {what}: {buckets} distinct buckets in shard 1 per phase, "
+                  f"{int((knd == T.R_FULL).sum())} R_FULL", flush=True)
+        del outs_k, outs_p
     print("phase grid kernel: bit-equal to its plain version for every kind at "
-          "S=3, K=3, N in (64, 1024), and on the stress cases (K, N) "
-          f"{[(k, n) for k, n, _ in stress]}", flush=True)
+          "S=3, K=3, N in (64, 1024), on the stress cases (K, N) "
+          f"{[(k, n) for k, n, _ in stress]}, and on ring_drain at K=1, N in {drain_ns}",
+          flush=True)
 
 
 def compare_grid(what, outs_k, outs_p):

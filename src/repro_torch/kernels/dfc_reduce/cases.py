@@ -18,6 +18,14 @@ the lane arrays ``[K, S, N]``.  The last shard is untouched in every phase.
   fill the shared elimination buffer together); shard 1 sends every lane a
   pop against a committed size of 2 (a ``-0.0`` on top), so all but two
   pops run past the window.
+* ``ring_drain`` (stack, queue, deque; one phase): shard 0 holds a quarter
+  of N committed (a queue's head near the ring's end) and takes about 2N/3
+  pops shuffled among N/3 pushes, so one row's pops are served by the
+  window, paired with this phase's pushes and run empty (a stack pairs
+  first, then reads the window), the boundaries falling inside quads and,
+  at the card's sizes, past the first 16,384-lane tile; shard 1 holds more
+  than N committed and sends every lane a pop, so the last lane reads the
+  window's last slot.
 * ``map_hot``: shard 0 sends every lane to the keys of one bucket (filled
   to ``R_FULL``, then freed by deletes), a quarter of them in a run on one
   key, and reads a stored ``-0.0`` back through a lookup and a CAS; shard 1 sends every lane live with keys drawn
@@ -118,6 +126,39 @@ def ring_edges(kind: str, n: int, seed: int = 0) -> Case:
     params[0, 0, :4] = -0.0  # pushed -0.0 lands as +0.0
     keys = np.zeros(ops.shape, np.int32)
     return ("ring_edges", kind, [values, root, EPOCH.copy()], keys, ops, params)
+
+
+def ring_drain(kind: str, n: int, seed: int = 0) -> Case:
+    rng = np.random.default_rng(seed)
+    cap = 2 * n + 8  # shard 1 commits n + 3
+    active = (EPOCH // 2) % 2
+    rows = np.arange(S)
+    values = rng.integers(1, 1000, (S, cap)).astype(np.float32)
+    committed = n // 4
+    n_pop, n_push = 2 * n // 3, n // 3  # the other lanes, if any, hold no op
+    if kind == "stack":
+        root = np.zeros((S, 2), np.int32)
+        root[rows, active] = [committed, n + 3, 1]
+        pushes, pops = [OP_PUSH], [OP_POP]
+    else:
+        root = np.zeros((S, 2, 2), np.int32)
+        if kind == "queue":  # shard 0's window wraps past the ring's end
+            head = cap - committed // 2
+            pushes, pops = [OP_PUSH], [OP_POP]
+        else:
+            head = -(committed // 2)
+            pushes, pops = [OP_PUSHL, OP_PUSHR], [OP_POPL, OP_POPR]
+        root[rows, active] = [[head, head + committed], [3, n + 6], [0, 1]]
+    ops = np.zeros((1, S, n), np.int32)
+    row = np.zeros(n, np.int32)
+    row[:n_pop] = np.resize(np.asarray(pops, np.int32), n_pop)
+    row[n_pop:n_pop + n_push] = np.resize(np.asarray(pushes, np.int32), n_push)
+    ops[0, 0] = rng.permutation(row)
+    ops[0, 1] = np.resize(np.asarray(pops, np.int32), n)
+    params = rng.integers(1, 1000, ops.shape).astype(np.float32)
+    params[0, 0, :4] = -0.0  # pushed -0.0 lands as +0.0
+    keys = np.zeros(ops.shape, np.int32)
+    return ("ring_drain", kind, [values, root, EPOCH.copy()], keys, ops, params)
 
 
 def _bucket_keys(n_buckets, bucket, count, start=1000):

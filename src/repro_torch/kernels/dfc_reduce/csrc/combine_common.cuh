@@ -1,7 +1,8 @@
 // Building blocks shared by the hand-written combine kernels
 // (dfc_reduce.cu: one phase per launch; phase_grid.cu: K phases per launch):
 // the op codes, block-wide ranks, the broadcast copy of a state into its
-// output rows, the ring kinds' lane tiles and the map's cached lane walk.
+// output rows, the lane tiles and phase steps that the three ring kinds
+// share, and the map's cached lane walk.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -17,44 +18,6 @@ constexpr float CAS_DOM = 4096.0f;
 constexpr int kThreads = 1024;      // ring kinds: one block of 32 warps per shard
 constexpr int kMapThreads = 1024;   // map: the whole block compacts, warp 0 walks
 constexpr unsigned kFull = 0xffffffffu;
-
-// Exclusive block-wide rank of K independent lane flags over ONE tile of
-// blockDim lanes.  ``sm`` holds K x 32 ints.  Every thread of the block must
-// call it (it synchronizes).  ``rank[k]`` is the number of set flags k in
-// the tile before this thread; ``total[k]`` the tile's count.
-template <int K>
-__device__ __forceinline__ void tile_rank(const bool (&flag)[K], int (&rank)[K],
-                                          int (&total)[K], int* sm) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int nw = blockDim.x >> 5;
-  const unsigned lt = (1u << lane) - 1u;
-  unsigned m[K];
-#pragma unroll
-  for (int k = 0; k < K; ++k) {
-    m[k] = __ballot_sync(kFull, flag[k]);
-    if (lane == 0) sm[k * 32 + warp] = __popc(m[k]);
-  }
-  __syncthreads();
-  if (warp == 0) {
-#pragma unroll
-    for (int k = 0; k < K; ++k) {
-      int v = lane < nw ? sm[k * 32 + lane] : 0;
-#pragma unroll
-      for (int o = 1; o < 32; o <<= 1) {
-        const int t = __shfl_up_sync(kFull, v, o);
-        if (lane >= o) v += t;
-      }
-      sm[k * 32 + lane] = v;  // inclusive prefix over the warps
-    }
-  }
-  __syncthreads();
-#pragma unroll
-  for (int k = 0; k < K; ++k) {
-    rank[k] = (warp ? sm[k * 32 + warp - 1] : 0) + __popc(m[k] & lt);
-    total[k] = sm[k * 32 + nw - 1];
-  }
-  __syncthreads();  // sm is reused by the next tile
-}
 
 // Exclusive block-wide prefix sum of F per-thread counts, in thread order.
 // ``sm`` holds F x 32 ints; every thread of the block must call it.
@@ -328,12 +291,16 @@ __device__ __forceinline__ void store_forward(float* row_k, size_t stride, int n
 }
 
 // ------------------------------------------------------------ ring phases
-// One combining phase of a stack or a deque over a row of ``n`` lanes, one
-// block, in the steps every ring kernel takes: count (the totals), the push
-// routing, a barrier (the caller's), and the answers.  The kernels differ
-// only in where a surviving push lands and where a pop past elimination
-// reads, which they pass in as callables.  A row of one tile is loaded and
-// ranked once; a row of more tiles is reloaded and re-ranked in each step.  Every thread of the block calls each step.
+// One combining phase of a stack, a queue or a deque over a row of ``n``
+// lanes, one block, in the steps every ring kernel takes: count (the
+// totals), the push routing, a barrier (the caller's), and the answers.  The
+// stack and the queue share both (ring_pushes, ring_answers: the queue's
+// enqueues route as the stack's pushes; the two differ in the order their
+// pops take the committed values and this phase's pushes); the one-phase
+// and K-phase kernels differ only in where a surviving push lands and where
+// a pop past elimination reads, which they pass in as callables.  A row of
+// one tile is loaded and ranked once; a row of more tiles is reloaded and
+// re-ranked in each step.  Every thread of the block calls each step.
 template <int F>
 struct RingLanes {
   const int* op;
@@ -394,12 +361,12 @@ struct RingLanes {
   }
 };
 
-// Stack pushes by rank: rank < n_elim meets its pop (elim(rank, v)), the
-// surplus goes to sink(rank - n_elim, v); v is the param + 0.0f, so a
-// routed -0.0 lands as +0.0.
+// Stack pushes and queue enqueues (flag 0, OP_PUSH == ENQ) by rank: rank <
+// n_elim meets its pop (elim(rank, v)), the surplus goes to sink(rank -
+// n_elim, v); v is the param + 0.0f, so a routed -0.0 lands as +0.0.
 template <typename Elim, typename Sink>
-__device__ __forceinline__ void stack_pushes(RingLanes<2>& rl, int n_elim, Elim elim,
-                                             Sink sink) {
+__device__ __forceinline__ void ring_pushes(RingLanes<2>& rl, int n_elim, Elim elim,
+                                            Sink sink) {
   int carry = 0;
   for (int t = 0; t < rl.ntiles; ++t) {
     rl.again(t);
@@ -419,13 +386,16 @@ __device__ __forceinline__ void stack_pushes(RingLanes<2>& rl, int n_elim, Elim 
   }
 }
 
-// Stack answers: a push R_ACK, a pop of rank < n_elim its partner's value,
-// the pop ``depth`` past elimination deep(depth) while depth < limit, else
-// R_EMPTY; other codes R_NONE with 0.0 (quiet quads were answered by the
-// count).
-template <typename Deep>
-__device__ __forceinline__ void stack_answers(RingLanes<2>& rl, int n_elim,
-                                              const float* elim_buf, int limit, Deep deep) {
+// Stack and queue answers: a push R_ACK; a pop of rank ``rk`` first(rk)
+// while rk < n_first, then second(rk - n_first) while that is < n_second,
+// else R_EMPTY; other codes R_NONE with 0.0 (quiet quads were answered by
+// the count).  A stack's pops meet this phase's pushes first (first: the
+// elimination buffer; second: the committed stack from its top), a queue's
+// drain the committed window first (first: the window from the head;
+// second: the elimination buffer).
+template <typename N1, typename First, typename N2, typename Second>
+__device__ __forceinline__ void ring_answers(RingLanes<2>& rl, N1 n_first, First first,
+                                             N2 n_second, Second second) {
   int carry = 0;
   for (int t = 0; t < rl.ntiles; ++t) {
     rl.again(t);
@@ -443,12 +413,12 @@ __device__ __forceinline__ void stack_answers(RingLanes<2>& rl, int n_elim,
         if (o == OP_PUSH) {
           kind[b] = R_ACK;
         } else if (o == OP_POP) {
-          if (rk < n_elim) {
+          if (rk < n_first) {
             kind[b] = R_VALUE;
-            v[b] = elim_buf[rk];
-          } else if (rk - n_elim < limit) {
+            v[b] = first(rk);
+          } else if (rk - n_first < n_second) {
             kind[b] = R_VALUE;
-            v[b] = deep(rk - n_elim);
+            v[b] = second((int)(rk - n_first));
           } else {
             kind[b] = R_EMPTY;
           }

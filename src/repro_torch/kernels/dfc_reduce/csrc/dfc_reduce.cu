@@ -30,27 +30,26 @@
 //   values are stored as v + 0.0f so that a pushed -0.0 lands as +0.0, as
 //   the reference's scatter-add into zeros gives it.  A block's steps
 //   depend on each other (the pushes and pops are routed by ranks over the
-//   whole row), so what bounds the stack and the deque is the card's bytes
-//   in each step plus the chain between them.  Each block loads a tile of
-//   16,384 lanes (the main path's whole row) once into registers (LaneTile:
-//   quads of lanes interleaved over the threads, 16-byte loads; a quad's
-//   params only if it holds a push), answers every quad with no op of its
-//   kind at once (R_NONE with 0.0: most of the row at the main path, whose
-//   rows are mostly padding), so those stores overlap the scan, ranks the
-//   tile with one block-wide scan (rank_quads: the totals and every quad's
-//   base for the pushes and the pops), routes its pushes from the
-//   registers, and after one barrier answers the rest from the same
-//   registers with 16-byte stores (store_quad).  The segment rows are zeroed
-//   whole at the start, beside the loads, and the surplus pushes overwrite
-//   their slots.  These steps (RingLanes,
-//   stack_pushes, stack_answers, deque_pushes, deque_answers in
-//   combine_common.cuh) are also the K-phase kernels' (phase_grid.cu),
-//   which differ only in where a surviving push lands and where a pop past
-//   elimination reads.  A row of more tiles is reloaded and re-ranked in
-//   each step.  Splitting a row over a cluster of two blocks, so that 128
-//   SMs carry the 64 rows, timed no faster at the main path: the steps are
-//   bound by the card's bytes, not one SM's.  The queue still runs three
-//   passes of tile_rank over tiles of 1,024 lanes.
+//   whole row), so what bounds them is the card's bytes in each step plus
+//   the chain between them.  Each block loads a tile of 16,384 lanes (the
+//   main path's whole row) once into registers (LaneTile: quads of lanes
+//   interleaved over the threads, 16-byte loads; a quad's params only if it
+//   holds a push), answers every quad with no op of its kind at once
+//   (R_NONE with 0.0: most of the row at the main path, whose rows are
+//   mostly padding), so those stores overlap the scan, ranks the tile with
+//   one block-wide scan (rank_quads: the totals and every quad's base for
+//   the pushes and the pops), routes its pushes from the registers, and
+//   after one barrier answers the rest from the same registers with 16-byte
+//   stores (store_quad).  The segment rows are zeroed whole at the start,
+//   beside the loads, and the surplus pushes overwrite their slots.  All
+//   three ring kinds run these steps (RingLanes; ring_pushes and
+//   ring_answers for the stack and the queue, deque_pushes and
+//   deque_answers in combine_common.cuh), and so do the K-phase kernels
+//   (phase_grid.cu), which differ only in where a surviving push lands and
+//   where a pop past elimination reads.  A row of more tiles is reloaded
+//   and re-ranked in each step.  Splitting a row over a cluster
+//   of two blocks, so that 128 SMs carry the 64 rows, timed no faster at
+//   the main path: the steps are bound by the card's bytes, not one SM's.
 // * Map (dfc_map_reduce: two launches on the caller's stream).  The output
 //   contract is the whole table, so the bound is bytes: the 415 MB of a
 //   64-shard group at capacity 540,672 read once and written once, 0.25 ms
@@ -98,12 +97,12 @@ stack_kernel(const int* __restrict__ ops, const float* __restrict__ params,
   const int n_push_surplus = tot[0] - n_elim;
   // eliminated pushes meet their pops in shared memory; the surplus is
   // rank-compacted into the segment row
-  stack_pushes(rl, n_elim, [&](int j, float v) { elim_buf[j] = v; },
-               [&](int j, float v) { seg[j] = v; });
+  ring_pushes(rl, n_elim, [&](int j, float v) { elim_buf[j] = v; },
+              [&](int j, float v) { seg[j] = v; });
   __syncthreads();
   // window[N-1] is the committed top
-  stack_answers(rl, n_elim, elim_buf, size,
-                [&](int depth) { return win[N - 1 - depth]; });
+  ring_answers(rl, n_elim, [&](int j) { return elim_buf[j]; }, size,
+               [&](int depth) { return win[N - 1 - depth]; });
   if (threadIdx.x == 0) {
     int* c = counts + (size_t)blockIdx.x * 4;
     c[0] = n_push_surplus;
@@ -119,80 +118,32 @@ queue_kernel(const int* __restrict__ ops, const float* __restrict__ params,
              const float* __restrict__ windows, const int* __restrict__ sizes,
              float* resp, int* kinds, float* segments, int* counts, int N) {
   extern __shared__ float elim_buf[];  // enq params by rank < n_elim
-  __shared__ int sm[2 * 32];
+  __shared__ int sm[kRankInts<2>];
   const size_t row = (size_t)blockIdx.x * N;
-  const int* op = ops + row;
-  const float* par = params + row;
   const float* win = windows + row;
   float* seg = segments + row;
   const int size = sizes[blockIdx.x];
-
-  int p_total = 0, q_total = 0;
-  for (int base = 0; base < N; base += blockDim.x) {
-    const int i = base + threadIdx.x;
-    const int o = i < N ? op[i] : 0;
-    const bool f[2] = {o == OP_PUSH, o == OP_POP};
-    int r[2], t[2];
-    tile_rank<2>(f, r, t, sm);
-    p_total += t[0];
-    q_total += t[1];
-  }
-  const int n_from_q = min(q_total, size);
-  const int n_elim = min(max(q_total - size, 0), p_total);
-  const int n_enq_surplus = max(p_total - n_elim, 0);
-  for (int k = n_enq_surplus + threadIdx.x; k < N; k += blockDim.x) seg[k] = 0.0f;
-
-  int carry = 0;
-  for (int base = 0; base < N; base += blockDim.x) {
-    const int i = base + threadIdx.x;
-    const int o = i < N ? op[i] : 0;
-    const bool f[1] = {o == OP_PUSH};
-    int r[1], t[1];
-    tile_rank<1>(f, r, t, sm);
-    if (f[0]) {
-      const int rk = carry + r[0];
-      const float v = par[i] + 0.0f;
-      if (rk < n_elim) elim_buf[rk] = v; else seg[rk - n_elim] = v;
-    }
-    carry += t[0];
-  }
+  zero_row(seg, N);  // as the stack's segment row
+  RingLanes<2> rl(ops + row, params + row, resp + row, kinds + row, N, sm);
+  int tot[2];
+  rl.count(tot);
+  const int n_from_q = min(tot[1], size);
+  const int n_elim = min(max(tot[1] - size, 0), tot[0]);
+  const int n_enq_surplus = tot[0] - n_elim;
+  // the dequeues past the window pair with the first n_elim enqueues; the
+  // surplus is rank-compacted into the segment row
+  ring_pushes(rl, n_elim, [&](int j, float v) { elim_buf[j] = v; },
+              [&](int j, float v) { seg[j] = v; });
   __syncthreads();
-
-  carry = 0;
-  for (int base = 0; base < N; base += blockDim.x) {
-    const int i = base + threadIdx.x;
-    const int o = i < N ? op[i] : 0;
-    const bool f[1] = {o == OP_POP};
-    int r[1], t[1];
-    tile_rank<1>(f, r, t, sm);
-    if (i < N) {
-      int kind = R_NONE;
-      float v = 0.0f;
-      if (o == OP_PUSH) {
-        kind = R_ACK;
-      } else if (f[0]) {
-        const int rk = carry + r[0];
-        if (rk < size) {  // served FIFO from the front window
-          kind = R_VALUE;
-          v = win[min(rk, N - 1)];
-        } else if (rk - size < n_elim) {  // drained: pairs with enq rank rk-size
-          kind = R_VALUE;
-          v = elim_buf[rk - size];
-        } else {
-          kind = R_EMPTY;
-        }
-      }
-      resp[row + i] = v;
-      kinds[row + i] = kind;
-    }
-    carry += t[0];
-  }
+  // window[k] is the k-th committed value from the head
+  ring_answers(rl, size, [&](int k) { return win[min(k, N - 1)]; }, n_elim,
+               [&](int j) { return elim_buf[j]; });
   if (threadIdx.x == 0) {
     int* c = counts + (size_t)blockIdx.x * 4;
     c[0] = n_enq_surplus;
     c[1] = n_from_q;
     c[2] = n_elim;
-    c[3] = q_total;
+    c[3] = tot[1];
   }
 }
 

@@ -38,14 +38,15 @@
 // quad's params only if it holds a push; one block-wide scan of per-thread
 // counts ranks them), so the counts, the push routing and the responses
 // read the ops once, and a quad with no op of the kind is answered as soon
-// as it is loaded.  The stack and the deque run the one-phase kernels'
-// steps (stack_pushes / stack_answers, deque_pushes / deque_answers) with
-// their own push stores and pop reads.  A push that survives elimination is stored
-// into its slot of rows k..K-1 (store_forward); a later phase's push to the
-// same slot overwrites rows j..K-1 after it, in program order, behind the
-// barrier that ends each phase.  So row k-1 holds the input plus every
-// earlier phase's pushes -- the committed state that pops read -- and the
-// deque's right pops read row k, which holds this phase's left pushes.
+// as it is loaded.  All three ring kinds run the one-phase kernels' steps
+// (ring_pushes / ring_answers for the stack and the queue, deque_pushes /
+// deque_answers) with their own push stores and pop reads.  A push that
+// survives elimination is stored into its slot of rows k..K-1
+// (store_forward); a later phase's push to the same slot overwrites rows
+// j..K-1 after it, in program order, behind the barrier that ends each
+// phase.  So row k-1 holds the input plus every earlier phase's pushes --
+// the committed state that pops read -- and the deque's right pops read
+// row k, which holds this phase's left pushes.
 // Pops clear nothing, so untouched slots cost nothing.  Eliminated pairs
 // meet in a shared-memory buffer of ceil(N/2) floats.  Thread 0 writes the
 // double-buffered root (the inactive size / ends / count) and the epoch +2,
@@ -70,6 +71,14 @@ __device__ __forceinline__ int inactive_slot(int epoch) { return ((epoch >> 1) +
 __device__ __forceinline__ size_t ring_slot(long long pos, int cap) {
   long long m = pos % cap;
   return (size_t)(m < 0 ? m + cap : m);
+}
+
+// ring_slot(pos + j, cap) for j >= 0, from slot = ring_slot(pos, cap), in
+// 32 bits: a 64-bit remainder per lane takes registers that the queue's
+// phase kernel does not have to spare (it spilled)
+__device__ __forceinline__ size_t ring_after(size_t slot, int j, int cap) {
+  const unsigned m = (unsigned)slot + (unsigned)(j % cap);
+  return m >= (unsigned)cap ? m - (unsigned)cap : m;
 }
 
 // ------------------------------------------------------------------ stack
@@ -99,15 +108,15 @@ phase_stack_kernel(const float* __restrict__ values_in, const int* __restrict__ 
     // the surplus segment lands at clip(old, 0, cap - N); only the slots in
     // [old, old + n_push_surplus) are kept
     const int start = min(max(old, 0), cap - N);
-    stack_pushes(rl, n_elim, [&](int j, float v) { elim_buf[j] = v; },
-                 [&](int j, float v) {
-                   const int pos = start + j;
-                   if (pos >= old && pos < old + n_push_surplus)
-                     store_forward(dst, stride, K - k, pos, v);
-                 });
+    ring_pushes(rl, n_elim, [&](int j, float v) { elim_buf[j] = v; },
+                [&](int j, float v) {
+                  const int pos = start + j;
+                  if (pos >= old && pos < old + n_push_surplus)
+                    store_forward(dst, stride, K - k, pos, v);
+                });
     __syncthreads();
-    stack_answers(rl, n_elim, elim_buf, old,
-                  [&](int depth) { return src[min(old - 1 - depth, cap - 1)]; });
+    ring_answers(rl, n_elim, [&](int j) { return elim_buf[j]; }, old,
+                 [&](int depth) { return src[min(old - 1 - depth, cap - 1)]; });
     if (threadIdx.x == 0) {
       int* so = size_out + ph * 2;
       so[0] = src_size[0];
@@ -141,72 +150,24 @@ phase_queue_kernel(const float* __restrict__ values_in, const int* __restrict__ 
     float* dst = values_out + ph * cap;
     const size_t row = ph * N;
     RingLanes<2> rl(ops + row, params + row, resp + row, kinds + row, N, sm);
-    const LaneTile& lt = rl.lt;
-    const int (&base)[2][kQ] = rl.base;
-    const int (&tsum)[2] = rl.tsum;
-    const int ntiles = rl.ntiles;
     int tot[2];
     const int live = __syncthreads_or(rl.count(tot));
-    const int p_total = tot[0], q_total = tot[1];
     const int a = active_slot(epoch);
     const long long head = src_ends[2 * a], tail = src_ends[2 * a + 1];
     const long long size = tail - head;
-    const long long n_from_q = min((long long)q_total, size);
-    const long long n_elim = min(max((long long)q_total - size, 0LL), (long long)p_total);
-    const long long n_enq_surplus = p_total - n_elim;
-
-    int carry = 0;
-    for (int t = 0; t < ntiles; ++t) {
-      rl.again(t);
-#pragma unroll
-      for (int q = 0; q < kQ; ++q) {
-        int rk = carry + base[0][q];
-#pragma unroll
-        for (int b = 0; b < 4; ++b) {
-          if (lt.code(4 * q + b) != OP_PUSH) continue;
-          const float v = lt.par[4 * q + b] + 0.0f;
-          if (rk < n_elim) elim_buf[rk] = v;
-          else store_forward(dst, stride, K - k, ring_slot(tail + rk - n_elim, cap), v);
-          ++rk;
-        }
-      }
-      carry += tsum[0];
-    }
+    const long long n_from_q = min((long long)tot[1], size);
+    const int n_elim = (int)min(max((long long)tot[1] - size, 0LL), (long long)tot[0]);
+    const int n_enq_surplus = tot[0] - n_elim;
+    const size_t head_slot = ring_slot(head, cap), tail_slot = ring_slot(tail, cap);
+    // enqueue j of the surplus lands at tail + j
+    ring_pushes(rl, n_elim, [&](int j, float v) { elim_buf[j] = v; },
+                [&](int j, float v) {
+                  store_forward(dst, stride, K - k, ring_after(tail_slot, j, cap), v);
+                });
     __syncthreads();
-
-    carry = 0;
-    for (int t = 0; t < ntiles; ++t) {
-      rl.again(t);
-#pragma unroll
-      for (int q = 0; q < kQ; ++q) {
-        if (rl.quiet(q)) continue;  // answered by the count
-        long long rk = carry + base[1][q];
-        float v[4];
-        int kind[4];
-#pragma unroll
-        for (int b = 0; b < 4; ++b) {
-          const int o = lt.code(4 * q + b);
-          kind[b] = R_NONE;
-          v[b] = 0.0f;
-          if (o == OP_PUSH) {
-            kind[b] = R_ACK;
-          } else if (o == OP_POP) {
-            if (rk < size) {  // served FIFO from the committed ring
-              kind[b] = R_VALUE;
-              v[b] = src[ring_slot(head + rk, cap)];
-            } else if (rk - size < n_elim) {  // drained: pairs with enq rank rk-size
-              kind[b] = R_VALUE;
-              v[b] = elim_buf[rk - size];
-            } else {
-              kind[b] = R_EMPTY;
-            }
-            ++rk;
-          }
-        }
-        store_quad(resp + row, kinds + row, N, t, q, v, kind);
-      }
-      carry += tsum[1];
-    }
+    // the committed slots from the head: row k-1
+    ring_answers(rl, size, [&](int j) { return src[ring_after(head_slot, j, cap)]; }, n_elim,
+                 [&](int j) { return elim_buf[j]; });
     if (threadIdx.x == 0) {
       int* eo = ends_out + ph * 4;
       for (int j = 0; j < 4; ++j) eo[j] = src_ends[j];

@@ -150,18 +150,23 @@ def test_map_stress_cases_match_jax_ref_and_pallas(n):
 
 @pytest.mark.parametrize("n", [8, 33, 128])
 @pytest.mark.parametrize("kind", ["stack", "queue", "deque"])
-@pytest.mark.parametrize("case", ["ring_forward", "ring_edges"])
+@pytest.mark.parametrize("case", ["ring_forward", "ring_edges", "ring_drain"])
 def test_ring_stress_cases_match_jax_ref_and_pallas(case, kind, n):
     """The one-phase ring kernels' stress inputs (``cases.ring_reduce_args``):
     ``ring_forward``'s first phase (mostly pushes, -0.0 pushed early and
-    late, random ops with foreign codes) and ``ring_edges`` (N/2 lanes
+    late, random ops with foreign codes), ``ring_edges`` (N/2 lanes
     eliminated at an even N; every pop of shard 1 but two past the window,
-    the first reading a committed -0.0), shard 2 untouched.  Bit for bit
-    against ``jax.vmap`` of the JAX ``ref.py``; against its Pallas kernel too,
-    whose one-hot sums start at +0.0, so a committed -0.0 read through a
-    window comes back +0.0 there (``test_stack_adversarial``): the responses
-    are held to it as ``resp + 0.0``, every other output as it is."""
-    made = TC.ring_forward(kind, 1, n) if case == "ring_forward" else TC.ring_edges(kind, n)
+    the first reading a committed -0.0) and ``ring_drain`` (shard 0's pops
+    served by the window, paired and run empty in one row; every lane of
+    shard 1 a pop against more than N committed), shard 2 untouched.  Bit
+    for bit against ``jax.vmap`` of the JAX ``ref.py``; against its Pallas
+    kernel too, whose one-hot sums start at +0.0, so a committed -0.0 read
+    through a window comes back +0.0 there (``test_stack_adversarial``): the
+    responses are held to it as ``resp + 0.0``, every other output as it
+    is."""
+    made = {"ring_forward": lambda: TC.ring_forward(kind, 1, n),
+            "ring_edges": lambda: TC.ring_edges(kind, n),
+            "ring_drain": lambda: TC.ring_drain(kind, n)}[case]()
     args = TC.ring_reduce_args(made)
     windows = np.stack(args[2:-1])
     touts = _check_ring(kind, args[0], args[1], windows, args[-1], pallas=False)
@@ -178,6 +183,16 @@ def test_ring_stress_cases_match_jax_ref_and_pallas(case, kind, n):
             assert n_elim == n // 2
         assert list(np.bincount(kinds[1], minlength=4)[[T.R_VALUE, T.R_EMPTY]]) == [2, n - 2]
         assert kinds[1, 0] == T.R_VALUE and np.signbit(resp[1, 0])
+    if case == "ring_drain":
+        # counts: the pops the window served and the pairs, per kind
+        if kind == "deque":
+            served, paired = counts[0, 1] + counts[0, 3], counts[0, 4] + counts[0, 5]
+        else:
+            served, paired = counts[0, 1], counts[0, 2]
+        assert served > 0 and paired > 0 and (kinds[0] == T.R_EMPTY).any()
+        assert (kinds[1] == T.R_VALUE).all()
+        if kind != "deque":  # the last lane reads the window's last slot
+            assert resp[1, -1] == args[2][1, n - 1 if kind == "queue" else 0]
 
 
 def _ring_case(kind, rows, n=8, sizes=(0, 0, 0), windows=None):
