@@ -72,7 +72,10 @@ script exits non-zero without printing a result):
                   pipelined; crashes at six persistence-op indices of the
                   serial, the pipelined (depth 3, chain 4) and the
                   ``phase_loop`` drives, then recover + replay_pending must
-                  apply every announced op exactly once,
+                  apply every announced op exactly once; and the depth-3
+                  serve_shards run again with the flight recorder on: the
+                  same durable digest and per-tag counts as untraced, and
+                  the recorder's pwb/pfence counts equal the store's,
   7. serve     -- the port's serving launcher (``launch/serve.py``) at the
                   published widths, kernel backend: ``smollm-135m`` (batch 8,
                   prompt 512, 32 tokens, 16 sessions), ``falcon-mamba-7b``
@@ -98,7 +101,39 @@ script exits non-zero without printing a result):
                   ``device_ms`` device time per call (the profiler's median
                   launch of each kernel over 20 calls, or events around 20
                   calls in one CUDA graph), ``host_us`` host time per call
-                  (200 calls without a synchronize).
+                  (200 calls without a synchronize),
+  8. continuous -- the continuous-batching server (``--k-classes``):
+                  ``smollm-135m --batch 8 --prompt-len 512 --gen 32
+                  --sessions 24 --k-classes 3 --class-weights 1,2,4
+                  --quantum 8 --durable --trace`` (each session prefilled
+                  and decoded at batch 1): counters zeroed before and read
+                  after; RMSNorm 2L+1 per prefill and per decode step,
+                  flash attention L per prefill, one prefill per session and
+                  gen-1 decode steps each, the tier's queue, stack and map
+                  kernels once per tier phase (the trace's dispatches);
+                  every session and token index exactly once; class 0
+                  never passed over more than ``starvation_bound()`` times
+                  in a row while queued (the tier's ``starvation_gap``);
+                  the traced tier root's digest and per-tag counts equal an
+                  untraced ``--tier-only`` run's; the first prefill replayed
+                  on the plain backend (5e-2); crashed at the first
+                  persistence op from halfway on that leaves a session
+                  part-served (probed on ``--tier-only`` runs, the same
+                  tier schedule) and resumed with ``--expect-exactly-once``
+                  (token values against the uncrashed run printed, not
+                  gated: a bf16 re-prefill may flip a near-tie), the
+                  resume's first re-prefill of prompt + history (S = 512 +
+                  start, a ragged flash tile) replayed on the plain backend
+                  (5e-2).  Then ``falcon-mamba-7b --batch 4 --prompt-len
+                  512 --gen 16 --sessions 8 --k-classes 2 --quantum 4``
+                  volatile on phase 7's params (L+1 RMSNorm per prefill and
+                  step, the scan L per prefill); a whole smollm run of 16
+                  sessions in 8 slots under the profiler (busy share); the
+                  tier's combine kernels held bit for bit on every phase
+                  the tier-only run dispatched and timed on the busiest,
+                  and the model kernels held and timed at batch 1 (the
+                  resumed prefills' S included), under ``at`` of their
+                  records, with ``continuous_launches``.
 
 Phase 3 also holds the three model kernels (RMSNorm, flash attention, the
 selective scan) against their plain versions at model shapes, in bf16 and
@@ -122,7 +157,6 @@ from __future__ import annotations
 
 import argparse
 import contextlib
-import hashlib
 import io
 import json
 import math
@@ -134,7 +168,7 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
-ALL_PHASES = ("1", "2", "3", "4", "5", "6", "7")
+ALL_PHASES = ("1", "2", "3", "4", "5", "6", "7", "8")
 SOURCE = "src/repro_torch/kernels/dfc_reduce/csrc/dfc_reduce.cu"
 GRID_SOURCE = "src/repro_torch/kernels/dfc_reduce/csrc/phase_grid.cu"
 KINDS = ("stack", "queue", "deque", "map")
@@ -196,6 +230,21 @@ SERVE_RUNS = {
                         "--gen", "16", "--sessions", "8", "--device", "cuda"],
 }
 DURABLE_SERVE = ["--durable", "--priority", "--high-every", "3"]
+# phase 8: the continuous-batching server (``--k-classes``), smollm durable
+# and traced with a crash, falcon volatile and shorter
+CONT_RUNS = {
+    "smollm-135m": ["--arch", "smollm-135m", "--batch", "8", "--prompt-len", "512",
+                    "--gen", "32", "--sessions", "24", "--k-classes", "3",
+                    "--class-weights", "1,2,4", "--quantum", "8", "--device", "cuda"],
+    "falcon-mamba-7b": ["--arch", "falcon-mamba-7b", "--batch", "4", "--prompt-len", "512",
+                        "--gen", "16", "--sessions", "8", "--k-classes", "2",
+                        "--quantum", "4", "--device", "cuda"],
+}
+# a smollm run at the main run's mix (8 slots, sessions of 32 tokens, quantum
+# 8, two batches of sessions) under the profiler: the device's busy share
+CONT_PROFILE = ["--arch", "smollm-135m", "--batch", "8", "--prompt-len", "512", "--gen",
+                "32", "--sessions", "16", "--k-classes", "3", "--class-weights", "1,2,4",
+                "--quantum", "8", "--device", "cuda"]
 FULL = ["--mixed", "--shards", "256", "--batch", "16384", "--phases", "32",
         "--skew", "1.1", "--device", "cuda"]
 DURABLE = ["--mixed", "--durable", "--shards", "16", "--batch", "256",
@@ -272,24 +321,12 @@ def cuda_ms(fn, reps, warmup=1):
     return statistics.median(times)
 
 
-def durable_digest(root):
-    """Content digest of every durable file under ``root``."""
-    h = hashlib.blake2b(digest_size=16)
-    for p in sorted(Path(root).rglob("*")):
-        if p.is_file():
-            h.update(p.relative_to(root).as_posix().encode())
-            h.update(b"\0")
-            h.update(p.read_bytes())
-            h.update(b"\1")
-    return h.hexdigest()
-
-
-def run_serve(serve_shards, args, hook=None):
+def run_serve(serve_shards, args, hook=None, obs=None):
     """``serve_shards.serve`` with its report echoed, minus the per-shard
     load line (256 entries at full width)."""
     buf = io.StringIO()
     with contextlib.redirect_stdout(buf):
-        out = serve_shards.serve(args, hook=hook)
+        out = serve_shards.serve(args, hook=hook, obs=obs)
     for line in buf.getvalue().splitlines():
         if not line.startswith("shard load:"):
             print(f"  serve_shards: {line}", flush=True)
@@ -1126,8 +1163,10 @@ def _values(rt, kinds):
 def phase_durable(torch, T, K, serve_shards):
     import numpy as np
     from repro_torch.checkpoint.dfc_checkpoint import CrashNow, FaultInjector, SimFS
+    from repro_torch.obs import FabricObserver, durable_digest
     from repro_torch.runtime.dfc_shard import ShardedDFCRuntime, route_keys_host
 
+    untraced = {}
     for depth in (1, 3):
         K.reset_launches()
         out = run_serve(serve_shards, serve_shards.build_parser().parse_args(
@@ -1139,6 +1178,25 @@ def phase_durable(torch, T, K, serve_shards):
               f"retire blocked {out['retire_wait_s'] * 1e3:.3f} ms in all "
               f"({out['retire_wait_s'] / out['phases'] * 1e3:.4f} ms per phase), "
               f"launches {launches}", flush=True)
+        untraced[depth] = out
+    # the flight recorder on the depth-3 run: a pure observer
+    obs = FabricObserver()
+    out = run_serve(serve_shards, serve_shards.build_parser().parse_args(
+        DURABLE + ["--depth", "3"]), obs=obs)
+    ref = untraced[3]
+    check((out["digest"], out["pstats"]) == (ref["digest"], ref["pstats"]),
+          "traced depth 3: the durable root or the per-tag counts differ from the untraced run's")
+    counted = {ev: sum(v for key, v in obs.metrics.counters.items()
+                       if key.startswith(f"obs_{ev}{{")) for ev in ("pwb", "pfence")}
+    check(counted == {"pwb": out["pwb"], "pfence": out["pfence"]},
+          f"traced depth 3: the recorder saw {counted}, the store counted "
+          f"{out['pwb']} pwb, {out['pfence']} pfence")
+    kinds_seen = sorted({e["ev"] for e in obs.trace.events()})
+    print(f"durable depth 3 traced: digest and per-tag counts equal the untraced run's; "
+          f"{counted['pwb']} pwb and {counted['pfence']} pfence events, "
+          f"{obs.trace.seq} events in all ({kinds_seen} in the last "
+          f"{len(obs.trace.events())}), {out['n_ops'] / out['seconds']:.1f} ops/s traced "
+          f"against {ref['n_ops'] / ref['seconds']:.1f} untraced", flush=True)
 
     kinds = [sorted(KINDS)[s % 4] for s in range(16)]
     lanes, capacity, threads, per = 256, 1024, 4, 64
@@ -1521,25 +1579,25 @@ def phase_model_kernels(torch):
 
 
 # ------------------------------------------------------------------- serve
-def _run_serve(serve_mod, argv, params=None, hook=None):
-    """The port's launcher in-process, its report echoed."""
+def _run_serve(serve_mod, argv, params=None, hook=None, echo=True):
+    """The port's launcher in-process, its report echoed where ``echo``."""
     args = serve_mod.build_parser().parse_args(argv)
     buf = io.StringIO()
     with contextlib.redirect_stdout(buf):
         out = serve_mod.serve(args, params=params, hook=hook)
-    for line in buf.getvalue().splitlines():
+    for line in buf.getvalue().splitlines() if echo else ():
         print(f"  serve: {line}", flush=True)
     return out
 
 
-def _expected_model_launches(cfg, batches, gen):
-    """Model-kernel launches of ``batches`` served batches of ``gen`` tokens
-    (one prefill and gen-1 decode steps each)."""
+def _expected_model_launches(cfg, prefills, steps):
+    """Model-kernel launches of ``prefills`` prefills and ``steps`` decode
+    steps (a served batch of gen tokens: one prefill, gen-1 steps)."""
     L = cfg.n_layers
     norms = 2 * L + 1 if cfg.family == "dense" else L + 1
-    return {"rmsnorm": batches * gen * norms,
-            "flash_attention": batches * L if cfg.family == "dense" else 0,
-            "selective_scan": batches * L if cfg.family == "ssm" else 0}
+    return {"rmsnorm": (prefills + steps) * norms,
+            "flash_attention": prefills * L if cfg.family == "dense" else 0,
+            "selective_scan": prefills * L if cfg.family == "ssm" else 0}
 
 
 def serve_and_check(torch, serve_mod, K, argv, params=None):
@@ -1560,7 +1618,8 @@ def serve_and_check(torch, serve_mod, K, argv, params=None):
     fabric = dict(K.LAUNCHES)
     args = serve_mod.build_parser().parse_args(argv)
     check(not out["crashed"], f"{args.arch}: the run crashed")
-    want = _expected_model_launches(out["cfg"], out["batches"], args.gen)
+    want = _expected_model_launches(out["cfg"], out["batches"],
+                                    out["batches"] * (args.gen - 1))
     check(out["batches"] > 0 and model == want,
           f"{args.arch}: model-kernel launches {model}, expected {want} for "
           f"{out['batches']} batches of {args.gen} tokens")
@@ -1572,10 +1631,11 @@ def serve_and_check(torch, serve_mod, K, argv, params=None):
     return out, first, model
 
 
-def replay_first_batch(torch, out, first, gen):
+def replay_first_batch(torch, out, first, gen, what="batch 1"):
     """The first batch's prefill and greedy decode again with the plain
     backend on the same params: last-position logits within REPLAY_REL_TOL
-    (relative max-abs error), token agreement printed."""
+    (relative max-abs error), token agreement printed.  ``first["tokens"]``
+    holds the ``gen`` tokens the run emitted from that prefill on."""
     from repro_torch.launch.steps import make_prefill_step, make_serve_step
     cfg, params = out["cfg"], out["params"]
     before = model_launches()
@@ -1599,28 +1659,32 @@ def replay_first_batch(torch, out, first, gen):
     check(rel <= REPLAY_REL_TOL,
           f"{cfg.name}: kernel prefill vs plain replay relative max-abs error {rel:.3g} "
           f"over {REPLAY_REL_TOL}")
-    print(f"serve {cfg.name}: plain-backend replay of batch 1 -- last logits relative "
+    print(f"serve {cfg.name}: plain-backend replay of {what} -- last logits relative "
           f"max-abs error {rel:.4g} (tol {REPLAY_REL_TOL}), greedy tokens agree on "
           f"{agree:.1%} of {gen} x {prompts.shape[0]} (not gated)", flush=True)
     return rel, agree
 
 
-def profile_calls(torch, label, fn, n):
+def profile_calls(torch, label, fn, n, warmup=True):
     """Device busy share and device time by kernel over ``n`` calls of
-    ``fn`` (after one warm-up call), from ``torch.profiler``."""
+    ``fn`` (after one warm-up call where ``warmup``), from
+    ``torch.profiler``."""
     from torch.profiler import ProfilerActivity, profile
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    if warmup:
+        fn()
+        torch.cuda.synchronize()
+    # the device's activity alone, summed from the raw events: parsing a
+    # whole serving run's host events (``key_averages``) takes minutes
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(n):
             fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     dev = {}
-    for ev in prof.key_averages():
-        if ev.device_type == torch.autograd.DeviceType.CUDA:
-            dev[ev.key] = dev.get(ev.key, 0.0) + float(ev.self_device_time_total)
+    for ev in prof.profiler.kineto_results.events():
+        if ev.device_type() == torch.autograd.DeviceType.CUDA:
+            dev[ev.name()] = dev.get(ev.name(), 0.0) + ev.duration_ns() / 1e3
     total = sum(dev.values())
     if not total:
         print(f"profile {label}: the profiler recorded no device time (busy share not "
@@ -1798,11 +1862,13 @@ def time_model_kernel(torch, name, shape, dtype, launches, fused=False, more=())
 def phase_serve(torch, K, records):
     """Both models served at full width through the kernels, the durable
     priority tier crashed and resumed exactly once, and the model kernels'
-    records at the path's shapes."""
+    records at the path's shapes.  Returns each model's params (phase 8
+    serves them again rather than drawing 14.6 GB twice)."""
     from repro_torch.launch import serve as serve_mod
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     totals = {"rmsnorm": 0, "flash_attention": 0, "selective_scan": 0}
+    params = {}
     for arch, argv in SERVE_RUNS.items():
         torch.cuda.reset_peak_memory_stats()  # the peak of this run alone
         out, first, model = serve_and_check(torch, serve_mod, K, argv)
@@ -1818,14 +1884,14 @@ def phase_serve(torch, K, records):
               f"{len(out['decode_step_s'])} steps, {out['decoded_tokens'] / out['seconds']:.1f} "
               f"tok/s end to end, peak memory "
               f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
-        if arch == "smollm-135m":
-            smollm_params = out["params"]
+        params[arch] = out["params"]
         del out, first
         torch.cuda.empty_cache()
 
     # the durable priority tier: whole, then crashed halfway and resumed
     with tempfile.TemporaryDirectory(prefix="chip_smoke_serve_") as tmp:
         base = SERVE_RUNS["smollm-135m"] + DURABLE_SERVE
+        smollm_params = params["smollm-135m"]
         out, _, _ = serve_and_check(torch, serve_mod, K,
                                     base + ["--state-dir", f"{tmp}/whole"], smollm_params)
         total = out["tier"].rt.fs.injector.count
@@ -1841,8 +1907,6 @@ def phase_serve(torch, K, records):
         print(f"serve durable: {total} persistence ops per run, pwb/op "
               f"{p['pwb_per_op']:.4f} pfence/op {p['pfence_per_op']:.4f}; crash at op "
               f"{crash}, resumed, every session served exactly once", flush=True)
-    del smollm_params
-    torch.cuda.empty_cache()
 
     bf16 = torch.bfloat16
     scan_shape = (4, 512, 8192, 16)
@@ -1860,6 +1924,322 @@ def phase_serve(torch, K, records):
     for name, (shape, fused) in runs.items():
         records[name] = time_model_kernel(torch, name, shape, bf16, totals[name], fused,
                                           more.get(name, ()))
+    return params
+
+
+# -------------------------------------------------------------- continuous
+def _cont_run(serve_mod, K, argv, params=None, first=None, min_len=0):
+    """One continuous-server run of the port's launcher with every counter
+    zeroed just before and read just after; ``first`` (a dict) receives the
+    session, input row and last-position logits of the first prefill longer
+    than ``min_len``.  Returns the run record (``prefill_lens``: the
+    prefills' lengths S, in order), the model-kernel and the combine-kernel
+    counts."""
+    lens = []
+
+    def hook(sids, prompts, last, tokens):
+        lens.append(int(prompts.shape[1]))
+        if first is not None and not first and prompts.shape[1] > min_len:
+            first.update(sid=sids[0], prompts=prompts.clone(), last=last.clone())
+
+    K.reset_launches()
+    reset_model_launches()
+    out = _run_serve(serve_mod, argv, params=params, hook=hook)
+    model, fabric = model_launches(), dict(K.LAUNCHES)
+    out["prefill_lens"] = lens
+    return out, model, fabric
+
+
+def _history_crash_point(serve_mod, argv, tmp, total):
+    """The first persistence op from ``total // 2`` on (in strides of
+    ``total // 64``) at which a crash leaves an unserved session with part of
+    its tokens in the consumer's log, so that the resume re-prefills prompt
+    + history: found by crashing the ``--tier-only`` run, which runs the same
+    tier schedule (its durable root equals the model run's)."""
+    gen = serve_mod.build_parser().parse_args(argv).gen
+    for crash in range(total // 2, total, max(1, total // 64)):
+        d = Path(tmp) / f"probe_{crash}"
+        out = _run_serve(serve_mod, argv + ["--tier-only", "--state-dir", str(d), "--crash-at",
+                                            str(crash)], echo=False)
+        check(out["crashed"], f"the tier-only run did not crash at persistence op {crash}")
+        served = set(serve_mod._read_served(d))
+        if any(0 < len(e) < gen for sid, e in serve_mod._read_token_entries(d).items()
+               if sid not in served):
+            return crash
+    raise SmokeFailure(f"no crash point from op {total // 2} of {total} leaves a session "
+                       "part-served")
+
+
+COMBINE_FNS = {"stack": "dfc_reduce_grid_call", "queue": "dfc_queue_reduce_grid_call",
+               "deque": "dfc_deque_reduce_grid_call", "map": "dfc_map_reduce_grid_call"}
+
+
+@contextlib.contextmanager
+def captured_combines(K):
+    """The arguments (cloned) of every one-phase combine-kernel call made
+    while the block runs, by kind."""
+    got = {kind: [] for kind in COMBINE_FNS}
+    saved = {kind: getattr(K, fn) for kind, fn in COMBINE_FNS.items()}
+
+    def wrap(kind):
+        def call(*args):
+            got[kind].append(tuple(a.clone() for a in args))
+            return saved[kind](*args)
+        return call
+
+    for kind, fn in COMBINE_FNS.items():
+        setattr(K, fn, wrap(kind))
+    try:
+        yield got
+    finally:
+        for kind, fn in COMBINE_FNS.items():
+            setattr(K, fn, saved[kind])
+
+
+def _token_values(serve_mod, state_dir):
+    return {s: [t for _, t in sorted(e)]
+            for s, e in serve_mod._read_token_entries(Path(state_dir)).items()}
+
+
+def time_tier_kernels(torch, captured, records):
+    """The tier's combine kernels on the arguments of every phase that a
+    continuous run dispatched (``captured_combines``; 16 lanes per shard):
+    each held bit for bit against its plain version, and each kind's
+    busiest phase (most live lanes) timed, under ``at`` of its record."""
+    fns = calls()
+    for kind in ("queue", "stack", "map"):
+        phases = captured[kind]
+        check(phases, f"the continuous run made no {kind} combine call")
+        kfn, pfn = fns[kind]
+        for i, args in enumerate(phases):
+            outs_k = kfn(*args)
+            torch.cuda.synchronize()
+            compare_outputs(f"{kind} on the continuous run's phase {i}", outs_k, pfn(*args))
+        live = [int((a[5 if kind == "map" else 0] != 0).sum()) for a in phases]  # OP_NONE 0
+        kargs = phases[live.index(max(live))]
+        outs_k, outs_p = kfn(*kargs), pfn(*kargs)
+        ms = cuda_ms(lambda: kfn(*kargs), 20)
+        timing, other = time_combine(torch, NAMES[kind], kfn, kargs)
+        plain_ms = cuda_ms(lambda: pfn(*kargs), 3, warmup=0)
+        bound_ms, bound_by = bound(kind, kargs)
+        shape = list(kargs[5].shape if kind == "map" else kargs[0].shape)
+        fields = {"shape": shape, "max_abs_err": max_abs_err(outs_k, outs_p), "ms": ms,
+                  "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+                  "library_ms": None, **timing, "phases_checked": len(phases),
+                  "live_lanes": max(live)}
+        if other is not None:
+            fields["turns_tree"] = other
+        rec = records.setdefault(kind, {"name": NAMES[kind], "route": "cuda",
+                                        "source": SOURCE, "replaces": REPLACES[kind], **fields})
+        rec.setdefault("at", {})[f"continuous S,N={tuple(shape)}"] = fields
+        print(f"kernel {NAMES[kind]} on the continuous run's {len(phases)} phases: bit-equal to "
+              f"its plain version; its busiest phase ({max(live)} live lanes, S,N="
+              f"{tuple(shape)}) {ms:.4f} ms, {timing_text(timing, other)} (plain "
+              f"{plain_ms:.3f} ms, bound {bound_ms:.6f} ms by {bound_by})", flush=True)
+
+
+def phase_continuous(torch, K, records, params):
+    """The continuous-batching server at full width: smollm-135m durable and
+    traced (launch counts, exactly once, the starvation bound, the traced
+    root against an untraced tier-only run, a plain replay of the first
+    prefill, a crash from halfway on, a resume exactly once and a plain
+    replay of its first re-prefill), falcon-mamba-7b volatile and shorter,
+    a profiled run, the kernels at the path's batch-1 shapes and the
+    combine kernels on the tier phases it dispatched."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve as serve_mod
+    from repro_torch.models.model import init_params
+    from repro_torch.obs import durable_digest, read_trace
+
+    def params_for(arch):
+        if arch not in params:
+            params[arch] = init_params(get_config(arch), seed=0, device=torch.device("cuda"))
+        return params[arch]
+
+    t0 = time.perf_counter()
+
+    def at():
+        return f"[{time.perf_counter() - t0:.1f} s into phase 8]"
+
+    totals = {"rmsnorm": 0, "flash_attention": 0, "selective_scan": 0}
+    tier_totals = {k: 0 for k in K.LAUNCHES}
+    arch = "smollm-135m"
+    base = CONT_RUNS[arch] + ["--durable"]
+    args = serve_mod.build_parser().parse_args(base)
+    n, gen = args.sessions, args.gen
+    sids = list(range(1, n + 1))
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_cont_") as tmp:
+        whole = Path(tmp) / "whole"
+        first = {}
+        out, model, fabric = _cont_run(serve_mod, K, base + ["--trace", "--state-dir",
+                                                             str(whole)], params_for(arch), first)
+        check(not out["crashed"] and out["completed"] == n,
+              f"continuous {arch}: served {out.get('completed')} of {n} sessions")
+        cfg, tier = out["cfg"], out["tier"]
+        prefills, steps = len(out["prefill_s"]), len(out["decode_step_s"])
+        check(prefills == n and steps == n * (gen - 1),
+              f"continuous {arch}: {prefills} prefills and {steps} decode steps, expected "
+              f"{n} and {n * (gen - 1)}")
+        want = _expected_model_launches(cfg, prefills, steps)
+        check(model == want, f"continuous {arch}: model-kernel launches {model}, expected {want}")
+        events = read_trace(whole / "tier" / "obs" / "trace.jsonl")
+        check([e["seq"] for e in events] == list(range(len(events))),
+              f"continuous {arch}: the trace's seq is not 0, 1, 2, ...")
+        phases = sum(e["ev"] == "dispatch" for e in events)
+        want_tier = {k: (phases if k in ("queue", "stack", "map") else 0) for k in K.LAUNCHES}
+        check(phases == tier._token and fabric == want_tier,
+              f"continuous {arch}: combine-kernel launches {fabric} over {phases} traced "
+              f"dispatches and {tier._token} tier phases")
+        serve_mod.verify_exactly_once(sids, gen, serve_mod._read_served(whole),
+                                      serve_mod._read_token_entries(whole))
+        bound_ = tier.starvation_bound()
+        gap = tier.starvation_gap()
+        check(gap <= bound_, f"continuous {arch}: class 0 passed over {gap} times in a row "
+                             f"while queued, bound {bound_}")
+        for k_, v in model.items():
+            totals[k_] += v
+        for k_, v in fabric.items():
+            tier_totals[k_] += v
+        lat = tier.latency_stats()
+        pst = tier.persistence_stats()
+        dec = sorted(out["decode_step_s"])
+        pre = sorted(out["prefill_s"])
+        print(f"continuous {arch}: {n} sessions, {out['rounds']} rounds, "
+              f"{out['decoded_tokens']} tok in {out['seconds']:.3f} s "
+              f"({out['decoded_tokens'] / out['seconds']:.1f} tok/s), prefill at batch 1 "
+              f"{pre[len(pre) // 2] * 1e3:.3f} ms median, decode at batch 1 "
+              f"{dec[len(dec) // 2] * 1e3:.3f} ms/step median ({steps} steps), "
+              f"{phases} tier phases; pwb/op {pst['pwb_per_op']:.4f} pfence/op "
+              f"{pst['pfence_per_op']:.4f}; "
+              + "; ".join(f"{k_} p50 {v['p50']:.3f} p99 {v['p99']:.3f} (n={v['count']})"
+                          for k_, v in lat.items())
+              + f"; launches {model}, tier {fabric}; exactly once; class 0 passed over at "
+              f"most {gap} times in a row (bound {bound_}) {at()}", flush=True)
+
+        # the tier never sees token values: its durable root and per-tag
+        # counts equal an untraced tier-only run's at the same flags
+        # (its combine calls' arguments captured: the tier phases the
+        # server dispatched, which time_tier_kernels checks and times)
+        only = Path(tmp) / "tier_only"
+        with captured_combines(K) as tier_calls:
+            out_t = _run_serve(serve_mod, base + ["--tier-only", "--state-dir", str(only)])
+        check(durable_digest(whole / "tier") == durable_digest(only / "tier")
+              and tier.rt.fs.pstats.as_dict() == out_t["tier"].rt.fs.pstats.as_dict(),
+              f"continuous {arch}: the traced root or its per-tag counts differ from the "
+              "untraced tier-only run's")
+        print(f"continuous {arch}: traced root {durable_digest(whole / 'tier')} and per-tag "
+              f"counts {tier.rt.fs.pstats.as_dict()} equal the untraced tier-only run's {at()}",
+              flush=True)
+
+        # the first session's prefill again on the plain backend
+        first["tokens"] = torch.tensor([_token_values(serve_mod, whole)[first["sid"]]],
+                                       device=first["prompts"].device)
+        replay_first_batch(torch, out, first, gen, f"session {first['sid']}'s prefill")
+
+        # crashed from halfway through the persistence ops where a session
+        # is part-served, then resumed
+        total = tier.rt.fs.injector.count
+        crash = _history_crash_point(serve_mod, base, tmp, total)
+        cdir = Path(tmp) / "crash"
+        out_c = _run_serve(serve_mod, base + ["--trace", "--state-dir", str(cdir),
+                                              "--crash-at", str(crash)], params_for(arch))
+        check(out_c["crashed"], f"continuous {arch} did not crash at persistence op {crash}")
+        first_r = {}  # the first re-prefill of prompt + committed history
+        out_r, model_r, _ = _cont_run(serve_mod, K, base + [
+            "--trace", "--state-dir", str(cdir), "--resume", "--expect-exactly-once"],
+            params_for(arch), first_r, min_len=args.prompt_len)
+        check(not out_r["crashed"] and out_r["completed"] == n,
+              f"continuous {arch}: the resume served {out_r.get('completed')} of {n}")
+        check(first_r, f"continuous {arch}: the resume re-prefilled no session's history "
+                       f"(prefill lengths {out_r['prefill_lens']})")
+        resumed_lens = sorted({S for S in out_r["prefill_lens"] if S > args.prompt_len})
+        serve_mod.verify_exactly_once(sids, gen, serve_mod._read_served(cdir),
+                                      serve_mod._read_token_entries(cdir))
+        cevents = read_trace(cdir / "tier" / "obs" / "trace.jsonl")
+        check([e["seq"] for e in cevents] == list(range(len(cevents))),
+              f"continuous {arch}: the crashed and resumed trace is not one seq timeline")
+        got, ref = _token_values(serve_mod, cdir), _token_values(serve_mod, whole)
+        same = sum(a == b for s in sids for a, b in zip(got[s], ref[s]))
+        # the resumed session's re-prefill (S = prompt_len + start, a ragged
+        # flash tile) on the plain backend, against the tokens it emitted
+        start = first_r["prompts"].shape[1] - args.prompt_len
+        first_r["tokens"] = torch.tensor([got[first_r["sid"]][start:]],
+                                         device=first_r["prompts"].device)
+        replay_first_batch(torch, out_r, first_r, gen - start,
+                           f"session {first_r['sid']}'s re-prefill at S={start + args.prompt_len}")
+        print(f"continuous {arch}: crashed at persistence op {crash} of "
+              f"{total}, resumed with {len(out_r['prefill_s'])} prefills "
+              f"at S={resumed_lens} ({model_r}), every session and token index exactly once; "
+              f"token values equal "
+              f"the uncrashed run's on {same / (n * gen):.1%} of {n * gen} (bf16 re-prefill, "
+              f"not gated) {at()}", flush=True)
+        time_tier_kernels(torch, tier_calls, records)
+        del out, out_t, out_c, out_r, tier, first, first_r, tier_calls
+
+    # falcon-mamba-7b, volatile and shorter, on phase 7's params
+    arch = "falcon-mamba-7b"
+    argv = CONT_RUNS[arch]
+    args = serve_mod.build_parser().parse_args(argv)
+    out, model, fabric = _cont_run(serve_mod, K, argv, params_for(arch))
+    prefills, steps = len(out["prefill_s"]), len(out["decode_step_s"])
+    want = _expected_model_launches(out["cfg"], prefills, steps)
+    check(not out["crashed"] and out["completed"] == args.sessions and prefills == args.sessions
+          and steps == args.sessions * (args.gen - 1) and model == want,
+          f"continuous {arch}: served {out.get('completed')}, {prefills} prefills, {steps} "
+          f"steps, launches {model}, expected {want}")
+    check(fabric["queue"] == fabric["stack"] == fabric["map"] > 0,
+          f"continuous {arch}: the tier's combine kernels {fabric}")
+    for k_, v in model.items():
+        totals[k_] += v
+    for k_, v in fabric.items():
+        tier_totals[k_] += v
+    dec, pre = sorted(out["decode_step_s"]), sorted(out["prefill_s"])
+    print(f"continuous {arch}: {args.sessions} sessions, {out['rounds']} rounds, "
+          f"{out['decoded_tokens'] / out['seconds']:.1f} tok/s, prefill at batch 1 "
+          f"{pre[len(pre) // 2] * 1e3:.3f} ms median, decode at batch 1 "
+          f"{dec[len(dec) // 2] * 1e3:.3f} ms/step median; launches {model}, tier {fabric} "
+          f"{at()}", flush=True)
+    del out
+    params.pop(arch)
+    torch.cuda.empty_cache()
+
+    # the device's busy share over a whole smollm run at the main run's mix
+    # (its shapes all ran above, so no warm-up run)
+    pargs = serve_mod.build_parser().parse_args(CONT_PROFILE)
+    prof = {}
+    profile_calls(torch, f"continuous {pargs.arch} ({pargs.sessions} sessions of "
+                         f"{pargs.gen} tokens, {pargs.batch} slots, one run)",
+                  lambda: prof.update(_run_serve(serve_mod, CONT_PROFILE,
+                                                 params_for(pargs.arch))), 1, warmup=False)
+    check(prof["completed"] == pargs.sessions and prof["rounds"] >= 2,
+          f"continuous profile run: {prof.get('completed')} sessions in {prof.get('rounds')} "
+          "rounds")
+    print(f"continuous: profiled {prof['rounds']} rounds {at()}", flush=True)
+    del prof
+
+    # the model kernels at the path's batch-1 shapes, the resumed
+    # re-prefills' lengths included
+    bf16 = torch.bfloat16
+    shapes = {"rmsnorm": [((512, 576), False), ((1, 576), False), ((512, 4096), False),
+                          ((1, 4096), False)] + [((S, 576), False) for S in resumed_lens],
+              "flash_attention": [((1, S, 9, 3, 64), False) for S in [512] + resumed_lens],
+              "selective_scan": [((1, 512, 8192, 16), True)]}
+    for name, runs in shapes.items():
+        rec = records.get(name)
+        for shape, fused in runs:
+            fields = measure_model_kernel(torch, name, shape, bf16, fused)
+            if rec is None:
+                src, replaces = MODEL_KERNELS[name]
+                rec = records[name] = {"name": name, "route": "cuda", "source": src,
+                                       "replaces": replaces, "launches": totals[name], **fields}
+            rec.setdefault("at", {})["continuous " + "x".join(map(str, shape))] = fields
+        rec["continuous_launches"] = totals[name]
+    for kind in KINDS:
+        if kind in records:  # a record made here (phase 4 not run) takes these
+            records[kind].setdefault("launches", tier_totals[kind])
+            records[kind]["continuous_launches"] = tier_totals[kind]
+    print(f"continuous: launches on the path {totals}, tier {tier_totals} {at()}", flush=True)
+
 
 
 def turns_kernels(root):
@@ -1950,9 +2330,15 @@ def main(argv=None) -> int:
         with phase("6 durable"):
             phase_durable(torch, T, K, serve_shards)
 
+    params = {}
     if "7" in run:
         with phase("7 serve"):
-            phase_serve(torch, K, records)
+            params = phase_serve(torch, K, records)
+
+    if "8" in run:
+        with phase("8 continuous"):
+            phase_continuous(torch, K, records, params)
+    params.clear()
 
     print(card, flush=True)
     order = list(KINDS) + [f"phase_grid_{k}" for k in KINDS] + list(MODEL_KERNELS)

@@ -23,22 +23,33 @@ queue:
     fabric's fused K-phase ``phase_loop``;
   * ``--state-dir`` + ``--crash-at K`` + ``--resume`` crash the tier at its
     K-th persistence op and recover, reconcile and finish serving with no
-    session lost or duplicated (``--expect-exactly-once`` asserts it).
+    session lost or duplicated (``--expect-exactly-once`` asserts it);
+  * ``--k-classes k`` runs the continuous-batching server
+    (``ContinuousServer``): k per-class request shards admitted by weighted
+    round-robin (``--class-weights``), every active session decoding one
+    ``--quantum`` of tokens per round, progress committed to the session
+    map, the consumer's ``served.log`` / ``tokens.log`` outside the
+    fault-injected store, and a crash resumed token-exactly;
+  * ``--trace`` attaches the fabric's flight recorder (``obs``): a
+    crash-durable trace sidecar under the tier root, metrics and Chrome
+    trace exports, and admission / service / end-to-end latency p50/p99.
 
-Each admitted batch is prefilled and greedily decoded by the port's model on
-the card (``--device``, default ``cuda``): RMSNorm, prefill attention and
-the selective scan run through the hand-written kernels.
+Each admitted batch (or, with ``--k-classes``, each session at batch 1) is
+prefilled and greedily decoded by the port's model on the card
+(``--device``, default ``cuda``): RMSNorm, prefill attention and the
+selective scan run through the hand-written kernels.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-135m \\
       --batch 8 --prompt-len 512 --gen 32 --sessions 16
   PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-135m \\
       --reduced --batch 4 --prompt-len 16 --gen 8 --sessions 8 --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-135m \\
+      --reduced --batch 4 --prompt-len 16 --gen 8 --sessions 12 --k-classes 3 \\
+      --quantum 2 --durable --trace --state-dir D --crash-at 300 --device cpu
 
 Options whose runtime pieces wait for later slices raise
 ``NotImplementedError``: ``--split-lanes`` (per-side lanes),
-``--reshard-backlog`` (resharding), ``--trace`` (observability),
-``--k-classes`` (the continuous-batching server) and ``--window``
-(rolling-window decode).
+``--reshard-backlog`` (resharding) and ``--window`` (rolling-window decode).
 """
 
 from __future__ import annotations
@@ -82,8 +93,6 @@ from repro_torch.runtime.dfc_shard import (
 
 _SLICE_LANES = "the per-side lanes slice"
 _SLICE_RESHARD = "the resharding slice"
-_SLICE_OBS = "the observability slice"
-_SLICE_CONTINUOUS = "the continuous-batching server (the rest of the serving slice)"
 
 
 # ------------------------------------------------- session-state map packing
@@ -169,9 +178,12 @@ class RequestQueueTier:
     admissions (``starvation_bound()``).  The cycle cursor is host state and
     restarts at the cycle head on recovery.
 
-    ``device`` is where the fabric lives (default the card).  Per-side lanes
-    (``split_lanes``), autosplit (``reshard_backlog``) and a live observer
-    wait for their slices and raise ``NotImplementedError``.
+    ``obs`` (a ``FabricObserver``) is shared with the fabric: request
+    lifecycle events and the latency histograms of ``latency_stats`` land
+    beside the durable path's events.  ``device`` is where the fabric lives
+    (default the card).  Per-side lanes (``split_lanes``) and autosplit
+    (``reshard_backlog``) wait for their slices and raise
+    ``NotImplementedError``.
     """
 
     def __init__(
@@ -226,9 +238,11 @@ class RequestQueueTier:
             self.k_classes = 0
             self.class_weights = []
         self._class_cursor = 0
-        # (sid, class) per admission, in admission order: the starvation
-        # bound's witness (k-class tiers only)
+        # (sid, class) per admission, in admission order, and (admissions
+        # before it, sid, class) per accepted arrival: the starvation
+        # bound's witness (k-class tiers only; ``starvation_gap``)
         self.admit_log: List[Tuple[int, int]] = []
+        self.arrival_log: List[Tuple[int, int, int]] = []
         if slots > SESSION_SLOT_NONE:
             raise ValueError(
                 f"slots={slots} exceeds the packed slot field "
@@ -247,7 +261,7 @@ class RequestQueueTier:
             fs = SimFS(Path(tempfile.mkdtemp(prefix="dfc_serve_tier_")))
         self.durable = durable
         # ``_rt`` lets ``recover`` mount an already-recovered fabric; the
-        # runtime raises on ``split_lanes`` and a live ``obs``
+        # runtime raises on ``split_lanes``
         self.rt = _rt if _rt is not None else ShardedDFCRuntime(
             kinds, n_shards, capacity, lanes,
             fs=fs if durable else None, n_threads=1,
@@ -258,6 +272,12 @@ class RequestQueueTier:
             pipeline=pipeline, depth=depth, split_lanes=split_lanes, obs=obs,
             device=device,
         )
+        # the tier and the fabric share ONE observer: request lifecycle
+        # events land in the durable path's timeline, latency histograms in
+        # the registry that holds the per-shard gauges
+        self.obs = obs if obs is not None else self.rt.obs
+        self._arrival_t: Dict[int, float] = {}  # sid -> arrival perf_counter
+        self._admit_t: Dict[int, float] = {}  # sid -> admission perf_counter
         self._rep_keys: Dict[int, int] = {}
         self._smap_keys: Dict[int, int] = {}  # sid -> session-state map key
         self._sprog_keys: Dict[int, int] = {}  # sid -> decode-progress map key
@@ -446,10 +466,15 @@ class RequestQueueTier:
         params += [float(v) for _, v in smap]
         return pool, smap, keys, ops, params
 
-    def _settle_arrivals(self, sids, pool, smap, kinds) -> List[int]:
+    def _settle_arrivals(self, sids, pool, smap, kinds, cls_list) -> List[int]:
         """Queue the round's overflowed pool pushes and session writes for
-        retry, count it, and return its rejected session ids."""
+        retry, count it, log its accepted arrivals, and return its rejected
+        session ids."""
         rejected = [s for i, s in enumerate(sids) if kinds[i] == R_OVERFLOW]
+        if self.k_classes:
+            self.arrival_log += [(len(self.admit_log), int(s), int(c))
+                                 for i, (s, c) in enumerate(zip(sids, cls_list))
+                                 if kinds[i] != R_OVERFLOW]
         for j, slot in enumerate(pool):
             if kinds[len(sids) + j] == R_OVERFLOW:
                 self._slot_retry.append(slot)
@@ -478,8 +503,19 @@ class RequestQueueTier:
         pool, smap, keys, ops, params = self._stage_arrivals(sids, release_slots, cls_list)
         if not ops:
             return []
+        self._stamp_arrivals(sids)
         _, kinds = self._phase(keys, ops, params)
-        return self._settle_arrivals(sids, pool, smap, kinds)
+        rejected = self._settle_arrivals(sids, pool, smap, kinds, cls_list)
+        if self.obs.enabled and sids:
+            self.obs.event("request", stage="arrive", sids=[int(s) for s in sids],
+                           rejected=[int(s) for s in rejected])
+        return rejected
+
+    def _stamp_arrivals(self, sids) -> None:
+        """First-arrival timestamps (they survive overflow retries)."""
+        now = time.perf_counter()
+        for s in sids:
+            self._arrival_t.setdefault(int(s), now)
 
     def submit_waves(
         self,
@@ -498,7 +534,9 @@ class RequestQueueTier:
             sids, release_slots, priorities = wave[0], wave[1], wave[2]
             classes = wave[3] if len(wave) > 3 else None
             cls_list = self._arrival_classes(sids, priorities, classes)
-            staged.append((list(sids), *self._stage_arrivals(sids, release_slots, cls_list)))
+            staged.append((list(sids), *self._stage_arrivals(sids, release_slots, cls_list),
+                           cls_list))
+            self._stamp_arrivals(sids)
 
         rejected_per_wave: List[List[int]] = [[] for _ in staged]
         live = [i for i, st in enumerate(staged) if st[4]]
@@ -506,7 +544,7 @@ class RequestQueueTier:
             if self.durable:
                 schedule = []
                 for i in live:
-                    _, _, _, keys, ops, params = staged[i]
+                    keys, ops, params = staged[i][3:6]
                     self._token += 1
                     schedule.append((0, self._token, keys, ops, params))
                 records = self.rt.phase_loop(schedule)
@@ -514,12 +552,17 @@ class RequestQueueTier:
             else:
                 kinds_per_wave = []
                 for i in live:
-                    _, _, _, keys, ops, params = staged[i]
+                    keys, ops, params = staged[i][3:6]
                     _, kinds = self.rt.step(keys, ops, params)
                     kinds_per_wave.append(_to_np(kinds))
             for i, kinds in zip(live, kinds_per_wave):
                 sids, pool, smap = staged[i][:3]
-                rejected_per_wave[i] = self._settle_arrivals(sids, pool, smap, kinds)
+                rejected_per_wave[i] = self._settle_arrivals(sids, pool, smap, kinds,
+                                                             staged[i][6])
+                if self.obs.enabled and sids:
+                    self.obs.event("request", stage="arrive", wave=i,
+                                   sids=[int(s) for s in sids],
+                                   rejected=[int(s) for s in rejected_per_wave[i]])
         return rejected_per_wave
 
     def admit(self, max_n: int) -> List[Tuple[int, int]]:
@@ -572,6 +615,15 @@ class RequestQueueTier:
             self.submit([], release_slots=list(spare))
         self._bind_sessions(admitted)
         self.stats["admitted"] += len(admitted)
+        if self.obs.enabled and admitted:
+            now = time.perf_counter()
+            for sid, _ in admitted:
+                t_arr = self._arrival_t.get(sid)
+                self._admit_t[sid] = now
+                if t_arr is not None:
+                    self.obs.metrics.observe("admission_ms", (now - t_arr) * 1e3)
+            self.obs.event("request", stage="admit",
+                           pairs=[[int(s), int(sl)] for s, sl in admitted])
         return admitted
 
     def _bind_sessions(self, pairs: List[Tuple[int, int]]) -> None:
@@ -667,6 +719,26 @@ class RequestQueueTier:
             raise ValueError("starvation_bound needs a k_classes tier")
         return sum(self.class_weights) - self.class_weights[0]
 
+    def starvation_gap(self) -> int:
+        """The longest run of other-class admissions while class 0 had a
+        session queued (accepted and not yet admitted), from ``admit_log``
+        and ``arrival_log``: what ``starvation_bound()`` bounds."""
+        if not self.k_classes:
+            raise ValueError("starvation_gap needs a k_classes tier")
+        arrivals = iter(self.arrival_log)
+        nxt = next(arrivals, None)
+        queued, gap, worst = 0, 0, 0
+        for i, (_, cls) in enumerate(self.admit_log):
+            while nxt is not None and nxt[0] <= i:
+                queued += nxt[2] == 0
+                nxt = next(arrivals, None)
+            if cls == 0:
+                queued, gap = queued - 1, 0
+            elif queued:
+                gap += 1
+                worst = max(worst, gap)
+        return worst
+
     def backlog(self) -> int:
         return sum(self._queue_backlogs().values())
 
@@ -694,7 +766,9 @@ class RequestQueueTier:
 
     def mark_served(self, sid: int) -> None:
         """Advance the session's map entry to SERVED through the fabric,
-        keeping its slot binding."""
+        keeping its slot binding.  Observed tiers also record the service
+        (admit -> served) and end-to-end (arrive -> served) latencies and
+        the request's last event."""
         packed = pack_session(
             self._session_prio.get(sid, 0),
             self._session_slot.get(sid, SESSION_SLOT_NONE),
@@ -703,6 +777,28 @@ class RequestQueueTier:
         _, kinds = self._phase([self.session_map_key(sid)], [OP_MAP_INSERT], [float(packed)])
         if kinds[0] == R_OVERFLOW:
             self._state_retry.append((sid, packed))
+        if not self.obs.enabled:
+            return
+        now = time.perf_counter()
+        t_adm = self._admit_t.pop(sid, None)
+        t_arr = self._arrival_t.pop(sid, None)
+        if t_adm is not None:
+            self.obs.metrics.observe("service_ms", (now - t_adm) * 1e3)
+        if t_arr is not None:
+            self.obs.metrics.observe("e2e_ms", (now - t_arr) * 1e3)
+        self.obs.event("request", stage="served", sid=int(sid))
+
+    def latency_stats(self) -> Optional[Dict[str, Dict[str, float]]]:
+        """count / mean / min / max / p50 / p99 of each latency histogram
+        (``admission_ms``, and ``service_ms`` / ``e2e_ms`` once
+        ``mark_served`` ran); None when the tier runs unobserved."""
+        if not self.obs.enabled:
+            return None
+        return {
+            name: h.summary()
+            for name, h in sorted(self.obs.metrics.histograms.items())
+            if name.endswith("_ms")
+        }
 
     # -------------------------------------------------------------- recovery
     @classmethod
@@ -769,7 +865,7 @@ class RequestQueueTier:
             n_queues=n_queues, slots=0, capacity=capacity, lanes=lanes,
             durable=True, fs=fs, n_buckets=n_buckets, pipeline=pipeline,
             depth=depth, priority=priority, k_classes=k_classes,
-            class_weights=class_weights, device=device,
+            class_weights=class_weights, obs=obs, device=device,
             _seed_slots=False, _rt=rt,
         )
         # ONE walk of the session shard restores the per-session serving
@@ -855,6 +951,52 @@ def _log_served(state_dir: Optional[Path], sid: int) -> None:
         f.flush()
 
 
+def _tokens_log_path(state_dir: Path) -> Path:
+    return state_dir / "tokens.log"
+
+
+def _read_token_entries(state_dir: Optional[Path]) -> Dict[int, List[Tuple[int, int]]]:
+    """The consumer's raw token log: ``{sid: [(idx, token), ...]}`` in file
+    order (the exactly-once audit reads it unfiltered)."""
+    if state_dir is None:
+        return {}
+    p = _tokens_log_path(state_dir)
+    if not p.exists():
+        return {}
+    out: Dict[int, List[Tuple[int, int]]] = {}
+    for line in p.read_text().splitlines():
+        if not line.strip():
+            continue
+        sid, idx, tok = (int(x) for x in line.split())
+        out.setdefault(sid, []).append((idx, tok))
+    return out
+
+
+def _committed_tokens(entries: Sequence[Tuple[int, int]]) -> List[int]:
+    """The contiguous committed token prefix of one session's raw log
+    entries (the first write of an index wins): what a resumed decode
+    continues from."""
+    by_idx: Dict[int, int] = {}
+    for idx, tok in entries:
+        by_idx.setdefault(idx, tok)
+    toks: List[int] = []
+    while len(toks) in by_idx:
+        toks.append(by_idx[len(toks)])
+    return toks
+
+
+def _log_tokens(state_dir: Optional[Path], sid: int, start: int, toks: Sequence[int]) -> None:
+    """The consumer's durable record of emitted decode tokens: the same
+    append-only contract as ``served.log`` (outside the fault-injected
+    SimFS, flushed per call)."""
+    if state_dir is None or not toks:
+        return
+    with _tokens_log_path(state_dir).open("a") as f:
+        for j, t in enumerate(toks):
+            f.write(f"{sid} {start + j} {int(t)}\n")
+        f.flush()
+
+
 def verify_exactly_once(
     sids: Sequence[int],
     gen: int,
@@ -875,6 +1017,240 @@ def verify_exactly_once(
             f"token exactly-once violated for session {s}: "
             f"indices {idxs} != 0..{gen - 1}"
         )
+
+
+class ContinuousServer:
+    """Continuous-batching decode loop in which every scheduling decision is
+    a fabric op: arrivals enqueue into the k class shards (``submit``),
+    admission rides the weighted multi-shard dequeue (``admit``), decode
+    slots come from and go back to the slot-pool stack shard, each round's
+    per-session token counts commit to the session map in one phase
+    (``record_progress``), and retirement is a fabric op (``mark_served``).
+
+    Each round every active session decodes one QUANTUM of tokens (the
+    ``decode`` callable: ``make_model_decode`` on the model path, the
+    deterministic ``sim_token`` decoder otherwise), the tokens go to the
+    consumer's token log, then progress commits; finished sessions retire
+    and their slots return through the fabric, so admissions join
+    mid-stream as slots free.
+
+    Crash-exact resume: the consumer logs (``served.log`` / ``tokens.log``)
+    live outside the fault-injected SimFS.  A resumed server rebuilds the
+    in-flight sessions from the recovery walk (committed dequeues in the
+    announcement slots, plus map entries at ADMITTED or SERVED), drops what
+    the served log holds, restarts each at its committed token offset and
+    emits exactly the remaining tokens; ``verify_exactly_once`` audits the
+    logs.
+    """
+
+    def __init__(
+        self,
+        tier: RequestQueueTier,
+        *,
+        sids: Sequence[int],
+        batch: int,
+        gen: int,
+        quantum: int = 0,
+        arrival: int = 0,
+        class_of: Optional[Callable[[int], int]] = None,
+        state_dir: Optional[Path] = None,
+        decode: Optional[Callable[..., List[int]]] = None,
+        resume_info: Optional[Dict[str, Any]] = None,
+        served_before: Sequence[int] = (),
+        token_log: Optional[Mapping[int, Sequence[int]]] = None,
+    ):
+        self.tier = tier
+        self.sids = [int(s) for s in sids]
+        self.batch = int(batch)
+        self.gen = int(gen)
+        self.quantum = int(quantum) or self.gen
+        self.arrival = int(arrival) or self.batch
+        k = tier.k_classes
+        self.class_of = class_of or ((lambda sid: sid % k) if k else (lambda sid: 0))
+        self.state_dir = state_dir
+        self.decode = decode or self._sim_decode
+        self.served: List[int] = [int(s) for s in served_before]
+        # committed token prefix per session (mirrors the consumer log)
+        self.token_log: Dict[int, List[int]] = {
+            int(s): list(t) for s, t in (token_log or {}).items()
+        }
+        # sid -> {"slot", "done", "state"}; "state" is the decoder's scratch
+        # (the model path keeps the session's KV cache there)
+        self.active: Dict[int, Dict[str, Any]] = {}
+        self.rounds = 0
+        self.decoded = 0
+        self.pending = (
+            self._reconcile(resume_info) if resume_info is not None else list(self.sids)
+        )
+
+    @staticmethod
+    def sim_token(sid: int, idx: int) -> int:
+        """The simulated decoder's token: deterministic, so the tier-only path
+        and the crash sweeps check token-level exactly-once without a model."""
+        return (int(sid) * 1009 + int(idx) * 31) % 4093
+
+    def _sim_decode(self, sid, start, n, state, history):
+        return [self.sim_token(sid, start + j) for j in range(n)]
+
+    def _reconcile(self, info: Dict[str, Any]) -> List[int]:
+        """Rebuild the serving state from one recovery walk: in-flight
+        sessions resume mid-decode on their bound slots, queued sessions
+        stay queued, everything else resubmits; the slot pool is restored
+        to exactly ``batch`` minus free minus held.  Returns the sessions to
+        submit."""
+        served_set = set(self.served)
+        sessions = info["sessions"]
+        universe = set(self.sids)
+        # committed dequeues of the announcement slots, plus map entries at
+        # ADMITTED (admitted long ago: the dequeue's record was overwritten)
+        # or at SERVED without a served-log line (its tokens are logged
+        # first, so it retires without decoding again); the served log wins
+        in_flight = sorted(
+            (set(info["in_flight"])
+             | {s for s, st in sessions.items()
+                if st["stage"] in (SESSION_ADMITTED, SESSION_SERVED)})
+            & universe - served_set
+        )
+        queued = set(info["queued"])
+        pending = [
+            s for s in self.sids
+            if s not in served_set and s not in queued and s not in in_flight
+        ]
+        pool = set(info["pool"])
+        complement = [i for i in range(self.batch) if i not in pool]
+        assert len(complement) >= len(in_flight), (complement, in_flight)
+        taken: set = set()
+        for sid in in_flight:
+            st = sessions.get(sid)
+            slot = st["slot"] if st is not None else SESSION_SLOT_NONE
+            if (slot == SESSION_SLOT_NONE or slot >= self.batch
+                    or slot in pool or slot in taken):
+                slot = next(i for i in complement if i not in taken)
+            taken.add(slot)
+            done = min(len(self.token_log.get(sid, ())), self.gen)
+            self.active[sid] = {"slot": slot, "done": done, "state": {}}
+        # complement slots that no in-flight session holds go back to the pool
+        leftovers = [i for i in complement if i not in taken]
+        if leftovers:
+            self.tier.submit([], release_slots=leftovers)
+        return pending
+
+    def _outstanding(self) -> List[int]:
+        done = set(self.served)
+        return [s for s in self.sids if s not in done]
+
+    def run(self, max_rounds: Optional[int] = None) -> Dict[str, Any]:
+        tier = self.tier
+        waiting: List[int] = []
+        next_idx = 0
+        limit = max_rounds or (8 * max(len(self.sids), 1) + 64)
+        for _ in range(limit):
+            if not self._outstanding():
+                break
+            self.rounds += 1
+            fresh = self.pending[next_idx : next_idx + self.arrival]
+            next_idx += len(fresh)
+            subs = waiting + fresh
+            if subs:
+                kw: Dict[str, Any] = {}
+                if tier.k_classes:
+                    kw["classes"] = [self.class_of(s) for s in subs]
+                elif tier.priority:
+                    kw["priorities"] = [self.class_of(s) for s in subs]
+                waiting = tier.submit(subs, **kw)
+            for sid, slot in tier.admit(self.batch - len(self.active)):
+                self.active[sid] = {"slot": slot, "done": 0, "state": {}}
+            progress: Dict[int, int] = {}
+            finished: List[int] = []
+            for sid, st in sorted(self.active.items()):
+                n_new = min(self.quantum, self.gen - st["done"])
+                history = self.token_log.setdefault(sid, [])
+                toks = (self.decode(sid, st["done"], n_new, st["state"], history)
+                        if n_new > 0 else [])
+                if toks:
+                    # the consumer's log FIRST, fabric progress after: a crash
+                    # between the two resumes from the (longer) consumer log
+                    # and never emits a logged token again
+                    _log_tokens(self.state_dir, sid, st["done"], toks)
+                    history.extend(int(t) for t in toks)
+                    st["done"] += len(toks)
+                    self.decoded += len(toks)
+                progress[sid] = st["done"]
+                if st["done"] >= self.gen:
+                    finished.append(sid)
+            if progress:
+                tier.record_progress(progress)
+            for sid in finished:
+                _log_served(self.state_dir, sid)
+                self.served.append(sid)
+                tier.mark_served(sid)
+            if finished:
+                tier.submit([], release_slots=[self.active.pop(sid)["slot"]
+                                               for sid in finished])
+            if (not self.active and not waiting
+                    and next_idx >= len(self.pending) and tier.backlog() == 0):
+                break  # nothing left anywhere (lost-session guard)
+        return {
+            "completed": len(set(self.served) & set(self.sids)),
+            "rounds": self.rounds,
+            "decoded_tokens": self.decoded,
+            "served": list(self.served),
+        }
+
+
+def make_model_decode(cfg, params, prefill_step, serve_step, quantum_step,
+                      prompt_len: int, quantum: int, *, device="cuda",
+                      times: Optional[Dict[str, List[float]]] = None,
+                      hook: Optional[BatchHook] = None):
+    """The per-session model decoder the continuous loop drives: it emits
+    the next ``n`` greedy tokens of session ``sid`` at batch 1.
+
+    A fresh session prefills its ``default_rng(sid)`` prompt; a resumed one
+    re-prefills prompt + committed history (S = ``prompt_len`` + start), so
+    greedy decode continues where the crashed run stopped (token for token
+    in f32; in bf16 the prefill rounds otherwise than the decode steps it
+    replaces, and a near-tie may flip).  The KV cache stays in ``state``
+    between rounds; full quanta go through ``quantum_step``, the rest
+    through single ``serve_step``s.  ``times`` collects ``prefill_s`` per
+    prefill and ``decode_step_s`` per decode step (host clock after a
+    device synchronize; a quantum's time split over its steps).
+    ``hook(sids=[sid], prompts=, last=, tokens=)`` runs after each prefill
+    with its input row (1, S), last-position logits and first token."""
+    device = torch.device(device)
+    times = times if times is not None else {"prefill_s": [], "decode_step_s": []}
+
+    def decode(sid, start, n, state, history):
+        if n <= 0:
+            return []
+        out: List[int] = []
+        if "cache" not in state:
+            prompt = np.random.default_rng(sid).integers(0, cfg.vocab, prompt_len)
+            row = np.concatenate([prompt, np.asarray(list(history[:start]), np.int64)])
+            tokens = torch.from_numpy(row[None, :]).to(device)
+            t0 = _clock(device)
+            last, cache = prefill_step(params, {"tokens": tokens})
+            tok = torch.argmax(last[:, -1], dim=-1)[:, None]
+            times["prefill_s"].append(_clock(device) - t0)
+            state["cache"], state["tok"] = cache, tok
+            out.append(int(tok[0, 0]))
+            if hook is not None:
+                hook(sids=[sid], prompts=tokens, last=last, tokens=tok)
+        while len(out) < n:
+            t0 = _clock(device)
+            if n - len(out) >= quantum:
+                o, state["cache"] = quantum_step(params, state["cache"], state["tok"])
+                state["tok"] = o["next_token"]
+                new = [int(t) for t in o["tokens"][0].tolist()]
+            else:
+                o, state["cache"] = serve_step(params, state["cache"], {"tokens": state["tok"]})
+                state["tok"] = o["next_token"][:, None]
+                new = [int(state["tok"][0, 0])]
+            dt = (_clock(device) - t0) / len(new)
+            times["decode_step_s"].extend([dt] * len(new))
+            out.extend(new)
+        return out
+
+    return decode
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -910,7 +1286,15 @@ def build_parser() -> argparse.ArgumentParser:
                          "high-priority (0 = none)")
     ap.add_argument("--k-classes", type=int, default=0,
                     help="continuous-batching mode with k priority classes "
-                         "(waits for the continuous-batching server)")
+                         "(2..4): per-class queue shards, weighted "
+                         "round-robin admission, quantum decode with "
+                         "crash-exact resume")
+    ap.add_argument("--class-weights", default="",
+                    help="comma-separated dequeue credits per class "
+                         "(default: 1<<c, i.e. 1,2,4,...)")
+    ap.add_argument("--quantum", type=int, default=0,
+                    help="decode tokens per session per scheduling round "
+                         "(default: min(8, --gen))")
     ap.add_argument("--reshard-backlog", type=int, default=0,
                     help="split a request shard when its backlog exceeds N "
                          "(waits for the resharding slice)")
@@ -933,7 +1317,10 @@ def build_parser() -> argparse.ArgumentParser:
                     help="with --resume: assert every session was served "
                          "exactly once across crash + resume")
     ap.add_argument("--trace", action="store_true",
-                    help="fabric flight recorder (waits for the observability slice)")
+                    help="enable the fabric flight recorder: durable trace "
+                         "sidecar under the tier root (with --state-dir), "
+                         "metrics + Chrome trace exports, and p50/p99 "
+                         "admission latency in the tier report")
     ap.add_argument("--device", default="cuda")
     return ap
 
@@ -955,26 +1342,32 @@ def serve(args: argparse.Namespace, params: Optional[Dict[str, Any]] = None,
     ``params`` are the model's parameters (default: ``init_params`` with
     seed 0 on ``--device``).  ``hook(sids=, prompts=, last=, tokens=)`` runs
     after each served batch, outside the timed region, with the prefill's
-    last-position logits and the greedy tokens (B, gen).  Returns the run's
-    record: ``tier``, ``cfg``, ``params``, ``completed``, ``batches``,
-    ``crashed``, ``decoded_tokens``, ``seconds``, and the per-batch
-    ``prefill_s`` and per-step ``decode_step_s`` (host clock after a device
-    synchronize).
+    last-position logits and the greedy tokens (B, gen); with
+    ``--k-classes`` after each session's batch-1 prefill instead (see
+    ``make_model_decode``).  Returns the run's record: ``tier``, ``cfg``,
+    ``params``, ``obs``, ``completed``, ``crashed``, ``decoded_tokens``,
+    ``seconds``, the per-prefill ``prefill_s`` and per-step
+    ``decode_step_s`` (host clock after a device synchronize), and
+    ``batches`` (batch path) or ``rounds`` and ``quantum`` (``--k-classes``).
     """
     for flag, name, slice_ in ((args.split_lanes, "--split-lanes", _SLICE_LANES),
                                (args.reshard_backlog, "--reshard-backlog", _SLICE_RESHARD),
-                               (args.trace, "--trace", _SLICE_OBS),
-                               (args.k_classes >= 2, "--k-classes", _SLICE_CONTINUOUS),
                                (args.window, "--window", "the long-context slice")):
         if flag:
             raise NotImplementedError(f"{name} waits for {slice_}")
     device = resolve_device(args.device)
     cfg = get_reduced(args.arch) if args.reduced else get_config(args.arch)
+    k = args.k_classes if args.k_classes >= 2 else 0
+    quantum = args.quantum or min(8, args.gen)
 
     if args.tier_only:
-        prefill_step = serve_step = params = None
+        prefill_step = serve_step = quantum_step = params = None
     else:
-        from repro_torch.launch.steps import make_prefill_step, make_serve_step
+        from repro_torch.launch.steps import (
+            make_prefill_step,
+            make_quantum_step,
+            make_serve_step,
+        )
         from repro_torch.models.model import init_params
 
         if params is None:
@@ -982,6 +1375,7 @@ def serve(args: argparse.Namespace, params: Optional[Dict[str, Any]] = None,
         max_len = args.prompt_len + args.gen + 8
         prefill_step = make_prefill_step(cfg, max_len=max_len)
         serve_step = make_serve_step(cfg)
+        quantum_step = make_quantum_step(cfg, quantum=quantum) if k else None
 
     n_sessions = args.sessions or args.batch
     arrival = args.arrival or args.batch
@@ -995,6 +1389,14 @@ def serve(args: argparse.Namespace, params: Optional[Dict[str, Any]] = None,
         state_dir.mkdir(parents=True, exist_ok=True)
         fs = SimFS(state_dir / "tier", FaultInjector(crash_at=args.crash_at or None))
 
+    obs = None
+    if args.trace:
+        from repro_torch.obs import FabricObserver
+
+        # durable tiers get the crash-durable sidecar under the tier root;
+        # volatile tiers trace in memory (metrics and ring only)
+        obs = FabricObserver(root=fs.root if fs is not None else None)
+
     tier_kw = dict(
         n_queues=args.queues,
         capacity=4096,
@@ -1002,11 +1404,23 @@ def serve(args: argparse.Namespace, params: Optional[Dict[str, Any]] = None,
         pipeline=args.pipeline,
         depth=depth,
         priority=args.priority,
+        k_classes=k,
+        class_weights=([int(x) for x in args.class_weights.split(",")]
+                       if k and args.class_weights else None),
+        obs=obs,
         device=device,
     )
     served_before = _read_served(state_dir) if state_dir else []
-    out: Dict[str, Any] = {"cfg": cfg, "params": params, "batches": 0, "crashed": False,
-                           "prefill_s": [], "decode_step_s": []}
+    out: Dict[str, Any] = {"cfg": cfg, "params": params, "obs": obs, "batches": 0,
+                           "crashed": False, "prefill_s": [], "decode_step_s": []}
+    if k:
+        decode = None
+        if not args.tier_only:
+            decode = make_model_decode(cfg, params, prefill_step, serve_step, quantum_step,
+                                       args.prompt_len, quantum, device=device, times=out,
+                                       hook=hook)
+        return _serve_continuous(args, decode, quantum, fs, obs, tier_kw, state_dir,
+                                 served_before, n_sessions, arrival, out)
 
     def serve_batch(sids: List[int]) -> None:
         """Prefill + greedy decode of one admitted batch (rows padded to
@@ -1163,6 +1577,18 @@ def serve(args: argparse.Namespace, params: Optional[Dict[str, Any]] = None,
     p = tier.persistence_stats()
     if p:
         print(f"pwb/op: {p['pwb_per_op']:.2f}  pfence/op: {p['pfence_per_op']:.2f}")
+    _print_latency(tier)
+    if obs is not None:
+        from repro_torch.obs import bridge_persist_stats, to_chrome_trace
+
+        if tier.durable:
+            bridge_persist_stats(obs.metrics, tier.rt.fs.pstats)
+        obs.flush()  # clean shutdown: the tail since the last fence
+        if obs.root is not None:
+            n_m = obs.metrics.to_jsonl(obs.root / "obs" / "metrics.jsonl")
+            n_e = to_chrome_trace(obs.trace.events(), obs.root / "obs" / "trace_chrome.json")
+            print(f"trace: {obs.trace_path} (+{n_m} metrics, "
+                  f"{n_e} chrome events under {obs.root / 'obs'})")
     if args.expect_exactly_once:
         served = _read_served(state_dir)
         expect = sorted(range(1, n_sessions + 1))
@@ -1171,6 +1597,84 @@ def serve(args: argparse.Namespace, params: Optional[Dict[str, Any]] = None,
         )
         print(f"exactly-once OK: {n_sessions} sessions, none lost, none duplicated")
     out.update(tier=tier, completed=completed, decoded_tokens=decoded_tokens, seconds=dt)
+    return out
+
+
+def _print_latency(tier: RequestQueueTier) -> None:
+    for name, st in (tier.latency_stats() or {}).items():
+        print(f"{name}: p50={st['p50']:.3f} p99={st['p99']:.3f} "
+              f"mean={st['mean']:.3f} n={int(st['count'])}")
+
+
+def _serve_continuous(args, decode, quantum, fs, obs, tier_kw, state_dir, served_before,
+                      n_sessions, arrival, out) -> Dict[str, Any]:
+    """The launcher's ``--k-classes`` branch: the continuous-batching server
+    (``decode`` None serves the simulated tokens of ``--tier-only``), crash
+    and resume through the consumer logs plus one recovery walk."""
+    sids = list(range(1, n_sessions + 1))
+    tier = None
+    t0 = time.perf_counter()
+    try:
+        if args.resume:
+            tier, info = RequestQueueTier.recover(fs, **tier_kw)
+        else:
+            tier = RequestQueueTier(slots=args.batch, durable=args.durable, fs=fs, **tier_kw)
+            info = None
+        entries = _read_token_entries(state_dir)
+        srv = ContinuousServer(
+            tier, sids=sids, batch=args.batch, gen=args.gen, quantum=quantum,
+            arrival=arrival, class_of=lambda s: s % args.k_classes, state_dir=state_dir,
+            decode=decode, resume_info=info, served_before=served_before,
+            token_log={s: _committed_tokens(e) for s, e in entries.items()},
+        )
+        if info is not None:
+            print(
+                f"resume: served={len(set(served_before))} "
+                f"in_flight={sorted(srv.active)} "
+                f"lost_arrivals={info['lost_arrivals']} "
+                f"resubmitting={len(srv.pending)} "
+                f"progress={ {s: st['done'] for s, st in sorted(srv.active.items())} }"
+            )
+        res = srv.run()
+    except CrashNow as e:
+        print(f"CRASHED: {e}")
+        print(f"tier state is durable under {state_dir}; resume with "
+              f"--resume --state-dir {state_dir}")
+        out.update(tier=tier, crashed=True, completed=None, quantum=quantum)
+        return out
+    dt = time.perf_counter() - t0
+
+    print(
+        f"{args.arch}: continuous batching served {res['completed']}/"
+        f"{n_sessions} sessions in {res['rounds']} rounds, "
+        f"{res['decoded_tokens']} tok (quantum={quantum}) in {dt*1e3:.0f} ms"
+        + ("" if args.tier_only or dt == 0
+           else f" ({res['decoded_tokens']/dt:.0f} tok/s)")
+    )
+    print(
+        f"k-class tier: k={tier.k_classes} weights={tier.class_weights} "
+        f"starvation_bound={tier.starvation_bound()} "
+        f"arrived={tier.stats['arrived']} admitted={tier.stats['admitted']} "
+        f"rejected={tier.stats['rejected']} backlog={tier.backlog()}"
+    )
+    if out["prefill_s"]:
+        pre, steps = sorted(out["prefill_s"]), sorted(out["decode_step_s"])
+        med = steps[len(steps) // 2] * 1e3 if steps else float("nan")
+        print(f"model: {out['cfg'].name} on {tier.rt.device}, {len(pre)} prefills at "
+              f"batch 1, median {pre[len(pre) // 2] * 1e3:.3f} ms; {len(steps)} decode "
+              f"steps at batch 1, median {med:.3f} ms/step")
+    p = tier.persistence_stats()
+    if p:
+        print(f"pwb/op: {p['pwb_per_op']:.2f}  pfence/op: {p['pfence_per_op']:.2f}")
+    _print_latency(tier)
+    if obs is not None:
+        obs.flush()
+    if args.expect_exactly_once:
+        verify_exactly_once(sids, args.gen, _read_served(state_dir),
+                            _read_token_entries(state_dir))
+        print("exactly-once: OK (sessions + token indices)")
+    out.update(tier=tier, completed=res["completed"], rounds=res["rounds"],
+               decoded_tokens=res["decoded_tokens"], seconds=dt, quantum=quantum)
     return out
 
 

@@ -36,6 +36,7 @@ import torch
 
 from repro_torch.checkpoint.dfc_checkpoint import SimFS
 from repro_torch.core.torch_dfc import STRUCTS
+from repro_torch.obs import durable_digest
 from repro_torch.runtime.announce_driver import MultiThreadDriver
 from repro_torch.runtime.dfc_shard import R_OVERFLOW, ShardedDFCRuntime, zipf_keys
 
@@ -65,14 +66,17 @@ def build_parser() -> argparse.ArgumentParser:
 PhaseHook = Callable[..., None]
 
 
-def serve(args: argparse.Namespace, hook: Optional[PhaseHook] = None) -> Dict[str, Any]:
+def serve(args: argparse.Namespace, hook: Optional[PhaseHook] = None,
+          obs=None) -> Dict[str, Any]:
     """Drive the fabric for ``args.phases`` phases and print the report.
 
     ``hook(phase=, rt=, keys=, ops=, params=, resp=, kinds=)`` runs after
-    each phase, outside the timed region.  Returns the run's counts:
+    each phase, outside the timed region.  ``obs`` is a fabric observer (a
+    ``FabricObserver``) handed to the runtime.  Returns the run's counts:
     ``n_ops``, ``n_overflow``, ``seconds`` and ``phase_seconds`` (serving
-    time, hooks excluded), ``pwb`` / ``pfence`` / ``pstats`` and
-    ``retire_wait_s`` (durable mode) and the runtime ``rt``.
+    time, hooks excluded), ``pwb`` / ``pfence`` / ``pstats``,
+    ``retire_wait_s`` and the durable root's ``digest`` (durable mode) and
+    the runtime ``rt``.
     """
     if args.split_backlog:
         raise NotImplementedError("--split-backlog waits for the resharding slice")
@@ -90,7 +94,7 @@ def serve(args: argparse.Namespace, hook: Optional[PhaseHook] = None) -> Dict[st
         rt = ShardedDFCRuntime(
             kinds, args.shards, capacity, lanes, fs=fs, n_threads=args.threads,
             depth=args.depth or None, chain=args.threads if args.depth > 1 else 1,
-            device=args.device,
+            device=args.device, obs=obs,
         )
         drv = MultiThreadDriver(rt, seed=1) if args.durable and args.threads > 1 else None
         on_card = rt.device.type == "cuda"
@@ -153,7 +157,8 @@ def serve(args: argparse.Namespace, hook: Optional[PhaseHook] = None) -> Dict[st
             print(f"pwb/op: {fs.stats['pwb'] / max(n_ops, 1):.3f}  "
                   f"pfence/op: {fs.stats['pfence'] / max(n_ops, 1):.3f}")
             out.update(pwb=fs.stats["pwb"], pfence=fs.stats["pfence"],
-                       pstats=fs.pstats.as_dict(), retire_wait_s=rt.retire_wait_s)
+                       pstats=fs.pstats.as_dict(), retire_wait_s=rt.retire_wait_s,
+                       digest=durable_digest(root))
     return out
 
 

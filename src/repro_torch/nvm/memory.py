@@ -1,7 +1,7 @@
 """Per-tag pwb/pfence counters of the simulated persistence domain.
 
 A copy of ``PersistStats`` from the JAX package's ``nvm/memory.py`` (its
-counting and ``as_dict``): the port keeps its own so that it imports nothing
+counting, totals and ``as_dict``): the port keeps its own so that it imports nothing
 of that package.  The cache-line NVM simulator stays with the reference.
 """
 
@@ -30,6 +30,12 @@ class PersistStats:
     def count_pfence(self, tag: Optional[str] = None) -> None:
         tag = tag or DEFAULT_TAG
         self.pfence[tag] = self.pfence.get(tag, 0) + 1
+
+    def total_pwb(self) -> int:
+        return sum(self.pwb.values())
+
+    def total_pfence(self) -> int:
+        return sum(self.pfence.values())
 
     def as_dict(self) -> Dict[str, Dict[str, int]]:
         """JSON-ready view (for result rows and metrics snapshots)."""

@@ -30,6 +30,7 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 
+from repro_torch.obs import EV_SCHED
 from repro_torch.runtime.dfc_shard import ShardedDFCRuntime
 
 
@@ -124,9 +125,14 @@ class MultiThreadDriver:
         if not acts:
             return None
         act = acts[int(self.rng.integers(len(acts)))]
+        obs = self.rt.obs
         if act[0] == "announce":
             t = act[1]
             token, keys, ops, params = self.pending[t][0]
+            if obs.enabled:  # the scheduler's pick, recorded BEFORE the action
+                # so a crash inside it still shows what was being attempted
+                obs.event(EV_SCHED, action="announce", thread=t, token=token,
+                          choices=len(acts))
             # announce may force-retire in-flight chains (slot reclaim, depth
             # > 2); pop the batch only after it lands so a crash inside the
             # announce leaves it resubmittable
@@ -135,6 +141,9 @@ class MultiThreadDriver:
             self._ready[t] = token
             self.trace.append(("announce", t, token))
         else:
+            if obs.enabled:
+                obs.event(EV_SCHED, action="combine", ready=sorted(self._ready),
+                          choices=len(acts))
             self.rt.last_dispatch = []
             self.rt.combine_phase()
             groups = [tuple(g) for g in self.rt.last_dispatch]

@@ -32,10 +32,13 @@ reference's, so either package recovers a root the other wrote::
 The volatile ``step``, the serial durable path, the depth-D pipelined
 durable path (``depth``, ``chain``: up to D-1 dispatched chains kept in
 flight, retired in commit order) and the fused K-phase ``phase_loop`` are
-ported.  The options of later slices raise ``NotImplementedError`` and name
-their slice: per-side lanes (``split_lanes``), resharding (``split_shard``,
-``merge_shards``, recovery of a resharded root) and observability (a live
-``obs``).
+ported, with the flight recorder's hooks (``obs``, a ``FabricObserver``):
+the reference's events at the same protocol steps (topology, announce,
+dispatch, retire, epoch commit, drain, recovery begin/end and one verdict
+per thread) and its per-shard gauges.  The options of later slices raise
+``NotImplementedError`` and name their slice: per-side lanes
+(``split_lanes``) and resharding (``split_shard``, ``merge_shards``,
+recovery of a resharded root).
 """
 
 from __future__ import annotations
@@ -80,7 +83,17 @@ from repro_torch.kernels.dfc_reduce.ops import (
     dfc_hetero_multi_phase_step,
     select_touched,
 )
-from repro_torch.obs import EV_EPOCH, NULL_OBS
+from repro_torch.obs import (
+    EV_ANNOUNCE,
+    EV_DISPATCH,
+    EV_DRAIN,
+    EV_EPOCH,
+    EV_RECOVER,
+    EV_RETIRE,
+    EV_TOPOLOGY,
+    EV_VERDICT,
+    NULL_OBS,
+)
 
 # runtime-level response kind: op rejected because its shard's announcement
 # lanes were full this phase — never applied, safe to re-announce.
@@ -90,7 +103,6 @@ _HASH_MULT = 2654435761  # Knuth multiplicative hashing constant
 
 _SLICE_LANES = "the per-side lanes slice"
 _SLICE_RESHARD = "the resharding slice"
-_SLICE_OBS = "the observability slice"
 
 
 class StaleTokenError(LookupError):
@@ -627,8 +639,6 @@ class ShardedDFCRuntime:
     ):
         if split_lanes:
             raise NotImplementedError(f"split_lanes waits for {_SLICE_LANES}")
-        if obs is not None and obs.enabled:
-            raise NotImplementedError(f"a live obs waits for {_SLICE_OBS}")
         kinds = [kind] * n_shards if isinstance(kind, str) else list(kind)
         if len(kinds) != n_shards:
             raise ValueError("per-shard kind list must have n_shards entries")
@@ -691,7 +701,23 @@ class ShardedDFCRuntime:
         else:
             self.state = state
         self.meta = _init_meta(kinds, self.device) if meta is None else meta
-        self.obs = NULL_OBS
+        # a live observer is shared with the SimFS, so the persistence hooks
+        # and the protocol events land in one timeline; the hooks run after
+        # the counters, the injector and the durable work
+        self.obs = obs if obs is not None else NULL_OBS
+        if fs is not None and self.obs.enabled:
+            fs.obs = self.obs
+            self.obs.event(
+                EV_TOPOLOGY,
+                kinds=list(kinds),
+                n_shards=n_shards,
+                n_buckets=self.n_buckets,
+                capacity=capacity,
+                lanes=lanes,
+                depth=self.depth,
+                chain=self.chain,
+                split_lanes=False,
+            )
 
     # ----------------------------------------------------- state as groups
     @property
@@ -817,6 +843,9 @@ class ShardedDFCRuntime:
         self.fs.write(
             self._valid_path(thread), str(2 | n_op).encode(), tag="announce"
         )  # MSB
+        if self.obs.enabled:
+            self.obs.event(EV_ANNOUNCE, thread=int(thread), token=int(token),
+                           slot=n_op, n=len(ann["ops"]))
         return n_op, ann
 
     def _register_live(self, thread: int, slot: int, token: int, keys, ops, params
@@ -1051,10 +1080,20 @@ class ShardedDFCRuntime:
             for info in batches
             if info["threads"]
         ]
+        if self.obs.enabled:
+            self.obs.event(
+                EV_DISPATCH,
+                batches=[[[seg["thread"], seg["token"]] for seg in info["threads"]]
+                         for info in batches],
+                inflight=len(self._inflight),
+            )
+            self.obs.metrics.gauge("inflight_chains", len(self._inflight))
         # retire the oldest chains, in commit order, while the device
         # combines: at most depth-1 chains stay in flight
         while len(self._inflight) > self.depth - 1:
             self._retire(self._inflight.popleft())
+        if self.obs.enabled:
+            self.obs.observe_fabric(self)
         return [seg["thread"] for info in batches for seg in info["threads"]]
 
     _STAGED = ("resp", "kinds", "epochs", "phases_cum", "ops_cum", "epochs_before")
@@ -1109,19 +1148,26 @@ class ShardedDFCRuntime:
             touched = [int(s) for s in np.nonzero(e_b != prev_epochs)[0]]
             if not info["threads"] and not touched:
                 continue  # chain padding: no durable work
-            retired += self._commit_phase(
+            files = self._commit_phase(
                 b, touched, e_b, info["shard"], info["threads"], resp, kinds,
                 phases_cum, ops_cum, batch_shard_state, fl["repoch"],
             )
+            retired += [seg["thread"] for seg in info["threads"]]
+            if self.obs.enabled:
+                self.obs.event(
+                    EV_RETIRE, batch=b,
+                    threads=[[seg["thread"], seg["token"]] for seg in info["threads"]],
+                    touched=touched, files=len(files),
+                )
             prev_epochs = e_b
         return retired
 
     def _commit_phase(self, b, touched, e_b, shard, segs, resp, kinds, phases_cum,
-                      ops_cum, shard_state, repoch) -> List[int]:
+                      ops_cum, shard_state, repoch) -> List[str]:
         """The durable tail of one phase: slot persists of the touched
         shards, response records of the combined announcements ``segs``, ONE
         pfence, then the per-shard two-increment epoch commits.  Returns the
-        threads whose responses it wrote."""
+        files the phase's pfence covered."""
         files: List[str] = []
         for s in touched:
             files += self._persist_shard(
@@ -1150,7 +1196,7 @@ class ShardedDFCRuntime:
             self.fs.fsync([self._epoch_path(s)], tag="epoch")
             self.fs.write(self._epoch_path(s), str(e).encode(), tag="epoch")
             self.obs.event(EV_EPOCH, shard=s, epoch=e)
-        return [seg["thread"] for seg in segs]
+        return files
 
     def flush(self) -> List[int]:
         """Retire every in-flight chain, oldest first: persist their shard
@@ -1240,6 +1286,10 @@ class ShardedDFCRuntime:
             phase_axis=phase_axis,
         )
         self.last_dispatch = [((t, tok),) for t, tok, *_ in batches]
+        if self.obs.enabled:
+            self.obs.event(EV_DISPATCH, fused=True, k_phases=k_phases, pad=pad,
+                           phase_axis=phase_axis,
+                           batches=[[t, tok] for t, tok, *_ in batches])
 
         # the intent log on the host: one transfer per stacked leaf
         resp_np = _to_np(resp)
@@ -1266,12 +1316,17 @@ class ShardedDFCRuntime:
             e_j = epochs[j]
             touched = [int(s) for s in np.nonzero(e_j != prev_epochs)[0]]
             seg = {"thread": thread, "token": token, "slot": slot, "off": 0, "n": n}
-            self._commit_phase(j, touched, e_j, self.route_host(keys), [seg], resp_np,
-                               kinds_np, phases_cum, ops_cum, phase_shard_state,
-                               self.r_epoch)
+            files = self._commit_phase(j, touched, e_j, self.route_host(keys), [seg],
+                                       resp_np, kinds_np, phases_cum, ops_cum,
+                                       phase_shard_state, self.r_epoch)
+            if self.obs.enabled:
+                self.obs.event(EV_DRAIN, phase=j, thread=thread, token=token,
+                               touched=touched, files=len(files))
             prev_epochs = e_j
             out_records.append(
                 dict(self._read_ann(thread, slot)["val"], thread=thread, token=token))
+        if self.obs.enabled:
+            self.obs.observe_fabric(self)
         return out_records
 
     def split_shard(self, *args, **kwargs):
@@ -1352,7 +1407,16 @@ class ShardedDFCRuntime:
         re-announce (``replay_pending``).  A root that holds a durable
         routing record (a fabric that resharded) raises until the
         resharding slice.
+
+        A live ``obs`` is attached first, so recovery's own repair writes
+        join the timeline the crashed run left (the recorder continues the
+        sidecar's ``seq``); recovery then adds one verdict event per
+        announced thread and flushes the sidecar.
         """
+        obs = obs if obs is not None else NULL_OBS
+        if obs.enabled:
+            fs.obs = obs
+            obs.event(EV_RECOVER, stage="begin")
         if (fs.read(cls._REPOCH_PATH) or fs.read(cls._INTENT_PATH)
                 or fs.read("routing/slot0.json") or fs.read("routing/slot1.json")):
             raise NotImplementedError(
@@ -1464,6 +1528,23 @@ class ShardedDFCRuntime:
                 rt._register_live(
                     t, lsb, ann["token"], ann["keys"], ann["ops"], ann["params"]
                 )
+        if obs.enabled:
+            for t, rep in report.items():
+                if rep["token"] is None:
+                    continue
+                obs.event(
+                    EV_VERDICT, thread=t, token=rep["token"],
+                    applied=[bool(v.applied) for v in rep["ops"]],
+                    prev_token=(rep["prev"] or {}).get("token"),
+                    prev_applied=[bool(v.applied)
+                                  for v in (rep["prev"] or {}).get("ops", [])],
+                )
+            obs.event(
+                EV_RECOVER, stage="end", repoch=rt.r_epoch,
+                epochs=[int(e) for e in committed_epochs],
+                threads=sum(1 for r in report.values() if r["token"] is not None),
+            )
+            obs.flush()
         return rt, report
 
     def replay_pending(self, report: Dict[int, Dict[str, Any]]) -> List[int]:

@@ -214,12 +214,20 @@ def test_later_slice_options_raise():
         TV.RequestQueueTier(split_lanes=True, device="cpu")
     with pytest.raises(NotImplementedError, match="resharding"):
         TV.RequestQueueTier(reshard_backlog=4, device="cpu")
-    for flags in (["--split-lanes"], ["--reshard-backlog", "4"], ["--trace"],
-                  ["--k-classes", "3"], ["--window", "16"]):
+    for flags, slice_ in ((["--split-lanes"], "per-side lanes"),
+                          (["--reshard-backlog", "4"], "resharding"),
+                          (["--window", "16"], "long-context")):
         args = TV.build_parser().parse_args(
             ["--arch", "smollm-135m", "--reduced", "--tier-only", "--device", "cpu", *flags])
-        with pytest.raises(NotImplementedError):
+        with pytest.raises(NotImplementedError, match=slice_):
             TV.serve(args)
+    # the continuous server and the flight recorder are ported: they run
+    args = TV.build_parser().parse_args(
+        ["--arch", "smollm-135m", "--reduced", "--tier-only", "--device", "cpu",
+         "--sessions", "4", "--k-classes", "3", "--trace"])
+    with contextlib.redirect_stdout(io.StringIO()):
+        out = TV.serve(args)
+    assert out["completed"] == 4 and out["obs"].enabled
 
 
 # ---------------------------------------------------------------- launcher
