@@ -133,7 +133,43 @@ script exits non-zero without printing a result):
                   the tier-only run dispatched and timed on the busiest,
                   and the model kernels held and timed at batch 1 (the
                   resumed prefills' S included), under ``at`` of their
-                  records, with ``continuous_launches``.
+                  records, with ``continuous_launches``,
+  9. lanes and resharding -- (a) ``dfc_lane_combine_step`` on both lanes
+                  and ``dfc_handoff_combine_step`` on phase 4's 64 queue and
+                  64 deque shards (phase 2's routed batch on the state after
+                  phase 1, lanes 16,384), kernel against plain, bit for bit;
+                  (b) phase 4's flags plus ``--split-backlog SPLIT_N``: the
+                  split lines, each donor's buckets halved in the table,
+                  every kind's kernel once a step on its (grown) group, the
+                  grown kind's kernel at S + 1 on the first batch after the
+                  first split bit-equal to plain, ops/s beside phase 4's;
+                  (c) ``DURABLE`` plus ``--split-backlog 64`` at depth 1 and
+                  3 (the CPU reference's split lines, pwb/op and pfence/op),
+                  the kernel and plain roots equal at depth 1 over the
+                  first 10 phases (both splits among them), then two
+                  splits and a merge on 16 mixed shards crashed at six
+                  persistence ops (inside both split transactions and the
+                  merge, before and after the rEpoch commit), recovered
+                  (the expected topology) and replayed exactly once; (d)
+                  ``split_lanes=True`` on 16 mixed shards: the serial,
+                  pipelined (depth 3, chain 4), seeded-driver and
+                  ``phase_loop`` (both axes) drives, kernel roots equal to
+                  plain and ``phase_loop``'s to the serial drive's, crashes
+                  at six ops (both sides of a handoff commit among them)
+                  recovered exactly once, and the jitter schedule's pwb/op
+                  and pfence/op equal the CPU's; (e) ``smollm-135m`` at
+                  phase 7's durable priority flags plus ``--split-lanes
+                  --reshard-backlog 4 --trace``: ``splits=1``, the lane
+                  pairs and pwb/op / pfence/op of the reference's
+                  ``--tier-only`` run, exact launch counts (the tier's
+                  kernels once per traced dispatch), the traced root equal
+                  to an untraced tier-only run's, the first prefill
+                  replayed on the plain backend, and crashes halfway and
+                  inside the split transaction (probed on a tier-only run)
+                  resumed exactly once with the split topology
+                  (``queues=5``).  Each kernel record gains
+                  ``lanes_reshard_launches`` (the main-path runs of (b)-(e),
+                  the comparisons excluded).
 
 Phase 3 also holds the three model kernels (RMSNorm, flash attention, the
 selective scan) against their plain versions at model shapes, in bf16 and
@@ -157,6 +193,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import functools
 import io
 import json
 import math
@@ -168,7 +205,7 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
-ALL_PHASES = ("1", "2", "3", "4", "5", "6", "7", "8")
+ALL_PHASES = ("1", "2", "3", "4", "5", "6", "7", "8", "9")
 SOURCE = "src/repro_torch/kernels/dfc_reduce/csrc/dfc_reduce.cu"
 GRID_SOURCE = "src/repro_torch/kernels/dfc_reduce/csrc/phase_grid.cu"
 KINDS = ("stack", "queue", "deque", "map")
@@ -253,6 +290,9 @@ DEVICE_CALLS = 20  # calls per profiler window: a kernel's device_ms
 HOST_CALLS = 200  # calls per host-clock window: its host_us
 
 
+VOLATILE = {}  # phase 4's unsplit run, printed beside phase 9's split run
+
+
 class SmokeFailure(RuntimeError):
     pass
 
@@ -323,11 +363,13 @@ def cuda_ms(fn, reps, warmup=1):
 
 def run_serve(serve_shards, args, hook=None, obs=None):
     """``serve_shards.serve`` with its report echoed, minus the per-shard
-    load line (256 entries at full width)."""
+    load line (256 entries at full width); the report's lines land in
+    ``out["lines"]``."""
     buf = io.StringIO()
     with contextlib.redirect_stdout(buf):
         out = serve_shards.serve(args, hook=hook, obs=obs)
-    for line in buf.getvalue().splitlines():
+    out["lines"] = buf.getvalue().splitlines()
+    for line in out["lines"]:
         if not line.startswith("shard load:"):
             print(f"  serve_shards: {line}", flush=True)
     return out
@@ -973,6 +1015,7 @@ def phase_volatile(torch, T, K, serve_shards, records):
     # the first phase carries one-time warm-up, so the breakdown reads the
     # median step beside the mean
     step_ms = statistics.median(out["phase_seconds"]) * 1e3
+    VOLATILE["text"] = f"{out['n_ops'] / out['seconds']:.1f} ops/s, {step_ms:.3f} ms median phase"
     print(f"volatile: {out['n_ops'] / out['seconds']:.1f} ops/s, "
           f"{out['seconds'] / out['phases'] * 1e3:.3f} ms/step mean, {step_ms:.3f} ms "
           f"median, first step {out['phase_seconds'][0] * 1e3:.3f} ms, "
@@ -2241,6 +2284,512 @@ def phase_continuous(torch, K, records, params):
     print(f"continuous: launches on the path {totals}, tier {tier_totals} {at()}", flush=True)
 
 
+# ------------------------------------------------------ lanes and resharding
+# phase 9 (b): the full-width fabric with --split-backlog SPLIT_N.  From the
+# host routing alone (lanes = batch, so nothing overflows and ops_combined is
+# the routed count): shard 0 splits after phase 6 and again after phase 7,
+# then holds one bucket, so two splits land in the 32 phases
+SPLIT_N = 16384
+# phase 9 (c): examples/serve_shards.py at DURABLE + --split-backlog 64 on the
+# CPU: (pwb/op, pfence/op) by depth, and its split lines
+DURABLE_SPLIT_N = 64
+DURABLE_SPLIT = {1: ("0.922", "0.178"), 3: ("1.609", "0.300")}
+DURABLE_SPLIT_LINES = ["split: phase 1: shard 0 -> +shard 16",
+                       "split: phase 2: shard 0 -> +shard 17"]
+# phase 9 (d): the jitter schedule's steady-state (pwb/op, pfence/op) on the
+# CPU, both packages, by (split lanes, skewed)
+JITTER = {(False, False): (0.5, 0.25), (False, True): (1.25, 0.5),
+          (True, False): (0.5, 0.25), (True, True): (0.9375, 0.5)}
+# phase 9 (e): phase 7's durable priority run with per-side lanes and an
+# autosplit; the reference launcher's --tier-only report at these flags
+LANE_SERVE = DURABLE_SERVE + ["--split-lanes", "--reshard-backlog", "4"]
+LANE_SERVE_LINES = ("split lanes: head/tail epochs s0=[6,8] s1=[0,0] s2=[8,8] s3=[4,4] s6=[4,4]",
+                    "pwb/op: 10.41  pfence/op: 3.91")
+
+
+def op_marks(events):
+    """The persistence-op index (1-based, the fault injector's count) at
+    which each traced event was recorded: pwb and pfence events count."""
+    n, out = 0, []
+    for e in events:
+        if e["ev"] in ("pwb", "pfence"):
+            n += 1
+        out.append((n, e))
+    return out
+
+
+def lanes_device_steps(torch, T, seen):
+    """(a) The per-side steps at the main path's width: each lane's masked
+    step and the handoff step of phase 2's routed batch on the queue and
+    deque groups after phase 1, kernel against plain, bit for bit."""
+    from repro_torch.kernels.dfc_reduce import ops as O
+    routed, kinds = seen["routed"], seen["kinds0"]
+    for kind in ("queue", "deque"):
+        rows = torch.tensor([s for s, k in enumerate(kinds) if k == kind], device="cuda")
+        st, g_ops, g_par = seen["state"][kind], routed[0][rows], routed[1][rows]
+        steps = [(f"{kind} {name} lane", functools.partial(
+            O.dfc_lane_combine_step, st, g_ops, g_par, kind=kind, lane=lane))
+            for name, lane in (("head", T.LANE_HEAD), ("tail", T.LANE_TAIL))]
+        steps.append((f"{kind} handoff", functools.partial(
+            O.dfc_handoff_combine_step, st, g_ops, g_par, kind=kind)))
+        for what, fn in steps:
+            outs_k = fn(backend="kernel")
+            torch.cuda.synchronize()
+            outs_p = fn(backend="ref")
+            compare_states(what, outs_k[0], outs_p[0])
+            compare_outputs(what, outs_k[1:], outs_p[1:])
+        live = T.lane_of_ops(kind, g_ops)
+        print(f"lanes (a) {kind}: S,N={tuple(g_ops.shape)}, {int((live == T.LANE_HEAD).sum())} "
+              f"head and {int((live == T.LANE_TAIL).sum())} tail ops; both lane steps and the "
+              "handoff step bit-equal to plain", flush=True)
+
+
+def lanes_full_width(torch, T, K, serve_shards, totals):
+    """(b) The full-width fabric with --split-backlog: the split lines, the
+    donor's buckets halved, every kind's kernel once a step on its (grown)
+    group, the grown kind's kernel at S + 1 on the first batch after the
+    first split, bit-equal to plain.  Returns what (a) needs."""
+    import numpy as np
+    from repro_torch.runtime.dfc_shard import route_keys_host
+    args = serve_shards.build_parser().parse_args(FULL + ["--split-backlog", str(SPLIT_N)])
+    kinds_all = sorted(T.STRUCTS)
+    fns = calls()
+    K.reset_launches()
+    seen = {"launch_prev": dict(K.LAUNCHES), "n_prev": args.shards, "grown": None}
+
+    def hook(phase, rt, keys, ops, params, resp, kinds):
+        touched = {rt.kinds[s] for s in set(rt.route_host(keys).tolist())}
+        for k in kinds_all:
+            grew = K.LAUNCHES[k] - seen["launch_prev"][k]
+            check(grew == (1 if k in touched else 0),
+                  f"lanes (b) phase {phase}: {k} kernel launched {grew} times")
+            check(rt.groups[k].epoch.shape[0] == rt.kinds.count(k),
+                  f"lanes (b) phase {phase}: the {k} group has the wrong row count")
+        if rt.n_shards > seen["n_prev"] and seen["grown"] is None:
+            # the first batch after the first split: the state it met is the
+            # previous phase's plus the new shard's fresh row
+            kind = rt.kinds[-1]
+            pre = T.map_state(lambda leaf, f: torch.cat([leaf, f[None]]),
+                              seen["prev_groups"][kind],
+                              T.STRUCTS[kind].init(rt.capacity, device="cuda"))
+            routed = rt.route(keys, ops, params)
+            rows = torch.tensor([s for s, k in enumerate(rt.kinds) if k == kind], device="cuda")
+            kargs = kernel_inputs(kind, pre, routed[0][rows], routed[1][rows], routed[6][rows])
+            saved = dict(K.LAUNCHES)  # a comparison, not the main path
+            kfn, pfn = fns[kind]
+            outs_k = kfn(*kargs)
+            torch.cuda.synchronize()
+            compare_outputs(f"{kind} at S+1 after the split", outs_k, pfn(*kargs))
+            K.LAUNCHES.update(saved)
+            shape = tuple(kargs[5].shape if kind == "map" else kargs[0].shape)
+            check(shape[0] == seen["prev_groups"][kind].epoch.shape[0] + 1,
+                  f"lanes (b): the grown {kind} group is not S+1: {shape}")
+            seen["grown"] = (phase, kind, shape)
+        if phase == 1:
+            seen["state"] = {k: T.map_state(torch.clone, st) for k, st in rt.groups.items()}
+        if phase == 2:
+            seen["routed"], seen["kinds0"] = rt.route(keys, ops, params), list(rt.kinds)
+        seen["prev_groups"] = dict(rt.groups)
+        seen["n_prev"] = rt.n_shards
+        seen["launch_prev"] = dict(K.LAUNCHES)
+
+    out = run_serve(serve_shards, args, hook=hook)
+    for k, v in K.LAUNCHES.items():
+        totals[k] += v
+    rt = out["rt"]
+    splits = out["splits"]
+    check(2 <= len(splits) <= 4, f"lanes (b): {len(splits)} splits, expected 2-4")
+    check([ln for ln in out["lines"] if ln.startswith("split:")]
+          == [f"split: phase {p}: shard {d} -> +shard {n}" for p, d, n in splits],
+          "lanes (b): the split lines do not match the splits")
+    table = (np.arange(4 * args.shards) % args.shards).astype(np.int32)
+    for p, donor, new in splits:
+        held = np.nonzero(table == donor)[0]
+        table[held[1::2]] = new
+        check((table == donor).sum() == (len(held) + 1) // 2 and (table == new).sum()
+              == len(held) // 2, f"lanes (b): split at phase {p} did not halve shard {donor}")
+    check(np.array_equal(table, rt.table), "lanes (b): the routing table differs from the splits'")
+    check(seen["grown"] is not None, "lanes (b): no batch ran after the first split")
+    check(route_keys_host(np.arange(4096), rt.n_shards, rt.table).max() == rt.n_shards - 1,
+          "lanes (b): the last new shard is unrouted")
+    step_ms = statistics.median(out["phase_seconds"]) * 1e3
+    base = VOLATILE.get("text", "phase 4 not run")
+    # a phase that split holds the split too (the drain, the group's new row)
+    split_ms = [round(out["phase_seconds"][p] * 1e3, 3) for p, _, _ in splits]
+    print(f"lanes (b): --split-backlog {SPLIT_N}: splits {splits}, {rt.n_shards} shards; "
+          f"the grown {seen['grown'][1]} kernel bit-equal at S,N={seen['grown'][2]} on phase "
+          f"{seen['grown'][0]}; {out['n_ops'] / out['seconds']:.1f} ops/s, {step_ms:.3f} ms "
+          f"median phase, the phases that split {split_ms} ms (unsplit, phase 4: {base}; not "
+          f"gated); launches {dict(K.LAUNCHES)}", flush=True)
+    return seen
+
+
+def lanes_durable(torch, T, K, serve_shards, totals):
+    """(c) The durable width with --split-backlog 64 at depth 1 and 3 (the
+    CPU reference's split lines and counts), kernel against plain at depth
+    1 over 10 phases, then splits and a merge on a fabric of our own,
+    crashed at six ops across both split transactions and the merge,
+    recovered exactly once."""
+    import numpy as np
+    from repro_torch.checkpoint.dfc_checkpoint import CrashNow, FaultInjector, SimFS
+    from repro_torch.obs import FabricObserver, durable_digest
+    from repro_torch.runtime.dfc_shard import ShardedDFCRuntime
+
+    for depth in (1, 3):
+        K.reset_launches()
+        out = run_serve(serve_shards, serve_shards.build_parser().parse_args(
+            DURABLE + ["--split-backlog", str(DURABLE_SPLIT_N), "--depth", str(depth)]))
+        for k, v in K.LAUNCHES.items():
+            totals[k] += v
+        got = (f"{out['pwb'] / out['n_ops']:.3f}", f"{out['pfence'] / out['n_ops']:.3f}")
+        check(got == DURABLE_SPLIT[depth] and [ln for ln in out["lines"] if ln.startswith(
+            "split:")] == DURABLE_SPLIT_LINES,
+              f"lanes (c) depth {depth}: pwb/op, pfence/op {got} and splits {out['splits']}, "
+              f"the reference's {DURABLE_SPLIT[depth]} and {DURABLE_SPLIT_LINES}")
+        print(f"lanes (c) depth {depth}: splits {out['splits']}, pwb/op {got[0]} pfence/op "
+              f"{got[1]} (the reference's), {out['n_ops'] / out['seconds']:.1f} ops/s, "
+              f"launches {dict(K.LAUNCHES)}", flush=True)
+    # kernel against plain at depth 1 on the first 10 phases (both splits
+    # among them): the map's plain version walks lane by lane on the card
+    digests = {}
+    argv = DURABLE + ["--split-backlog", str(DURABLE_SPLIT_N), "--phases", "10"]
+    for backend in ("kernel", "ref"):
+        serve_shards.ShardedDFCRuntime = functools.partial(ShardedDFCRuntime, backend=backend)
+        try:
+            out = run_serve(serve_shards, serve_shards.build_parser().parse_args(argv))
+        finally:
+            serve_shards.ShardedDFCRuntime = ShardedDFCRuntime
+        digests[backend] = out["digest"]
+    check(digests["kernel"] == digests["ref"],
+          "lanes (c): kernel and plain backends wrote different durable roots")
+
+    kinds = [sorted(KINDS)[s % 4] for s in range(16)]
+    lanes, capacity, threads, per = 256, 1024, 4, 64
+    rng = np.random.default_rng(9)
+    uniq = rng.permutation(4096)[: 3 * threads * per].reshape(3, threads, per)
+    ins = [[(uniq[p, t], np.ones(per, np.int64),
+             (1 + (p * threads + t) * per + np.arange(per)).astype(np.float32))
+            for t in range(threads)] for p in range(3)]
+    everything = sorted(float(v) for b in sum(ins, []) for v in b[2])
+
+    def drive(root, crash_at=None, obs=None, backend="kernel"):
+        inj = FaultInjector(crash_at=crash_at)
+        rt = ShardedDFCRuntime(kinds, 16, capacity, lanes, fs=SimFS(root, inj), n_threads=threads,
+                               n_buckets=64, backend=backend, obs=obs, device="cuda")
+        donor = None
+        try:
+            for p, batches in enumerate(ins):
+                if p == 1:  # split the fullest shard
+                    donor = int(np.argmax(rt.shard_sizes()))
+                    rt.split_shard(donor)
+                if p == 2:  # split again, then fold the first new shard back
+                    rt.split_shard(int(np.argmax(rt.shard_sizes())))
+                    rt.merge_shards(16, donor)
+                for t, b in enumerate(batches):
+                    rt.announce(t, *b, token=p + 1)
+                rt.combine_phase()
+            rt.flush()
+        except CrashNow:
+            return rt, inj.count, True
+        return rt, inj.count, False
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_reshard_") as tmp:
+        tmp = Path(tmp)
+        obs = FabricObserver(trace_capacity=1 << 20)
+        K.reset_launches()
+        rt, total, crashed = drive(tmp / "dry", obs=obs)
+        for k, v in K.LAUNCHES.items():
+            totals[k] += v
+        check(not crashed and _values(rt, rt.kinds) == everything, "lanes (c): the dry run")
+        drive(tmp / "ref", backend="ref")
+        check(durable_digest(tmp / "dry") == durable_digest(tmp / "ref"),
+              "lanes (c): the reshard drive's kernel and plain roots differ")
+        marks = [(n, e["op"]) for n, e in op_marks(obs.trace.events()) if e["ev"] == "reshard"]
+        check([op for _, op in marks] == ["split", "split", "merge"], f"lanes (c): {marks}")
+        (c_a, _), (c_b, _), (c_m, _) = marks
+        # the rEpoch commit's even write is op c: c-4 falls after the intent's
+        # pfence and before the commit (rolled back), c after it (rolled
+        # forward); c_m + 2 is the merge's first shard-epoch pfence
+        points = [c_a - 4, c_a, c_b - 1, c_m, c_m + 2, total - 1]
+        # the topology each crash must recover: (shard count, shard 16 routed)
+        topology = [(16, False), (17, True), (17, True), (18, False), (18, False), (18, False)]
+        for k, want in zip(points, topology):
+            _, _, crashed = drive(tmp / f"c{k}", crash_at=k)
+            check(crashed, f"lanes (c): no crash at op {k}")
+            rt, report = ShardedDFCRuntime.recover(
+                SimFS(tmp / f"c{k}"), kind=kinds, n_shards=16, capacity=capacity, lanes=lanes,
+                n_threads=threads, n_buckets=64, device="cuda")
+            check((rt.n_shards, 16 in rt.table) == want,
+                  f"lanes (c): crash at op {k} recovered {rt.n_shards} shards, table "
+                  f"{rt.table.tolist()}; expected {want}")
+            rt.replay_pending(report)
+            surfaced = {t: report[t]["token"] or 0 for t in range(threads)}
+            for p, batches in enumerate(ins):
+                for t, b in enumerate(batches):
+                    if p + 1 > surfaced[t]:
+                        rt.announce(t, *b, token=p + 1)
+                rt.combine_phase()
+            rt.flush()
+            check(_values(rt, rt.kinds) == everything,
+                  f"lanes (c): crash at op {k}: not exactly once")
+        print(f"lanes (c): splits and a merge on 16 mixed shards, {total} persistence ops "
+              f"(rEpoch commits at ops {c_a}, {c_b}, {c_m}); kernel and plain roots equal "
+              f"({durable_digest(tmp / 'dry')}); crash points {points} recovered and replayed "
+              "exactly once", flush=True)
+
+
+def queue_lane_cost(torch, root, split, skewed):
+    """Steady-state (pwb/op, pfence/op) of a one-shard queue on the card,
+    one lane or two, under arrival skew or drained (after the JAX package's
+    elimination-jitter test)."""
+    from repro_torch.checkpoint.dfc_checkpoint import SimFS
+    from repro_torch.core import torch_dfc as T
+    from repro_torch.runtime.dfc_shard import ShardedDFCRuntime
+    m, n_phases = 8, 6
+    fs = SimFS(root)
+    rt = ShardedDFCRuntime("queue", 1, 256, 32, fs=fs, n_threads=1, split_lanes=split,
+                           device="cuda")
+    key = rt.key_for_shard(0)
+    token = [0]
+
+    def phase(ops, params):
+        token[0] += 1
+        rt.announce(0, [key] * len(ops), ops, params, token=token[0])
+        rt.combine_phase()
+
+    if skewed:
+        phase([T.OP_PUSH] * (3 * m), [float(i) for i in range(3 * m)])
+        for p in (1, 2):
+            phase([T.OP_PUSH] * m, [100.0 * p + i for i in range(m)])
+            phase([T.OP_POP] * m, [0.0] * m)
+        base = dict(fs.stats)
+        for p in range(n_phases):
+            phase([T.OP_PUSH] * m, [100.0 * (10 + p) + i for i in range(m)])
+            phase([T.OP_POP] * m, [0.0] * m)
+    else:
+        for _ in (1, 2):
+            phase([T.OP_PUSH] * m + [T.OP_POP] * m, [float(i) for i in range(2 * m)])
+        base = dict(fs.stats)
+        for p in range(n_phases):
+            phase([T.OP_PUSH] * m + [T.OP_POP] * m, [10.0 * p + i for i in range(2 * m)])
+    n = n_phases * 2 * m
+    return ((fs.stats["pwb"] - base["pwb"]) / n, (fs.stats["pfence"] - base["pfence"]) / n)
+
+
+def lanes_library(torch, T, K, totals):
+    """(d) Per-side lanes through the library: 16 mixed shards, the serial,
+    pipelined (depth 3, chain 4), seeded-driver and phase_loop drives,
+    kernel against plain; crashes at six ops, both sides of one handoff
+    commit among them, recovered exactly once; the jitter schedule's
+    counts."""
+    import numpy as np
+    from repro_torch.checkpoint.dfc_checkpoint import CrashNow, FaultInjector, SimFS
+    from repro_torch.obs import FabricObserver, durable_digest
+    from repro_torch.runtime.announce_driver import MultiThreadDriver
+    from repro_torch.runtime.dfc_shard import ShardedDFCRuntime, route_keys_host
+
+    kinds = [sorted(KINDS)[s % 4] for s in range(16)]
+    lanes, capacity, threads, per = 256, 1024, 4, 64
+    rng = np.random.default_rng(5)
+    opmax = np.asarray([T.STRUCTS[k].n_opcodes for k in kinds])
+    sched = []
+    for _ in range(3):
+        batches = []
+        for _ in range(threads):
+            keys = rng.integers(0, 4096, per)
+            ops = rng.integers(0, opmax[route_keys_host(keys, 16)])
+            batches.append((keys, ops, (rng.random(per) * 100).round(2).astype(np.float32)))
+        sched.append(batches)
+
+    def fabric(root, crash_at=None, backend="kernel", depth=1, chain=1, obs=None, split=True):
+        inj = FaultInjector(crash_at=crash_at)
+        fs = SimFS(root, inj)
+        return ShardedDFCRuntime(kinds, 16, capacity, lanes, fs=fs, n_threads=threads,
+                                 backend=backend, depth=depth, chain=chain, split_lanes=split,
+                                 obs=obs, device="cuda"), fs, inj
+
+    def drive(root, crash_at=None, **kw):
+        rt, fs, inj = fabric(root, crash_at, **kw)
+        done = []
+        try:
+            for p, batches in enumerate(sched):
+                for t, b in enumerate(batches):
+                    rt.announce(t, *b, token=p + 1)
+                rt.combine_phase()
+                done.append(p)
+            rt.flush()
+        except CrashNow:
+            return rt, done, True, inj.count, fs
+        return rt, done, False, inj.count, fs
+
+    def counted(fn):
+        K.reset_launches()
+        out = fn()
+        for k, v in K.LAUNCHES.items():
+            totals[k] += v
+        return out
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_lanes_") as tmp:
+        tmp = Path(tmp)
+        roots = {}
+        for name, kw in (("lock", {"chain": threads}), ("pipe", {"depth": 3, "chain": threads})):
+            counted(lambda: drive(tmp / name, **kw))
+            drive(tmp / f"{name}_ref", backend="ref", **kw)
+            roots[name] = durable_digest(tmp / name)
+            check(roots[name] == durable_digest(tmp / f"{name}_ref"),
+                  f"lanes (d) {name}: kernel and plain roots differ")
+        # the cost of the split-lane commit: the serial drive, one lane and
+        # two, on the host clock (the durable path is host-bound)
+        cost = {}
+        for split in (False, True):
+            t1 = time.perf_counter()
+            *_, fs = drive(tmp / f"cost{int(split)}", split=split)
+            cost[split] = (time.perf_counter() - t1, fs.stats["pwb"], fs.stats["pfence"])
+        flat = [(t, p + 1, *b) for p, batches in enumerate(sched) for t, b in enumerate(batches)]
+        for axis in ("grid", "scan"):
+            rt, _, _ = fabric(tmp / f"loop_{axis}")
+            counted(lambda: rt.phase_loop(flat, phase_axis=axis))
+            check(durable_digest(tmp / f"loop_{axis}") == roots["lock"],
+                  f"lanes (d): phase_loop {axis} differs from the serial drive's root")
+        for backend in ("kernel", "ref"):
+            rt, _, _ = fabric(tmp / f"drv_{backend}", backend=backend)
+            drv = MultiThreadDriver(rt, seed=1)
+
+            def run_driver():
+                for batches in sched:
+                    for t, b in enumerate(batches):
+                        drv.submit(t, *b)
+                    drv.run()
+            counted(run_driver) if backend == "kernel" else run_driver()
+        check(durable_digest(tmp / "drv_kernel") == durable_digest(tmp / "drv_ref"),
+              "lanes (d): the seeded driver's kernel and plain roots differ")
+
+        obs = FabricObserver(trace_capacity=1 << 20)
+        rt, _, crashed, total, _ = drive(tmp / "dry", obs=obs)
+        check(not crashed, "lanes (d): the dry run crashed")
+        pairs = rt.lane_stats()["epochs"]
+        handoffs = [n for n, e in op_marks(obs.trace.events())
+                    if e["ev"] == "epoch_commit" and e.get("mode") == "handoff"]
+        check(handoffs, "lanes (d): the schedule made no handoff commit")
+        c_h = handoffs[0]  # its even pair write; c_h - 1 is the odd pair's pfence
+        points = sorted({total // 6, c_h - 1, c_h, total // 2, 5 * total // 6, total - 1})
+        for k in points:
+            _, done, crashed, _, _ = drive(tmp / f"c{k}", crash_at=k)
+            check(crashed, f"lanes (d): no crash at op {k}")
+            rt, report = ShardedDFCRuntime.recover(
+                SimFS(tmp / f"c{k}"), kind=kinds, n_shards=16, capacity=capacity, lanes=lanes,
+                n_threads=threads, split_lanes=True, device="cuda")
+            rt.replay_pending(report)
+            _exactly_once(rt, sched, done, report, kinds, lanes, capacity)
+        costs = {key: queue_lane_cost(torch, tmp / f"jit{int(key[0])}{int(key[1])}", *key)
+                 for key in JITTER}
+        check(costs == JITTER, f"lanes (d): the jitter schedule's counts {costs}, the CPU's "
+                               f"{JITTER}")
+        check(costs[(True, True)][0] < costs[(False, True)][0],
+              "lanes (d): two lanes do not beat one under skew")
+        print(f"lanes (d): split lanes on 16 mixed shards: serial, depth 3 (chain 4), the seeded "
+              f"driver and phase_loop (grid, scan) kernel roots equal the plain ones and "
+              f"phase_loop the serial root; {total} persistence ops, first handoff commit at op "
+              f"{c_h}; crash points {points} recovered exactly once; the serial drive's lane pairs "
+              f"{pairs}; the serial drive with one lane and two (s, pwb, pfence): "
+              f"{cost[False][0]:.3f} / {cost[True][0]:.3f} s, {cost[False][1:]} / {cost[True][1:]}; "
+              f"jitter "
+              f"pwb/op, pfence/op {costs} (the CPU's)", flush=True)
+
+
+def lanes_serve(torch, K, totals, model_totals, params):
+    """(e) smollm-135m served with per-side lanes and an autosplit, durable
+    and traced: the reference's split and lane lines and counts, exact
+    launch counts, the traced root equal to an untraced tier-only run's, a
+    crash halfway and one inside the split transaction, each resumed
+    exactly once, and the first prefill replayed on the plain backend."""
+    from repro_torch.launch import serve as serve_mod
+    from repro_torch.obs import durable_digest, read_trace
+    base = SERVE_RUNS["smollm-135m"] + LANE_SERVE
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_lanes_serve_") as tmp:
+        whole = Path(tmp) / "whole"
+        out, first, model = serve_and_check(torch, serve_mod, K, base + [
+            "--trace", "--state-dir", str(whole)], params)
+        fabric = dict(K.LAUNCHES)
+        for k, v in fabric.items():
+            totals[k] += v
+        for k, v in model.items():
+            model_totals[k] += v
+        tier = out["tier"]
+        phases = sum(e["ev"] == "dispatch" for e in read_trace(whole / "tier" / "obs" / "trace.jsonl"))
+        want = {k: (phases if k in ("deque", "stack", "map") else 0) for k in K.LAUNCHES}
+        check(fabric == want, f"lanes (e): combine launches {fabric} over {phases} tier phases")
+        p = tier.persistence_stats()
+        pairs = " ".join(f"s{s}=[{e[0]},{e[1]}]" for s, e in sorted(
+            tier.rt.lane_stats()["epochs"].items()))
+        got = (f"split lanes: head/tail epochs {pairs}",
+               f"pwb/op: {p['pwb_per_op']:.2f}  pfence/op: {p['pfence_per_op']:.2f}")
+        check(tier.stats["splits"] == 1 and got == LANE_SERVE_LINES,
+              f"lanes (e): splits={tier.stats['splits']}, {got}; the reference's {LANE_SERVE_LINES}")
+        only = Path(tmp) / "only"
+        out_t = _run_serve(serve_mod, base + ["--tier-only", "--state-dir", str(only)], echo=False)
+        check(durable_digest(whole / "tier") == durable_digest(only / "tier")
+              and tier.rt.fs.pstats.as_dict() == out_t["tier"].rt.fs.pstats.as_dict(),
+              "lanes (e): the traced root or its per-tag counts differ from the tier-only run's")
+        replay_first_batch(torch, out, first, serve_mod.build_parser().parse_args(base).gen)
+        total = tier.rt.fs.injector.count
+        # the split transaction's ops, probed on a traced tier-only run: the
+        # rEpoch commit's even write, after the odd pair's fsync (committed)
+        probe = Path(tmp) / "probe"
+        _run_serve(serve_mod, base + ["--tier-only", "--trace", "--state-dir", str(probe)],
+                   echo=False)
+        marks = [n for n, e in op_marks(read_trace(probe / "tier" / "obs" / "trace.jsonl"))
+                 if e["ev"] == "reshard"]
+        check(len(marks) == 1, f"lanes (e): the probe split {len(marks)} times")
+        for crash in (total // 2, marks[0]):
+            cdir = Path(tmp) / f"crash{crash}"
+            out_c = _run_serve(serve_mod, base + ["--state-dir", str(cdir), "--crash-at",
+                                                  str(crash)], params, echo=False)
+            check(out_c["crashed"], f"lanes (e): no crash at persistence op {crash}")
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                out_r = serve_mod.serve(serve_mod.build_parser().parse_args(
+                    base + ["--state-dir", str(cdir), "--resume", "--expect-exactly-once"]),
+                    params=params)
+            text = buf.getvalue()
+            check(not out_r["crashed"] and out_r["completed"] == 16 and "queues=5" in text
+                  and "exactly-once OK" in text,
+                  f"lanes (e): the resume after a crash at op {crash}: {text[-400:]}")
+            print(f"lanes (e): crash at persistence op {crash} of {total}, resumed: "
+                  + next(ln for ln in text.splitlines() if ln.startswith("request tier:"))[:60]
+                  + "..., exactly once", flush=True)
+        print(f"lanes (e): smollm-135m with --split-lanes --reshard-backlog 4: splits=1, "
+              f"{got[0]}, {got[1]} (the reference's); {phases} tier phases, launches {fabric}, "
+              f"model {model}; traced root equal to the tier-only run's", flush=True)
+
+
+def phase_lanes_reshard(torch, T, K, serve_shards, records, params):
+    """Phase 9: per-side lanes and resharding, (a)-(e) above; each
+    kernel's record gains the launches of (b)-(e) (the comparisons with
+    the plain versions excluded) under ``lanes_reshard_launches``."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import init_params
+    t0 = time.perf_counter()
+    totals = {k: 0 for k in K.LAUNCHES}
+    model_totals = {k: 0 for k in MODEL_KERNELS}
+    seen = lanes_full_width(torch, T, K, serve_shards, totals)
+    lanes_device_steps(torch, T, seen)
+    del seen
+    torch.cuda.empty_cache()
+    print(f"lanes (a), (b): {time.perf_counter() - t0:.1f} s into phase 9", flush=True)
+    lanes_durable(torch, T, K, serve_shards, totals)
+    print(f"lanes (c): {time.perf_counter() - t0:.1f} s into phase 9", flush=True)
+    lanes_library(torch, T, K, totals)
+    print(f"lanes (d): {time.perf_counter() - t0:.1f} s into phase 9", flush=True)
+    smollm = params.get("smollm-135m") or init_params(get_config("smollm-135m"), seed=0,
+                                                      device=torch.device("cuda"))
+    lanes_serve(torch, K, totals, model_totals, smollm)
+    for name, n in list(totals.items()) + list(model_totals.items()):
+        if name in records:
+            records[name]["lanes_reshard_launches"] = n
+    print(f"lanes: launches {totals}, model {model_totals}; "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+
 
 def turns_kernels(root):
     """The combine-kernel wrappers (``kernel.py``) of the repository checkout
@@ -2338,6 +2887,10 @@ def main(argv=None) -> int:
     if "8" in run:
         with phase("8 continuous"):
             phase_continuous(torch, K, records, params)
+
+    if "9" in run:
+        with phase("9 lanes and resharding"):
+            phase_lanes_reshard(torch, T, K, serve_shards, records, params)
     params.clear()
 
     print(card, flush=True)

@@ -878,6 +878,11 @@ class StructSpec:
     op_lanes: Tuple[int, ...] = ()
     keyed: bool = False
 
+    @property
+    def lane_splittable(self) -> bool:
+        """Whether the kind has both a head and a tail side (queue, deque)."""
+        return LANE_HEAD in self.op_lanes and LANE_TAIL in self.op_lanes
+
 
 STRUCTS: Dict[str, StructSpec] = {
     "stack": StructSpec(
@@ -913,6 +918,14 @@ def lane_of_ops_host(kind: str, ops) -> np.ndarray:
     table = np.asarray(STRUCTS[kind].op_lanes, np.int32)
     o = np.asarray(ops, np.int32)
     return table[np.clip(o, 0, table.shape[0] - 1)]
+
+
+def struct_kind(state) -> str:
+    """Structure kind of a (possibly shard-stacked) state."""
+    for kind, spec in STRUCTS.items():
+        if isinstance(state, spec.state_cls):
+            return kind
+    raise TypeError(f"not a DFC structure state: {type(state)!r}")
 
 
 # stable integer codes for structure kinds, in sorted-kind order
@@ -1020,15 +1033,17 @@ def init_announce_ring(slots: int, device="cuda") -> AnnounceRing:
     )
 
 
-def ring_announce(ring: AnnounceRing, keys, ops, params) -> AnnounceRing:
+def ring_announce(ring: AnnounceRing, keys, ops, params, lanes=None) -> AnnounceRing:
     """Land one announced batch at the ring tail (one scatter per field).
-    The caller guarantees the span does not overlap a live span.  Every op
-    is staged on ``LANE_NONE`` (per-side lanes come with their own slice)."""
+    The caller guarantees the span does not overlap a live span.  ``lanes``
+    stages each op's announcement lane beside it (``LANE_NONE`` for every
+    op when omitted)."""
     n = ops.shape[0]
     slots = ring.keys.shape[0]
     dev = ring.keys.device
     pos = torch.remainder(ring.tail.long() + torch.arange(n, device=dev), slots)
-    lane_col = torch.full((n,), LANE_NONE, dtype=torch.int32, device=dev)
+    lane_col = (torch.full((n,), LANE_NONE, dtype=torch.int32, device=dev)
+                if lanes is None else torch.as_tensor(lanes).to(dev, torch.int32))
 
     def land(col, vals):
         out = col.clone()
@@ -1051,27 +1066,34 @@ def ring_has_room(slots: int, tail: int, oldest_live: int, n: int) -> bool:
     return n <= slots and (tail + n) - oldest_live <= slots
 
 
-def ring_drain(ring: AnnounceRing, start: int, n: int):
+def ring_drain(ring: AnnounceRing, start: int, n: int, lane=None):
     """Read span [start, start+n) of the ring as device tensors ``(keys,
-    ops, params)``; ``start`` is the absolute counter it was announced at."""
+    ops, params)``; ``start`` is the absolute counter it was announced at.
+    With ``lane``, ops staged on another lane read as ``OP_NONE`` (positions
+    kept, so per-op bookkeeping lines up with the unfiltered span)."""
     idx = torch.remainder(
         start + torch.arange(n, device=ring.keys.device), ring.keys.shape[0]
     )
-    return ring.keys[idx], ring.ops[idx], ring.params[idx]
+    ops = ring.ops[idx]
+    if lane is not None:
+        ops = torch.where(ring.lanes[idx] == int(lane), ops, OP_NONE)
+    return ring.keys[idx], ops, ring.params[idx]
 
 
-def ring_announce_phases(ring: AnnounceRing, keys, ops, params) -> AnnounceRing:
+def ring_announce_phases(ring: AnnounceRing, keys, ops, params, lanes=None
+                         ) -> AnnounceRing:
     """Land a whole phase schedule -- ``[K, pad]`` per-phase batches padded
     with ``OP_NONE`` lanes -- at the ring tail in one scatter; the K phases
     occupy the contiguous span ``[tail, tail + K*pad)``."""
-    return ring_announce(ring, keys.reshape(-1), ops.reshape(-1), params.reshape(-1))
+    return ring_announce(ring, keys.reshape(-1), ops.reshape(-1), params.reshape(-1),
+                         None if lanes is None else torch.as_tensor(lanes).reshape(-1))
 
 
-def ring_drain_phases(ring: AnnounceRing, start: int, k: int, pad: int):
+def ring_drain_phases(ring: AnnounceRing, start: int, k: int, pad: int, lane=None):
     """Read ``k`` phases of ``pad`` lanes announced at absolute position
     ``start`` back as ``[K, pad]`` device tensors (one gather for the whole
-    schedule)."""
-    keys, ops, params = ring_drain(ring, start, k * pad)
+    schedule); ``lane`` filters as in :func:`ring_drain`."""
+    keys, ops, params = ring_drain(ring, start, k * pad, lane=lane)
     return keys.reshape(k, pad), ops.reshape(k, pad), params.reshape(k, pad)
 
 

@@ -41,6 +41,7 @@ from repro_torch.core.torch_dfc import (
     StackState,
     _inactive,
     _put,
+    lane_of_ops,
     map_state,
     scatter_rows,
     stack_splice_values,
@@ -262,6 +263,24 @@ def _one_sharded_combine(kind: str, backend: str, state, ops, params, keys=None)
     if backend == "torch":
         return spec.combine(state, ops, params)
     return SHARDED_COMBINE_STEPS[kind](state, ops, params, backend=backend)
+
+
+# ------------------------------------------------------------ per-side lanes
+def dfc_lane_combine_step(state, ops, params, *, kind, lane, backend="kernel"):
+    """One per-side combining phase: only the ``lane``-side ops of each
+    shard's announcement row combine (``LANE_HEAD``: the consuming side,
+    ``LANE_TAIL``: the producing side); the other side's ops read as
+    ``OP_NONE`` (positions kept) and answer ``R_NONE``.  The same one-phase
+    kernel as any phase of ``kind``."""
+    masked = torch.where(lane_of_ops(kind, ops) == lane, ops, OP_NONE)
+    return _one_sharded_combine(kind, backend, state, masked, params)
+
+
+def dfc_handoff_combine_step(state, ops, params, *, kind, backend="kernel"):
+    """The drained handoff: both lanes' ops of a split shard in one
+    combining phase, which linearizes exactly as the one-lane combine of the
+    same batch (the runtime then commits both lane epochs at once)."""
+    return _one_sharded_combine(kind, backend, state, ops, params)
 
 
 def dfc_sharded_multi_combine_step(state, ops, params, *, kind, backend="kernel",

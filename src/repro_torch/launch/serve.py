@@ -32,7 +32,11 @@ queue:
     fault-injected store, and a crash resumed token-exactly;
   * ``--trace`` attaches the fabric's flight recorder (``obs``): a
     crash-durable trace sidecar under the tier root, metrics and Chrome
-    trace exports, and admission / service / end-to-end latency p50/p99.
+    trace exports, and admission / service / end-to-end latency p50/p99;
+  * ``--split-lanes`` commits each request shard's arrivals (tail lane) and
+    admissions (head lane) through their own records and epochs;
+  * ``--reshard-backlog N`` splits a request shard whose backlog reaches N
+    (crash-consistent: see ``ShardedDFCRuntime.split_shard``).
 
 Each admitted batch (or, with ``--k-classes``, each session at batch 1) is
 prefilled and greedily decoded by the port's model on the card
@@ -47,9 +51,8 @@ selective scan run through the hand-written kernels.
       --reduced --batch 4 --prompt-len 16 --gen 8 --sessions 12 --k-classes 3 \\
       --quantum 2 --durable --trace --state-dir D --crash-at 300 --device cpu
 
-Options whose runtime pieces wait for later slices raise
-``NotImplementedError``: ``--split-lanes`` (per-side lanes),
-``--reshard-backlog`` (resharding) and ``--window`` (rolling-window decode).
+``--window`` (rolling-window decode) waits for the long-context slice and
+raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -90,9 +93,6 @@ from repro_torch.runtime.dfc_shard import (
     resolve_device,
     weighted_dequeue_plan,
 )
-
-_SLICE_LANES = "the per-side lanes slice"
-_SLICE_RESHARD = "the resharding slice"
 
 
 # ------------------------------------------------- session-state map packing
@@ -181,9 +181,10 @@ class RequestQueueTier:
     ``obs`` (a ``FabricObserver``) is shared with the fabric: request
     lifecycle events and the latency histograms of ``latency_stats`` land
     beside the durable path's events.  ``device`` is where the fabric lives
-    (default the card).  Per-side lanes (``split_lanes``) and autosplit
-    (``reshard_backlog``) wait for their slices and raise
-    ``NotImplementedError``.
+    (default the card).  ``split_lanes`` gives every request shard per-side
+    lanes (arrivals on the tail lane, admissions on the head lane); with
+    ``reshard_backlog`` the hottest request shard splits once its backlog
+    reaches that many sessions.
     """
 
     def __init__(
@@ -208,8 +209,6 @@ class RequestQueueTier:
         _seed_slots: bool = True,
         _rt: Optional[ShardedDFCRuntime] = None,
     ):
-        if reshard_backlog is not None:
-            raise NotImplementedError(f"reshard_backlog waits for {_SLICE_RESHARD}")
         if k_classes and k_classes >= 2:
             if priority:
                 raise ValueError("k_classes generalizes priority=True; pick one")
@@ -217,6 +216,11 @@ class RequestQueueTier:
                 raise ValueError(
                     f"k_classes={k_classes} exceeds the packed class field "
                     f"(SESSION_MAX_CLASSES={SESSION_MAX_CLASSES})"
+                )
+            if reshard_backlog is not None:
+                raise ValueError(
+                    "k_classes pins shard c to class c; autosplit would "
+                    "break the mapping (reshard_backlog must be None)"
                 )
             n_queues = k_classes  # shard c == class c
             self.k_classes = k_classes
@@ -260,8 +264,8 @@ class RequestQueueTier:
         if durable and fs is None:
             fs = SimFS(Path(tempfile.mkdtemp(prefix="dfc_serve_tier_")))
         self.durable = durable
-        # ``_rt`` lets ``recover`` mount an already-recovered fabric; the
-        # runtime raises on ``split_lanes``
+        self.split_lanes = split_lanes
+        # ``_rt`` lets ``recover`` mount an already-recovered fabric
         self.rt = _rt if _rt is not None else ShardedDFCRuntime(
             kinds, n_shards, capacity, lanes,
             fs=fs if durable else None, n_threads=1,
@@ -278,6 +282,7 @@ class RequestQueueTier:
         self.obs = obs if obs is not None else self.rt.obs
         self._arrival_t: Dict[int, float] = {}  # sid -> arrival perf_counter
         self._admit_t: Dict[int, float] = {}  # sid -> admission perf_counter
+        self.reshard_backlog = reshard_backlog
         self._rep_keys: Dict[int, int] = {}
         self._smap_keys: Dict[int, int] = {}  # sid -> session-state map key
         self._sprog_keys: Dict[int, int] = {}  # sid -> decode-progress map key
@@ -509,6 +514,7 @@ class RequestQueueTier:
         if self.obs.enabled and sids:
             self.obs.event("request", stage="arrive", sids=[int(s) for s in sids],
                            rejected=[int(s) for s in rejected])
+        self._maybe_split()
         return rejected
 
     def _stamp_arrivals(self, sids) -> None:
@@ -563,6 +569,7 @@ class RequestQueueTier:
                     self.obs.event("request", stage="arrive", wave=i,
                                    sids=[int(s) for s in sids],
                                    rejected=[int(s) for s in rejected_per_wave[i]])
+        self._maybe_split()
         return rejected_per_wave
 
     def admit(self, max_n: int) -> List[Tuple[int, int]]:
@@ -755,6 +762,25 @@ class RequestQueueTier:
         """Free decode slots committed in the pool stack."""
         return [int(v) for v in self.rt.shard_contents(self.pool_shard)]
 
+    def _maybe_split(self) -> None:
+        """Split the hottest request shard once its backlog reaches
+        ``reshard_backlog`` (crash-consistent; the new shard takes half of
+        its buckets)."""
+        if self.reshard_backlog is None:
+            return
+        backlogs = self._queue_backlogs()
+        hot = max(backlogs, key=backlogs.get)
+        if backlogs[hot] < self.reshard_backlog:
+            return
+        try:
+            self.rt.split_shard(hot)
+        except ValueError:
+            return  # no spare bucket left on this shard
+        self._rep_keys.clear()  # the table changed: representative keys are stale
+        self._smap_keys.clear()
+        self._sprog_keys.clear()
+        self.stats["splits"] += 1
+
     def persistence_stats(self) -> Optional[Dict[str, float]]:
         if not self.durable:
             return None
@@ -836,9 +862,9 @@ class RequestQueueTier:
             from the durable response slot, never re-executed.
 
         The tier does not blanket-``replay_pending``: replaying a
-        not-applied dequeue would admit a session nobody waits on."""
-        if reshard_backlog is not None:
-            raise NotImplementedError(f"reshard_backlog waits for {_SLICE_RESHARD}")
+        not-applied dequeue would admit a session nobody waits on.  The
+        fabric's durable routing record, when the tier split before the
+        crash, overrides the bootstrap shape."""
         req_kind = "deque" if priority else "queue"
         if k_classes and k_classes >= 2:
             n_queues = k_classes  # shard c == class c, as in __init__
@@ -863,11 +889,14 @@ class RequestQueueTier:
         )
         tier = cls(
             n_queues=n_queues, slots=0, capacity=capacity, lanes=lanes,
-            durable=True, fs=fs, n_buckets=n_buckets, pipeline=pipeline,
-            depth=depth, priority=priority, k_classes=k_classes,
-            class_weights=class_weights, obs=obs, device=device,
-            _seed_slots=False, _rt=rt,
+            durable=True, fs=fs, reshard_backlog=reshard_backlog, n_buckets=n_buckets,
+            pipeline=pipeline, depth=depth, priority=priority, k_classes=k_classes,
+            class_weights=class_weights, split_lanes=rt.split_lanes, obs=obs,
+            device=device, _seed_slots=False, _rt=rt,
         )
+        tier.n_queues = sum(1 for k in rt.kinds if k in ("queue", "deque"))
+        tier.pool_shard = next(s for s, k in enumerate(rt.kinds) if k == "stack")
+        tier.session_shard = next(s for s, k in enumerate(rt.kinds) if k == "map")
         # ONE walk of the session shard restores the per-session serving
         # state and reseeds the host mirrors the admission CAS consults
         sessions = tier.session_states()
@@ -1280,7 +1309,9 @@ def build_parser() -> argparse.ArgumentParser:
                     help="deque request shards: high-priority sessions jump "
                          "the line (front-of-queue push)")
     ap.add_argument("--split-lanes", action="store_true",
-                    help="per-side combiners (waits for the per-side lanes slice)")
+                    help="per-side combiners: arrivals ride each request "
+                         "shard's tail lane, admission pops its head lane, "
+                         "with independent epochs and commits")
     ap.add_argument("--high-every", type=int, default=0,
                     help="with --priority: every Nth session arrives "
                          "high-priority (0 = none)")
@@ -1296,8 +1327,7 @@ def build_parser() -> argparse.ArgumentParser:
                     help="decode tokens per session per scheduling round "
                          "(default: min(8, --gen))")
     ap.add_argument("--reshard-backlog", type=int, default=0,
-                    help="split a request shard when its backlog exceeds N "
-                         "(waits for the resharding slice)")
+                    help="split a request shard when its backlog exceeds N")
     ap.add_argument("--bulk-arrivals", action="store_true",
                     help="submit the whole arrival schedule up front through "
                          "the fabric's fused K-phase loop, then admit from "
@@ -1350,11 +1380,8 @@ def serve(args: argparse.Namespace, params: Optional[Dict[str, Any]] = None,
     ``decode_step_s`` (host clock after a device synchronize), and
     ``batches`` (batch path) or ``rounds`` and ``quantum`` (``--k-classes``).
     """
-    for flag, name, slice_ in ((args.split_lanes, "--split-lanes", _SLICE_LANES),
-                               (args.reshard_backlog, "--reshard-backlog", _SLICE_RESHARD),
-                               (args.window, "--window", "the long-context slice")):
-        if flag:
-            raise NotImplementedError(f"{name} waits for {slice_}")
+    if args.window:
+        raise NotImplementedError("--window waits for the long-context slice")
     device = resolve_device(args.device)
     cfg = get_reduced(args.arch) if args.reduced else get_config(args.arch)
     k = args.k_classes if args.k_classes >= 2 else 0
@@ -1401,9 +1428,11 @@ def serve(args: argparse.Namespace, params: Optional[Dict[str, Any]] = None,
         n_queues=args.queues,
         capacity=4096,
         lanes=max(arrival, args.batch) * 2,
+        reshard_backlog=args.reshard_backlog or None,
         pipeline=args.pipeline,
         depth=depth,
         priority=args.priority,
+        split_lanes=args.split_lanes,
         k_classes=k,
         class_weights=([int(x) for x in args.class_weights.split(",")]
                        if k and args.class_weights else None),
@@ -1568,6 +1597,10 @@ def serve(args: argparse.Namespace, params: Optional[Dict[str, Any]] = None,
         f"rejected={tier.stats['rejected']} splits={tier.stats['splits']} "
         f"backlog={tier.backlog()}"
     )
+    if tier.split_lanes:
+        pairs = " ".join(f"s{s}=[{e[0]},{e[1]}]"
+                         for s, e in sorted((tier.rt.lane_stats() or {}).get("epochs", {}).items()))
+        print(f"split lanes: head/tail epochs {pairs}")
     if out["prefill_s"]:
         steps = sorted(out["decode_step_s"])
         med = steps[len(steps) // 2] * 1e3 if steps else float("nan")

@@ -14,13 +14,14 @@ announces each phase's batch, then ``combine_phase`` and ``flush``; with
 ``--threads T > 1`` the batch is sliced over T announcing threads and the
 seeded ``MultiThreadDriver(rt, seed=1)`` interleaves their announcements
 with combining phases.  ``--depth D`` pipelines the durable path D chains
-deep (chains of T batches when D > 1).  ``--device`` picks the device
-(default ``cuda``).  ``--split-backlog`` raises until the resharding slice
-lands.
+deep (chains of T batches when D > 1).  ``--split-backlog N`` builds the
+fabric with four buckets per shard and, after each phase, splits the hottest
+shard (crash-consistently, ``split_shard``) once its ``ops_combined`` leads
+the mean by more than N.  ``--device`` picks the device (default ``cuda``).
 
 Run:  PYTHONPATH=src python -m repro_torch.launch.serve_shards [--kind queue |
       --mixed] [--shards 16] [--skew 1.1] [--phases 50] [--batch 256]
-      [--durable] [--threads 4] [--depth 3] [--device cuda]
+      [--durable] [--threads 4] [--depth 3] [--split-backlog N] [--device cuda]
 """
 
 from __future__ import annotations
@@ -71,15 +72,14 @@ def serve(args: argparse.Namespace, hook: Optional[PhaseHook] = None,
     """Drive the fabric for ``args.phases`` phases and print the report.
 
     ``hook(phase=, rt=, keys=, ops=, params=, resp=, kinds=)`` runs after
-    each phase, outside the timed region.  ``obs`` is a fabric observer (a
-    ``FabricObserver``) handed to the runtime.  Returns the run's counts:
-    ``n_ops``, ``n_overflow``, ``seconds`` and ``phase_seconds`` (serving
-    time, hooks excluded), ``pwb`` / ``pfence`` / ``pstats``,
-    ``retire_wait_s`` and the durable root's ``digest`` (durable mode) and
-    the runtime ``rt``.
+    each phase, outside the timed region and before the phase's split
+    check.  ``obs`` is a fabric observer (a ``FabricObserver``) handed to
+    the runtime.  Returns the run's counts: ``n_ops``, ``n_overflow``,
+    ``seconds`` and ``phase_seconds`` (serving time, a split included, hooks
+    excluded), ``splits`` (``(phase, donor, new shard)``), ``pwb`` /
+    ``pfence`` / ``pstats``, ``retire_wait_s`` and the durable root's
+    ``digest`` (durable mode) and the runtime ``rt``.
     """
-    if args.split_backlog:
-        raise NotImplementedError("--split-backlog waits for the resharding slice")
     rng = np.random.default_rng(0)
     all_kinds = sorted(STRUCTS)
     kinds = (
@@ -93,18 +93,19 @@ def serve(args: argparse.Namespace, hook: Optional[PhaseHook] = None,
         fs = SimFS(Path(root)) if args.durable else None
         rt = ShardedDFCRuntime(
             kinds, args.shards, capacity, lanes, fs=fs, n_threads=args.threads,
+            n_buckets=4 * args.shards if args.split_backlog else None,
             depth=args.depth or None, chain=args.threads if args.depth > 1 else 1,
             device=args.device, obs=obs,
         )
         drv = MultiThreadDriver(rt, seed=1) if args.durable and args.threads > 1 else None
         on_card = rt.device.type == "cuda"
-        opmax = np.asarray([STRUCTS[k].n_opcodes for k in rt.kinds])
         n_ops = n_overflow = 0
         shard_hits = np.zeros(args.shards, np.int64)
-        phase_seconds = []
+        phase_seconds, splits = [], []
         for phase in range(args.phases):
             keys = zipf_keys(rng, args.batch, 4096, args.skew)
             shard = rt.route_host(keys)
+            opmax = np.asarray([STRUCTS[k].n_opcodes for k in rt.kinds])
             ops = rng.integers(1, opmax[shard])  # per-key draw valid for its kind
             params = rng.random(args.batch).astype(np.float32) * 100
             t0 = time.perf_counter()
@@ -136,10 +137,24 @@ def serve(args: argparse.Namespace, hook: Optional[PhaseHook] = None,
             phase_seconds.append(time.perf_counter() - t0)
             n_ops += int(np.sum(kinds_out != R_OVERFLOW))
             n_overflow += int(np.sum(kinds_out == R_OVERFLOW))
-            shard_hits += np.bincount(shard, minlength=args.shards)
+            shard_hits = _grown(shard_hits, rt.n_shards)
+            shard_hits[: shard.max() + 1] += np.bincount(shard, minlength=shard.max() + 1)
             if hook is not None:
                 hook(phase=phase, rt=rt, keys=keys, ops=ops, params=params,
                      resp=resp, kinds=kinds_out)
+            if args.split_backlog:
+                t0 = time.perf_counter()
+                ops_comb = rt.meta["ops_combined"].cpu().numpy()
+                hot = int(np.argmax(ops_comb))
+                if ops_comb[hot] - ops_comb.mean() > args.split_backlog:
+                    try:
+                        splits.append((phase, hot, rt.split_shard(hot)))
+                    except ValueError:
+                        pass  # the shard is down to one bucket
+                if on_card:
+                    torch.cuda.synchronize(rt.device)
+                phase_seconds[-1] += time.perf_counter() - t0
+        shard_hits = _grown(shard_hits, rt.n_shards)  # a last-phase split
 
         seconds = sum(phase_seconds)
         label = "mixed" if args.mixed else args.kind
@@ -151,8 +166,11 @@ def serve(args: argparse.Namespace, hook: Optional[PhaseHook] = None,
         print(f"shard load: {hot}")
         touched = rt.meta["phases"].cpu().numpy()
         print(f"phases/shard: min={touched.min()} max={touched.max()}")
+        for phase, donor, new_id in splits:
+            print(f"split: phase {phase}: shard {donor} -> +shard {new_id}")
         out = {"n_ops": n_ops, "n_overflow": n_overflow, "seconds": seconds,
-               "phase_seconds": phase_seconds, "phases": args.phases, "rt": rt}
+               "phase_seconds": phase_seconds, "phases": args.phases, "splits": splits,
+               "rt": rt}
         if args.durable:
             print(f"pwb/op: {fs.stats['pwb'] / max(n_ops, 1):.3f}  "
                   f"pfence/op: {fs.stats['pfence'] / max(n_ops, 1):.3f}")
@@ -160,6 +178,14 @@ def serve(args: argparse.Namespace, hook: Optional[PhaseHook] = None,
                        pstats=fs.pstats.as_dict(), retire_wait_s=rt.retire_wait_s,
                        digest=durable_digest(root))
     return out
+
+
+def _grown(hits: np.ndarray, n_shards: int) -> np.ndarray:
+    """Per-shard hit counts widened to the fabric's shard count (a split
+    adds shards)."""
+    if hits.shape[0] < n_shards:
+        hits = np.concatenate([hits, np.zeros(n_shards - hits.shape[0], np.int64)])
+    return hits
 
 
 def main(argv=None) -> int:

@@ -16,8 +16,8 @@ sidecar's durability rides the fabric's own pfences (see ``trace.py``).
 ``observe_fabric`` reads ``rt.shard_sizes()`` and ``rt.shard_epochs()``: on
 the card each is a device-to-host copy, so the runtime samples only at the
 reference's points (after a pipelined dispatch retires, after a fused
-drain).  Its ``lane_stats`` branch is duck-typed and sees nothing until a
-runtime grows per-side lanes.
+drain).  On a split-lane fabric it also samples ``rt.lane_stats()``: the
+committed ``[eH, eT]`` pair and the per-lane backlog of each split shard.
 """
 
 from __future__ import annotations

@@ -28,17 +28,31 @@ reference's, so either package recovers a root the other wrote::
   tAnn/thread_{t}/ann{0,1}.json   double-buffered announcements + valid
   shard_{s}/slot{0,1}/...         alternating state slots, picked by parity
   shard_{s}/cEpoch                per-shard two-increment commit
+  shard_{s}/lane{H,T}{0,1}/...    per-side lane slots (``split_lanes``)
+  routing/slot{0,1}.json          alternating routing records
+  routing/rEpoch                  routing-epoch two-increment commit
+  reshard/intent.json             reshard transaction record
+  reshard/ckpt/...                donor snapshots (DFCCheckpointManager)
 
 The volatile ``step``, the serial durable path, the depth-D pipelined
 durable path (``depth``, ``chain``: up to D-1 dispatched chains kept in
-flight, retired in commit order) and the fused K-phase ``phase_loop`` are
-ported, with the flight recorder's hooks (``obs``, a ``FabricObserver``):
-the reference's events at the same protocol steps (topology, announce,
-dispatch, retire, epoch commit, drain, recovery begin/end and one verdict
-per thread) and its per-shard gauges.  The options of later slices raise
-``NotImplementedError`` and name their slice: per-side lanes
-(``split_lanes``) and resharding (``split_shard``, ``merge_shards``,
-recovery of a resharded root).
+flight, retired in commit order), the fused K-phase ``phase_loop``, per-side
+lanes (``split_lanes``: each queue and deque shard commits its head and
+tail sides through their own records and epochs) and resharding
+(``split_shard``, ``merge_shards``: a mini-transaction whose commit point is
+the routing epoch) are ported, with the flight recorder's hooks (``obs``, a
+``FabricObserver``): the reference's events at the same protocol steps
+(topology, announce, dispatch, retire, epoch commit, drain, reshard,
+recovery begin/end and one verdict per thread) and its per-shard gauges.
+
+A reshard runs: (1) drain the ready announcements and the pipeline, (2)
+snapshot the donor through ``DFCCheckpointManager.combine_structure`` under
+``reshard/ckpt``, (3) persist the intent, pfence, (4) pwb the post-reshard
+shard states (merge only) and the new routing record, ONE pfence, (5)
+commit ``rEpoch`` with the two-increment protocol -- the commit point --
+(6) roll the touched shards' epochs forward (merge only) and drop the
+intent.  Recovery rolls an intent forward when ``rEpoch`` reached its
+target and back otherwise.
 """
 
 from __future__ import annotations
@@ -55,9 +69,12 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
-from repro_torch.checkpoint.dfc_checkpoint import BOT, SimFS
+from repro_torch.checkpoint.dfc_checkpoint import BOT, DFCCheckpointManager, SimFS
 from repro_torch.core.torch_dfc import (
     KIND_CODES,
+    LANE_HEAD,
+    LANE_NONE,
+    LANE_TAIL,
     OP_NONE,
     R_NONE,
     STRUCTS,
@@ -66,6 +83,7 @@ from repro_torch.core.torch_dfc import (
     _as_u32,
     init_announce_ring,
     init_sharded,
+    lane_of_ops_host,
     map_state,
     ring_announce,
     ring_announce_phases,
@@ -74,6 +92,7 @@ from repro_torch.core.torch_dfc import (
     ring_has_room,
     shard_slice,
     stack_shards,
+    state_from_contents,
     to_int32,
 )
 from repro_torch.kernels.dfc_reduce.ops import (
@@ -89,6 +108,7 @@ from repro_torch.obs import (
     EV_DRAIN,
     EV_EPOCH,
     EV_RECOVER,
+    EV_RESHARD,
     EV_RETIRE,
     EV_TOPOLOGY,
     EV_VERDICT,
@@ -101,8 +121,25 @@ R_OVERFLOW = 4
 
 _HASH_MULT = 2654435761  # Knuth multiplicative hashing constant
 
-_SLICE_LANES = "the per-side lanes slice"
-_SLICE_RESHARD = "the resharding slice"
+# Per-side lanes: with ``split_lanes=True`` every queue and deque shard
+# commits through TWO announcement lanes -- a HEAD lane (the consuming side:
+# OP_DEQ / OP_POPL, plus OP_PUSHL, which lives on the deque's left end) and a
+# TAIL lane (the producing side: OP_ENQ / OP_PUSHR / OP_POPR) -- each with its
+# own durable record, its own epoch and its own one-pfence commit:
+#
+#   shard_{s}/laneH{0,1}/rec.json [+ values.npy]   head-lane slots
+#   shard_{s}/laneT{0,1}/rec.json + values.npy     tail-lane slots
+#   shard_{s}/cEpoch = "[eH, eT]"                  composite epoch pair
+#
+# Each lane's slot parity follows its own epoch; the pair lives in one file
+# (a SimFS write is all or nothing), which the handoff commit relies on: a
+# phase that mixes both sides, or a head-side phase that leaves the
+# structure drained, commits both lanes in one two-increment step.  The
+# queue's head lane never writes values (pops only move the head counter);
+# the deque's left side pushes, so both deque lanes carry values, and
+# recovery takes them from the lane record with the larger ``phases``.
+_LANE_WRITES_VALUES = {"queue": (False, True), "deque": (True, True)}
+_LANE_TAGS = ("H", "T")  # indexed by LANE_HEAD / LANE_TAIL
 
 
 class StaleTokenError(LookupError):
@@ -637,8 +674,6 @@ class ShardedDFCRuntime:
         obs=None,
         device="cuda",
     ):
-        if split_lanes:
-            raise NotImplementedError(f"split_lanes waits for {_SLICE_LANES}")
         kinds = [kind] * n_shards if isinstance(kind, str) else list(kind)
         if len(kinds) != n_shards:
             raise ValueError("per-shard kind list must have n_shards entries")
@@ -667,6 +702,13 @@ class ShardedDFCRuntime:
             raise ValueError("table must have n_buckets entries")
         self._table_dev = torch.from_numpy(self.table).to(self.device)
         self.r_epoch = 0  # routing epoch (even at rest; moves only on reshard)
+        self._reshard_seq = 0
+        # per-side lanes: ``lane_epochs`` mirrors each split shard's committed
+        # ``[eH, eT]`` (even at rest), advanced in commit order by the retire
+        # and drain paths; the device epoch runs free (+2 per touched phase)
+        # and recovery rebuilds it as eH + eT
+        self.split_lanes = bool(split_lanes)
+        self.lane_epochs: Dict[int, List[int]] = {}
         if depth is None:
             depth = 2 if pipeline else 1
         if depth < 1:
@@ -716,7 +758,7 @@ class ShardedDFCRuntime:
                 lanes=lanes,
                 depth=self.depth,
                 chain=self.chain,
-                split_lanes=False,
+                split_lanes=self.split_lanes,
             )
 
     # ----------------------------------------------------- state as groups
@@ -741,6 +783,16 @@ class ShardedDFCRuntime:
 
     def _shard_state(self, s: int):
         return shard_slice(self.groups[self.kinds[s]], self._row(s))
+
+    def _set_shard_state(self, s: int, one) -> None:
+        k, r = self.kinds[s], self._row(s)
+
+        def put(leaf, v):
+            out = leaf.clone()
+            out[r] = v.to(leaf.device)
+            return out
+
+        self.groups[k] = map_state(put, self.groups[k], one)
 
     def shard_epochs(self) -> np.ndarray:
         """Per-global-shard epochs gathered from the kind groups."""
@@ -864,11 +916,18 @@ class ShardedDFCRuntime:
             spans = [v for t, v in self._ring_spans.items() if t != thread]
             oldest = min((s0 for s0, _ in spans), default=self._ring_tail)
             if ring_has_room(slots, self._ring_tail, oldest, n):
+                # a split-lane fabric stages each op's lane (op code x target
+                # shard kind) beside it, for lane-filtered drains
+                lane_col = (
+                    torch.from_numpy(self._op_lanes_host(ops, self.route_host(keys)))
+                    if self.split_lanes else None
+                )
                 self.ring = ring_announce(
                     self.ring,
                     torch.from_numpy(keys.astype(np.int32)),
                     torch.from_numpy(ops),
                     torch.from_numpy(params),
+                    lane_col,
                 )
                 start = self._ring_tail
                 self._ring_tail += n
@@ -930,18 +989,9 @@ class ShardedDFCRuntime:
         }
         for i, leaf in enumerate(one.leaves()):
             arr = np.asarray(_to_np(leaf))
-            buf = io.BytesIO()
-            np.save(buf, arr)
-            data = buf.getvalue()
             rel = f"{slot}/leaf_{i}.npy"
-            digest = hashlib.blake2b(data, digest_size=16).digest()
-            if self._elide.get(rel) != digest:
-                self.fs.write(rel, data, tag="slot")
+            if self._write_elided(s, rel, arr):
                 files.append(rel)
-                self._elide_pending[rel] = digest
-                self.obs.metrics.counter("elision_miss", shard=s)
-            else:
-                self.obs.metrics.counter("elision_hit", shard=s)
             meta["leaves"].append(
                 {"file": f"leaf_{i}.npy", "shape": list(arr.shape), "dtype": str(arr.dtype)}
             )
@@ -954,6 +1004,206 @@ class ShardedDFCRuntime:
         """Leaf digests written since the last pfence are durable now."""
         self._elide.update(self._elide_pending)
         self._elide_pending.clear()
+
+    def _write_elided(self, s: int, rel: str, arr: np.ndarray) -> bool:
+        """pwb one ``.npy`` leaf unless its bytes already sit durably at
+        ``rel`` (dirty-leaf elision); True when it was written."""
+        buf = io.BytesIO()
+        np.save(buf, arr)
+        data = buf.getvalue()
+        digest = hashlib.blake2b(data, digest_size=16).digest()
+        if self._elide.get(rel) == digest:
+            self.obs.metrics.counter("elision_hit", shard=s)
+            return False
+        self.fs.write(rel, data, tag="slot")
+        self._elide_pending[rel] = digest
+        self.obs.metrics.counter("elision_miss", shard=s)
+        return True
+
+    # ------------------------------------------------------ per-side lanes
+    def _is_split(self, s: int) -> bool:
+        """Whether shard ``s`` commits through independent head/tail lanes."""
+        return self.split_lanes and STRUCTS[self.kinds[s]].lane_splittable
+
+    def _lane_epoch_pair(self, s: int) -> List[int]:
+        """Host mirror of split shard ``s``'s committed ``[eH, eT]``."""
+        return self.lane_epochs.setdefault(s, [0, 0])
+
+    def _op_lanes_host(self, ops, shards) -> np.ndarray:
+        """Per-op announcement lane: ``LANE_HEAD`` / ``LANE_TAIL`` by the
+        TARGET shard's structure for ops on split shards, ``LANE_NONE``
+        otherwise (the same op code can be head-side on one shard and
+        tail-side on another)."""
+        ops = np.asarray(ops, np.int32)
+        shards = np.asarray(shards)
+        out = np.full(ops.shape, LANE_NONE, np.int32)
+        n = min(ops.shape[0], shards.shape[0])
+        o, sh = ops[:n], shards[:n].astype(np.int64)
+        valid = (o != OP_NONE) & (sh >= 0) & (sh < self.n_shards)
+        for s in np.unique(sh[valid]):
+            if self._is_split(int(s)):
+                sel = valid & (sh == s)
+                out[:n][sel] = lane_of_ops_host(self.kinds[int(s)], o[sel])
+        return out
+
+    def _lane_slot_dir(self, s: int, lane: int, lane_epoch: int, nxt: bool) -> str:
+        """A lane's alternating slot dir, its parity from ITS OWN epoch."""
+        p = (lane_epoch // 2 + (1 if nxt else 0)) % 2
+        return f"shard_{s}/lane{_LANE_TAGS[lane]}{p}"
+
+    def _read_lane_epochs(self, s: int) -> List[int]:
+        """Durable ``[eH, eT]`` of a split shard (``[0, 0]`` if it never
+        committed; ``[0, e]`` for the scalar epoch of a history from before
+        the split, when every commit was one-lane)."""
+        raw = self.fs.read(self._epoch_path(s))
+        if not raw:
+            return [0, 0]
+        txt = raw.decode()
+        if txt.lstrip().startswith("["):
+            e = json.loads(txt)
+            return [int(e[0]), int(e[1])]
+        return [0, int(txt)]
+
+    def _lane_mode(self, s: int, ops_host, kinds_host, shard_host, post_state) -> str:
+        """Classify one batch's phase on split shard ``s``: ``"head"`` or
+        ``"tail"`` (only that lane's epoch advances) or ``"handoff"`` (both
+        lanes commit at once): when the batch mixes both sides, and when a
+        head-side phase leaves the structure drained (head counter == tail
+        counter), the moment the head lane has consumed all the tail lane
+        published.  ``post_state`` is the shard's post-phase state on the
+        host."""
+        ops_a = np.asarray(ops_host, np.int32)
+        kinds_a = np.asarray(kinds_host)[: ops_a.shape[0]]
+        sel = (np.asarray(shard_host) == s) & (ops_a != OP_NONE) & (kinds_a != R_OVERFLOW)
+        lanes = lane_of_ops_host(self.kinds[s], ops_a[sel])
+        has_h = bool(np.any(lanes == LANE_HEAD))
+        has_t = bool(np.any(lanes == LANE_TAIL))
+        if has_h and has_t:
+            return "handoff"
+        ends = np.asarray(post_state.ends)
+        active = (int(post_state.epoch) // 2) % 2
+        if has_h and int(ends[active][0]) == int(ends[active][1]):
+            return "handoff"
+        return "head" if has_h else "tail"
+
+    def _persist_split_shard(self, s: int, mode: str, lane_targets: Sequence[int],
+                             state, counters) -> List[str]:
+        """pwb split shard ``s``'s post-phase lane record(s) into their
+        inactive lane slots (the split twin of ``_persist_shard``): only the
+        committing lane(s) write, a lane that owns values writes
+        ``values.npy`` (with dirty-leaf elision) beside its ``rec.json``."""
+        one = map_state(_to_np, state if state is not None else self._shard_state(s))
+        kind = self.kinds[s]
+        active = (int(one.epoch) // 2) % 2
+        ctr = (int(one.ends[active][0]), int(one.ends[active][1]))  # (head, tail)
+        if counters is None:
+            counters = (int(self.meta["phases"][s]), int(self.meta["ops_combined"][s]))
+        commit_lanes = {"head": (LANE_HEAD,), "tail": (LANE_TAIL,),
+                        "handoff": (LANE_HEAD, LANE_TAIL)}[mode]
+        files: List[str] = []
+        for lane in commit_lanes:
+            target = int(lane_targets[lane])
+            sdir = self._lane_slot_dir(s, lane, target - 2, nxt=True)
+            if _LANE_WRITES_VALUES[kind][lane]:
+                rel = f"{sdir}/values.npy"
+                if self._write_elided(s, rel, np.asarray(one.values)):
+                    files.append(rel)
+            rec = {
+                "kind": kind,
+                "lane": _LANE_TAGS[lane],
+                "epoch": target,
+                "ctr": ctr[lane],
+                "phases": int(counters[0]),
+                "ops_combined": int(counters[1]),
+            }
+            rel = f"{sdir}/rec.json"
+            self.fs.write(rel, json.dumps(rec).encode(), tag="slot")
+            files.append(rel)
+        return files
+
+    def _commit_lane_epochs(self, s: int, mode: str, lane_targets: Sequence[int]) -> None:
+        """Two-increment commit of a split shard's epoch pair: the pair with
+        the advancing lane(s) odd, fsync (the commit point), then the even
+        pair unsynced.  One file holds the pair, so a handoff's two lanes
+        commit or roll back together."""
+        t_h, t_t = int(lane_targets[LANE_HEAD]), int(lane_targets[LANE_TAIL])
+        odd = [t_h - 1 if mode in ("head", "handoff") else t_h,
+               t_t - 1 if mode in ("tail", "handoff") else t_t]
+        path = self._epoch_path(s)
+        self.fs.write(path, json.dumps(odd).encode(), tag="epoch")
+        self.fs.fsync([path], tag="epoch")
+        self.fs.write(path, json.dumps([t_h, t_t]).encode(), tag="epoch")
+        self.lane_epochs[s] = [t_h, t_t]
+        self.obs.event(EV_EPOCH, shard=s, epoch=t_h + t_t, lanes=[t_h, t_t], mode=mode)
+
+    def _plan_lane_commit(self, s: int, ops_host, kinds_host, shard_host, post_state
+                          ) -> Tuple[str, List[int]]:
+        """One touched split shard's commit plan for one phase: ``(mode,
+        [eH', eT'])``, the advancing lane(s) at the mirror + 2 and the
+        quiescent lane at its committed epoch."""
+        mode = self._lane_mode(s, ops_host, kinds_host, shard_host, post_state)
+        e_h, e_t = self._lane_epoch_pair(s)
+        return mode, [e_h + 2 if mode in ("head", "handoff") else e_h,
+                      e_t + 2 if mode in ("tail", "handoff") else e_t]
+
+    def _lane_targets_per_op(self, ops_host, shard_host,
+                             plans: Dict[int, Tuple[str, List[int]]], fallback_targets
+                             ) -> Tuple[List[int], List[int]]:
+        """Per-op ``(targets, lanes)`` of the durable response record: an op
+        on a split shard targets ITS LANE's post-phase epoch; an op on an
+        unsplit shard keeps the scalar target, on ``LANE_NONE``."""
+        shards_a = np.asarray(shard_host)
+        lanes = self._op_lanes_host(ops_host, shards_a)
+        targets: List[int] = []
+        for j in range(lanes.shape[0]):
+            s = int(shards_a[j])
+            if lanes[j] == LANE_NONE:
+                targets.append(int(fallback_targets[j]))
+            else:
+                pair = plans[s][1] if s in plans else self._lane_epoch_pair(s)
+                targets.append(int(pair[lanes[j]]))
+        return targets, [int(x) for x in lanes]
+
+    def lane_stats(self) -> Optional[Dict[str, Any]]:
+        """Per-lane snapshot (``None`` when lanes are off): the committed
+        ``[eH, eT]`` per split shard and the per-lane backlog of announced,
+        uncombined ops, for ``obs.observe_fabric`` and
+        ``tools/fabric_top.py``."""
+        if not self.split_lanes:
+            return None
+        epochs = {s: list(self._lane_epoch_pair(s))
+                  for s in range(self.n_shards) if self._is_split(s)}
+        backlog: Dict[int, List[int]] = {s: [0, 0] for s in epochs}
+        if self.fs is not None:
+            for t in self.ready_announcements():
+                rec = self._live.get(t)
+                if rec is None:
+                    continue
+                shards = self.route_host(rec["keys"])
+                lanes = self._op_lanes_host(rec["ops"], shards)
+                for j in range(lanes.shape[0]):
+                    if lanes[j] != LANE_NONE:
+                        backlog[int(shards[j])][int(lanes[j])] += 1
+        return {"epochs": epochs, "backlog": backlog}
+
+    # ------------------------------------------------ durable routing layout
+    _REPOCH_PATH = "routing/rEpoch"
+    _INTENT_PATH = "reshard/intent.json"
+
+    def _routing_slot(self, repoch: int, nxt: bool) -> str:
+        return f"routing/slot{(repoch // 2 + (1 if nxt else 0)) % 2}.json"
+
+    def _routing_record(self, target: int, table, kinds) -> Dict[str, Any]:
+        return {
+            "epoch": target,
+            "table": [int(x) for x in table],
+            "kinds": list(kinds),
+            "n_shards": len(kinds),
+            "n_buckets": self.n_buckets,
+            "capacity": self.capacity,
+            "lanes": self.lanes,
+            "split_lanes": self.split_lanes,
+        }
 
     # --------------------------------------------------------- combine phase
     def _chain_holding(self, thread: int, token: int) -> Optional[Dict[str, Any]]:
@@ -1058,7 +1308,10 @@ class ShardedDFCRuntime:
             dev_params.append(torch.cat(parrs))
             host_keys = (np.concatenate([rec["keys"] for _, rec in g])
                          if g else np.zeros((0,), np.int64))
-            batches.append({"threads": segs, "shard": self.route_host(host_keys)})
+            host_ops = (np.concatenate([rec["ops"] for _, rec in g])
+                        if g else np.zeros((0,), np.int32))
+            batches.append({"threads": segs, "shard": self.route_host(host_keys),
+                            "ops": host_ops})
 
         (
             self.groups, self.meta, resp, out_kinds,
@@ -1149,8 +1402,8 @@ class ShardedDFCRuntime:
             if not info["threads"] and not touched:
                 continue  # chain padding: no durable work
             files = self._commit_phase(
-                b, touched, e_b, info["shard"], info["threads"], resp, kinds,
-                phases_cum, ops_cum, batch_shard_state, fl["repoch"],
+                b, touched, e_b, info["shard"], info["ops"], info["threads"], resp,
+                kinds, phases_cum, ops_cum, batch_shard_state, fl["repoch"],
             )
             retired += [seg["thread"] for seg in info["threads"]]
             if self.obs.enabled:
@@ -1162,19 +1415,35 @@ class ShardedDFCRuntime:
             prev_epochs = e_b
         return retired
 
-    def _commit_phase(self, b, touched, e_b, shard, segs, resp, kinds, phases_cum,
+    def _commit_phase(self, b, touched, e_b, shard, ops, segs, resp, kinds, phases_cum,
                       ops_cum, shard_state, repoch) -> List[str]:
-        """The durable tail of one phase: slot persists of the touched
-        shards, response records of the combined announcements ``segs``, ONE
-        pfence, then the per-shard two-increment epoch commits.  Returns the
-        files the phase's pfence covered."""
+        """The durable tail of one phase (retire and the fused drain share
+        it): slot persists of the touched shards, response records of the
+        combined announcements ``segs``, ONE pfence, then the per-shard
+        two-increment epoch commits.  A touched split shard is planned first
+        (which lane(s) advance, from the batch's op mix ``ops`` and the
+        post-phase counters), persists its lane record(s) and commits its
+        epoch pair; its ops target their lane's epoch.  Returns the files
+        the phase's pfence covered."""
+        kinds_row = kinds[b][: len(ops)]
+        plans: Dict[int, Tuple[str, List[int]]] = {
+            s: self._plan_lane_commit(s, ops, kinds_row, shard, shard_state(b, s))
+            for s in touched if self._is_split(s)
+        }
         files: List[str] = []
         for s in touched:
-            files += self._persist_shard(
-                s, int(e_b[s]), state=shard_state(b, s),
-                counters=(phases_cum[b][s], ops_cum[b][s]),
-            )
-        targets = [int(e) for e in e_b[shard]]  # per-op commit target
+            counters = (phases_cum[b][s], ops_cum[b][s])
+            if s in plans:
+                files += self._persist_split_shard(s, *plans[s], state=shard_state(b, s),
+                                                   counters=counters)
+            else:
+                files += self._persist_shard(s, int(e_b[s]), state=shard_state(b, s),
+                                             counters=counters)
+        fallback = e_b[shard]  # per-op commit target: its shard's epoch
+        if self.split_lanes:
+            targets, op_lanes = self._lane_targets_per_op(ops, shard, plans, fallback)
+        else:
+            targets, op_lanes = [int(e) for e in fallback], None
         for seg in segs:
             sl = slice(seg["off"], seg["off"] + seg["n"])
             ann = self._read_ann(seg["thread"], seg["slot"])
@@ -1185,12 +1454,17 @@ class ShardedDFCRuntime:
                 "targets": list(targets[sl]),
                 "repoch": repoch,
             }
+            if op_lanes is not None:
+                ann["val"]["lanes"] = list(op_lanes[sl])
             rel = self._ann_path(seg["thread"], seg["slot"])
             self.fs.write(rel, json.dumps(ann).encode(), tag="resp")
             files.append(rel)
         self.fs.fsync(files, tag="phase")  # ONE pfence for slots + responses
         self._promote_elision()
         for s in touched:  # per-shard two-increment epoch commit
+            if s in plans:
+                self._commit_lane_epochs(s, *plans[s])
+                continue
             e = int(e_b[s])
             self.fs.write(self._epoch_path(s), str(e - 1).encode(), tag="epoch")
             self.fs.fsync([self._epoch_path(s)], tag="epoch")
@@ -1316,7 +1590,7 @@ class ShardedDFCRuntime:
             e_j = epochs[j]
             touched = [int(s) for s in np.nonzero(e_j != prev_epochs)[0]]
             seg = {"thread": thread, "token": token, "slot": slot, "off": 0, "n": n}
-            files = self._commit_phase(j, touched, e_j, self.route_host(keys), [seg],
+            files = self._commit_phase(j, touched, e_j, self.route_host(keys), ops, [seg],
                                        resp_np, kinds_np, phases_cum, ops_cum,
                                        phase_shard_state, self.r_epoch)
             if self.obs.enabled:
@@ -1329,27 +1603,39 @@ class ShardedDFCRuntime:
             self.obs.observe_fabric(self)
         return out_records
 
-    def split_shard(self, *args, **kwargs):
-        raise NotImplementedError(f"split_shard waits for {_SLICE_RESHARD}")
-
-    def merge_shards(self, *args, **kwargs):
-        raise NotImplementedError(f"merge_shards waits for {_SLICE_RESHARD}")
-
-    def read_responses(self, thread: int, token: Optional[int] = None
-                       ) -> Optional[Dict[str, Any]]:
+    def read_responses(self, thread: int, token: Optional[int] = None,
+                       lane: Optional[int] = None) -> Optional[Dict[str, Any]]:
         """A thread's combined announcement, or None while still pending.
 
-        Returns ``{"token", "resp", "kinds", "shards", "targets", "repoch"}``,
-        the durable response record.  With ``token``, searches BOTH
-        announcement slots for that batch.  Raises :class:`StaleTokenError`
-        when ``token`` predates both retained slots.
+        Returns ``{"token", "resp", "kinds", "shards", "targets", "repoch"}``
+        (``"lanes"`` too on a split-lane fabric), the durable response
+        record.  With ``token``, searches BOTH announcement slots for that
+        batch.  With ``lane``, the record keeps only the ops that rode that
+        announcement lane; the filter applies after the slot search and the
+        staleness check, so a token is judged against the newest retained
+        token of either lane.  Raises :class:`StaleTokenError` when
+        ``token`` predates both retained slots.
         """
+
+        def view(val: Dict[str, Any], tok: int):
+            out = dict(val, token=tok)
+            if lane is None:
+                return out
+            lanes = val.get("lanes")
+            if lanes is None:
+                lanes = [LANE_NONE] * len(val.get("kinds", []))
+            idx = [i for i, ln in enumerate(lanes) if ln == lane]
+            for key in ("resp", "kinds", "shards", "targets", "lanes"):
+                if key in out and isinstance(out[key], list):
+                    out[key] = [out[key][i] for i in idx]
+            return out
+
         v = self._read_valid(thread)
         if token is None:
             ann = self._read_ann(thread, v & 1)
             if ann.get("val") is BOT:
                 return None
-            return dict(ann["val"], token=ann["token"])
+            return view(ann["val"], ann["token"])
         held = []
         for slot in (v & 1, 1 - (v & 1)):
             ann = self._read_ann(thread, slot)
@@ -1357,7 +1643,7 @@ class ShardedDFCRuntime:
             if t == token:
                 if ann.get("val") is BOT:
                     return None  # announced, not yet combined/retired
-                return dict(ann["val"], token=ann["token"])
+                return view(ann["val"], ann["token"])
             if t >= 0:
                 held.append(t)
         # per-thread tokens are monotone: a token below the newest retained
@@ -1371,9 +1657,222 @@ class ShardedDFCRuntime:
             )
         return None
 
+    # ----------------------------------------------------------- resharding
+    def _snapshot_donor(self, s: int, op: str) -> None:
+        """Detectable typed snapshot of the donor shard through the
+        checkpoint manager's ``combine_structure``, on the fabric's SimFS
+        (a fault sweep ticks through its persistence ops too)."""
+        self._reshard_seq += 1
+        mgr = DFCCheckpointManager(self.fs, 1, prefix="reshard/ckpt")
+        e = mgr._read_epoch()
+        if e % 2 == 1:  # a crash mid-snapshot left the log's epoch odd
+            mgr._write_epoch(e + 1, sync=True)
+        mgr.announce(0, {"step": self._reshard_seq})
+        mgr.combine_structure(
+            self._shard_state(s),
+            extra_meta={"donor": int(s), "op": op, "repoch": self.r_epoch},
+        )
+
+    def _commit_routing(self, intent: Dict[str, Any], new_table: np.ndarray,
+                        new_kinds: List[str], shard_files: List[str]) -> None:
+        """Steps 3-5 of a reshard: the intent, pfence, the routing slot (and
+        any slot files written before), ONE pfence, then the rEpoch
+        two-increment commit, the transaction's commit point."""
+        target = self.r_epoch + 2
+        self.fs.write(self._INTENT_PATH, json.dumps(intent).encode(), tag="routing")
+        self.fs.fsync([self._INTENT_PATH], tag="routing")
+        slot = self._routing_slot(self.r_epoch, nxt=True)
+        self.fs.write(
+            slot,
+            json.dumps(self._routing_record(target, new_table, new_kinds)).encode(),
+            tag="routing",
+        )
+        self.fs.fsync(shard_files + [slot], tag="routing")
+        self.fs.write(self._REPOCH_PATH, str(target - 1).encode(), tag="routing")
+        self.fs.fsync([self._REPOCH_PATH], tag="routing")
+        self.fs.write(self._REPOCH_PATH, str(target).encode(), tag="routing")
+        if self.obs.enabled:
+            self.obs.event(EV_RESHARD, op=intent.get("op"), target_repoch=target,
+                           n_shards=len(new_kinds))
+
+    def _set_table(self, table: np.ndarray) -> None:
+        self.table = table
+        self._table_dev = torch.from_numpy(table).to(self.device)
+
+    def split_shard(self, donor: int) -> int:
+        """Split a hot shard: half of the donor's buckets move to a NEW empty
+        shard of the same kind.  Crash-consistent (commit point: rEpoch);
+        the donor's contents stay put, only future routing changes.  In
+        memory the kind's group gains one row (one copy of the group).
+        Returns the new shard id."""
+        buckets = [b for b in range(self.n_buckets) if self.table[b] == donor]
+        if len(buckets) < 2:
+            raise ValueError(
+                f"shard {donor} holds {len(buckets)} bucket(s); construct the "
+                "fabric with n_buckets > n_shards to make shards splittable"
+            )
+        kind = self.kinds[donor]
+        new_id = self.n_shards
+        new_table = self.table.copy()
+        new_table[buckets[1::2]] = new_id
+        new_kinds = self.kinds + [kind]
+
+        if self.fs is not None:
+            self._drain()  # drain ready announcements AND the pipeline
+            self._snapshot_donor(donor, "split")
+            intent = {
+                "op": "split",
+                "donor": int(donor),
+                "new_shard": new_id,
+                "kind": kind,
+                "pre_repoch": self.r_epoch,
+                "target_repoch": self.r_epoch + 2,
+                "target_epochs": {},  # a split moves no shard state
+            }
+            # the new shard needs no durable state: no cEpoch means epoch 0,
+            # no slot a fresh init on recovery
+            self._commit_routing(intent, new_table, new_kinds, [])
+            self.fs.delete(self._INTENT_PATH)
+
+        fresh = STRUCTS[kind].init(self.capacity, device=self.device)
+        self.groups[kind] = map_state(lambda leaf, f: torch.cat([leaf, f[None]]),
+                                      self.groups[kind], fresh)
+        self.kinds = new_kinds
+        self.n_shards += 1
+        self._set_table(new_table)
+        self.r_epoch += 2
+        new_row = _init_meta([kind], self.device)
+        self.meta = {
+            key: torch.cat([col, new_row.get(key, torch.zeros((1,), dtype=col.dtype,
+                                                              device=col.device))])
+            for key, col in self.meta.items()
+        }
+        return new_id
+
+    def merge_shards(self, src: int, dst: int) -> None:
+        """Merge a cold shard into another of the SAME kind: ``dst`` absorbs
+        ``src``'s committed contents (appended after its own), ``src``
+        empties and its buckets re-route to ``dst``; ``src``'s id stays
+        allocated but unrouted, so recorded verdicts never dangle.  Both
+        post-merge states are pwb'd and pfenced before the rEpoch commit;
+        split-lane shards persist both lanes handoff-style and the intent
+        records their lane pairs."""
+        if src == dst:
+            raise ValueError("cannot merge a shard into itself")
+        if self.kinds[src] != self.kinds[dst]:
+            raise ValueError(
+                f"kind mismatch: shard {src} is {self.kinds[src]!r}, "
+                f"shard {dst} is {self.kinds[dst]!r}"
+            )
+        kind = self.kinds[src]
+        if self.fs is not None:
+            self._drain()  # drain ready announcements AND the pipeline
+        merged = self.shard_contents(dst) + self.shard_contents(src)
+        if len(merged) + self.lanes > self.capacity:
+            raise ValueError(
+                f"merged contents ({len(merged)}) + lanes ({self.lanes}) "
+                f"exceed capacity {self.capacity}"
+            )
+        epochs = self.shard_epochs()
+        t_src, t_dst = int(epochs[src]) + 2, int(epochs[dst]) + 2
+        src_new = state_from_contents(kind, [], self.capacity, t_src, device=self.device)
+        dst_new = state_from_contents(kind, merged, self.capacity, t_dst, device=self.device)
+        new_table = self.table.copy()
+        new_table[new_table == src] = dst
+
+        if self.fs is not None:
+            self._snapshot_donor(src, "merge")
+            split = self._is_split(src)
+            if split:
+                lane_targets = {sid: [e + 2 for e in self._lane_epoch_pair(sid)]
+                                for sid in (src, dst)}
+                intent_targets = {str(sid): list(lane_targets[sid]) for sid in (src, dst)}
+            else:
+                intent_targets = {str(src): t_src, str(dst): t_dst}
+            intent = {
+                "op": "merge",
+                "src": int(src),
+                "dst": int(dst),
+                "kind": kind,
+                "pre_repoch": self.r_epoch,
+                "target_repoch": self.r_epoch + 2,
+                "target_epochs": intent_targets,
+            }
+            if split:
+                files = self._persist_split_shard(src, "handoff", lane_targets[src],
+                                                  state=src_new, counters=None)
+                files += self._persist_split_shard(dst, "handoff", lane_targets[dst],
+                                                   state=dst_new, counters=None)
+            else:
+                files = self._persist_shard(src, t_src, state=src_new)
+                files += self._persist_shard(dst, t_dst, state=dst_new)
+            self._commit_routing(intent, new_table, self.kinds, files)
+            self._promote_elision()
+            for sid, tgt in ((src, t_src), (dst, t_dst)):
+                if split:
+                    self._commit_lane_epochs(sid, "handoff", lane_targets[sid])
+                    continue
+                self.fs.write(self._epoch_path(sid), str(tgt - 1).encode(), tag="epoch")
+                self.fs.fsync([self._epoch_path(sid)], tag="epoch")
+                self.fs.write(self._epoch_path(sid), str(tgt).encode(), tag="epoch")
+                self.obs.event(EV_EPOCH, shard=sid, epoch=tgt)
+            self.fs.delete(self._INTENT_PATH)
+
+        self._set_shard_state(src, src_new)
+        self._set_shard_state(dst, dst_new)
+        self._set_table(new_table)
+        self.r_epoch += 2
+
     # -------------------------------------------------------------- recover
-    _REPOCH_PATH = "routing/rEpoch"
-    _INTENT_PATH = "reshard/intent.json"
+    def _load_split_shard(self, s: int, pair: Sequence[int]):
+        """Reassemble split shard ``s`` from its two ACTIVE lane records at
+        the committed ``pair``: head and tail counters from each lane's
+        ``ctr``, values from the values-owning lane whose record carries the
+        larger ``phases`` (the last committed copy); then collect the lane
+        slots.  Returns ``(state, (phases, ops_combined))``."""
+        fs, kind = self.fs, self.kinds[s]
+        fresh = map_state(_to_np, STRUCTS[kind].init(self.capacity, device="cpu"))
+        recs: List[Optional[Dict[str, Any]]] = [None, None]
+        live = set()
+        for lane in (LANE_HEAD, LANE_TAIL):
+            adir = self._lane_slot_dir(s, lane, pair[lane], nxt=False)
+            raw = fs.read_durable(f"{adir}/rec.json")
+            if raw:
+                recs[lane] = json.loads(raw.decode())
+                live.add(f"{adir}/rec.json")
+                if _LANE_WRITES_VALUES[kind][lane]:
+                    live.add(f"{adir}/values.npy")
+        h = int(recs[LANE_HEAD]["ctr"]) if recs[LANE_HEAD] else int(fresh.ends[0][0])
+        t = int(recs[LANE_TAIL]["ctr"]) if recs[LANE_TAIL] else int(fresh.ends[0][1])
+        values = fresh.values
+        best = (-1, None)
+        for lane in (LANE_HEAD, LANE_TAIL):
+            r = recs[lane]
+            if r is None or not _LANE_WRITES_VALUES[kind][lane]:
+                continue
+            if int(r.get("phases", 0)) > best[0]:
+                adir = self._lane_slot_dir(s, lane, pair[lane], nxt=False)
+                best = (int(r.get("phases", 0)), f"{adir}/values.npy")
+        if best[1] is not None:
+            raw_v = fs.read_durable(best[1])
+            if raw_v:
+                values = np.load(io.BytesIO(raw_v))
+        dev = self.device
+        state = STRUCTS[kind].state_cls(
+            values=torch.from_numpy(np.array(values)).to(dev),
+            ends=torch.tensor([[h, t], [h, t]], dtype=torch.int32, device=dev),
+            epoch=torch.tensor(pair[0] + pair[1], dtype=torch.int32, device=dev),
+        )
+        held = [r for r in recs if r is not None]
+        counters = (max((int(r.get("phases", 0)) for r in held), default=0),
+                    max((int(r.get("ops_combined", 0)) for r in held), default=0))
+        # GC: drop partial lane-slot writes of the interrupted phase
+        for lane in (LANE_HEAD, LANE_TAIL):
+            for p in (0, 1):
+                for rel in list(fs.listdir(f"shard_{s}/lane{_LANE_TAGS[lane]}{p}")):
+                    if rel not in live:
+                        fs.delete(rel)
+        return state, counters
 
     @classmethod
     def recover(
@@ -1398,15 +1897,22 @@ class ShardedDFCRuntime:
     ) -> Tuple["ShardedDFCRuntime", Dict[int, Dict[str, Any]]]:
         """Recover the fabric + per-thread/per-op detectability report.
 
+        Topology first: the committed routing record (a fabric that
+        resharded) overrides the caller's ``kind`` / ``n_shards`` /
+        ``n_buckets`` / ``table`` / ``split_lanes``.  An interrupted reshard
+        is resolved by its intent: rolled forward when ``rEpoch`` reached
+        its target (the touched shards' epochs, a lane pair componentwise),
+        rolled back otherwise (the per-shard GC reclaims its slot writes).
+
         Per shard: round an odd durable epoch up to even (finish the
         interrupted second increment, paper lines 28-30), garbage-collect
         the inactive slot, and reload the active slot (or a fresh init when
-        the shard never committed).  Per announced op: applied iff its
-        shard's committed epoch reached the target recorded with the
-        response; everything else is reported not-applied and is safe to
-        re-announce (``replay_pending``).  A root that holds a durable
-        routing record (a fabric that resharded) raises until the
-        resharding slice.
+        the shard never committed); a split shard rounds each odd lane
+        component up and reassembles its state from its two active lane
+        records.  Per announced op: applied iff its shard's committed epoch
+        (its lane's, for a split-lane op) reached the target recorded with
+        the response; everything else is reported not-applied and is safe to
+        re-announce (``replay_pending``).
 
         A live ``obs`` is attached first, so recovery's own repair writes
         join the timeline the crashed run left (the recorder continues the
@@ -1417,12 +1923,58 @@ class ShardedDFCRuntime:
         if obs.enabled:
             fs.obs = obs
             obs.event(EV_RECOVER, stage="begin")
-        if (fs.read(cls._REPOCH_PATH) or fs.read(cls._INTENT_PATH)
-                or fs.read("routing/slot0.json") or fs.read("routing/slot1.json")):
-            raise NotImplementedError(
-                f"recovering a resharded fabric waits for {_SLICE_RESHARD}"
-            )
+
+        # routing epoch: round odd up (finish the second increment)
+        raw = fs.read(cls._REPOCH_PATH)
+        repoch = int(raw.decode()) if raw else 0
+        if repoch % 2 == 1:
+            repoch += 1
+            fs.write(cls._REPOCH_PATH, str(repoch).encode(), tag="recovery")
+            fs.fsync([cls._REPOCH_PATH], tag="recovery")
+
+        # adopt the committed routing record, if any
         kinds = [kind] * n_shards if isinstance(kind, str) else list(kind)
+        rec_raw = fs.read(f"routing/slot{(repoch // 2) % 2}.json")
+        if rec_raw:
+            rec = json.loads(rec_raw.decode())
+            kinds = list(rec["kinds"])
+            n_shards = int(rec["n_shards"])
+            n_buckets = int(rec["n_buckets"])
+            capacity = int(rec.get("capacity", capacity))
+            lanes = int(rec.get("lanes", lanes))
+            split_lanes = bool(rec.get("split_lanes", split_lanes))
+            table = np.asarray(rec["table"], np.int32)
+
+        # resolve an interrupted reshard by its intent record
+        intent_raw = fs.read(cls._INTENT_PATH)
+        if intent_raw:
+            intent = json.loads(intent_raw.decode())
+            if intent["target_repoch"] <= repoch:
+                # committed: roll the touched shards' epochs forward (their
+                # slot data was pfenced before the commit point); a lane
+                # pair rolls componentwise and stays in one file
+                for sid_str, tgt in intent.get("target_epochs", {}).items():
+                    p = f"shard_{int(sid_str)}/cEpoch"
+                    raw_e = fs.read(p)
+                    if isinstance(tgt, list):
+                        txt = raw_e.decode() if raw_e else ""
+                        cur = (json.loads(txt) if txt.lstrip().startswith("[")
+                               else [0, int(txt)] if txt else [0, 0])
+                        new = [max(int(cur[i]), int(tgt[i])) for i in (0, 1)]
+                        if new != [int(cur[0]), int(cur[1])]:
+                            fs.write(p, json.dumps(new).encode(), tag="recovery")
+                            fs.fsync([p], tag="recovery")
+                        continue
+                    cur = int(raw_e.decode()) if raw_e else 0
+                    if cur < int(tgt):
+                        fs.write(p, str(int(tgt)).encode(), tag="recovery")
+                        fs.fsync([p], tag="recovery")
+            else:
+                # aborted: routing and shard epochs are still pre-reshard;
+                # drop the half-written inactive routing slot
+                fs.delete(f"routing/slot{(repoch // 2 + 1) % 2}.json")
+            fs.delete(cls._INTENT_PATH)
+
         rt = cls(
             kinds, n_shards, capacity, lanes,
             backend=backend, fs=fs, n_threads=n_threads,
@@ -1430,13 +1982,28 @@ class ShardedDFCRuntime:
             pipeline=pipeline, depth=depth, chain=chain, ring_slots=ring_slots,
             split_lanes=split_lanes, obs=obs, device=device,
         )
+        rt.r_epoch = repoch
 
         shard_states = []
         phases = np.zeros((n_shards,), np.int32)
         ops_combined = np.zeros((n_shards,), np.int32)
         committed_epochs = np.zeros((n_shards,), np.int64)
+        committed_lane_epochs: Dict[int, List[int]] = {}
         for s in range(n_shards):
             spec = STRUCTS[kinds[s]]
+            if rt._is_split(s):
+                pair = rt._read_lane_epochs(s)
+                if any(e % 2 == 1 for e in pair):
+                    pair = [e + (e % 2) for e in pair]
+                    fs.write(rt._epoch_path(s), json.dumps(pair).encode(), tag="recovery")
+                    fs.fsync([rt._epoch_path(s)], tag="recovery")
+                committed_lane_epochs[s] = list(pair)
+                rt.lane_epochs[s] = list(pair)
+                committed_epochs[s] = pair[0] + pair[1]
+                state, counters = rt._load_split_shard(s, pair)
+                shard_states.append(state)
+                phases[s], ops_combined[s] = counters
+                continue
             epoch = rt._read_shard_epoch(s)
             if epoch % 2 == 1:  # crashed between the two increments
                 epoch += 1
@@ -1485,11 +2052,17 @@ class ShardedDFCRuntime:
             n_ops = len(ann.get("ops", []))
             if val is BOT:
                 return [OpVerdict(applied=False) for _ in range(n_ops)], False
+            op_lanes = val.get("lanes")
             fully = True
             for i in range(n_ops):
                 s = val["shards"][i]
                 k = val["kinds"][i]
-                committed = committed_epochs[s] >= val["targets"][i]
+                ln = op_lanes[i] if op_lanes is not None else LANE_NONE
+                if ln != LANE_NONE and s in committed_lane_epochs:
+                    # a split-lane op commits with its lane's epoch component
+                    committed = committed_lane_epochs[s][ln] >= val["targets"][i]
+                else:
+                    committed = committed_epochs[s] >= val["targets"][i]
                 fully = fully and bool(committed)
                 applied = bool(committed) and k != R_OVERFLOW and k != R_NONE
                 verdicts.append(
@@ -1540,7 +2113,7 @@ class ShardedDFCRuntime:
                                   for v in (rep["prev"] or {}).get("ops", [])],
                 )
             obs.event(
-                EV_RECOVER, stage="end", repoch=rt.r_epoch,
+                EV_RECOVER, stage="end", repoch=repoch,
                 epochs=[int(e) for e in committed_epochs],
                 threads=sum(1 for r in report.values() if r["token"] is not None),
             )

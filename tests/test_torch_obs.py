@@ -412,3 +412,50 @@ def test_fabric_top_renders_port_trace(tmp_path):
     agg = fabric_top.aggregate(events)
     assert sum(agg["pwb"].values()) == sum(e["ev"] == TO.EV_PWB for e in events)
     assert set(agg["commits"]) <= set(range(4)) and agg["commits"]
+
+
+def test_tier_split_lanes_and_reshard_trace_matches_jax(tmp_path):
+    """A traced durable tier with per-side lanes and an autosplit: the same
+    events as the reference's without timings (lane ``epoch_commit`` events
+    carry ``lanes`` and ``mode``, the split a ``reshard`` event, the
+    topology ``split_lanes``), a root equal to the untraced run's, and
+    ``tools/fabric_top.py``'s lane panel the same for both traces."""
+    sys.path.insert(0, str(REPO / "tools"))
+    try:
+        import fabric_top
+    finally:
+        sys.path.remove(str(REPO / "tools"))
+    runs = {}
+    for pkg in PKGS:
+        o, ck, _, _, v, dev = PKGS[pkg]
+        for name in ("plain", "traced"):
+            root = tmp_path / f"{pkg}_{name}"
+            obs = o.FabricObserver(root=root) if name == "traced" else None
+            tier = v.RequestQueueTier(n_queues=2, slots=2, capacity=512, lanes=16,
+                                      durable=True, fs=ck.SimFS(root), obs=obs,
+                                      priority=True, split_lanes=True, reshard_backlog=3,
+                                      **dev)
+            tier.submit([1, 2, 3, 4, 5, 6], priorities=[0, 1, 0, 0, 1, 0])
+            admitted = tier.admit(2)
+            for sid, _ in admitted:
+                tier.mark_served(sid)
+            tier.submit([7], release_slots=[slot for _, slot in admitted])
+            runs[(pkg, name)] = (admitted, tier.stats, tier.rt.lane_stats(),
+                                 tier.rt.fs.pstats.as_dict(), o.durable_digest(root))
+            if obs is not None:
+                obs.flush()
+                events = o.read_trace(obs.trace_path)
+                runs[(pkg, "events")] = _untimed(events)
+                runs[(pkg, "top")] = fabric_top.render(events)
+    assert runs[("torch", "plain")] == runs[("torch", "traced")] == runs[("jax", "traced")]
+    got = runs[("torch", "events")]
+    assert got == runs[("jax", "events")]
+    lane_commits = [e for e in got if e["ev"] == TO.EV_EPOCH and "lanes" in e]
+    assert lane_commits and {e["mode"] for e in lane_commits} <= {"head", "tail", "handoff"}
+    assert all(e["epoch"] == sum(e["lanes"]) for e in lane_commits)
+    splits = runs[("torch", "traced")][1]["splits"]
+    assert splits >= 1
+    assert [e["op"] for e in got if e["ev"] == TO.EV_RESHARD] == ["split"] * splits
+    assert next(e for e in got if e["ev"] == TO.EV_TOPOLOGY)["split_lanes"] is True
+    assert runs[("torch", "top")] == runs[("jax", "top")]
+    assert "eH/eT" in runs[("torch", "top")]

@@ -311,23 +311,33 @@ def test_serve_shards_runs_on_cpu():
 
 
 def test_later_slices_raise_and_device_is_explicit(tmp_path):
+    """Entry points stay on the card unless asked for the CPU; per-side
+    lanes, split/merge and ``--split-backlog`` run; a root that the JAX
+    package resharded recovers in the port with its topology and contents."""
     fs = TC.SimFS(tmp_path)
-    with pytest.raises(NotImplementedError):
-        TS.ShardedDFCRuntime("queue", 2, 16, 4, fs=fs, device="cpu", split_lanes=True)
-    rt = TS.ShardedDFCRuntime("queue", 2, 16, 4, fs=fs, device="cpu")
-    for call in (rt.split_shard, rt.merge_shards):
-        with pytest.raises(NotImplementedError):
-            call()
-    with pytest.raises(NotImplementedError):
-        serve_shards.serve(serve_shards.build_parser().parse_args(
-            ["--split-backlog", "8", "--device", "cpu"]))
+    rt = TS.ShardedDFCRuntime("queue", 2, 16, 4, fs=fs, device="cpu", split_lanes=True,
+                              n_buckets=4)
+    assert rt.split_lanes and rt.lane_stats() == {"epochs": {0: [0, 0], 1: [0, 0]},
+                                                  "backlog": {0: [0, 0], 1: [0, 0]}}
+    assert rt.split_shard(0) == 2 and rt.n_shards == 3
+    rt.merge_shards(2, 0)
+    assert set(rt.table.tolist()) == {0, 1} and rt.r_epoch == 4
+    with contextlib.redirect_stdout(io.StringIO()):
+        out = serve_shards.serve(serve_shards.build_parser().parse_args(
+            ["--shards", "4", "--batch", "32", "--phases", "3", "--split-backlog", "4",
+             "--device", "cpu"]))
+    assert out["splits"] and out["rt"].n_shards == 4 + len(out["splits"])
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError):
             TS.ShardedDFCRuntime("queue", 2, 16, 4)
-    # a root that resharded (JAX wrote a routing record) waits for that slice
+    # a root that JAX resharded recovers with the same topology and contents
     jfs = JC.SimFS(tmp_path / "reshard")
     jrt = JS.ShardedDFCRuntime("queue", 2, 16, 4, fs=jfs, n_buckets=4, backend="ref")
+    jrt.announce(0, [jrt.key_for_shard(0)] * 2, [T.OP_ENQ] * 2, [1.0, 2.0], token=1)
+    jrt.combine_phase()
     jrt.split_shard(0)
-    with pytest.raises(NotImplementedError):
-        TS.ShardedDFCRuntime.recover(TC.SimFS(tmp_path / "reshard"), kind="queue",
-                                     n_shards=2, capacity=16, lanes=4, device="cpu")
+    trt, _ = TS.ShardedDFCRuntime.recover(TC.SimFS(tmp_path / "reshard"), kind="queue",
+                                          n_shards=2, capacity=16, lanes=4, device="cpu")
+    assert (trt.n_shards, trt.kinds, trt.r_epoch) == (3, ["queue"] * 3, 2)
+    assert trt.table.tolist() == jrt.table.tolist()
+    assert [trt.shard_contents(s) for s in range(3)] == [[1.0, 2.0], [], []]

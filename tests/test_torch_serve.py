@@ -210,17 +210,25 @@ def test_priority_crash_sweep_exactly_once_matches_jax(tmp_path):
 
 
 def test_later_slice_options_raise():
-    with pytest.raises(NotImplementedError, match="per-side lanes"):
-        TV.RequestQueueTier(split_lanes=True, device="cpu")
-    with pytest.raises(NotImplementedError, match="resharding"):
-        TV.RequestQueueTier(reshard_backlog=4, device="cpu")
-    for flags, slice_ in ((["--split-lanes"], "per-side lanes"),
-                          (["--reshard-backlog", "4"], "resharding"),
-                          (["--window", "16"], "long-context")):
+    """Per-side lanes and autosplit build a working tier and the launcher
+    takes their flags; ``--window`` still waits for the long-context slice."""
+    tier = TV.RequestQueueTier(split_lanes=True, reshard_backlog=4, device="cpu")
+    assert tier.split_lanes and tier.reshard_backlog == 4
+    tier.submit(list(range(1, 9)))
+    assert tier.stats["splits"] == 1 and tier.rt.n_shards == 7
+    with pytest.raises(ValueError, match="k_classes"):
+        TV.RequestQueueTier(k_classes=3, reshard_backlog=4, device="cpu")
+    for flags in (["--split-lanes"], ["--reshard-backlog", "4"]):
         args = TV.build_parser().parse_args(
-            ["--arch", "smollm-135m", "--reduced", "--tier-only", "--device", "cpu", *flags])
-        with pytest.raises(NotImplementedError, match=slice_):
-            TV.serve(args)
+            ["--arch", "smollm-135m", "--reduced", "--tier-only", "--device", "cpu",
+             "--sessions", "8", *flags])
+        with contextlib.redirect_stdout(io.StringIO()):
+            assert TV.serve(args)["completed"] == 8
+    args = TV.build_parser().parse_args(
+        ["--arch", "smollm-135m", "--reduced", "--tier-only", "--device", "cpu",
+         "--window", "16"])
+    with pytest.raises(NotImplementedError, match="long-context"):
+        TV.serve(args)
     # the continuous server and the flight recorder are ported: they run
     args = TV.build_parser().parse_args(
         ["--arch", "smollm-135m", "--reduced", "--tier-only", "--device", "cpu",
