@@ -169,13 +169,49 @@ script exits non-zero without printing a result):
                   resumed exactly once with the split topology
                   (``queues=5``).  Each kernel record gains
                   ``lanes_reshard_launches`` (the main-path runs of (b)-(e),
-                  the comparisons excluded).
+                  the comparisons excluded),
+  10. paper objects -- the paper's own detectable objects over the
+                  simulated NVM (host code) and the vectorized combine of
+                  one object: (a) ``run_dfc_counts`` and the Romulus,
+                  OneFile and PMDK baselines for the stack, queue and deque,
+                  push-pop and rand-op, at 1-40 threads (800 ops, seed 7,
+                  think (0, 30)), the table printed, six points and the
+                  baselines at 40 threads held to the reference's values on
+                  the CPU (``PAPER_PINNED``, ``BASELINES_T40``) and the
+                  paper's ordering at 40 threads; (b) the reference tests'
+                  crash sweeps (``CRASH_SWEEPS``: each structure's small
+                  workload in MIN, MAX and RANDOM and its larger one in
+                  RANDOM), every crash point durably linearizable with the
+                  reference's detectability verdicts; (c)
+                  ``python -m repro_torch.launch.quickstart`` on the card in
+                  a process of its own: the reference quickstart's lines
+                  (part 2's header the port's), the stack kernel launched
+                  once, its phase bit-equal to the plain version's; (d)
+                  kernels 5-7 (the one-object steps, S = 1) phase by phase
+                  on the 40 lanes of ``make_workloads("rand-op", 40, 800)``,
+                  bit-equal to plain at every phase, 20 launches a kind,
+                  each timed at N = 40 beside phase 3's N = 64.  Each kernel
+                  record gains ``paper_objects_launches``,
+  11. dense configs -- ``qwen2-1.5b`` (QKV bias, GQA 12/2, head dim 128)
+                  and ``olmo-1b`` (non-parametric LayerNorm, MHA 16/16) at
+                  their published widths, served as phase 7 serves smollm
+                  (``DENSE_RUNS``: batch 8, prompt 512, 32 tokens, 16
+                  sessions, volatile FIFO tier): exact launch counts (qwen2
+                  RMSNorm 2L+1 per prefill and decode step, olmo none, its
+                  norm being plain PyTorch; flash attention L per prefill),
+                  the first batch replayed on the plain backend (5e-2),
+                  prefill tok/s, decode ms per step and the device's busy
+                  share; flash attention at (8, 512, 12, 2, 128) and (8,
+                  512, 16, 16, 128) and RMSNorm at 4096 x 1536 timed beside
+                  their bounds and PyTorch calls (under ``at``).  Each
+                  kernel record gains ``dense_configs_launches``.
 
 Phase 3 also holds the three model kernels (RMSNorm, flash attention, the
 selective scan) against their plain versions at model shapes, in bf16 and
 f32 (tolerances in ``MODEL_TOL``): flash attention at every head dim, a
-ragged S, S = T = 1, non-causal, Hq = Hkv and a group of 4; RMSNorm at both
-models' prefill and decode rows and a D off the 16-byte vector; an unaligned
+ragged S, S = T = 1, non-causal, Hq = Hkv and a group of 4, and phase 11's
+shapes; RMSNorm at both models' prefill and decode rows, qwen2's prefill
+rows (4096 x 1536) and a D off the 16-byte vector; an unaligned
 input to both; the scan in its base and fused modes, y and h_S, at the
 serving shape, a ragged S, N = 8, S = 1 and DI, N off the 16-byte vector,
 the fused mode's z the strided half of an xz (and once contiguous); and a
@@ -197,15 +233,17 @@ import functools
 import io
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
 import tempfile
+import textwrap
 import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
-ALL_PHASES = ("1", "2", "3", "4", "5", "6", "7", "8", "9")
+ALL_PHASES = ("1", "2", "3", "4", "5", "6", "7", "8", "9", "10", "11")
 SOURCE = "src/repro_torch/kernels/dfc_reduce/csrc/dfc_reduce.cu"
 GRID_SOURCE = "src/repro_torch/kernels/dfc_reduce/csrc/phase_grid.cu"
 KINDS = ("stack", "queue", "deque", "map")
@@ -291,6 +329,7 @@ HOST_CALLS = 200  # calls per host-clock window: its host_us
 
 
 VOLATILE = {}  # phase 4's unsplit run, printed beside phase 9's split run
+SINGLE_N64 = {}  # phase 3's single-object times (N = 64), printed beside phase 10 (d)
 
 
 class SmokeFailure(RuntimeError):
@@ -590,6 +629,7 @@ def phase_kernels_adversarial(torch, T):
         one = [a[:1].contiguous() for a in args]
         single[kind] = (cuda_ms(lambda: kfn(*one), 20), cuda_ms(lambda: pfn(*one), 20),
                         *bound(kind, one), time_combine(torch, f"{NAMES[kind]} S=1", kfn, one))
+        SINGLE_N64[kind] = (single[kind][0], single[kind][4][0]["device_ms"])
     # at this size the byte and operation bounds are far below a launch's
     # latency, which is what the time measures
     print("single-object kernels (S=1, N=64): "
@@ -1560,14 +1600,17 @@ def phase_model_kernels(torch):
     f32: at the serving path's shapes and around them (flash attention at
     every head dim, a ragged S, S = T = 1, non-causal, no grouping and a
     group of 4; RMSNorm at both models' prefill and decode
-    rows, a D off the 16-byte vector; an unaligned input to both); then a
+    rows, a D off the 16-byte vector; the dense configs' shapes of phase
+    11; an unaligned input to both); then a
     kernel launched under ``torch.cuda.stream`` runs on that stream."""
     from repro_torch.kernels import nvcc
     from repro_torch.kernels.flash_attention.kernel import HEAD_DIMS
     cases = [("rmsnorm", (r, d), {}) for r, d in
-             ((4096, 576), (2048, 4096), (8, 576), (4, 4096), (64, 100))]
+             ((4096, 576), (2048, 4096), (8, 576), (4, 4096), (64, 100), (4096, 1536))]
     cases += [("flash_attention", (8, 512, 9, 3, 64), {}),
-              ("flash_attention", (8, 200, 9, 3, 64), {})]
+              ("flash_attention", (8, 200, 9, 3, 64), {}),
+              ("flash_attention", (8, 512, 12, 2, 128), {}),
+              ("flash_attention", (8, 512, 16, 16, 128), {})]
     cases += [("flash_attention", (2, 512, 9, 3, hd), {}) for hd in HEAD_DIMS if hd != 64]
     cases += [("flash_attention", (2, 1, 9, 3, 64), {}),
               ("flash_attention", (2, 200, 9, 3, 64), {"causal": False}),
@@ -1638,6 +1681,8 @@ def _expected_model_launches(cfg, prefills, steps):
     steps (a served batch of gen tokens: one prefill, gen-1 steps)."""
     L = cfg.n_layers
     norms = 2 * L + 1 if cfg.family == "dense" else L + 1
+    if cfg.norm != "rmsnorm":  # olmo's LayerNorm is plain PyTorch in both packages
+        norms = 0
     return {"rmsnorm": (prefills + steps) * norms,
             "flash_attention": prefills * L if cfg.family == "dense" else 0,
             "selective_scan": prefills * L if cfg.family == "ssm" else 0}
@@ -2791,6 +2836,375 @@ def phase_lanes_reshard(torch, T, K, serve_shards, records, params):
           f"{time.perf_counter() - t0:.1f} s", flush=True)
 
 
+# ----------------------------------------------------------- paper objects
+# phase 10 (a): the figures' thread counts and the DFC-TOTAL / DFC-combiner
+# (pwb/op, pwb/op, pfence/op, pfence/op) the reference's run_dfc_counts gives
+# on the CPU at 800 ops, seed 7, think (0, 30) (bench_persistence's
+# settings); the baselines at 40 threads on the stack's push-pop
+PAPER_THREADS = (1, 2, 4, 8, 16, 24, 32, 40)
+PAPER_OPS = 800
+PAPER_PINNED = {
+    ("stack", "push-pop", 1): (5.5, 3.5, 4.0, 2.0),
+    ("stack", "push-pop", 8): (3.70875, 1.70875, 2.515, 0.515),
+    ("stack", "push-pop", 40): (3.44, 1.44, 2.1, 0.1),
+    ("queue", "push-pop", 40): (3.685, 1.685, 2.1, 0.1),
+    ("deque", "push-pop", 40): (3.86625, 1.86625, 2.1, 0.1),
+    ("stack", "rand-op", 40): (3.175, 1.175, 2.1, 0.1),
+}
+BASELINES_T40 = {"romulus": (5.025, 0.075), "onefile": (24.0, 24.0), "pmdk": (4.5, 3.0)}
+# phase 10 (b): the reference tests' crash sweeps (tests/test_crash_recovery.py,
+# test_dfc_queue.py, test_dfc_deque.py) as (structure, workload, seed, mode,
+# stride) -> (crash points, pending ops reported as taken effect, as not, the
+# first 16 hex digits of the sha256 of the JSON list of each point's sorted
+# took_effect items): the reference's verdicts on the CPU
+CRASH_SWEEPS = {
+    ("stack", "small", 0, "MIN", 1): (309, 672, 200, "fb47c8531cb7f7fe"),
+    ("stack", "small", 0, "MAX", 1): (309, 704, 168, "4993b178b4d418d5"),
+    ("stack", "small", 1, "RANDOM", 2): (142, 333, 90, "4edcb6238dc3f600"),
+    ("stack", "larger", 0, "RANDOM", 7): (136, 558, 98, "51c9c4c5308d9566"),
+    ("queue", "small", 0, "MIN", 1): (351, 782, 193, "a1da7c73b108d85c"),
+    ("queue", "small", 0, "MAX", 1): (351, 815, 160, "1e687b3815d503fe"),
+    ("queue", "small", 1, "RANDOM", 2): (152, 363, 90, "d01896d1b788da9e"),
+    ("queue", "larger", 0, "RANDOM", 7): (119, 395, 63, "962a3def8c926ae5"),
+    ("deque", "small", 0, "MIN", 1): (351, 782, 193, "a1da7c73b108d85c"),
+    ("deque", "small", 0, "MAX", 1): (351, 815, 160, "1e687b3815d503fe"),
+    ("deque", "small", 1, "RANDOM", 2): (152, 361, 90, "0844d482ec1d71f9"),
+    ("deque", "larger", 0, "RANDOM", 7): (112, 363, 69, "d9cc3f0167bf2365"),
+}
+# phase 10 (c): examples/quickstart.py's lines on the CPU, part 2's header
+# the port's (it names the card)
+QUICKSTART_LINES = [
+    "== 1. paper-faithful DFC stack ==",
+    "   ops: [('pop', None, 12), ('push', 12, 'ACK'), ('pop', None, 10), ('push', 10, "
+    "'ACK'), ('pop', None, 91), ('pop', None, 93), ('push', 93, 'ACK'), ('push', 91, 'ACK')]",
+    "   combining phases: 2, eliminated pairs: 4",
+    "   pwb: {'announce': 16, 'combine': 12}  pfence: {'announce': 16, 'combine': 4}",
+    "   crash injection at step 25 + recovery ...",
+    "   durable-linearizable after recovery: True; took-effect: {3: False, 2: True, 1: "
+    "False, 0: False}",
+    "== 2. CUDA-native vectorized combine ==",
+    "   responses: [0. 0. 1. 0. 2. 3.] kinds: [1 1 2 1 2 2]",
+    "   stack after phase: []",
+    "== 3. DFC-Checkpoint ==",
+    "   committed step 1; pwb=20 pfence=10 (4 workers -> 1 slot persist)",
+    "   detectability report: {0: {'committed': True, 'step': 1}, 1: {'committed': True, "
+    "'step': 1}, 2: {'committed': True, 'step': 1}, 3: {'committed': True, 'step': 1}}",
+    "done.",
+]
+
+
+def _paper_structures():
+    from repro_torch.core import baselines as B
+    from repro_torch.core.dfc import DFCStack
+    from repro_torch.core.dfc_deque import DFCDeque
+    from repro_torch.core.dfc_queue import DFCQueue
+    return {"stack": (DFCStack, B.PMDKStack, B.RomulusStack, B.OneFileStack),
+            "queue": (DFCQueue, B.PMDKQueue, B.RomulusQueue, B.OneFileQueue),
+            "deque": (DFCDeque, B.PMDKQueue, B.RomulusQueue, B.OneFileQueue)}
+
+
+def paper_counts():
+    """Phase 10 (a): the figure 3b-c table (DFC-TOTAL and DFC-combiner pwb/op
+    and pfence/op beside Romulus, OneFile and PMDK) for every structure, mix
+    and thread count, printed; the pinned points and the paper's ordering
+    held."""
+    from repro_torch.core import baselines as B
+    t0 = time.perf_counter()
+    rows = {}
+    for structure, (dfc_cls, pmdk_cls, rom_cls, one_cls) in _paper_structures().items():
+        for mix in ("push-pop", "rand-op"):
+            line = []
+            for n in PAPER_THREADS:
+                def work():
+                    return B.make_workloads(mix, n, PAPER_OPS, structure=structure)
+                d = B.run_dfc_counts(n, work(), seed=7, think=(0, 30), structure=dfc_cls)
+                ops = d["ops"]
+                rom, one, pmdk = (c(n).run(work()) for c in (rom_cls, one_cls, pmdk_cls))
+                row = ((d["pwb_combine"] + d["pwb_announce"]) / ops, d["pwb_combine"] / ops,
+                       (d["pfence_combine"] + d["pfence_announce"]) / ops,
+                       d["pfence_combine"] / ops)
+                rows[(structure, mix, n)] = row
+                line.append(f"t{n} {row[0]:.4f}/{row[1]:.4f} {row[2]:.4f}/{row[3]:.4f} "
+                            f"rom {rom.pwb_per_op():.3f}/{rom.pfence_per_op():.3f} one "
+                            f"{one.pwb_per_op():.2f}/{one.cas / max(one.ops, 1):.2f} pmdk "
+                            f"{pmdk.pwb_per_op():.3f}/{pmdk.pfence_per_op():.3f}")
+                if (structure, mix, n) == ("stack", "push-pop", 40):
+                    got = {"romulus": (rom.pwb_per_op(), rom.pfence_per_op()),
+                           "onefile": (one.pwb_per_op(), one.cas / max(one.ops, 1)),
+                           "pmdk": (pmdk.pwb_per_op(), pmdk.pfence_per_op())}
+                    check(all(math.isclose(a, b, rel_tol=0, abs_tol=1e-12)
+                              for k in BASELINES_T40 for a, b in zip(got[k], BASELINES_T40[k])),
+                          f"baselines at t40: {got}, expected {BASELINES_T40}")
+            print(f"fig 3b-c {structure} {mix} (DFC-TOTAL/DFC-combiner pwb/op, pfence/op; "
+                  f"Romulus, OneFile, PMDK pwb/op/pfence/op): " + "; ".join(line), flush=True)
+    for key, want in PAPER_PINNED.items():
+        check(all(math.isclose(a, b, rel_tol=0, abs_tol=1e-12) for a, b in zip(rows[key], want)),
+              f"fig 3b-c {key}: {rows[key]}, the reference's {want}")
+    # tests/test_baselines.py::test_paper_ordering_at_high_concurrency
+    n, total = 40, 400
+    dfc = B.run_dfc_counts(n, B.make_workloads("push-pop", n, total))
+    combiner = dfc["pwb_combine"] / dfc["ops"]
+    dfc_total = (dfc["pwb_combine"] + dfc["pwb_announce"]) / dfc["ops"]
+    rom = B.RomulusStack(n).run(B.make_workloads("push-pop", n, total)).pwb_per_op()
+    one = B.OneFileStack(n).run(B.make_workloads("push-pop", n, total)).pwb_per_op()
+    check(combiner < rom < one and dfc_total < one,
+          f"the paper's ordering at 40 threads: DFC-combiner {combiner}, Romulus {rom}, "
+          f"OneFile {one}, DFC-TOTAL {dfc_total}")
+    print(f"paper objects (a): the {len(PAPER_PINNED)} pinned points and the baselines at t40 "
+          f"equal the reference's; at 40 threads DFC-combiner {combiner:.4f} < Romulus "
+          f"{rom:.4f} < OneFile {one:.4f}, DFC-TOTAL {dfc_total:.4f} < OneFile "
+          f"({time.perf_counter() - t0:.1f} s host)", flush=True)
+
+
+def _sweep_workloads(structure, which):
+    """The reference tests' ``SMALL`` and larger sweep workloads."""
+    from repro_torch.core.dfc import DEQ, ENQ, POP, POPL, POPR, PUSH, PUSHL, PUSHR
+    if which == "small":
+        return {"stack": [[(PUSH, 11), (POP, None)], [(PUSH, 22), (PUSH, 23)],
+                          [(POP, None), (PUSH, 33)]],
+                "queue": [[(ENQ, 11), (DEQ, None)], [(ENQ, 22), (ENQ, 23)],
+                          [(DEQ, None), (ENQ, 33)]],
+                "deque": [[(PUSHL, 11), (POPR, None)], [(PUSHR, 22), (PUSHL, 23)],
+                          [(POPL, None), (PUSHR, 33)]]}[structure]
+    if structure == "stack":
+        return [[(PUSH, 100 * t + i) for i in range(2)] + [(POP, None)] for t in range(5)]
+    if structure == "queue":
+        return [[(ENQ, 100 * t + i) for i in range(2)] + [(DEQ, None)] for t in range(4)]
+    return [[(PUSHL if (t + i) % 2 else PUSHR, 100 * t + i) for i in range(2)]
+            + [(POPL if t % 2 else POPR, None)] for t in range(4)]
+
+
+def paper_crash_sweeps():
+    """Phase 10 (b): the reference tests' crash sweeps: every crash point
+    durably linearizable after recovery, a taken-effect op's recovered
+    response neither BOT nor INIT, and the detectability verdicts the
+    reference gives.  Returns the number of crash points."""
+    import hashlib
+    from repro_torch.core.dfc import BOT, INIT
+    from repro_torch.core.harness import (check_durable_linearizability, run_with_crash,
+                                          total_steps)
+    from repro_torch.nvm.memory import CrashMode
+    t0 = time.perf_counter()
+    classes = {k: v[0] for k, v in _paper_structures().items()}
+    points = 0
+    for (structure, which, seed, mode, stride), want in CRASH_SWEEPS.items():
+        cls, w = classes[structure], _sweep_workloads(structure, which)
+        verdicts, bad = [], []
+        for k in range(1, total_steps(w, seed=seed, structure=cls), stride):
+            res = run_with_crash(w, crash_at=k, seed=seed, mode=CrashMode[mode], structure=cls)
+            check(res.crashed, f"{structure} {which} crash at {k}: no crash")
+            for tid, effect in res.took_effect.items():
+                check(not effect or (res.recovered[tid] is not BOT
+                                     and res.recovered[tid] != INIT),
+                      f"{structure} {which} crash at {k}: thread {tid} took effect without "
+                      "a response")
+            verdicts.append(sorted(res.took_effect.items()))
+            if not check_durable_linearizability(res):
+                bad.append(k)
+        check(not bad, f"{structure} {which} seed {seed} {mode}: not durably linearizable at "
+                       f"crash points {bad}")
+        n_true = sum(v for pt in verdicts for _, v in pt)
+        n_false = sum(not v for pt in verdicts for _, v in pt)
+        digest = hashlib.sha256(json.dumps(verdicts).encode()).hexdigest()[:16]
+        got = (len(verdicts), n_true, n_false, digest)
+        check(got == want, f"{structure} {which} seed {seed} {mode}: verdicts {got}, the "
+                           f"reference's {want}")
+        points += len(verdicts)
+    print(f"paper objects (b): {points} crash points over {len(CRASH_SWEEPS)} sweeps (stack, "
+          "queue, deque in MIN, MAX and RANDOM), every one durably linearizable, the "
+          f"detectability verdicts the reference's ({time.perf_counter() - t0:.1f} s host)",
+          flush=True)
+    return points
+
+
+def paper_quickstart(torch):
+    """Phase 10 (c): ``python -m repro_torch.launch.quickstart`` on the card
+    in a process of its own: its lines the reference's, the stack kernel
+    launched once and its phase equal to the plain version's.  Returns the
+    launches."""
+    from repro_torch.core.torch_dfc import init_stack
+    from repro_torch.kernels.dfc_reduce.ops import dfc_combine_step
+    from repro_torch.launch import quickstart as Q
+    code = textwrap.dedent("""
+        import json
+        import torch
+        from repro_torch.kernels.dfc_reduce import kernel as K
+        from repro_torch.launch import quickstart as Q
+        K.reset_launches()
+        out = Q.main(["--device", "cuda"])
+        outs = (out["resp"], out["kinds"], *out["state"].leaves())
+        print(json.dumps({"launches": K.LAUNCHES, "device": str(out["resp"].device),
+                          "outs": [t.reshape(-1).view(torch.int32).tolist() for t in outs]}))
+    """)
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                          text=True, timeout=600,
+                          env={**os.environ, "PYTHONPATH": str(ROOT / "src")})
+    check(proc.returncode == 0, f"the quickstart failed: {proc.stderr[-2000:]}")
+    lines = proc.stdout.splitlines()
+    got = json.loads(lines[-1])
+    check(lines[:-1] == QUICKSTART_LINES,
+          "the quickstart's lines differ from the reference's: "
+          + repr([(a, b) for a, b in zip(lines[:-1], QUICKSTART_LINES) if a != b][:3]))
+    want_launches = {k: int(k == "stack") for k in got["launches"]}
+    check(got["device"].startswith("cuda") and got["launches"] == want_launches,
+          f"the quickstart's launches {got['launches']} on {got['device']}, expected one of "
+          "the stack kernel")
+    dev = torch.device("cuda")
+    ops = torch.tensor(Q.COMBINE_OPS, dtype=torch.int32, device=dev)
+    params = torch.tensor(Q.COMBINE_PARAMS, dtype=torch.float32, device=dev)
+    state, resp, kinds = dfc_combine_step(init_stack(64, device=dev), ops, params,
+                                          backend="ref")
+    plain = [t.reshape(-1).view(torch.int32).tolist()
+             for t in (resp, kinds, *state.leaves())]
+    check(got["outs"] == plain, "the quickstart's combine differs from the plain version's "
+                                f"bits: {got['outs']} against {plain}")
+    print(f"paper objects (c): the quickstart on the card prints the reference's "
+          f"{len(QUICKSTART_LINES)} lines (part 2's header the port's), the stack kernel "
+          "launched once, its responses, kinds and state bit-equal to the plain version's",
+          flush=True)
+    return got["launches"]
+
+
+def paper_single_object(torch, T, K):
+    """Phase 10 (d): kernels 5-7 (the one-object steps, the one-phase kernels
+    at S = 1) phase by phase on the 40 announcement lanes of
+    ``make_workloads("rand-op", 40, 800)`` (one lane a thread, 20 phases a
+    kind): kernel against plain bit for bit at every phase, the launches
+    counted, each kernel timed at N = 40 beside its bound.  Returns the
+    launches and the timings."""
+    from repro_torch.core import baselines as B
+    from repro_torch.core import dfc as D
+    from repro_torch.kernels.dfc_reduce import ops as O
+    codes = {D.PUSH: T.OP_PUSH, D.POP: T.OP_POP, D.ENQ: T.OP_ENQ, D.DEQ: T.OP_DEQ,
+             D.PUSHL: T.OP_PUSHL, D.POPL: T.OP_POPL, D.PUSHR: T.OP_PUSHR, D.POPR: T.OP_POPR}
+    steps = {"stack": O.dfc_combine_step, "queue": O.dfc_queue_combine_step,
+             "deque": O.dfc_deque_combine_step}
+    fns = calls()
+    dev = torch.device("cuda")
+    n = 40
+    launches, timed = {}, {}
+    for kind, step in steps.items():
+        w = B.make_workloads("rand-op", n, PAPER_OPS, structure=kind)
+        n_phases = len(w[0])
+        ops = torch.tensor([[codes[w[t][i][0]] for t in range(n)] for i in range(n_phases)],
+                           dtype=torch.int32, device=dev)
+        par = torch.tensor([[w[t][i][1] or 0 for t in range(n)] for i in range(n_phases)],
+                           dtype=torch.float32, device=dev)
+        sk = T.STRUCTS[kind].init(1024, device=dev)
+        sp = T.STRUCTS[kind].init(1024, device=dev)
+        busiest = (-1, 0, sk)  # (committed size before the phase, phase, state)
+        before = K.LAUNCHES[kind]
+        for i in range(n_phases):
+            prev = sk
+            sk, rk, kk = step(sk, ops[i], par[i])
+            sp, rp, kp = step(sp, ops[i], par[i], backend="ref")
+            compare_outputs(f"{kind} one-object step, phase {i}", (rk, kk), (rp, kp))
+            compare_states(f"{kind} one-object step, phase {i}", sk, sp)
+            if int(prev.active_size()) > busiest[0]:
+                busiest = (int(prev.active_size()), i, prev)
+        launches[kind] = K.LAUNCHES[kind] - before
+        check(launches[kind] == n_phases,
+              f"{kind} one-object steps: {launches[kind]} launches over {n_phases} phases")
+        # the kernel's own call at S = 1 on the phase with the most committed
+        # elements (windows built from the state before it, as the step does)
+        _, i, prev = busiest
+        one = [a.contiguous() for a in kernel_inputs(
+            kind, T.map_state(lambda x: x.unsqueeze(0), prev), ops[i:i + 1], par[i:i + 1],
+            None)]
+        kfn, pfn = fns[kind]
+        compare_outputs(f"{kind} N=40 phase {i}", kfn(*one), pfn(*one))
+        fields, _ = time_combine(torch, f"{NAMES[kind]} S=1 N=40", kfn, one)
+        timed[kind] = {"ms": cuda_ms(lambda: kfn(*one), 20),
+                       "plain_ms": cuda_ms(lambda: pfn(*one), 20),
+                       **dict(zip(("bound_ms", "bound_by"), bound(kind, one))), **fields,
+                       "phase": i, "shape": [1, n]}
+    print("paper objects (d): kernels 5-7 (one object, S=1, N=40, 20 phases a kind of "
+          "make_workloads('rand-op', 40, 800)) bit-equal to plain at every phase; launches "
+          f"{launches}; " + ", ".join(
+              f"{NAMES[k]} at N=40 {v['ms']:.4f} ms, device {v['device_ms']:.4f} ms "
+              f"({v['device_ms_by']}), host {v['host_us']:.1f} us (plain {v['plain_ms']:.4f} "
+              f"ms, bound {v['bound_ms'] * 1e6:.3f} ns by {v['bound_by']}; at N=64: "
+              + (f"{SINGLE_N64[k][0]:.4f} ms, device {SINGLE_N64[k][1]:.4f} ms)"
+                 if k in SINGLE_N64 else "phase 3 not run)")
+              for k, v in timed.items()), flush=True)
+    return launches, timed
+
+
+def phase_paper_objects(torch, T, K, records):
+    """Phase 10: (a)-(d) above; each kernel's record gains
+    ``paper_objects_launches`` (the quickstart's and (d)'s) and the stack,
+    queue and deque records the N = 40 timings under ``at``."""
+    paper_counts()
+    paper_crash_sweeps()
+    quick = paper_quickstart(torch)
+    single, timed = paper_single_object(torch, T, K)
+    totals = {k: quick.get(k, 0) + single.get(k, 0) for k in K.LAUNCHES}
+    for name in list(K.LAUNCHES) + list(MODEL_KERNELS):
+        if name in records:
+            records[name]["paper_objects_launches"] = totals.get(name, 0)
+    for kind, fields in timed.items():
+        if kind in records:
+            records[kind].setdefault("at", {})["one object N=40"] = fields
+    print(f"paper objects: launches {totals}", flush=True)
+
+
+# ------------------------------------------------------------ dense configs
+# phase 11: the two dense configs at their published widths, as phase 7
+# serves smollm-135m (volatile FIFO tier)
+DENSE_RUNS = {
+    arch: ["--arch", arch, "--batch", "8", "--prompt-len", "512", "--gen", "32",
+           "--sessions", "16", "--device", "cuda"] for arch in ("qwen2-1.5b", "olmo-1b")}
+# the model kernels at the new shapes: flash attention at each config's
+# heads (head dim 128), RMSNorm at qwen2's prefill rows (8 x 512, width 1536)
+DENSE_KERNEL_SHAPES = {"flash_attention": [("qwen2-1.5b", (8, 512, 12, 2, 128)),
+                                           ("olmo-1b", (8, 512, 16, 16, 128))],
+                       "rmsnorm": [("qwen2-1.5b", (4096, 1536))]}
+
+
+def phase_dense(torch, K, records):
+    """Phase 11: ``qwen2-1.5b`` and ``olmo-1b`` served at full width through
+    the kernels (exact launch counts, the first batch replayed on the plain
+    backend, a profile), then the model kernels at the new shapes against
+    their bounds and PyTorch calls; each record gains
+    ``dense_configs_launches``."""
+    from repro_torch.launch import serve as serve_mod
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    totals = {k: 0 for k in list(K.LAUNCHES) + list(MODEL_KERNELS)}
+    for arch, argv in DENSE_RUNS.items():
+        torch.cuda.reset_peak_memory_stats()
+        out, first, model = serve_and_check(torch, serve_mod, K, argv)
+        fabric = dict(K.LAUNCHES)
+        gen = serve_mod.build_parser().parse_args(argv).gen
+        for k, v in list(model.items()) + list(fabric.items()):
+            totals[k] += v
+        replay_first_batch(torch, out, first, gen)
+        profile_model(torch, out, first, gen)
+        prefill_s = statistics.median(out["prefill_s"])
+        print(f"serve {arch}: prefill {prefill_s * 1e3:.3f} ms per batch median "
+              f"({first['prompts'].numel() / prefill_s:.0f} tok/s), decode "
+              f"{statistics.median(out['decode_step_s']) * 1e3:.3f} ms per step median over "
+              f"{len(out['decode_step_s'])} steps, {out['decoded_tokens'] / out['seconds']:.1f} "
+              f"tok/s end to end, {out['cfg'].param_count() / 1e9:.3f} B params, peak memory "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
+        del out, first
+        torch.cuda.empty_cache()
+    bf16 = torch.bfloat16
+    for name, runs in DENSE_KERNEL_SHAPES.items():
+        rec = records.get(name)
+        for arch, shape in runs:
+            fields = measure_model_kernel(torch, name, shape, bf16)
+            if rec is None:
+                src, replaces = MODEL_KERNELS[name]
+                rec = records[name] = {"name": name, "route": "cuda", "source": src,
+                                       "replaces": replaces, "launches": totals[name], **fields}
+            rec.setdefault("at", {})[f"{arch} " + "x".join(map(str, shape))] = fields
+    for name, n in totals.items():
+        if name in records:
+            records[name]["dense_configs_launches"] = n
+    print(f"dense configs: launches {totals}", flush=True)
+
+
 def turns_kernels(root):
     """The combine-kernel wrappers (``kernel.py``) of the repository checkout
     at ``root``, loaded beside this tree's: its ``csrc`` sources build into
@@ -2892,6 +3306,15 @@ def main(argv=None) -> int:
         with phase("9 lanes and resharding"):
             phase_lanes_reshard(torch, T, K, serve_shards, records, params)
     params.clear()
+    torch.cuda.empty_cache()
+
+    if "10" in run:
+        with phase("10 paper objects"):
+            phase_paper_objects(torch, T, K, records)
+
+    if "11" in run:
+        with phase("11 dense configs"):
+            phase_dense(torch, K, records)
 
     print(card, flush=True)
     order = list(KINDS) + [f"phase_grid_{k}" for k in KINDS] + list(MODEL_KERNELS)

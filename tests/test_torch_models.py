@@ -1,7 +1,8 @@
 """The port's models against the JAX package's, on the CPU.
 
-The reduced ``smollm-135m`` (dense) and ``falcon-mamba-7b`` (ssm) configs
-in f32, with the JAX package's ``init_params(PRNGKey(0))`` carried across
+The reduced ``smollm-135m``, ``qwen2-1.5b`` (QKV bias, tied embeddings),
+``olmo-1b`` (non-parametric LayerNorm, an untied ``lm_head``) (dense) and
+``falcon-mamba-7b`` (ssm) configs in f32, with the JAX package's ``init_params(PRNGKey(0))`` carried across
 by ``params_from_numpy``: forward logits, prefill's last logits and cache,
 eight decode steps and the greedy tokens must match the reference (logits
 to 1e-4: f32 on both sides, products summed in different orders over a few
@@ -32,7 +33,7 @@ from repro_torch.models.convert import params_from_numpy, params_to_numpy  # noq
 
 jax.config.update("jax_platform_name", "cpu")
 
-ARCHS = ["smollm-135m", "falcon-mamba-7b"]
+ARCHS = ["smollm-135m", "qwen2-1.5b", "olmo-1b", "falcon-mamba-7b"]
 B, S, MAX_LEN, ATOL = 2, 12, 24, 1e-4
 
 
@@ -169,6 +170,54 @@ def test_params_round_trip_and_spec(arch):
     bad = dict(tree, embed=np.zeros((3, 3), np.float32))
     with pytest.raises(ValueError, match="embed"):
         params_from_numpy(bad, tcfg, "cpu")
+
+
+def test_qkv_bias_matches_jax():
+    """qwen2's QKV bias with non-zero values (the reference initialises it to
+    zeros, which would hide a bias added in the wrong place): forward, and
+    prefill then decode, as the reference's."""
+    jcfg, tcfg, jparams, _, tokens = _setup("qwen2-1.5b")
+    rng = np.random.default_rng(5)
+    attn = dict(jparams["blocks"]["attn"])
+    for name in ("bq", "bk", "bv"):
+        attn[name] = jnp.asarray(rng.normal(0, 0.5, attn[name].shape), jnp.float32)
+    jparams = dict(jparams, blocks=dict(jparams["blocks"], attn=attn))
+    tparams = params_from_numpy(jax.device_get(jparams), tcfg, "cpu")
+    want, _ = JM.forward(jparams, jcfg, _jt(tokens))
+    got, _ = TM.forward(tparams, tcfg, _tt(tokens))
+    _close(got, want)
+    jlast, jcache = JM.prefill(jparams, jcfg, _jt(tokens[:, :4]), MAX_LEN)
+    tlast, tcache = TM.prefill(tparams, tcfg, _tt(tokens[:, :4]), MAX_LEN)
+    _close(tlast, jlast)
+    for i in range(4, 8):
+        jl, jcache = JM.decode_step(jparams, jcfg, jcache, _jt(tokens[:, i:i + 1]))
+        tl, tcache = TM.decode_step(tparams, tcfg, tcache, _tt(tokens[:, i:i + 1]))
+        _close(tl, jl)
+
+
+def test_param_trees_of_the_new_dense_configs():
+    """The QKV-bias leaves and the empty norm leaves sit where the
+    reference's ``_attn_params`` and ``_norm_scale`` put them, and olmo
+    keeps an untied ``lm_head``."""
+    shapes = {}
+    for arch in ("qwen2-1.5b", "olmo-1b"):
+        jcfg, tcfg = JCFG.get_reduced(arch), TCFG.get_reduced(arch)
+        tree = jax.device_get(JM.init_params(jcfg, jax.random.PRNGKey(0)))
+        flat_j = jax.tree_util.tree_flatten_with_path(tree)[0]
+        flat_t = jax.tree_util.tree_flatten_with_path(
+            TM.param_spec(tcfg), is_leaf=lambda x: isinstance(x, tuple))[0]
+        shapes[arch] = {jax.tree_util.keystr(k): v.shape for k, v in flat_j}
+        assert {jax.tree_util.keystr(k): tuple(v[0]) for k, v in flat_t} == shapes[arch]
+    ocfg, olmo = TCFG.get_reduced("olmo-1b"), shapes["olmo-1b"]
+    assert olmo["['final_norm']"] == (0,) and olmo["['blocks']['norm1']"] == (ocfg.n_layers, 0)
+    assert olmo["['lm_head']"] == (ocfg.d_model, ocfg.vocab)
+    qcfg = TCFG.get_reduced("qwen2-1.5b")
+    attn = TM.param_spec(qcfg)["blocks"]["attn"]
+    hd = qcfg.hd()
+    assert [attn[n][0] for n in ("bq", "bk", "bv")] == [
+        (qcfg.n_layers, qcfg.n_heads * hd), (qcfg.n_layers, qcfg.n_kv_heads * hd),
+        (qcfg.n_layers, qcfg.n_kv_heads * hd)]
+    assert "lm_head" not in TM.param_spec(qcfg)
 
 
 def test_bf16_leaves_cross_bit_for_bit():
