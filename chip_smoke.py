@@ -204,14 +204,50 @@ script exits non-zero without printing a result):
                   share; flash attention at (8, 512, 12, 2, 128) and (8,
                   512, 16, 16, 128) and RMSNorm at 4096 x 1536 timed beside
                   their bounds and PyTorch calls (under ``at``).  Each
-                  kernel record gains ``dense_configs_launches``.
+                  kernel record gains ``dense_configs_launches``,
+  12. frontend configs -- (a) ``deepseek-coder-33b`` (62 layers, d 7168, 56
+                  / 8 heads of 128: a query group of 7; 66.7 GB of bf16
+                  weights drawn on the card) served at phase 11's flags
+                  (``FRONTEND_SERVE``): RMSNorm 2L+1 and flash L (causal,
+                  T = 512) per prefill, the tier's kernels, the call gate
+                  (``call_gate``: each kernel call of a prefill and a
+                  decode step within 1e-2 of its plain version on the plain
+                  backend's inputs; controls with a wrong flash kernel must
+                  fail it), the first batch replayed on the plain backend
+                  (printed, not gated: ``WHOLE_REPLAY_UNGATED``), a profile,
+                  the peak memory; (b) ``musicgen-large`` (audio: frame
+                  embeddings in) and (c) ``llama-3.2-vision-11b`` (vlm: 8 groups of 4
+                  self blocks and a tanh-gated cross block over 1,024 image
+                  embeddings, the gates drawn non-zero from seed 0 and
+                  printed), which the launcher refuses as the reference's
+                  does, driven through ``make_prefill_step`` /
+                  ``make_serve_step`` at batch 8: a prompt of 512 (frames or
+                  tokens, embeddings x 0.02 from seed 0), 31 decode steps
+                  (musicgen fed the next drawn frame: the frontend is a
+                  stub; the vlm greedy); exact launches (RMSNorm 2L+1 per
+                  prefill and step, flash L per prefill) and attention modes
+                  (the vlm's 32 causal over T = 512 and 8 non-causal over T
+                  = 1,024), the call gate as in (a) (the vlm's self and
+                  cross blocks), the prefill and the steps replayed on the
+                  plain backend with the same inputs (the prefill's and the
+                  last step's logits, no launch; within 5e-2 for musicgen,
+                  printed for the vlm), a profile; a gate that fails fails
+                  the phase once (a)-(c) and the kernel timings have run; then
+                  flash attention at deepseek's (8, 512, 56, 8, 128), the
+                  vlm's self (8, 512, 32, 8, 128) and cross (T = 1,024,
+                  non-causal) and musicgen's (8, 512, 32, 32, 64), RMSNorm
+                  at 4096 x 7168, 4096 x 4096 and 4096 x 2048, beside their
+                  bounds and PyTorch calls (under ``at``).  Each kernel
+                  record gains ``frontend_configs_launches``.
 
 Phase 3 also holds the three model kernels (RMSNorm, flash attention, the
 selective scan) against their plain versions at model shapes, in bf16 and
 f32 (tolerances in ``MODEL_TOL``): flash attention at every head dim, a
-ragged S, S = T = 1, non-causal, Hq = Hkv and a group of 4, and phase 11's
-shapes; RMSNorm at both models' prefill and decode rows, qwen2's prefill
-rows (4096 x 1536) and a D off the 16-byte vector; an unaligned
+ragged S, S = T = 1, non-causal, Hq = Hkv and a group of 4, phase 11's
+shapes, and phase 12's group of 7 and non-causal S queries over T != S keys
+(T 1,024 at S 512 and 1, a ragged T of 1,000 at S 200); RMSNorm at both
+models' prefill and decode rows, qwen2's prefill rows (4096 x 1536), widths
+7168 and 2048, and a D off the 16-byte vector; an unaligned
 input to both; the scan in its base and fused modes, y and h_S, at the
 serving shape, a ragged S, N = 8, S = 1 and DI, N off the 16-byte vector,
 the fused mode's z the strided half of an xz (and once contiguous); and a
@@ -243,7 +279,7 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
-ALL_PHASES = ("1", "2", "3", "4", "5", "6", "7", "8", "9", "10", "11")
+ALL_PHASES = ("1", "2", "3", "4", "5", "6", "7", "8", "9", "10", "11", "12")
 SOURCE = "src/repro_torch/kernels/dfc_reduce/csrc/dfc_reduce.cu"
 GRID_SOURCE = "src/repro_torch/kernels/dfc_reduce/csrc/phase_grid.cu"
 KINDS = ("stack", "queue", "deque", "map")
@@ -298,6 +334,12 @@ SCAN_TOL_F32 = 1e-4  # the scan: 512 dependent steps of rounding
 SCAN_SHAPES = ((4, 512, 8192, 16), (4, 200, 8192, 16), (2, 512, 8192, 8), (4, 1, 8192, 16),
                (2, 70, 100, 5))  # (B, S, DI, N) checked in phase 3
 REPLAY_REL_TOL = 5e-2  # plain-backend replay of a bf16 prefill, whole model
+# Models whose whole-model replay is printed, not gated: the plain model's own
+# last logits move past REPLAY_REL_TOL when every embedding moves one bf16 ulp
+# (on an H100: 0.1851 and 0.08466; musicgen-large 0.01907), so that number
+# cannot part a right kernel from a wrong one.  ``call_gate`` holds every kernel
+# call of theirs to its plain version at MODEL_TOL's bf16 tolerance.
+WHOLE_REPLAY_UNGATED = ("deepseek-coder-33b", "llama-3.2-vision-11b")
 SERVE_RUNS = {
     "smollm-135m": ["--arch", "smollm-135m", "--batch", "8", "--prompt-len", "512",
                     "--gen", "32", "--sessions", "16", "--device", "cuda"],
@@ -1466,7 +1508,8 @@ def reset_model_launches():
 
 def model_inputs(torch, name, shape, dtype, seed=0):
     """Random inputs of the model kernel ``name`` at ``shape``: RMSNorm (R,
-    D); flash (B, S, Hq, Hkv, hd); the scan (B, S, DI, N) with dt and x in
+    D); flash (B, S, Hq, Hkv, hd[, T]), T keys (default S); the scan (B, S,
+    DI, N) with dt and x in
     ``dtype`` and B, C in bf16 when ``dtype`` is f32 (the model path's
     types) or in ``dtype``."""
     g = torch.Generator(device="cuda").manual_seed(seed)
@@ -1478,14 +1521,20 @@ def model_inputs(torch, name, shape, dtype, seed=0):
         r, d = shape
         return rn(r, d), rn(d) + 1.0
     if name == "flash_attention":
-        b, s, hq, hkv, hd = shape
-        return rn(b, s, hq, hd), rn(b, s, hkv, hd), rn(b, s, hkv, hd)
+        b, s, hq, hkv, hd, t = flash_dims(shape)
+        return rn(b, s, hq, hd), rn(b, t, hkv, hd), rn(b, t, hkv, hd)
     b, s, di, n = shape
     bc = torch.bfloat16 if dtype == torch.float32 else dtype
     dt = torch.nn.functional.softplus(rn(b, s, di, dt=torch.float32) - 2.0).to(dtype)
     a_log = torch.rand((di, n), generator=g, device="cuda") * 0.5
     return (dt, a_log, rn(b, s, n, dt=bc), rn(b, s, n, dt=bc), rn(b, s, di),
             torch.ones(di, device="cuda"))
+
+
+def flash_dims(shape):
+    """(B, S, Hq, Hkv, hd, T) of a flash shape, T = S where it is not given."""
+    b, s, hq, hkv, hd, *t = shape
+    return b, s, hq, hkv, hd, t[0] if t else s
 
 
 def scan_case(torch, shape, dtype, fused=False, z_layout="half"):
@@ -1519,13 +1568,15 @@ def sfu_per_s():
     return CARD["sms"] * SFU_PER_SM_CLOCK * CARD["sm_clock_hz"]
 
 
-def model_bound(name, shape, dtype_bytes, fused=False):
+def model_bound(name, shape, dtype_bytes, fused=False, causal=True):
     """(least ms, what bounds it) of one call of a model kernel: each input
     read once and each output written once at the HBM rate, against the
     operations at the peak for their type (bf16 attention products on the
     tensor cores, the scan's exps on the special-function units, the rest
-    at the f32 rate).  The scan: base mode as the model path called it
-    before the fused mode (dt, x, y in ``dtype_bytes``, B and C in bf16);
+    at the f32 rate).  Attention's products: the visible (query, key)
+    pairs, s (s + 1) / 2 causal, s t without the mask.  The scan: base mode
+    as the model path called it before the fused mode (dt, x, y in
+    ``dtype_bytes``, B and C in bf16);
     fused mode (``fused``) dt_pre, x, z, y, B, C and dt_bias in
     ``dtype_bytes``, with a sigmoid (an exp) per element beside the exp per
     state, and in f32 a softplus (exp, log1p) too: a bf16 softplus is a
@@ -1535,9 +1586,9 @@ def model_bound(name, shape, dtype_bytes, fused=False):
         nbytes = 2 * r * d * dtype_bytes + d * dtype_bytes
         t_ops = r * d * 4 / SCALAR_OPS_PER_S
     elif name == "flash_attention":
-        b, s, hq, hkv, hd = shape
-        nbytes = (2 * b * s * hq * hd + 2 * b * s * hkv * hd) * dtype_bytes
-        flops = 4 * b * hq * hd * (s * (s + 1) // 2)  # causal: key t <= query s
+        b, s, hq, hkv, hd, t = flash_dims(shape)
+        nbytes = (2 * b * s * hq * hd + 2 * b * t * hkv * hd) * dtype_bytes
+        flops = 4 * b * hq * hd * (s * (s + 1) // 2 if causal else s * t)
         rate = BF16_TENSOR_OPS_PER_S if dtype_bytes == 2 else SCALAR_OPS_PER_S
         t_ops = flops / rate
     else:
@@ -1601,12 +1652,15 @@ def phase_model_kernels(torch):
     every head dim, a ragged S, S = T = 1, non-causal, no grouping and a
     group of 4; RMSNorm at both models' prefill and decode
     rows, a D off the 16-byte vector; the dense configs' shapes of phase
-    11; an unaligned input to both); then a
+    11; phase 12's: a group of 7, non-causal over T != S keys, a ragged key
+    tile and S = 1 among them, RMSNorm at widths 7168 and 2048; an
+    unaligned input to both); then a
     kernel launched under ``torch.cuda.stream`` runs on that stream."""
     from repro_torch.kernels import nvcc
     from repro_torch.kernels.flash_attention.kernel import HEAD_DIMS
     cases = [("rmsnorm", (r, d), {}) for r, d in
-             ((4096, 576), (2048, 4096), (8, 576), (4, 4096), (64, 100), (4096, 1536))]
+             ((4096, 576), (2048, 4096), (8, 576), (4, 4096), (64, 100), (4096, 1536),
+              (4096, 7168), (4096, 2048))]
     cases += [("flash_attention", (8, 512, 9, 3, 64), {}),
               ("flash_attention", (8, 200, 9, 3, 64), {}),
               ("flash_attention", (8, 512, 12, 2, 128), {}),
@@ -1617,6 +1671,12 @@ def phase_model_kernels(torch):
               ("flash_attention", (2, 512, 4, 4, 64), {}),
               ("flash_attention", (2, 256, 8, 2, 32), {}),
               ("flash_attention", (1, 100, 4, 4, 128), {"causal": False})]
+    # phase 12's: deepseek's group of 7, and the vlm's cross-attention, S
+    # queries over T != S keys without the mask (a ragged key tile, S = 1)
+    cases += [("flash_attention", (2, 512, 56, 8, 128), {}),
+              ("flash_attention", (2, 512, 32, 8, 128, 1024), {"causal": False}),
+              ("flash_attention", (2, 200, 32, 8, 128, 1000), {"causal": False}),
+              ("flash_attention", (2, 1, 32, 8, 128, 1024), {"causal": False})]
     lines = []
     for name, shape, kw in cases:
         for dtype in (torch.bfloat16, torch.float32):
@@ -1680,11 +1740,15 @@ def _expected_model_launches(cfg, prefills, steps):
     """Model-kernel launches of ``prefills`` prefills and ``steps`` decode
     steps (a served batch of gen tokens: one prefill, gen-1 steps)."""
     L = cfg.n_layers
-    norms = 2 * L + 1 if cfg.family == "dense" else L + 1
+    # every attention family has two norms a block (the vlm's L = G x E
+    # blocks: E - 1 self and one cross a group) and one flash launch a block
+    # a prefill (the vlm's cross blocks without the mask)
+    attn = cfg.family in ("dense", "audio", "vlm")
+    norms = 2 * L + 1 if attn else L + 1
     if cfg.norm != "rmsnorm":  # olmo's LayerNorm is plain PyTorch in both packages
         norms = 0
     return {"rmsnorm": (prefills + steps) * norms,
-            "flash_attention": prefills * L if cfg.family == "dense" else 0,
+            "flash_attention": prefills * L if attn else 0,
             "selective_scan": prefills * L if cfg.family == "ssm" else 0}
 
 
@@ -1719,38 +1783,55 @@ def serve_and_check(torch, serve_mod, K, argv, params=None):
     return out, first, model
 
 
-def replay_first_batch(torch, out, first, gen, what="batch 1"):
-    """The first batch's prefill and greedy decode again with the plain
-    backend on the same params: last-position logits within REPLAY_REL_TOL
-    (relative max-abs error), token agreement printed.  ``first["tokens"]``
-    holds the ``gen`` tokens the run emitted from that prefill on."""
+def replay_first_batch(torch, out, first, gen, what="batch 1", batch=None, steps=None,
+                       gate=True):
+    """The first batch's prefill and decode again with the plain backend on
+    the same params: last-position logits within REPLAY_REL_TOL (relative
+    max-abs error; printed only, where not ``gate``), token agreement
+    printed.  ``batch``: the prefill's
+    inputs (default ``{"tokens": first["prompts"]}``); ``steps``: each decode
+    step's inputs as the run fed them (frames, or the run's own tokens), so
+    the replay's last step is gated against the run's (``first["final"]``)
+    too; default the replay's own greedy tokens.  ``first["tokens"]`` holds
+    the ``gen`` tokens the run emitted from that prefill on."""
     from repro_torch.launch.steps import make_prefill_step, make_serve_step
     cfg, params = out["cfg"], out["params"]
     before = model_launches()
     prompts = first["prompts"]
+    batch = {"tokens": prompts} if batch is None else batch
     max_len = prompts.shape[1] + gen + 8
-    last, cache = make_prefill_step(cfg, max_len, backend="ref")(params, {"tokens": prompts})
+    last, cache = make_prefill_step(cfg, max_len, backend="ref")(params, batch)
     serve_step = make_serve_step(cfg, backend="ref")
     tok = torch.argmax(last[:, -1], dim=-1)[:, None]
     toks = [tok]
-    for _ in range(gen - 1):
-        step, cache = serve_step(params, cache, {"tokens": tok})
+    for i in range(gen - 1):
+        step, cache = serve_step(params, cache, {"tokens": tok} if steps is None else steps[i])
         tok = step["next_token"][:, None]
         toks.append(tok)
     torch.cuda.synchronize()
     check(model_launches() == before, "the plain-backend replay launched a kernel")
-    a, b = first["last"].float(), last.float()
-    check(bool(torch.isfinite(a).all()) and a.shape == (prompts.shape[0], 1, cfg.vocab),
-          f"{cfg.name}: last logits not finite or of the wrong shape {tuple(a.shape)}")
-    rel = float((a - b).abs().max() / b.abs().max())
+
+    def rel(a, b):
+        a, b = a.float(), b.float()
+        check(bool(torch.isfinite(a).all()) and a.shape == (prompts.shape[0], 1, cfg.vocab),
+              f"{cfg.name}: logits not finite or of the wrong shape {tuple(a.shape)}")
+        return float((a - b).abs().max() / b.abs().max())
+
+    errs = {"prefill": rel(first["last"], last)}
+    if steps is not None:
+        errs[f"decode step {gen - 1}"] = rel(first["final"], step["logits"])
     agree = float((first["tokens"] == torch.cat(toks, 1)).float().mean())
-    check(rel <= REPLAY_REL_TOL,
-          f"{cfg.name}: kernel prefill vs plain replay relative max-abs error {rel:.3g} "
-          f"over {REPLAY_REL_TOL}")
+    for where, err in errs.items() if gate else ():
+        check(err <= REPLAY_REL_TOL,
+              f"{cfg.name}: kernel {where} vs plain replay relative max-abs error {err:.3g} "
+              f"over {REPLAY_REL_TOL}")
     print(f"serve {cfg.name}: plain-backend replay of {what} -- last logits relative "
-          f"max-abs error {rel:.4g} (tol {REPLAY_REL_TOL}), greedy tokens agree on "
-          f"{agree:.1%} of {gen} x {prompts.shape[0]} (not gated)", flush=True)
-    return rel, agree
+          f"max-abs error " + ", ".join(f"{k} {v:.4g}" for k, v in errs.items())
+          + (f" (tol {REPLAY_REL_TOL})" if gate else
+             " (not gated: held call by call, see its call gate)")
+          + f", greedy tokens agree on {agree:.1%} of {gen} x "
+          f"{prompts.shape[0]} (not gated)", flush=True)
+    return errs["prefill"], agree
 
 
 def profile_calls(torch, label, fn, n, warmup=True):
@@ -1784,17 +1865,20 @@ def profile_calls(torch, label, fn, n, warmup=True):
           + "; ".join(f"{k[:40]} {v / n / 1e3:.3f} ms" for k, v in top), flush=True)
 
 
-def profile_model(torch, out, first, gen):
-    """The first batch's prefill and a decode step under the profiler."""
+def profile_model(torch, out, first, gen, batch=None, step=None):
+    """The first batch's prefill (inputs ``batch``, default its tokens) and
+    a decode step (input ``step``, default its first token) under the
+    profiler."""
     from repro_torch.launch.steps import make_prefill_step, make_serve_step
     cfg, params, prompts = out["cfg"], out["params"], first["prompts"]
+    batch = {"tokens": prompts} if batch is None else batch
+    step = {"tokens": first["tokens"][:, :1]} if step is None else step
     prefill_step = make_prefill_step(cfg, prompts.shape[1] + gen + 8)
     serve_step = make_serve_step(cfg)
-    profile_calls(torch, f"{cfg.name} prefill", lambda: prefill_step(params, {"tokens": prompts}), 2)
-    _, cache = prefill_step(params, {"tokens": prompts})
-    tok = first["tokens"][:, :1]
+    profile_calls(torch, f"{cfg.name} prefill", lambda: prefill_step(params, batch), 2)
+    _, cache = prefill_step(params, batch)
     profile_calls(torch, f"{cfg.name} decode step",
-                  lambda: serve_step(params, dict(cache), {"tokens": tok}), 4)
+                  lambda: serve_step(params, dict(cache), step), 4)
 
 
 def profiler_device_ms(torch, fn, n=DEVICE_CALLS):
@@ -1885,7 +1969,7 @@ def in_turns(torch, kernel, other, n_dev=DEVICE_CALLS, n_host=HOST_CALLS, ms_rep
     return mean(turns[1], turns[2]), mean(turns[0], turns[3])
 
 
-def library_call(torch, name, args):
+def library_call(torch, name, args, causal=True):
     """One PyTorch call computing the model kernel's function on ``args``
     (its inputs laid out as the call wants them beforehand), or None.  A
     yardstick only: the port never calls these."""
@@ -1899,25 +1983,26 @@ def library_call(torch, name, args):
         qt = q.transpose(1, 2).contiguous()
         kt = k.repeat_interleave(group, dim=2).transpose(1, 2).contiguous()
         vt = v.repeat_interleave(group, dim=2).transpose(1, 2).contiguous()
-        return lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+        return lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal)
     return None
 
 
-def measure_model_kernel(torch, name, shape, dtype, fused=False):
+def measure_model_kernel(torch, name, shape, dtype, fused=False, causal=True):
     """A model kernel at ``shape`` (the scan in its fused mode where
-    ``fused``): held against its plain version, then timed in turns with the
-    library call (``in_turns``), beside its bound.  Returns the fields of
-    its record."""
+    ``fused``; flash attention without its mask where not ``causal``): held
+    against its plain version, then timed in turns with the library call
+    (``in_turns``), beside its bound.  Returns the fields of its record."""
     fn, plain = model_fns(name)
     if name == "selective_scan":
         args, kw = scan_case(torch, shape, dtype, fused)
     else:
-        args, kw = model_inputs(torch, name, shape, dtype), {}
+        args, kw = model_inputs(torch, name, shape, dtype), {} if causal else {"causal": False}
     err, tol = model_kernel_vs_plain(torch, name, shape, dtype, args=args, **kw)
-    lib = library_call(torch, name, args)
+    lib = library_call(torch, name, args, causal)
     kern, libt = in_turns(torch, lambda: fn(*args, **kw), lib)
     plain_ms = cuda_ms(lambda: plain(*args, **kw), 3 if name == "selective_scan" else 10)
-    bound_ms, bound_by = model_bound(name, shape, 2 if dtype == torch.bfloat16 else 4, fused)
+    bound_ms, bound_by = model_bound(name, shape, 2 if dtype == torch.bfloat16 else 4, fused,
+                                     causal)
     rec = {"max_abs_err": err, **kern, "plain_ms": plain_ms, "bound_ms": bound_ms,
            "bound_by": bound_by, "library_ms": None if libt is None else libt["ms"],
            "library_device_ms": None if libt is None else libt["device_ms"],
@@ -1925,10 +2010,13 @@ def measure_model_kernel(torch, name, shape, dtype, fused=False):
            "shape": list(shape), "dtype": str(dtype)[6:], "tolerance": tol}
     if name == "selective_scan":
         rec["mode"] = "fused" if fused else "base"
+    if not causal:
+        rec["causal"] = False
     lib_txt = "none" if libt is None else (
         f"{libt['ms']:.4f} ms, device {libt['device_ms']:.4f} ms, host "
         f"{libt['host_us']:.1f} us")
-    print(f"kernel {name} {shape} {str(dtype)[6:]}{' fused' if fused else ''}: "
+    mode = " fused" if fused else "" if causal else " non-causal"
+    print(f"kernel {name} {shape} {str(dtype)[6:]}{mode}: "
           f"{kern['ms']:.4f} ms, device {kern['device_ms']:.4f} ms ({kern['device_ms_by']}), "
           f"host {kern['host_us']:.1f} us per call; library {lib_txt}; plain {plain_ms:.4f} ms; "
           f"bound {bound_ms:.6f} ms by {bound_by}; max abs err {err:.3g}", flush=True)
@@ -3205,6 +3293,358 @@ def phase_dense(torch, K, records):
     print(f"dense configs: launches {totals}", flush=True)
 
 
+# --------------------------------------------------------- frontend configs
+# phase 12: deepseek-coder-33b through the launcher at phase 11's flags, and
+# the two frontend-stub families, which the launcher refuses (as the
+# reference's does), through the steps it runs, at the same batch: 8 rows, a
+# prompt of 512 positions, 32 tokens (one prefill and 31 decode steps)
+FRONTEND_SERVE = ["--arch", "deepseek-coder-33b", "--batch", "8", "--prompt-len", "512",
+                  "--gen", "32", "--sessions", "16", "--device", "cuda"]
+FRONTEND_STEPS = ("musicgen-large", "llama-3.2-vision-11b")
+FRONTEND_BATCH, FRONTEND_LEN, FRONTEND_GEN = 8, 512, 32
+# the model kernels at the new shapes: (label, shape, causal); flash's sixth
+# entry is T, the keys, where T != S
+FRONTEND_KERNEL_SHAPES = {
+    "flash_attention": [("deepseek-coder-33b", (8, 512, 56, 8, 128), True),
+                        ("llama-3.2-vision-11b self", (8, 512, 32, 8, 128), True),
+                        ("llama-3.2-vision-11b cross", (8, 512, 32, 8, 128, 1024), False),
+                        ("musicgen-large", (8, 512, 32, 32, 64), True)],
+    "rmsnorm": [("deepseek-coder-33b", (4096, 7168), True),
+                ("llama-3.2-vision-11b", (4096, 4096), True),
+                ("musicgen-large", (4096, 2048), True)]}
+
+
+@contextlib.contextmanager
+def flash_modes():
+    """Tally the model's attention calls by mask and key length, through a
+    spy on the op as ``models/layers.py`` calls it (launches stay the
+    wrapper's own count)."""
+    from repro_torch.models import layers
+    attention, modes = layers.attention, {}
+
+    def spy(q, k, v, *, causal=True, backend="kernel"):
+        key = f"{'causal' if causal else 'non-causal'} T={k.shape[1]}"
+        modes[key] = modes.get(key, 0) + 1
+        return attention(q, k, v, causal=causal, backend=backend)
+
+    layers.attention = spy
+    try:
+        yield modes
+    finally:
+        layers.attention = attention
+
+
+def frontend_inputs(torch, cfg, seed=0):
+    """A frontend-stub run's inputs, drawn on the card from ``seed`` (x 0.02,
+    as the reference's ``tests/test_arch_smoke.py`` draws them): the prompt
+    (tokens, or frame embeddings with one more frame for each decode step),
+    and the vlm's image embeddings (B, n_img_tokens, D).  Returns the
+    prefill's batch and the decode steps' frames (None for tokens)."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    b, s, n, dt = FRONTEND_BATCH, FRONTEND_LEN, FRONTEND_GEN - 1, cfg.act_dtype()
+
+    def embeddings(t):
+        return (torch.randn(b, t, cfg.d_model, generator=g, device="cuda") * 0.02).to(dt)
+
+    if cfg.embedding_inputs:
+        x = embeddings(s + n)
+        return {"embeddings": x[:, :s]}, [{"embeddings": x[:, i:i + 1]} for i in range(s, s + n)]
+    batch = {"tokens": torch.randint(0, cfg.vocab, (b, s), generator=g, device="cuda")}
+    if cfg.family == "vlm":
+        batch["image_embeddings"] = embeddings(cfg.n_img_tokens)
+    return batch, None
+
+
+def frontend_run(torch, cfg, params, batch, frames):
+    """One prefill and FRONTEND_GEN - 1 decode steps through
+    ``make_prefill_step`` / ``make_serve_step`` (kernel backend), the
+    model-kernel counters zeroed just before and read just after; each step
+    fed the next frame, or the last greedy token.  Returns the run as
+    ``replay_first_batch`` takes it (``first``, and each step's input), the
+    launches, the attention modes, and the prefill's and each step's
+    seconds (host clock after a synchronize)."""
+    from repro_torch.launch.steps import make_prefill_step, make_serve_step
+    prompts = batch.get("tokens", batch.get("embeddings"))
+    prefill_step = make_prefill_step(cfg, prompts.shape[1] + FRONTEND_GEN + 8)
+    serve_step = make_serve_step(cfg)
+    fed, toks, step_s = [], [], []
+    reset_model_launches()
+    with flash_modes() as modes:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        last, cache = prefill_step(params, batch)
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t0
+        tok = torch.argmax(last[:, -1], dim=-1)[:, None]
+        for i in range(FRONTEND_GEN - 1):
+            toks.append(tok)
+            fed.append({"tokens": tok} if frames is None else frames[i])
+            t0 = time.perf_counter()
+            out, cache = serve_step(params, cache, fed[-1])
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t0)
+            tok = out["next_token"][:, None]
+    model = model_launches()
+    toks.append(tok)
+    first = {"prompts": prompts, "last": last, "tokens": torch.cat(toks, 1),
+             "final": out["logits"]}
+    return first, fed, model, dict(modes), prefill_s, step_s
+
+
+def rel_max_abs(a, b):
+    """Relative max-abs error of ``a`` against ``b``."""
+    a, b = a.float(), b.float()
+    return float((a - b).abs().max() / b.abs().max())
+
+
+@contextlib.contextmanager
+def held_to_plain(calls, roll_kv=False):
+    """Inside, every kernel call of RMSNorm and flash attention that
+    ``models/layers.py`` makes also runs the op's plain version on the same
+    inputs; ``calls[name]`` keeps [largest relative max-abs error, calls].
+    ``roll_kv``: a control, a wrong flash kernel -- the kernel is given K/V
+    rolled by one head (by one position where there is one head), the plain
+    version the right ones."""
+    from repro_torch.models import layers
+    saved = layers.rmsnorm_op, layers.attention
+
+    def held(name, op):
+        def call(*args, backend="kernel", **kw):
+            if backend != "kernel":
+                return op(*args, backend=backend, **kw)
+            given = args
+            if roll_kv and name == "flash_attention":
+                q, k, v = args
+                dim = 2 if k.shape[2] > 1 else 1
+                given = (q, k.roll(1, dim), v.roll(1, dim))
+            got = op(*given, backend="kernel", **kw)
+            err = rel_max_abs(got, op(*args, backend="ref", **kw))
+            worst, n = calls.get(name, (0.0, 0))
+            calls[name] = (max(worst, err), n + 1)
+            return got
+        return call
+
+    layers.rmsnorm_op = held("rmsnorm", saved[0])
+    layers.attention = held("flash_attention", saved[1])
+    try:
+        yield calls
+    finally:
+        layers.rmsnorm_op, layers.attention = saved
+
+
+def call_gate(torch, cfg, params, batch, step):
+    """The model's kernels held to their plain versions at every call of a
+    prefill and of a decode step, on the plain backend's inputs: the gate of
+    a model whose whole-model replay cannot part a right kernel from a wrong
+    one (``WHOLE_REPLAY_UNGATED``), and one more beside the replay where it
+    can.  Each block, in the order the trunk runs them (the vlm's self and
+    cross blocks), runs on the plain backend's stream with the kernel
+    backend, every RMSNorm and flash call of it held to the op's plain
+    version on the same inputs (``held_to_plain``); so is one decode step
+    (``step``) on the plain prefill's cache.  Every call must be within
+    MODEL_TOL's bf16 tolerance (relative max-abs).  Controls, which must
+    fail it: the first self block, and the vlm's first cross block, with
+    flash given K/V rolled by one head.  Printed, not gated: what each block
+    gives alone against the plain block (it reaches 3 bf16 ulps with right
+    kernels, and a wrong cross-attention moves its block by less: the
+    controls' block errors), and the plain model's change under a one-ulp
+    change of its embeddings (the whole-model replay's floor)."""
+    from repro_torch.models import model as M
+    from repro_torch.models.layers import cross_kv
+    tol = MODEL_TOL["bfloat16"]
+    h = M._embed(params, cfg, batch)
+    positions = torch.arange(h.shape[1], device=h.device)
+
+    def self_block(bp):
+        return lambda h, backend: M._self_block(h, bp, cfg, positions, backend=backend)[0]
+
+    def cross_block(cp, kv):
+        return lambda h, backend: M._cross_block(h, cp, cfg, positions, kv, backend)
+
+    blocks = []  # (kind, block(h, backend))
+    if cfg.family == "vlm":
+        img = M._img_embeds(cfg, batch)
+        groups, per = M._groups(cfg)
+        for g in range(groups):
+            blocks += [("self", self_block(M._layer(params["self_blocks"], (g, j))))
+                       for j in range(per)]
+            cp = M._layer(params["cross_blocks"], g)
+            blocks.append(("cross", cross_block(cp, cross_kv(img, cp["attn"], cfg))))
+    else:
+        blocks = [("self", self_block(M._layer(params["blocks"], i)))
+                  for i in range(cfg.n_layers)]
+    calls, alone, controls = {}, [], {}
+    for i, (kind, fn) in enumerate(blocks, 1):
+        with held_to_plain(calls):
+            one = fn(h, "kernel")
+        nxt = fn(h, "ref")
+        alone.append((rel_max_abs(one, nxt), i, kind))
+        if kind not in controls:
+            wrong = {}
+            with held_to_plain(wrong, roll_kv=True):
+                bad = fn(h, "kernel")
+            controls[kind] = (i, wrong["flash_attention"][0], rel_max_abs(bad, nxt))
+        h = nxt
+    del h, one, nxt
+    max_len = positions.numel() + FRONTEND_GEN + 8
+    plain, cache = M.prefill(params, cfg, batch, max_len, backend="ref")
+    decode = {}
+    with held_to_plain(decode):
+        M.decode_step(params, cfg, cache, step, backend="kernel")
+    del cache
+    embed = M._embed
+    M._embed = lambda *a: (lambda h: (h.view(torch.int16) + 1).view(h.dtype))(embed(*a))
+    try:
+        ulp = rel_max_abs(M.prefill(params, cfg, batch, max_len, backend="ref")[0], plain)
+    finally:
+        M._embed = embed
+    torch.cuda.synchronize()
+    text = (f"every kernel call within {tol} of its plain version: prefill " + ", ".join(
+        f"{n} max {e:.4g} ({c} calls)" for n, (e, c) in calls.items()) + "; decode step "
+        + ", ".join(f"{n} max {e:.4g} ({c} calls)" for n, (e, c) in decode.items()))
+    text += "; controls, flash given K/V rolled by one head: " + ", ".join(
+        f"{k} block {i} call {c:.4g} (block {b:.4g})" for k, (i, c, b) in controls.items())
+    kinds = dict.fromkeys(k for _, _, k in alone)
+    text += "; not gated: each block alone, max " + ", ".join(
+        f"{k} {max(e for e, _, kk in alone if kk == k):.4g}" for k in kinds)
+    if "cross" in kinds:
+        text += " (each cross block " + ", ".join(
+            f"{i} {e:.4g}" for e, i, k in alone if k == "cross") + ")"
+    text += f"; the plain model's last logits under a one-ulp change of its embeddings {ulp:.4g}"
+    print(f"call gate {cfg.name}: {text}", flush=True)
+    check(sorted(calls) == ["flash_attention", "rmsnorm"] and "rmsnorm" in decode,
+          f"{cfg.name}: the call gate held only {sorted(calls)} and {sorted(decode)}")
+    for n, (e, _) in list(calls.items()) + list(decode.items()):
+        check(e <= tol, f"{cfg.name}: a {n} call {e:.4g} from its plain version, over {tol}")
+    for kind, (i, c, _) in controls.items():
+        check(c > tol, f"{cfg.name}: the control at {kind} block {i} (flash given rolled K/V) "
+              f"is {c:.4g} from the plain version, within {tol}: the gate cannot fail")
+
+
+def phase_frontend(torch, K, records):
+    """Phase 12: ``deepseek-coder-33b`` served at full width through the
+    launcher (exact launch counts, the first batch replayed on the plain
+    backend, a profile, the peak memory); ``musicgen-large`` (frame
+    embeddings) and ``llama-3.2-vision-11b`` (image embeddings, gates drawn
+    non-zero) through the steps (exact launch counts and attention modes,
+    prefill and decode replayed on the plain backend with the same inputs,
+    a profile); then the model kernels at the new shapes against their
+    bounds and PyTorch calls.  Each model passes ``call_gate``, and its
+    replay is gated unless ``WHOLE_REPLAY_UNGATED`` names it; a gate that
+    fails fails the phase at its end, after every part has run and
+    printed.  Each record gains ``frontend_configs_launches``."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve as serve_mod
+    from repro_torch.models.model import init_params
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    totals = {k: 0 for k in list(K.LAUNCHES) + list(MODEL_KERNELS)}
+    gen = FRONTEND_GEN
+    failed = []
+
+    def gated(check_fn, *args, **kw):
+        """A replay gate whose failure fails the phase at its end, after
+        every model and kernel of the phase has run and printed."""
+        try:
+            check_fn(*args, **kw)
+        except SmokeFailure as exc:
+            failed.append(str(exc))
+            print(f"phase 12 gate FAILED (the phase fails at its end): {exc}", flush=True)
+
+    # (a) deepseek-coder-33b through the launcher, as phase 11 serves qwen2
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    with flash_modes() as modes:
+        out, first, model = serve_and_check(torch, serve_mod, K, FRONTEND_SERVE)
+    arch = out["cfg"].name
+    check(modes == {f"causal T={FRONTEND_LEN}": model["flash_attention"]},
+          f"{arch}: attention modes {modes}")
+    for k, v in list(model.items()) + list(K.LAUNCHES.items()):
+        totals[k] += v
+    gated(call_gate, torch, out["cfg"], out["params"], {"tokens": first["prompts"]},
+          {"tokens": first["tokens"][:, :1]})
+    gated(replay_first_batch, torch, out, first, gen, gate=arch not in WHOLE_REPLAY_UNGATED)
+    profile_model(torch, out, first, gen)
+    prefill_s = statistics.median(out["prefill_s"])
+    print(f"serve {arch}: prefill {prefill_s * 1e3:.3f} ms per batch median "
+          f"({first['prompts'].numel() / prefill_s:.0f} tok/s), decode "
+          f"{statistics.median(out['decode_step_s']) * 1e3:.3f} ms per step median over "
+          f"{len(out['decode_step_s'])} steps, {out['decoded_tokens'] / out['seconds']:.1f} "
+          f"tok/s end to end, {out['cfg'].param_count() / 1e9:.3f} B params, peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
+    del out, first
+    torch.cuda.empty_cache()
+
+    # (b) musicgen-large and (c) llama-3.2-vision-11b through the steps
+    for arch in FRONTEND_STEPS:
+        cfg = get_config(arch)
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        params = init_params(cfg, seed=0, device="cuda")
+        batch, frames = frontend_inputs(torch, cfg)
+        if cfg.family == "vlm":
+            # the reference's gates are zeros: tanh(0) would hide every cross
+            # block from the logits and the replay, so draw them non-zero
+            gate = params["cross_blocks"]["gate"]
+            g = torch.Generator(device="cuda").manual_seed(0)
+            sign = torch.arange(gate.numel(), device="cuda") % 2 * -2 + 1
+            gate.copy_((torch.rand(gate.shape, generator=g, device="cuda") + 0.5) * sign)
+            print(f"frontend {arch}: gates drawn from seed 0: "
+                  f"{[round(x, 4) for x in gate.tolist()]} (tanh "
+                  f"{[round(x, 4) for x in torch.tanh(gate).tolist()]})", flush=True)
+        torch.cuda.synchronize()
+        draw_s = time.perf_counter() - t0
+        first, fed, model, modes, prefill_s, step_s = frontend_run(torch, cfg, params, batch,
+                                                                   frames)
+        want = _expected_model_launches(cfg, 1, gen - 1)
+        check(model == want, f"{arch}: model-kernel launches {model}, expected {want}")
+        groups = cfg.n_layers // cfg.cross_attn_every if cfg.family == "vlm" else 0
+        want_modes = {f"causal T={FRONTEND_LEN}": cfg.n_layers - groups}
+        if groups:
+            want_modes[f"non-causal T={cfg.n_img_tokens}"] = groups
+        check(modes == want_modes, f"{arch}: attention modes {modes}, expected {want_modes}")
+        for k, v in model.items():
+            totals[k] += v
+        print(f"frontend {arch}: launches {model}, attention {modes} (as expected for one "
+              f"prefill and {gen - 1} steps); "
+              + ("each step fed the next drawn frame (the EnCodec frontend is a stub: no "
+                 "frame embeds a generated code)" if frames is not None else
+                 "greedy decode over the cached image K/V"), flush=True)
+        out = {"cfg": cfg, "params": params}
+        gated(call_gate, torch, cfg, params, batch, fed[0])
+        gated(replay_first_batch, torch, out, first, gen, f"the prefill and {gen - 1} steps",
+              batch=batch, steps=fed, gate=arch not in WHOLE_REPLAY_UNGATED)
+        profile_model(torch, out, first, gen, batch, fed[0])
+        positions = first["prompts"].shape[0] * FRONTEND_LEN
+        print(f"frontend {arch}: weights and inputs drawn in {draw_s:.2f} s; prefill "
+              f"{prefill_s * 1e3:.3f} ms ({positions / prefill_s:.0f} positions/s, the first "
+              f"call), decode {statistics.median(step_s) * 1e3:.3f} ms "
+              f"per step median over {len(step_s)} steps, {cfg.param_count() / 1e9:.3f} B "
+              f"params (the reference's count), peak memory "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
+        del out, params, batch, frames, first, fed
+        torch.cuda.empty_cache()
+
+    bf16 = torch.bfloat16
+    for name, runs in FRONTEND_KERNEL_SHAPES.items():
+        rec = records.get(name)
+        for label, shape, causal in runs:
+            fields = measure_model_kernel(torch, name, shape, bf16, causal=causal)
+            if rec is None:
+                src, replaces = MODEL_KERNELS[name]
+                rec = records[name] = {"name": name, "route": "cuda", "source": src,
+                                       "replaces": replaces, "launches": totals[name], **fields}
+            key = f"{label} " + "x".join(map(str, shape[:5]))
+            if name == "flash_attention":
+                key += f", T {flash_dims(shape)[5]}" + ("" if causal else ", non-causal")
+            rec.setdefault("at", {})[key] = fields
+    for name, n in totals.items():
+        if name in records:
+            records[name]["frontend_configs_launches"] = n
+    print(f"frontend configs: launches {totals}", flush=True)
+    check(not failed, "; ".join(failed))
+
+
 def turns_kernels(root):
     """The combine-kernel wrappers (``kernel.py``) of the repository checkout
     at ``root``, loaded beside this tree's: its ``csrc`` sources build into
@@ -3315,6 +3755,10 @@ def main(argv=None) -> int:
     if "11" in run:
         with phase("11 dense configs"):
             phase_dense(torch, K, records)
+
+    if "12" in run:
+        with phase("12 frontend configs"):
+            phase_frontend(torch, K, records)
 
     print(card, flush=True)
     order = list(KINDS) + [f"phase_grid_{k}" for k in KINDS] + list(MODEL_KERNELS)

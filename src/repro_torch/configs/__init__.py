@@ -2,9 +2,9 @@
 
 Counterpart of the JAX package's ``configs/__init__.py`` for the ported
 architectures.  Each module holds the exact published configuration and a
-smoke (reduced) configuration of the same family for CPU tests.  The other
-six architectures of the reference wait for their slices (see
-``ROADMAP.md``).
+smoke (reduced) configuration of the same family for CPU tests.  The
+reference's three remaining architectures (``arctic-480b``, ``dbrx-132b``:
+moe; ``zamba2-7b``: hybrid) wait for their slices (see ``ROADMAP.md``).
 """
 
 from __future__ import annotations
@@ -19,6 +19,9 @@ _MODULES: Dict[str, str] = {
     "qwen2-1.5b": "repro_torch.configs.qwen2_1_5b",
     "olmo-1b": "repro_torch.configs.olmo_1b",
     "falcon-mamba-7b": "repro_torch.configs.falcon_mamba_7b",
+    "deepseek-coder-33b": "repro_torch.configs.deepseek_coder_33b",
+    "musicgen-large": "repro_torch.configs.musicgen_large",
+    "llama-3.2-vision-11b": "repro_torch.configs.llama_3_2_vision_11b",
 }
 
 ARCH_IDS: List[str] = list(_MODULES)

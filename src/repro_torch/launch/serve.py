@@ -52,7 +52,11 @@ selective scan run through the hand-written kernels.
       --quantum 2 --durable --trace --state-dir D --crash-at 300 --device cpu
 
 ``--window`` (rolling-window decode) waits for the long-context slice and
-raises ``NotImplementedError``.
+raises ``NotImplementedError``.  The frontend-stub archs (``musicgen-large``:
+frame embeddings in; ``llama-3.2-vision-11b``: image embeddings beside the
+tokens) are refused outside ``--tier-only``, as the reference's launcher
+refuses them: drive their model through ``launch/steps.py`` with an
+embeddings batch.
 """
 
 from __future__ import annotations
@@ -1382,8 +1386,10 @@ def serve(args: argparse.Namespace, params: Optional[Dict[str, Any]] = None,
     """
     if args.window:
         raise NotImplementedError("--window waits for the long-context slice")
-    device = resolve_device(args.device)
     cfg = get_reduced(args.arch) if args.reduced else get_config(args.arch)
+    if not args.tier_only and (cfg.embedding_inputs or cfg.family == "vlm"):
+        raise SystemExit(f"{args.arch}: frontend-stub arch — see examples/")
+    device = resolve_device(args.device)
     k = args.k_classes if args.k_classes >= 2 else 0
     quantum = args.quantum or min(8, args.gen)
 

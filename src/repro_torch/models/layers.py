@@ -4,7 +4,8 @@ Counterpart of the JAX package's ``models/layers.py``.  Where the reference
 computes a function in jnp that one of its Pallas kernels also computes, the
 port calls its hand-written kernel through the kernel's op: ``rmsnorm`` goes
 through the RMSNorm kernel, and prefill or forward attention (queries from
-position 0 over the prompt's own keys) through the flash-attention kernel.
+position 0 over the prompt's own keys, or a cross-attention's queries over
+every key of its source) through the flash-attention kernel.
 ``backend="ref"`` runs the kernels' plain versions instead.  Decode
 attention (one query against the cache) stays plain PyTorch, as the
 reference computes it in jnp.  Matrix products are ``torch.matmul``.
@@ -22,8 +23,6 @@ import torch.nn.functional as F
 
 from repro_torch.kernels.flash_attention.ops import attention
 from repro_torch.kernels.rmsnorm.ops import rmsnorm_op
-
-_SLICE_VLM = "the vlm slice"
 
 
 # ------------------------------------------------------------------- norms
@@ -94,16 +93,27 @@ def gqa_attention(q, k, v, causal: bool = True, q_offset: int = 0):
     return out.reshape(b, s, hq, hd).to(q.dtype)
 
 
+def cross_kv(src, p, cfg):
+    """Cross-attention's keys and values: ``src`` (B, T, D) through ``wk`` /
+    ``wv``, with no bias and no rope (the reference's ``kv_override``
+    branch)."""
+    b = src.shape[0]
+    hkv, hd = cfg.n_kv_heads, cfg.hd()
+    k = torch.matmul(src, p["wk"]).reshape(b, -1, hkv, hd)
+    v = torch.matmul(src, p["wv"]).reshape(b, -1, hkv, hd)
+    return k, v
+
+
 def attention_block(
     x,
     p,  # params: wq, wk, wv, wo (+ bq, bk, bv if qkv_bias)
     cfg,
     positions,
     kv_cache: Optional[Tuple] = None,  # (k_cache, v_cache, length)
-    kv_override=None,
+    kv_override=None,  # cross-attention: source (B, T, D), or its (k, v)
     backend: str = "kernel",
 ):
-    """Causal self-attention, optionally over a KV cache.
+    """Self- or cross-attention, optionally over a KV cache.
 
     Returns ``(out, new_kv_cache_entry or None)``.  With a cache, the new
     keys and values are written into ``k_cache`` / ``v_cache`` IN PLACE at
@@ -112,21 +122,27 @@ def attention_block(
     attends over the prompt's own keys through the flash-attention kernel,
     which the reference's masked attention over the zero-initialised cache
     equals; a decode step (``length > 0``) attends over the cache in plain
-    PyTorch.  Cross-attention (``kv_override``) waits for the vlm slice.
+    PyTorch.  Cross-attention (``kv_override``: the source, or the pair
+    :func:`cross_kv` makes of it) puts the bias and the rope on the queries
+    only and attends over every key, through the flash kernel's non-causal
+    mode.
     """
-    if kv_override is not None:
-        raise NotImplementedError(f"cross-attention waits for {_SLICE_VLM}")
     b, s, _ = x.shape
     hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd()
     q = torch.matmul(x, p["wq"]).reshape(b, s, hq, hd)
+    if cfg.qkv_bias:
+        q = q + p["bq"].reshape(1, 1, hq, hd)
+    cos, sin = rope_freqs(hd, cfg.rope_theta, positions)
+    q = apply_rope(q, cos, sin)
+    if kv_override is not None:
+        k, v = kv_override if isinstance(kv_override, tuple) else cross_kv(kv_override, p, cfg)
+        out = attention(q, k, v, causal=False, backend=backend)
+        return torch.matmul(out.reshape(b, s, hq * hd), p["wo"]), None
     k = torch.matmul(x, p["wk"]).reshape(b, s, hkv, hd)
     v = torch.matmul(x, p["wv"]).reshape(b, s, hkv, hd)
     if cfg.qkv_bias:
-        q = q + p["bq"].reshape(1, 1, hq, hd)
         k = k + p["bk"].reshape(1, 1, hkv, hd)
         v = v + p["bv"].reshape(1, 1, hkv, hd)
-    cos, sin = rope_freqs(hd, cfg.rope_theta, positions)
-    q = apply_rope(q, cos, sin)
     k = apply_rope(k, cos, sin)
 
     new_cache = None

@@ -1,8 +1,12 @@
-"""The model, for the ``dense`` and ``ssm`` families (counterpart of the JAX
-package's ``models/model.py``).
+"""The model, for the ``dense``, ``audio``, ``vlm`` and ``ssm`` families
+(counterpart of the JAX package's ``models/model.py``).
 
-  dense : L identical pre-norm blocks (attention + MLP)
-  ssm   : L mamba1 blocks
+  dense / audio : L identical pre-norm blocks (attention + MLP); audio reads
+                  precomputed frame embeddings instead of token ids
+  vlm           : G = L // cross_attn_every groups of (cross_attn_every - 1)
+                  self blocks and one tanh-gated cross-attention block over
+                  precomputed image embeddings (llama-3.2-vision)
+  ssm           : L mamba1 blocks
 
 Parameters keep the reference's names, shapes and dtypes: a nested dict of
 tensors whose per-layer leaves are stacked along a leading layer axis.  The
@@ -17,10 +21,10 @@ views ``leaf[i]``.  Entry points:
 ``backend="kernel"`` (the default) runs RMSNorm, prefill attention and the
 selective scan through the hand-written kernels (their plain versions for
 CPU tensors); ``backend="ref"`` runs the plain versions wherever the tensors
-lie, for a replay on the card.  Caches are updated in place.  The moe, vlm,
-hybrid and audio families raise ``NotImplementedError`` naming their slice;
-the reference's rolling-window decode (``window``) waits for the
-long-context slice.
+lie, for a replay on the card.  Caches are updated in place.  The moe and
+hybrid families raise ``NotImplementedError`` naming their slice; the
+reference's rolling-window decode (``window``) waits for the long-context
+slice.
 """
 
 from __future__ import annotations
@@ -31,14 +35,22 @@ import numpy as np
 import torch
 
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.layers import apply_norm, attention_block, mlp_block
+from repro_torch.models.layers import (
+    apply_norm,
+    apply_rope,
+    attention_block,
+    cross_kv,
+    gqa_attention,
+    mlp_block,
+    rope_freqs,
+)
 from repro_torch.models.mamba import mamba1_block
 from repro_torch.runtime.dfc_shard import resolve_device
 
 Params = Dict[str, Any]
-FAMILIES = ("dense", "ssm")
-_SLICES = {"moe": "the MoE slice", "vlm": "the vlm slice",
-           "hybrid": "the hybrid slice", "audio": "the audio slice"}
+FAMILIES = ("dense", "audio", "vlm", "ssm")
+_ATTN = ("dense", "audio")  # the families of L identical attention blocks
+_SLICES = {"moe": "the MoE slice", "hybrid": "the hybrid slice"}
 
 
 def _check_family(cfg: ModelConfig) -> None:
@@ -68,24 +80,34 @@ def param_spec(cfg: ModelConfig) -> Dict[str, Any]:
             return ((*lead, d), dt, ("ones",))
         return ((*lead, 0), dt, ("zeros",))  # non-parametric: empty leaf
 
-    spec: Dict[str, Any] = {"embed": dense((v, d)), "final_norm": norm()}
-    if not cfg.tie_embeddings:
-        spec["lm_head"] = dense((d, v))
-    if cfg.family == "dense":
+    def block(*lead):  # pre-norm attention + MLP, leaves stacked over ``lead``
         hq, hkv, hd, f = cfg.n_heads, cfg.n_kv_heads, cfg.hd(), cfg.d_ff
         attn = {
-            "wq": dense((L, d, hq * hd)),
-            "wk": dense((L, d, hkv * hd)),
-            "wv": dense((L, d, hkv * hd)),
-            "wo": dense((L, hq * hd, d)),
+            "wq": dense((*lead, d, hq * hd)),
+            "wk": dense((*lead, d, hkv * hd)),
+            "wv": dense((*lead, d, hkv * hd)),
+            "wo": dense((*lead, hq * hd, d)),
         }
         if cfg.qkv_bias:
             for name, width in (("bq", hq * hd), ("bk", hkv * hd), ("bv", hkv * hd)):
-                attn[name] = ((L, width), dt, ("zeros",))
-        mlp = {"w1": dense((L, d, f)), "w2": dense((L, f, d))}
+                attn[name] = ((*lead, width), dt, ("zeros",))
+        mlp = {"w1": dense((*lead, d, f)), "w2": dense((*lead, f, d))}
         if cfg.mlp == "swiglu":
-            mlp["w3"] = dense((L, d, f))
-        spec["blocks"] = {"norm1": norm(L), "norm2": norm(L), "attn": attn, "mlp": mlp}
+            mlp["w3"] = dense((*lead, d, f))
+        return {"norm1": norm(*lead), "norm2": norm(*lead), "attn": attn, "mlp": mlp}
+
+    spec: Dict[str, Any] = {}
+    if not cfg.embedding_inputs:
+        spec["embed"] = dense((v, d))
+    spec["final_norm"] = norm()
+    if not (cfg.tie_embeddings and not cfg.embedding_inputs):  # else logits via embed.T
+        spec["lm_head"] = dense((d, v))
+    if cfg.family in _ATTN:
+        spec["blocks"] = block(L)
+    elif cfg.family == "vlm":
+        g, per = _groups(cfg)
+        spec["self_blocks"] = block(g, per)
+        spec["cross_blocks"] = dict(block(g), gate=((g,), f32, ("zeros",)))  # tanh gate
     else:
         if cfg.ssm_version != 1:
             raise NotImplementedError(f"mamba2 layers wait for {_SLICES['hybrid']}")
@@ -105,6 +127,11 @@ def param_spec(cfg: ModelConfig) -> Dict[str, Any]:
             },
         }
     return spec
+
+
+def _groups(cfg: ModelConfig) -> Tuple[int, int]:
+    """The vlm's groups and the self blocks in each (one cross block each)."""
+    return cfg.n_layers // cfg.cross_attn_every, cfg.cross_attn_every - 1
 
 
 def _init_leaf(leaf, gen: torch.Generator, device) -> torch.Tensor:
@@ -143,8 +170,9 @@ def init_params(cfg: ModelConfig, seed: int = 0, device="cuda") -> Params:
     return _map_spec(lambda leaf: _init_leaf(leaf, gen, dev), param_spec(cfg))
 
 
-def _layer(tree, i: int):
-    """Layer ``i``'s parameters (or cache rows): views of the stacked leaves."""
+def _layer(tree, i):
+    """Layer ``i``'s parameters (or cache rows): views of the stacked leaves
+    (``i`` a tuple indexes several leading axes: a vlm group's self layer)."""
     if isinstance(tree, dict):
         return {k: _layer(v, i) for k, v in tree.items()}
     return tree[i]
@@ -163,6 +191,28 @@ def _self_block(h, bp, cfg, positions, cache=None, backend="kernel"):
     return h + mlp_block(x, bp["mlp"], kind=cfg.mlp), new_cache
 
 
+def _cross_block(h, bp, cfg, positions, img_kv, backend="kernel", cached=False):
+    """Gated cross-attention block (llama-3.2-vision style) over ``img_kv``:
+    the image embeddings (B, T, D) or their (k, v).  ``cached``: a decode
+    step over the cache's image K/V, attended in plain PyTorch as the
+    reference's decode body does (which adds no ``bq``; no vlm config has
+    one)."""
+    x = apply_norm(cfg.norm, h, bp["norm1"], backend)
+    if cached:
+        b, s, _ = x.shape
+        hq, hd = cfg.n_heads, cfg.hd()
+        q = torch.matmul(x, bp["attn"]["wq"]).reshape(b, s, hq, hd)
+        cos, sin = rope_freqs(hd, cfg.rope_theta, positions)
+        out = gqa_attention(apply_rope(q, cos, sin), *img_kv, causal=False)
+        out = torch.matmul(out.reshape(b, s, hq * hd), bp["attn"]["wo"])
+    else:
+        out, _ = attention_block(x, bp["attn"], cfg, positions, kv_override=img_kv,
+                                 backend=backend)
+    h = h + torch.tanh(bp["gate"]).to(h.dtype) * out
+    x = apply_norm(cfg.norm, h, bp["norm2"], backend)
+    return h + mlp_block(x, bp["mlp"], kind=cfg.mlp)
+
+
 def _mamba_layer(h, bp, cfg, state=None, backend="kernel"):
     x = apply_norm(cfg.norm, h, bp["norm1"], backend)
     out, new_state = mamba1_block(x, bp["mamba"], cfg, state, backend)
@@ -172,91 +222,141 @@ def _mamba_layer(h, bp, cfg, state=None, backend="kernel"):
 # ===================================================================== forward
 def _embed(params, cfg, batch):
     if cfg.embedding_inputs:
-        raise NotImplementedError(f"embedding inputs wait for {_SLICES['audio']}")
+        return batch["embeddings"].to(cfg.act_dtype())
     return params["embed"][batch["tokens"].long()]
 
 
 def _logits(params, cfg, h, backend="kernel"):
     h = apply_norm(cfg.norm, h, params["final_norm"], backend)
-    if cfg.tie_embeddings:
+    if cfg.tie_embeddings and not cfg.embedding_inputs:
         return torch.matmul(h, params["embed"].t())
     return torch.matmul(h, params["lm_head"])
 
 
+def _img_embeds(cfg, batch):
+    return batch["image_embeddings"].to(cfg.act_dtype())
+
+
 def forward(params: Params, cfg: ModelConfig, batch, backend: str = "kernel"
             ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Full-sequence causal forward.  Returns (logits, aux)."""
+    """Full-sequence causal forward.  batch: {tokens (B, S)} or {embeddings
+    (B, S, D)}, plus image_embeddings (B, T, D) for the vlm.  Returns
+    (logits, aux)."""
     _check_family(cfg)
     h = _embed(params, cfg, batch)
     positions = torch.arange(h.shape[1], device=h.device)
-    for i in range(cfg.n_layers):
-        bp = _layer(params["blocks"], i)
-        if cfg.family == "dense":
-            h, _ = _self_block(h, bp, cfg, positions, backend=backend)
-        else:
-            h, _ = _mamba_layer(h, bp, cfg, backend=backend)
+    if cfg.family == "vlm":
+        img = _img_embeds(cfg, batch)
+        groups, per = _groups(cfg)
+        for g in range(groups):
+            for j in range(per):
+                h, _ = _self_block(h, _layer(params["self_blocks"], (g, j)), cfg, positions,
+                                   backend=backend)
+            h = _cross_block(h, _layer(params["cross_blocks"], g), cfg, positions, img, backend)
+    else:
+        for i in range(cfg.n_layers):
+            bp = _layer(params["blocks"], i)
+            if cfg.family in _ATTN:
+                h, _ = _self_block(h, bp, cfg, positions, backend=backend)
+            else:
+                h, _ = _mamba_layer(h, bp, cfg, backend=backend)
     aux = torch.zeros((), dtype=torch.float32, device=h.device)  # no MoE loss
     return _logits(params, cfg, h, backend), aux
 
 
 # ====================================================================== decode
 def init_cache(cfg: ModelConfig, batch_size: int, max_len: int, device="cuda"):
-    """Zero decode caches: per-layer K/V buffers (dense) or the SSM state and
-    conv tail (ssm), and the filled length."""
+    """Zero decode caches: per-layer K/V buffers (dense, audio; the vlm's
+    per self layer of each group, and each group's image K/V) or the SSM
+    state and conv tail (ssm), and the filled length."""
     _check_family(cfg)
     dev = resolve_device(device)
     dtype = cfg.act_dtype()
-    L = cfg.n_layers
-    if cfg.family == "dense":
-        shape = (L, batch_size, max_len, cfg.n_kv_heads, cfg.hd())
-        return {"k": torch.zeros(shape, dtype=dtype, device=dev),
-                "v": torch.zeros(shape, dtype=dtype, device=dev), "len": 0}
-    di, n = cfg.d_inner(), cfg.ssm_state
+    hkv, hd = cfg.n_kv_heads, cfg.hd()
+
+    def zeros(*shape):
+        return torch.zeros(shape, dtype=dtype, device=dev)
+
+    if cfg.family in _ATTN:
+        shape = (cfg.n_layers, batch_size, max_len, hkv, hd)
+        return {"k": zeros(*shape), "v": zeros(*shape), "len": 0}
+    if cfg.family == "vlm":
+        groups, per = _groups(cfg)
+        shape = (groups, per, batch_size, max_len, hkv, hd)
+        img = (groups, batch_size, cfg.n_img_tokens, hkv, hd)
+        return {"k": zeros(*shape), "v": zeros(*shape), "img_k": zeros(*img),
+                "img_v": zeros(*img), "len": 0}
+    L, di, n = cfg.n_layers, cfg.d_inner(), cfg.ssm_state
     return {
         "ssm": torch.zeros((L, batch_size, di, n), dtype=torch.float32, device=dev),
-        "conv": torch.zeros((L, batch_size, cfg.d_conv - 1, di), dtype=dtype, device=dev),
+        "conv": zeros(L, batch_size, cfg.d_conv - 1, di),
         "len": 0,
     }
 
 
 def decode_step(params: Params, cfg: ModelConfig, cache, batch, backend: str = "kernel"):
-    """One-token decode.  batch: {tokens (B, 1)}.  Returns (logits, cache);
-    the cache's tensors are updated in place."""
+    """One-token decode.  batch: {tokens (B, 1)} or {embeddings (B, 1, D)}.
+    Returns (logits, cache); the cache's tensors are updated in place."""
     _check_family(cfg)
     h = _embed(params, cfg, batch)
     length = int(cache["len"])
     positions = torch.full((1,), length, dtype=torch.int64, device=h.device)
-    for i in range(cfg.n_layers):
-        bp = _layer(params["blocks"], i)
-        if cfg.family == "dense":
-            h, _ = _self_block(h, bp, cfg, positions,
-                               cache=(cache["k"][i], cache["v"][i], length),
-                               backend=backend)
-        else:
-            h, (ns, nc) = _mamba_layer(h, bp, cfg, state=(cache["ssm"][i], cache["conv"][i]),
-                                       backend=backend)
-            cache["ssm"][i].copy_(ns)
-            cache["conv"][i].copy_(nc)
+    if cfg.family == "vlm":
+        groups, per = _groups(cfg)
+        for g in range(groups):
+            for j in range(per):
+                h, _ = _self_block(h, _layer(params["self_blocks"], (g, j)), cfg, positions,
+                                   cache=(cache["k"][g, j], cache["v"][g, j], length),
+                                   backend=backend)
+            h = _cross_block(h, _layer(params["cross_blocks"], g), cfg, positions,
+                             (cache["img_k"][g], cache["img_v"][g]), backend, cached=True)
+    else:
+        for i in range(cfg.n_layers):
+            bp = _layer(params["blocks"], i)
+            if cfg.family in _ATTN:
+                h, _ = _self_block(h, bp, cfg, positions,
+                                   cache=(cache["k"][i], cache["v"][i], length),
+                                   backend=backend)
+            else:
+                h, (ns, nc) = _mamba_layer(h, bp, cfg, state=(cache["ssm"][i], cache["conv"][i]),
+                                           backend=backend)
+                cache["ssm"][i].copy_(ns)
+                cache["conv"][i].copy_(nc)
     return _logits(params, cfg, h, backend), dict(cache, len=length + 1)
 
 
 def prefill(params: Params, cfg: ModelConfig, batch, max_len: int, backend: str = "kernel"):
     """Full-sequence forward that also fills the decode cache: K/V of the
-    prompt (dense) or the scan's final state and conv tail (ssm).  Returns
-    (last_logits (B, 1, V), cache)."""
+    prompt (dense, audio, vlm), each vlm group's image K/V (computed once,
+    for the cache and the cross-attention), or the scan's final state and
+    conv tail (ssm).  Returns (last_logits (B, 1, V), cache)."""
     _check_family(cfg)
     h = _embed(params, cfg, batch)
     b, s, _ = h.shape
     positions = torch.arange(s, device=h.device)
     cache = init_cache(cfg, b, max_len, device=h.device)
-    for i in range(cfg.n_layers):
-        bp = _layer(params["blocks"], i)
-        if cfg.family == "dense":
-            h, _ = _self_block(h, bp, cfg, positions,
-                               cache=(cache["k"][i], cache["v"][i], 0), backend=backend)
-        else:
-            h, (ns, nc) = _mamba_layer(h, bp, cfg, backend=backend)
-            cache["ssm"][i].copy_(ns)
-            cache["conv"][i].copy_(nc)
+    if cfg.family == "vlm":
+        img = _img_embeds(cfg, batch)
+        groups, per = _groups(cfg)
+        for g in range(groups):
+            for j in range(per):
+                h, _ = _self_block(h, _layer(params["self_blocks"], (g, j)), cfg, positions,
+                                   cache=(cache["k"][g, j], cache["v"][g, j], 0),
+                                   backend=backend)
+            cp = _layer(params["cross_blocks"], g)
+            img_kv = cross_kv(img, cp["attn"], cfg)
+            cache["img_k"][g].copy_(img_kv[0])
+            cache["img_v"][g].copy_(img_kv[1])
+            h = _cross_block(h, cp, cfg, positions, img_kv, backend)
+    else:
+        for i in range(cfg.n_layers):
+            bp = _layer(params["blocks"], i)
+            if cfg.family in _ATTN:
+                h, _ = _self_block(h, bp, cfg, positions,
+                                   cache=(cache["k"][i], cache["v"][i], 0), backend=backend)
+            else:
+                h, (ns, nc) = _mamba_layer(h, bp, cfg, backend=backend)
+                cache["ssm"][i].copy_(ns)
+                cache["conv"][i].copy_(nc)
     cache["len"] = s
     return _logits(params, cfg, h[:, -1:], backend), cache

@@ -233,8 +233,19 @@ def test_bf16_leaves_cross_bit_for_bit():
 
 @pytest.mark.parametrize("family", ["moe", "vlm", "hybrid", "audio"])
 def test_unported_families_raise(family):
+    """The moe and hybrid families still raise, naming their slice; the
+    audio and vlm families, ported since, build their params and caches
+    (``tests/test_torch_model_families.py`` holds them against JAX)."""
+    extra = {"vlm": dict(cross_attn_every=2, n_img_tokens=4),
+             "audio": dict(embedding_inputs=True, mlp="gelu")}.get(family, {})
     cfg = ModelConfig(name="x", family=family, n_layers=2, d_model=32, n_heads=4,
-                      n_kv_heads=2, d_ff=64, vocab=64, dtype="float32")
+                      n_kv_heads=2, d_ff=64, vocab=64, dtype="float32", **extra)
+    if family in TM.FAMILIES:
+        params = TM.init_params(cfg, device="cpu")
+        cache = TM.init_cache(cfg, 1, 8, device="cpu")
+        assert "embed" not in params if family == "audio" else "self_blocks" in params
+        assert cache["k"].shape[-3:] == (8, 2, 8) and cache["len"] == 0
+        return
     with pytest.raises(NotImplementedError, match="slice"):
         TM.init_params(cfg, device="cpu")
     with pytest.raises(NotImplementedError, match="slice"):
@@ -242,10 +253,19 @@ def test_unported_families_raise(family):
 
 
 def test_cross_attention_raises():
-    tcfg = TCFG.get_reduced("smollm-135m")
-    x = torch.zeros(1, 2, tcfg.d_model)
-    with pytest.raises(NotImplementedError, match="vlm slice"):
-        L.attention_block(x, {}, tcfg, torch.arange(2), kv_override=x)
+    """Cross-attention runs the flash kernel's non-causal mode: on the
+    kernel backend a head dim the kernel lacks (8 here) raises, on the CPU
+    as on the card; the plain backend computes it."""
+    cfg = ModelConfig(name="x", family="vlm", n_layers=5, d_model=32, n_heads=4,
+                      n_kv_heads=2, d_ff=64, vocab=64, cross_attn_every=5, dtype="float32")
+    g = torch.Generator().manual_seed(0)
+    p = {n: torch.randn(32, w, generator=g) * 0.2
+         for n, w in (("wq", 32), ("wk", 16), ("wv", 16), ("wo", 32))}
+    x, src = torch.randn(1, 2, 32, generator=g), torch.randn(1, 5, 32, generator=g)
+    with pytest.raises(ValueError, match="head dim 8"):
+        L.attention_block(x, p, cfg, torch.arange(2), kv_override=src)
+    out, cache = L.attention_block(x, p, cfg, torch.arange(2), kv_override=src, backend="ref")
+    assert out.shape == (1, 2, 32) and cache is None and bool(torch.isfinite(out).all())
 
 
 def test_gqa_attention_matches_jax_with_offset():
