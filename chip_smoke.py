@@ -238,7 +238,36 @@ script exits non-zero without printing a result):
                   non-causal) and musicgen's (8, 512, 32, 32, 64), RMSNorm
                   at 4096 x 7168, 4096 x 4096 and 4096 x 2048, beside their
                   bounds and PyTorch calls (under ``at``).  Each kernel
-                  record gains ``frontend_configs_launches``.
+                  record gains ``frontend_configs_launches``,
+  13. moe configs -- neither MoE model fits one card at full depth, so each
+                  keeps every width and is cut in depth only (the cut
+                  printed): (a) ``dbrx-132b``, 8 of 40 layers (d 6144, 48 /
+                  8 heads of 128, 16 experts top-4 of width 10,752), served
+                  through the launcher (``serve(args, cfg=)``) at phase
+                  11's flags with the reference launcher's tuning
+                  (``moe_groups`` 16: the prefill grouped, 256 tokens a
+                  group, cap 80; the steps flat, cap 8); (b)
+                  ``arctic-480b``, 2 of 35 layers (d 7168, 128 experts
+                  top-2 of width 4,864 and a dense residual), through the
+                  steps at phase 12's batch (its grouped prefill at cap 8
+                  drops assignments).  Each: exact launches (RMSNorm 2L+1
+                  per prefill and step, flash L per prefill, all causal),
+                  the tier's kernels (dbrx), ``call_gate``,
+                  ``routing_gate`` (for each layer of a plain-stream
+                  prefill and one decode step: keep masks equal to a numpy
+                  recount from the top-k ids, 64 tokens' expert outputs
+                  within 1e-2 of an f32 recomputation and the output equal
+                  to the combine of them, two calls bit-equal, a control
+                  with the experts rolled by one that must fail; the share
+                  of dropped assignments printed), the replay printed (not
+                  gated: routing is discontinuous) beside the count of
+                  (layer, token) top-k sets and kept sets that differ
+                  between the kernel and plain streams, prefill, decode, a
+                  profile, total and active parameters, the peak memory;
+                  then flash attention at (8, 512, 48, 8, 128) and RMSNorm
+                  at 4096 x 6144 beside their bounds and PyTorch calls
+                  (under ``at``).  Each kernel record gains
+                  ``moe_configs_launches``.
 
 Phase 3 also holds the three model kernels (RMSNorm, flash attention, the
 selective scan) against their plain versions at model shapes, in bf16 and
@@ -279,7 +308,7 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
-ALL_PHASES = ("1", "2", "3", "4", "5", "6", "7", "8", "9", "10", "11", "12")
+ALL_PHASES = ("1", "2", "3", "4", "5", "6", "7", "8", "9", "10", "11", "12", "13")
 SOURCE = "src/repro_torch/kernels/dfc_reduce/csrc/dfc_reduce.cu"
 GRID_SOURCE = "src/repro_torch/kernels/dfc_reduce/csrc/phase_grid.cu"
 KINDS = ("stack", "queue", "deque", "map")
@@ -338,8 +367,13 @@ REPLAY_REL_TOL = 5e-2  # plain-backend replay of a bf16 prefill, whole model
 # last logits move past REPLAY_REL_TOL when every embedding moves one bf16 ulp
 # (on an H100: 0.1851 and 0.08466; musicgen-large 0.01907), so that number
 # cannot part a right kernel from a wrong one.  ``call_gate`` holds every kernel
-# call of theirs to its plain version at MODEL_TOL's bf16 tolerance.
-WHOLE_REPLAY_UNGATED = ("deepseek-coder-33b", "llama-3.2-vision-11b")
+# call of theirs to its plain version at MODEL_TOL's bf16 tolerance.  The MoE
+# models' routing is discontinuous: a one-ulp difference in the router's input
+# can move a token to another expert, or move another token past an expert's
+# capacity, so their replay cannot part a right kernel from a wrong one at any
+# depth; ``call_gate`` and ``routing_gate`` are their gates.
+WHOLE_REPLAY_UNGATED = ("deepseek-coder-33b", "llama-3.2-vision-11b", "dbrx-132b",
+                        "arctic-480b")
 SERVE_RUNS = {
     "smollm-135m": ["--arch", "smollm-135m", "--batch", "8", "--prompt-len", "512",
                     "--gen", "32", "--sessions", "16", "--device", "cuda"],
@@ -1725,12 +1759,13 @@ def phase_model_kernels(torch):
 
 
 # ------------------------------------------------------------------- serve
-def _run_serve(serve_mod, argv, params=None, hook=None, echo=True):
-    """The port's launcher in-process, its report echoed where ``echo``."""
+def _run_serve(serve_mod, argv, params=None, hook=None, echo=True, cfg=None):
+    """The port's launcher in-process (``cfg``: a configuration in place of
+    ``--arch``'s), its report echoed where ``echo``."""
     args = serve_mod.build_parser().parse_args(argv)
     buf = io.StringIO()
     with contextlib.redirect_stdout(buf):
-        out = serve_mod.serve(args, params=params, hook=hook)
+        out = serve_mod.serve(args, params=params, hook=hook, cfg=cfg)
     for line in buf.getvalue().splitlines() if echo else ():
         print(f"  serve: {line}", flush=True)
     return out
@@ -1742,8 +1777,9 @@ def _expected_model_launches(cfg, prefills, steps):
     L = cfg.n_layers
     # every attention family has two norms a block (the vlm's L = G x E
     # blocks: E - 1 self and one cross a group) and one flash launch a block
-    # a prefill (the vlm's cross blocks without the mask)
-    attn = cfg.family in ("dense", "audio", "vlm")
+    # a prefill (the vlm's cross blocks without the mask); the MoE FFN runs no
+    # kernel
+    attn = cfg.family in ("dense", "moe", "audio", "vlm")
     norms = 2 * L + 1 if attn else L + 1
     if cfg.norm != "rmsnorm":  # olmo's LayerNorm is plain PyTorch in both packages
         norms = 0
@@ -1752,11 +1788,12 @@ def _expected_model_launches(cfg, prefills, steps):
             "selective_scan": prefills * L if cfg.family == "ssm" else 0}
 
 
-def serve_and_check(torch, serve_mod, K, argv, params=None):
-    """Drive one launcher run with every counter zeroed just before and read
-    just after; check the model-kernel launches against the count the served
-    batches imply and that the tier's combine kernels ran.  Returns the run
-    record, the first batch (prompts, last logits, tokens) and the counts."""
+def serve_and_check(torch, serve_mod, K, argv, params=None, cfg=None):
+    """Drive one launcher run (``cfg`` in place of ``--arch``'s, where
+    given) with every counter zeroed just before and read just after; check
+    the model-kernel launches against the count the served batches imply and
+    that the tier's combine kernels ran.  Returns the run record, the first
+    batch (prompts, last logits, tokens) and the counts."""
     first = {}
 
     def hook(sids, prompts, last, tokens):
@@ -1765,7 +1802,7 @@ def serve_and_check(torch, serve_mod, K, argv, params=None):
 
     K.reset_launches()
     reset_model_launches()
-    out = _run_serve(serve_mod, argv, params=params, hook=hook)
+    out = _run_serve(serve_mod, argv, params=params, hook=hook, cfg=cfg)
     model = model_launches()
     fabric = dict(K.LAUNCHES)
     args = serve_mod.build_parser().parse_args(argv)
@@ -3521,6 +3558,17 @@ def call_gate(torch, cfg, params, batch, step):
               f"is {c:.4g} from the plain version, within {tol}: the gate cannot fail")
 
 
+def run_gate(failed, phase_name, check_fn, *args, **kw):
+    """Run a gate whose failure fails phase ``phase_name`` at its end, after
+    every model and kernel of the phase has run and printed: the failure is
+    printed and kept in ``failed``."""
+    try:
+        check_fn(*args, **kw)
+    except SmokeFailure as exc:
+        failed.append(str(exc))
+        print(f"phase {phase_name} gate FAILED (the phase fails at its end): {exc}", flush=True)
+
+
 def phase_frontend(torch, K, records):
     """Phase 12: ``deepseek-coder-33b`` served at full width through the
     launcher (exact launch counts, the first batch replayed on the plain
@@ -3542,14 +3590,7 @@ def phase_frontend(torch, K, records):
     gen = FRONTEND_GEN
     failed = []
 
-    def gated(check_fn, *args, **kw):
-        """A replay gate whose failure fails the phase at its end, after
-        every model and kernel of the phase has run and printed."""
-        try:
-            check_fn(*args, **kw)
-        except SmokeFailure as exc:
-            failed.append(str(exc))
-            print(f"phase 12 gate FAILED (the phase fails at its end): {exc}", flush=True)
+    gated = functools.partial(run_gate, failed, "12")
 
     # (a) deepseek-coder-33b through the launcher, as phase 11 serves qwen2
     torch.cuda.empty_cache()
@@ -3642,6 +3683,305 @@ def phase_frontend(torch, K, records):
         if name in records:
             records[name]["frontend_configs_launches"] = n
     print(f"frontend configs: launches {totals}", flush=True)
+    check(not failed, "; ".join(failed))
+
+
+# -------------------------------------------------------------- moe configs
+# phase 13: neither MoE model fits one card at full depth (dbrx's experts take
+# about 6.3 GB of bf16 a layer over 40 layers, arctic's about 26.8 GB over 35),
+# so each keeps every width and is cut in depth only.  dbrx-132b is served
+# through the launcher at phase 11's flags with the reference launcher's
+# tuning (moe_groups 16: the prefill of 8 x 512 grouped, 256 tokens a group,
+# cap 80; the decode steps of 8 tokens flat, cap 8); arctic-480b is driven
+# through the steps at phase 12's batch (its grouped prefill at cap 8 against
+# a mean load of 4 per expert per group drops assignments)
+MOE_SERVE = ("dbrx-132b", 8, ["--arch", "dbrx-132b", "--batch", "8", "--prompt-len", "512",
+                              "--gen", "32", "--sessions", "16", "--device", "cuda"])
+MOE_STEPS = ("arctic-480b", 2)
+MOE_ROWS = 64  # tokens a layer whose output the routing gate recomputes in f32
+MOE_KERNEL_SHAPES = {"flash_attention": [("dbrx-132b", (8, 512, 48, 8, 128))],
+                     "rmsnorm": [("dbrx-132b", (4096, 6144))]}
+
+
+def moe_cut(name, layers):
+    """The reference launcher's configuration of ``name`` (tuned), cut to
+    ``layers`` layers; every width kept."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.launch.tuned import apply_tuning
+    full = apply_tuning(get_config(name))
+    cfg = dataclasses.replace(full, n_layers=layers)
+    print(f"moe {name}: n_layers {full.n_layers} -> {layers} (every width kept: d "
+          f"{cfg.d_model}, {cfg.n_heads} / {cfg.n_kv_heads} heads of {cfg.hd()}, "
+          f"{cfg.n_experts} experts top-{cfg.top_k} of width {cfg.moe_dff}"
+          + (f", a dense residual of width {cfg.d_ff}" if cfg.dense_residual else "")
+          + f", moe_groups {cfg.moe_groups}); {cfg.param_count() / 1e9:.3f} B params "
+          f"({cfg.active_param_count() / 1e9:.3f} B active) of the full "
+          f"{full.param_count() / 1e9:.3f} B ({full.active_param_count() / 1e9:.3f} B active)",
+          flush=True)
+    return cfg
+
+
+@contextlib.contextmanager
+def moe_calls(keep_inputs=False):
+    """Inside, each MoE FFN call of the model records its routing: the
+    sorted top-k set and the sorted kept experts (-1 for a dropped
+    assignment) of each token, and, where ``keep_inputs``, its input and
+    parameters."""
+    from repro_torch.models import model as M
+    from repro_torch.models.moe import moe_route
+    inner, calls = M.moe_ffn, []
+
+    def spy(x, p, cfg):
+        r = moe_route(x, p, cfg)
+        kept = r["expert_idx"].masked_fill(~r["keep"], -1)
+        calls.append({"topk": r["expert_idx"].sort(1).values, "kept": kept.sort(1).values,
+                      "x": x if keep_inputs else None, "p": p if keep_inputs else None})
+        return inner(x, p, cfg)
+
+    M.moe_ffn = spy
+    try:
+        yield calls
+    finally:
+        M.moe_ffn = inner
+
+
+@contextlib.contextmanager
+def experts_rolled(p):
+    """Inside, the expert axis of ``p``'s w1, w2 and w3 is rolled by one in
+    place (expert e holds expert e-1's weights; one expert's copy of extra
+    memory): a control, a wrong dispatch.  Rolled back on the way out."""
+    def roll(w, back):
+        src, dst = (range(1, w.shape[0]), range(w.shape[0] - 1)) if back else (
+            range(w.shape[0] - 2, -1, -1), range(w.shape[0] - 1, 0, -1))
+        spare = (w[0] if back else w[-1]).clone()
+        for i, j in zip(src, dst):
+            w[j].copy_(w[i])
+        (w[-1] if back else w[0]).copy_(spare)
+
+    for name in ("w1", "w2", "w3"):
+        roll(p[name], False)
+    try:
+        yield
+    finally:
+        for name in ("w1", "w2", "w3"):
+            roll(p[name], True)
+
+
+def numpy_keep(expert_idx, groups, cap, n_experts):
+    """The keep mask from the top-k ids alone: each assignment's rank among
+    its expert's assignments in (token, rank) order within its group, by a
+    running count, below ``cap``."""
+    import numpy as np
+    t, k = expert_idx.shape
+    ids = expert_idx.reshape(groups, t // groups * k)
+    seen = np.cumsum(ids[..., None] == np.arange(n_experts, dtype=ids.dtype), axis=1,
+                     dtype=np.int32)
+    rank = np.take_along_axis(seen, ids[..., None], axis=2)[..., 0] - 1
+    return (rank < cap).reshape(t, k)
+
+
+def moe_rows_f32(torch, x, p, cfg, route, rows):
+    """The MoE FFN at token ``rows``, recomputed in f32 from the selected
+    experts' weights read directly: each assignment's gate x
+    SwiGLU_expert(x) (R, k, D), zero where dropped, and the dense residual
+    (R, D; None without one)."""
+    import torch.nn.functional as F
+    xt = x.reshape(-1, x.shape[-1])[rows].float()
+    idx, gates, keep = (route[n][rows] for n in ("expert_idx", "gates", "keep"))
+    contrib = torch.zeros((*idx.shape, xt.shape[1]), device=x.device)
+    for e in idx[keep].unique().tolist():
+        r, j = ((idx == e) & keep).nonzero(as_tuple=True)
+        w1, w3, w2 = (p[n][e].float() for n in ("w1", "w3", "w2"))
+        contrib[r, j] = gates[r, j, None] * ((F.silu(xt[r] @ w1) * (xt[r] @ w3)) @ w2)
+    dense = None
+    if cfg.dense_residual:
+        d = p["dense"]
+        dense = (F.silu(xt @ d["w1"].float()) * (xt @ d["w3"].float())) @ d["w2"].float()
+    return contrib, dense
+
+
+def routing_gate(torch, cfg, params, batch, step):
+    """The MoE FFN held at full width, on the plain backend's stream: for
+    each layer of a prefill of ``batch`` and of one decode step (``step``
+    after that prefill), (a) ``moe_route``'s keep mask equal to
+    ``numpy_keep`` from the top-k ids alone; (b) for MOE_ROWS tokens (drawn
+    from seed 0), each assignment's expert output (``expert_outputs``) and
+    the dense residual within MODEL_TOL's bf16 tolerance (relative max-abs)
+    of ``moe_rows_f32``, and the ``moe_ffn`` output equal, bit for bit, to
+    the reference's combine of those outputs (``combine``, then the dense
+    residual added); the rows' distance from the all-f32 sum is printed, not
+    gated: the k-way bf16 sum alone moves the largest outputs by up to k
+    half-ulps; (c) two calls bit-equal; (d) a control, the experts rolled by
+    one (``experts_rolled``), must fail (b).  Prints each layer's share of
+    dropped assignments, then fails if any layer failed."""
+    import numpy as np
+    from repro_torch.models import model as M
+    from repro_torch.models.layers import mlp_block
+    from repro_torch.models.moe import combine, expert_outputs, moe_ffn, moe_route
+    tol, failed, lines = MODEL_TOL["bfloat16"], [], []
+    max_len = batch["tokens"].shape[1] + FRONTEND_GEN + 8
+    with moe_calls(keep_inputs=True) as pre:
+        _, cache = M.prefill(params, cfg, batch, max_len, backend="ref")
+    with moe_calls(keep_inputs=True) as dec:
+        M.decode_step(params, cfg, cache, step, backend="ref")
+    del cache
+    g = torch.Generator(device="cpu").manual_seed(0)
+    for where, calls in (("prefill", pre), ("decode step", dec)):
+        for layer, call in enumerate(calls):
+            x, p = call["x"], call["p"]
+            r = moe_route(x, p, cfg)
+            want = numpy_keep(r["expert_idx"].cpu().numpy(), r["groups"], r["cap"],
+                              cfg.n_experts)
+            keep_ok = bool(np.array_equal(r["keep"].cpu().numpy(), want))
+            t = r["keep"].shape[0]
+            rows = torch.randperm(t, generator=g)[:MOE_ROWS].to(x.device)
+            ref, ref_dense = moe_rows_f32(torch, x, p, cfg, r, rows)
+            contrib = expert_outputs(x, p, cfg, r)
+            err = rel_max_abs(contrib[rows], ref)
+            out = moe_ffn(x, p, cfg)[0].reshape(t, -1)
+            want_out = combine(contrib, r["expert_idx"])
+            total = ref.sum(1)
+            if ref_dense is not None:
+                dense = mlp_block(x.reshape(t, -1), p["dense"], kind="swiglu")
+                err = max(err, rel_max_abs(dense[rows], ref_dense))
+                want_out, total = want_out + dense, total + ref_dense
+            combined = bool(torch.equal(out, want_out))
+            err_f32 = rel_max_abs(out[rows], total)
+            same = bool(torch.equal(out, moe_ffn(x, p, cfg)[0].reshape(t, -1)))
+            with experts_rolled(p):
+                bad = rel_max_abs(expert_outputs(x, p, cfg, r)[rows], ref)
+            drop = float((~r["keep"]).float().mean())
+            lines.append(f"{where} layer {layer}: {r['groups']} group(s), cap {r['cap']}, "
+                         f"dropped {drop:.4%}, keep {'==' if keep_ok else '!='} numpy, "
+                         f"expert outputs {err:.4g}, combine exact {combined} (rows vs the "
+                         f"all-f32 sum {err_f32:.4g}), bit-equal {same}, rolled experts "
+                         f"{bad:.4g}")
+            if not (keep_ok and err <= tol and combined and same and bad > tol):
+                failed.append(f"{cfg.name} {where} layer {layer}: keep equal {keep_ok}, expert "
+                              f"outputs {err:.4g} (tol {tol}), combine exact {combined}, "
+                              f"bit-equal {same}, control {bad:.4g} (must exceed {tol})")
+        calls.clear()
+    print(f"routing gate {cfg.name}: " + "; ".join(lines), flush=True)
+    check(not failed, "; ".join(failed))
+
+
+def routing_differences(torch, cfg, params, batch):
+    """How many (layer, token) top-k sets and kept sets differ between a
+    kernel-backend prefill of ``batch`` and the plain backend's (printed
+    beside the ungated replay: routing is discontinuous)."""
+    from repro_torch.models import model as M
+    max_len = batch["tokens"].shape[1] + FRONTEND_GEN + 8
+    streams = {}
+    for backend in ("kernel", "ref"):
+        with moe_calls() as calls:
+            M.prefill(params, cfg, batch, max_len, backend=backend)
+        streams[backend] = calls
+    n = sum(c["topk"].shape[0] for c in streams["ref"])
+    topk = sum(int((a["topk"] != b["topk"]).any(1).sum())
+               for a, b in zip(streams["kernel"], streams["ref"]))
+    kept = sum(int((a["kept"] != b["kept"]).any(1).sum())
+               for a, b in zip(streams["kernel"], streams["ref"]))
+    print(f"moe {cfg.name}: kernel vs plain prefill stream, (layer, token) pairs whose "
+          f"top-{cfg.top_k} set differs {topk} of {n}, whose kept experts differ {kept} of "
+          f"{n} (not gated)", flush=True)
+
+
+def phase_moe(torch, K, records):
+    """Phase 13: ``dbrx-132b`` (8 of 40 layers) served through the launcher
+    with the reference launcher's tuning, and ``arctic-480b`` (2 of 35
+    layers, its dense residual on) driven through the steps, each at full
+    width: exact launch counts (RMSNorm 2L+1 per prefill and step, flash L
+    per prefill, all causal), the tier's combine kernels (dbrx),
+    ``call_gate``, ``routing_gate``, the whole-model replay printed beside
+    the count of routing differences, prefill, decode, a profile, the peak
+    memory; then flash at dbrx's heads and RMSNorm at its width against
+    their bounds and PyTorch calls.  A gate that fails fails the phase at its
+    end.  Each record gains ``moe_configs_launches``."""
+    from repro_torch.launch import serve as serve_mod
+    from repro_torch.models.model import init_params
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    totals = {k: 0 for k in list(K.LAUNCHES) + list(MODEL_KERNELS)}
+    gen, failed = FRONTEND_GEN, []
+
+    gated = functools.partial(run_gate, failed, "13")
+
+    def report(cfg, prefill_s, step_s, rows):
+        """Each prefill's time (the first a batch of this shape meets, so it
+        carries the library's first-call work) and the last one's tok/s."""
+        print(f"moe {cfg.name}: prefill " + " / ".join(f"{t * 1e3:.3f}" for t in prefill_s)
+              + f" ms per batch of {rows} x {FRONTEND_LEN} (the first call first; "
+              f"{rows * FRONTEND_LEN / prefill_s[-1]:.0f} tok/s at the last), decode "
+              f"{statistics.median(step_s) * 1e3:.3f} ms per step median over {len(step_s)} "
+              f"steps, {cfg.param_count() / 1e9:.3f} B params ({cfg.active_param_count() / 1e9:.3f}"
+              f" B active), peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB",
+              flush=True)
+
+    # (a) dbrx-132b through the launcher
+    name, layers, argv = MOE_SERVE
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = moe_cut(name, layers)
+    with flash_modes() as modes:
+        out, first, model = serve_and_check(torch, serve_mod, K, argv, cfg=cfg)
+    check(modes == {f"causal T={FRONTEND_LEN}": model["flash_attention"]},
+          f"{name}: attention modes {modes}")
+    for k, v in list(model.items()) + list(K.LAUNCHES.items()):
+        totals[k] += v
+    batch, step = {"tokens": first["prompts"]}, {"tokens": first["tokens"][:, :1]}
+    gated(call_gate, torch, cfg, out["params"], batch, step)
+    gated(routing_gate, torch, cfg, out["params"], batch, step)
+    replay_first_batch(torch, out, first, gen, gate=False)
+    routing_differences(torch, cfg, out["params"], batch)
+    profile_model(torch, out, first, gen)
+    report(cfg, out["prefill_s"], out["decode_step_s"], first["prompts"].shape[0])
+    del out, first, batch, step
+    torch.cuda.empty_cache()
+
+    # (b) arctic-480b through the steps
+    name, layers = MOE_STEPS
+    torch.cuda.reset_peak_memory_stats()
+    cfg = moe_cut(name, layers)
+    t0 = time.perf_counter()
+    params = init_params(cfg, seed=0, device="cuda")
+    batch, _ = frontend_inputs(torch, cfg)
+    torch.cuda.synchronize()
+    draw_s = time.perf_counter() - t0
+    first, fed, model, modes, prefill_s, step_s = frontend_run(torch, cfg, params, batch, None)
+    want = _expected_model_launches(cfg, 1, gen - 1)
+    check(model == want, f"{name}: model-kernel launches {model}, expected {want}")
+    check(modes == {f"causal T={FRONTEND_LEN}": layers}, f"{name}: attention modes {modes}")
+    for k, v in model.items():
+        totals[k] += v
+    print(f"moe {name}: launches {model}, attention {modes} (as expected for one prefill and "
+          f"{gen - 1} steps); weights and tokens drawn in {draw_s:.2f} s", flush=True)
+    run = {"cfg": cfg, "params": params}
+    gated(call_gate, torch, cfg, params, batch, fed[0])
+    gated(routing_gate, torch, cfg, params, batch, fed[0])
+    replay_first_batch(torch, run, first, gen, f"the prefill and {gen - 1} steps", batch=batch,
+                       steps=fed, gate=False)
+    routing_differences(torch, cfg, params, batch)
+    profile_model(torch, run, first, gen, batch, fed[0])
+    report(cfg, [prefill_s], step_s, first["prompts"].shape[0])
+    del run, params, batch, first, fed
+    torch.cuda.empty_cache()
+
+    bf16 = torch.bfloat16
+    for kname, runs in MOE_KERNEL_SHAPES.items():
+        rec = records.get(kname)
+        for label, shape in runs:
+            fields = measure_model_kernel(torch, kname, shape, bf16)
+            if rec is None:
+                src, replaces = MODEL_KERNELS[kname]
+                rec = records[kname] = {"name": kname, "route": "cuda", "source": src,
+                                        "replaces": replaces, "launches": totals[kname],
+                                        **fields}
+            rec.setdefault("at", {})[f"{label} " + "x".join(map(str, shape))] = fields
+    for kname, n in totals.items():
+        if kname in records:
+            records[kname]["moe_configs_launches"] = n
+    print(f"moe configs: launches {totals}", flush=True)
     check(not failed, "; ".join(failed))
 
 
@@ -3759,6 +4099,10 @@ def main(argv=None) -> int:
     if "12" in run:
         with phase("12 frontend configs"):
             phase_frontend(torch, K, records)
+
+    if "13" in run:
+        with phase("13 moe configs"):
+            phase_moe(torch, K, records)
 
     print(card, flush=True)
     order = list(KINDS) + [f"phase_grid_{k}" for k in KINDS] + list(MODEL_KERNELS)

@@ -3,8 +3,9 @@
 Counterpart of the JAX package's ``configs/__init__.py`` for the ported
 architectures.  Each module holds the exact published configuration and a
 smoke (reduced) configuration of the same family for CPU tests.  The
-reference's three remaining architectures (``arctic-480b``, ``dbrx-132b``:
-moe; ``zamba2-7b``: hybrid) wait for their slices (see ``ROADMAP.md``).
+reference's one remaining architecture, ``zamba2-7b`` (hybrid), waits for
+its slice (see ``ROADMAP.md``).  ``launch/tuned.py`` holds the tuning the
+reference's launcher applies on top (``moe_groups`` for the two MoE archs).
 """
 
 from __future__ import annotations
@@ -22,6 +23,8 @@ _MODULES: Dict[str, str] = {
     "deepseek-coder-33b": "repro_torch.configs.deepseek_coder_33b",
     "musicgen-large": "repro_torch.configs.musicgen_large",
     "llama-3.2-vision-11b": "repro_torch.configs.llama_3_2_vision_11b",
+    "arctic-480b": "repro_torch.configs.arctic_480b",
+    "dbrx-132b": "repro_torch.configs.dbrx_132b",
 }
 
 ARCH_IDS: List[str] = list(_MODULES)

@@ -41,7 +41,10 @@ queue:
 Each admitted batch (or, with ``--k-classes``, each session at batch 1) is
 prefilled and greedily decoded by the port's model on the card
 (``--device``, default ``cuda``): RMSNorm, prefill attention and the
-selective scan run through the hand-written kernels.
+selective scan run through the hand-written kernels.  The model's
+configuration is ``--arch``'s (its smoke configuration with
+``--reduced``), tuned as the reference's launcher tunes it
+(``launch/tuned.py``: ``moe_groups`` 16 for the MoE archs).
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-135m \\
       --batch 8 --prompt-len 512 --gen 32 --sessions 16
@@ -89,6 +92,8 @@ from repro_torch.core.torch_dfc import (
     R_VALUE,
     pack_cas,
 )
+from repro_torch.launch.tuned import apply_tuning
+from repro_torch.models.config import ModelConfig
 from repro_torch.runtime.dfc_shard import (
     _HASH_MULT,
     R_OVERFLOW,
@@ -1370,11 +1375,14 @@ def _clock(device) -> float:
 
 
 def serve(args: argparse.Namespace, params: Optional[Dict[str, Any]] = None,
-          hook: Optional[BatchHook] = None) -> Dict[str, Any]:
+          hook: Optional[BatchHook] = None, cfg: Optional[ModelConfig] = None
+          ) -> Dict[str, Any]:
     """Run the launcher and print its report.
 
-    ``params`` are the model's parameters (default: ``init_params`` with
-    seed 0 on ``--device``).  ``hook(sids=, prompts=, last=, tokens=)`` runs
+    ``cfg`` is the model's configuration (default: ``--arch``'s, reduced
+    with ``--reduced``, tuned by ``launch/tuned.py`` as the reference's
+    launcher tunes it); ``params`` its parameters (default: ``init_params``
+    with seed 0 on ``--device``).  ``hook(sids=, prompts=, last=, tokens=)`` runs
     after each served batch, outside the timed region, with the prefill's
     last-position logits and the greedy tokens (B, gen); with
     ``--k-classes`` after each session's batch-1 prefill instead (see
@@ -1386,7 +1394,8 @@ def serve(args: argparse.Namespace, params: Optional[Dict[str, Any]] = None,
     """
     if args.window:
         raise NotImplementedError("--window waits for the long-context slice")
-    cfg = get_reduced(args.arch) if args.reduced else get_config(args.arch)
+    if cfg is None:
+        cfg = apply_tuning(get_reduced(args.arch) if args.reduced else get_config(args.arch))
     if not args.tier_only and (cfg.embedding_inputs or cfg.family == "vlm"):
         raise SystemExit(f"{args.arch}: frontend-stub arch — see examples/")
     device = resolve_device(args.device)

@@ -1,11 +1,14 @@
 """Model configuration (counterpart of the JAX package's ``models/config.py``).
 
 The fields that change the math, for every family of the reference, so a
-copied configuration reads the same in both packages.  The reference's
-sharding and scheduling levers (activation sharding, context-parallel
-attention, sequence-parallel residual, MoE dispatch layout, chunked loss and
-attention) mean nothing on one card and are not carried; ``remat`` stays as
-an inert field because the copied smoke configurations set it.
+copied configuration reads the same in both packages.  ``moe_groups`` is one
+of them: the reference calls it a dispatch layout, but its grouped dispatch
+gives each group its own expert capacity, so it changes which assignments
+are dropped.  The reference's sharding and scheduling levers (activation
+sharding, the MoE capacity buffer's sharding anchor, context-parallel
+attention, sequence-parallel residual, chunked loss and attention) mean
+nothing on one card and are not carried; ``remat`` stays as an inert field
+because the copied smoke configurations set it.
 """
 
 from __future__ import annotations
@@ -41,6 +44,8 @@ class ModelConfig:
     moe_dff: int = 0
     dense_residual: bool = False  # arctic: dense MLP in parallel with MoE
     capacity_factor: float = 1.25
+    moe_groups: int = 0  # grouped dispatch: G groups of tokens, each with its
+    # own per-expert capacity (so it decides the drops); 0 = flat dispatch
 
     # SSM (mamba)
     ssm_version: int = 0  # 0 = none, 1 = mamba1, 2 = mamba2
@@ -134,3 +139,11 @@ class ModelConfig:
                 )
                 total += shared
         return int(total)
+
+    def active_param_count(self) -> int:
+        """Active params per token (MoE: top_k experts + shared)."""
+        if self.family != "moe":
+            return self.param_count()
+        d = self.d_model
+        inactive = self.n_layers * (self.n_experts - self.top_k) * 3 * d * self.moe_dff
+        return int(self.param_count() - inactive)

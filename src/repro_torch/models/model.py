@@ -1,8 +1,10 @@
-"""The model, for the ``dense``, ``audio``, ``vlm`` and ``ssm`` families
-(counterpart of the JAX package's ``models/model.py``).
+"""The model, for the ``dense``, ``moe``, ``audio``, ``vlm`` and ``ssm``
+families (counterpart of the JAX package's ``models/model.py``).
 
   dense / audio : L identical pre-norm blocks (attention + MLP); audio reads
                   precomputed frame embeddings instead of token ids
+  moe           : L identical pre-norm blocks (attention + the MoE FFN of
+                  ``models/moe.py``, arctic's dense residual beside it)
   vlm           : G = L // cross_attn_every groups of (cross_attn_every - 1)
                   self blocks and one tanh-gated cross-attention block over
                   precomputed image embeddings (llama-3.2-vision)
@@ -21,10 +23,11 @@ views ``leaf[i]``.  Entry points:
 ``backend="kernel"`` (the default) runs RMSNorm, prefill attention and the
 selective scan through the hand-written kernels (their plain versions for
 CPU tensors); ``backend="ref"`` runs the plain versions wherever the tensors
-lie, for a replay on the card.  Caches are updated in place.  The moe and
-hybrid families raise ``NotImplementedError`` naming their slice; the
-reference's rolling-window decode (``window``) waits for the long-context
-slice.
+lie, for a replay on the card.  Caches are updated in place.  ``forward``'s
+aux is the MoE load-balance loss summed over the layers (zero for the other
+families).  The hybrid family raises ``NotImplementedError`` naming its
+slice; the reference's rolling-window decode (``window``) waits for the
+long-context slice.
 """
 
 from __future__ import annotations
@@ -45,12 +48,13 @@ from repro_torch.models.layers import (
     rope_freqs,
 )
 from repro_torch.models.mamba import mamba1_block
+from repro_torch.models.moe import moe_ffn
 from repro_torch.runtime.dfc_shard import resolve_device
 
 Params = Dict[str, Any]
-FAMILIES = ("dense", "audio", "vlm", "ssm")
-_ATTN = ("dense", "audio")  # the families of L identical attention blocks
-_SLICES = {"moe": "the MoE slice", "hybrid": "the hybrid slice"}
+FAMILIES = ("dense", "moe", "audio", "vlm", "ssm")
+_ATTN = ("dense", "moe", "audio")  # the families of L identical attention blocks
+_SLICES = {"hybrid": "the hybrid slice"}
 
 
 def _check_family(cfg: ModelConfig) -> None:
@@ -81,7 +85,7 @@ def param_spec(cfg: ModelConfig) -> Dict[str, Any]:
         return ((*lead, 0), dt, ("zeros",))  # non-parametric: empty leaf
 
     def block(*lead):  # pre-norm attention + MLP, leaves stacked over ``lead``
-        hq, hkv, hd, f = cfg.n_heads, cfg.n_kv_heads, cfg.hd(), cfg.d_ff
+        hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd()
         attn = {
             "wq": dense((*lead, d, hq * hd)),
             "wk": dense((*lead, d, hkv * hd)),
@@ -91,10 +95,28 @@ def param_spec(cfg: ModelConfig) -> Dict[str, Any]:
         if cfg.qkv_bias:
             for name, width in (("bq", hq * hd), ("bk", hkv * hd), ("bv", hkv * hd)):
                 attn[name] = ((*lead, width), dt, ("zeros",))
-        mlp = {"w1": dense((*lead, d, f)), "w2": dense((*lead, f, d))}
+        out = {"norm1": norm(*lead), "norm2": norm(*lead), "attn": attn}
+        if cfg.family == "moe":
+            out["moe"] = moe(*lead)
+        else:
+            out["mlp"] = mlp(*lead)
+        return out
+
+    def mlp(*lead):
+        f = cfg.d_ff
+        p = {"w1": dense((*lead, d, f)), "w2": dense((*lead, f, d))}
         if cfg.mlp == "swiglu":
-            mlp["w3"] = dense((*lead, d, f))
-        return {"norm1": norm(*lead), "norm2": norm(*lead), "attn": attn, "mlp": mlp}
+            p["w3"] = dense((*lead, d, f))
+        return p
+
+    def moe(*lead):  # the router in f32, the experts in the activation dtype
+        e, f = cfg.n_experts, cfg.moe_dff
+        p = {"router": dense((*lead, d, e), dtype=f32),
+             "w1": dense((*lead, e, d, f)), "w3": dense((*lead, e, d, f)),
+             "w2": dense((*lead, e, f, d))}
+        if cfg.dense_residual:
+            p["dense"] = mlp(*lead)
+        return p
 
     spec: Dict[str, Any] = {}
     if not cfg.embedding_inputs:
@@ -180,15 +202,19 @@ def _layer(tree, i):
 
 # ================================================================ block bodies
 def _self_block(h, bp, cfg, positions, cache=None, backend="kernel"):
-    """Pre-norm attention + MLP.  Returns (h, new_cache); the reference's
-    third output, the MoE auxiliary loss, is zero for a dense block."""
+    """Pre-norm attention + FFN (an MLP, or the MoE FFN where ``bp`` holds
+    ``moe``).  Returns (h, new_cache, aux): the MoE auxiliary loss, None
+    for an MLP block (the reference's zero)."""
     x = apply_norm(cfg.norm, h, bp["norm1"], backend)
     attn_out, new_cache = attention_block(
         x, bp["attn"], cfg, positions, kv_cache=cache, backend=backend
     )
     h = h + attn_out
     x = apply_norm(cfg.norm, h, bp["norm2"], backend)
-    return h + mlp_block(x, bp["mlp"], kind=cfg.mlp), new_cache
+    if "moe" in bp:
+        out, aux = moe_ffn(x, bp["moe"], cfg)
+        return h + out, new_cache, aux
+    return h + mlp_block(x, bp["mlp"], kind=cfg.mlp), new_cache, None
 
 
 def _cross_block(h, bp, cfg, positions, img_kv, backend="kernel", cached=False):
@@ -245,28 +271,30 @@ def forward(params: Params, cfg: ModelConfig, batch, backend: str = "kernel"
     _check_family(cfg)
     h = _embed(params, cfg, batch)
     positions = torch.arange(h.shape[1], device=h.device)
+    aux = torch.zeros((), dtype=torch.float32, device=h.device)  # summed over MoE layers
     if cfg.family == "vlm":
         img = _img_embeds(cfg, batch)
         groups, per = _groups(cfg)
         for g in range(groups):
             for j in range(per):
-                h, _ = _self_block(h, _layer(params["self_blocks"], (g, j)), cfg, positions,
-                                   backend=backend)
+                h, _, _ = _self_block(h, _layer(params["self_blocks"], (g, j)), cfg, positions,
+                                      backend=backend)
             h = _cross_block(h, _layer(params["cross_blocks"], g), cfg, positions, img, backend)
     else:
         for i in range(cfg.n_layers):
             bp = _layer(params["blocks"], i)
             if cfg.family in _ATTN:
-                h, _ = _self_block(h, bp, cfg, positions, backend=backend)
+                h, _, a = _self_block(h, bp, cfg, positions, backend=backend)
+                if a is not None:
+                    aux = aux + a
             else:
                 h, _ = _mamba_layer(h, bp, cfg, backend=backend)
-    aux = torch.zeros((), dtype=torch.float32, device=h.device)  # no MoE loss
     return _logits(params, cfg, h, backend), aux
 
 
 # ====================================================================== decode
 def init_cache(cfg: ModelConfig, batch_size: int, max_len: int, device="cuda"):
-    """Zero decode caches: per-layer K/V buffers (dense, audio; the vlm's
+    """Zero decode caches: per-layer K/V buffers (dense, moe, audio; the vlm's
     per self layer of each group, and each group's image K/V) or the SSM
     state and conv tail (ssm), and the filled length."""
     _check_family(cfg)
@@ -305,18 +333,18 @@ def decode_step(params: Params, cfg: ModelConfig, cache, batch, backend: str = "
         groups, per = _groups(cfg)
         for g in range(groups):
             for j in range(per):
-                h, _ = _self_block(h, _layer(params["self_blocks"], (g, j)), cfg, positions,
-                                   cache=(cache["k"][g, j], cache["v"][g, j], length),
-                                   backend=backend)
+                h, _, _ = _self_block(h, _layer(params["self_blocks"], (g, j)), cfg, positions,
+                                      cache=(cache["k"][g, j], cache["v"][g, j], length),
+                                      backend=backend)
             h = _cross_block(h, _layer(params["cross_blocks"], g), cfg, positions,
                              (cache["img_k"][g], cache["img_v"][g]), backend, cached=True)
     else:
         for i in range(cfg.n_layers):
             bp = _layer(params["blocks"], i)
             if cfg.family in _ATTN:
-                h, _ = _self_block(h, bp, cfg, positions,
-                                   cache=(cache["k"][i], cache["v"][i], length),
-                                   backend=backend)
+                h, _, _ = _self_block(h, bp, cfg, positions,
+                                      cache=(cache["k"][i], cache["v"][i], length),
+                                      backend=backend)
             else:
                 h, (ns, nc) = _mamba_layer(h, bp, cfg, state=(cache["ssm"][i], cache["conv"][i]),
                                            backend=backend)
@@ -327,7 +355,7 @@ def decode_step(params: Params, cfg: ModelConfig, cache, batch, backend: str = "
 
 def prefill(params: Params, cfg: ModelConfig, batch, max_len: int, backend: str = "kernel"):
     """Full-sequence forward that also fills the decode cache: K/V of the
-    prompt (dense, audio, vlm), each vlm group's image K/V (computed once,
+    prompt (dense, moe, audio, vlm), each vlm group's image K/V (computed once,
     for the cache and the cross-attention), or the scan's final state and
     conv tail (ssm).  Returns (last_logits (B, 1, V), cache)."""
     _check_family(cfg)
@@ -340,9 +368,9 @@ def prefill(params: Params, cfg: ModelConfig, batch, max_len: int, backend: str 
         groups, per = _groups(cfg)
         for g in range(groups):
             for j in range(per):
-                h, _ = _self_block(h, _layer(params["self_blocks"], (g, j)), cfg, positions,
-                                   cache=(cache["k"][g, j], cache["v"][g, j], 0),
-                                   backend=backend)
+                h, _, _ = _self_block(h, _layer(params["self_blocks"], (g, j)), cfg, positions,
+                                      cache=(cache["k"][g, j], cache["v"][g, j], 0),
+                                      backend=backend)
             cp = _layer(params["cross_blocks"], g)
             img_kv = cross_kv(img, cp["attn"], cfg)
             cache["img_k"][g].copy_(img_kv[0])
@@ -352,8 +380,8 @@ def prefill(params: Params, cfg: ModelConfig, batch, max_len: int, backend: str 
         for i in range(cfg.n_layers):
             bp = _layer(params["blocks"], i)
             if cfg.family in _ATTN:
-                h, _ = _self_block(h, bp, cfg, positions,
-                                   cache=(cache["k"][i], cache["v"][i], 0), backend=backend)
+                h, _, _ = _self_block(h, bp, cfg, positions,
+                                      cache=(cache["k"][i], cache["v"][i], 0), backend=backend)
             else:
                 h, (ns, nc) = _mamba_layer(h, bp, cfg, backend=backend)
                 cache["ssm"][i].copy_(ns)

@@ -152,6 +152,8 @@ def test_full_config_param_count_matches_spec(arch):
         "deepseek-coder-33b": (30e9, 36e9),
         "musicgen-large": (2.2e9, 4.0e9),
         "falcon-mamba-7b": (6.0e9, 8.5e9),
+        "arctic-480b": (430e9, 520e9),
+        "dbrx-132b": (120e9, 145e9),
     }[arch]
     assert expected[0] <= n <= expected[1], f"{arch}: {n / 1e9:.2f}B params"
 

@@ -233,17 +233,23 @@ def test_bf16_leaves_cross_bit_for_bit():
 
 @pytest.mark.parametrize("family", ["moe", "vlm", "hybrid", "audio"])
 def test_unported_families_raise(family):
-    """The moe and hybrid families still raise, naming their slice; the
-    audio and vlm families, ported since, build their params and caches
-    (``tests/test_torch_model_families.py`` holds them against JAX)."""
+    """The hybrid family still raises, naming its slice; the moe, audio and
+    vlm families, ported since, build their params and caches
+    (``tests/test_torch_model_families.py`` and ``tests/test_torch_moe.py``
+    hold them against JAX)."""
     extra = {"vlm": dict(cross_attn_every=2, n_img_tokens=4),
-             "audio": dict(embedding_inputs=True, mlp="gelu")}.get(family, {})
+             "audio": dict(embedding_inputs=True, mlp="gelu"),
+             "moe": dict(n_experts=4, top_k=2, moe_dff=48)}.get(family, {})
     cfg = ModelConfig(name="x", family=family, n_layers=2, d_model=32, n_heads=4,
                       n_kv_heads=2, d_ff=64, vocab=64, dtype="float32", **extra)
     if family in TM.FAMILIES:
         params = TM.init_params(cfg, device="cpu")
         cache = TM.init_cache(cfg, 1, 8, device="cpu")
-        assert "embed" not in params if family == "audio" else "self_blocks" in params
+        if family == "moe":
+            assert params["blocks"]["moe"]["w1"].shape == (2, 4, 32, 48)
+            assert "mlp" not in params["blocks"]
+        else:
+            assert "embed" not in params if family == "audio" else "self_blocks" in params
         assert cache["k"].shape[-3:] == (8, 2, 8) and cache["len"] == 0
         return
     with pytest.raises(NotImplementedError, match="slice"):
