@@ -267,16 +267,37 @@ script exits non-zero without printing a result):
                   then flash attention at (8, 512, 48, 8, 128) and RMSNorm
                   at 4096 x 6144 beside their bounds and PyTorch calls
                   (under ``at``).  Each kernel record gains
-                  ``moe_configs_launches``.
+                  ``moe_configs_launches``,
+  14. hybrid configs -- ``zamba2-7b`` at full width (13 groups of 6
+                  mamba2 layers, the shared attention block after each
+                  group, a tail of 3; 32 heads of 112; 6.75 B parameters):
+                  (a) served through the launcher at phase 11's flags
+                  (``HYBRID_SERVE``): RMSNorm L + 2G + 1 = 108 per prefill
+                  and step, flash G = 13 per prefill (causal, T 512), the
+                  tier's kernels, ``call_gate`` (the mamba2 layers' norms
+                  and the shared block's norms and flash), the first batch
+                  replayed on the plain backend (5e-2), a profile, the peak
+                  memory; (b) ``long_500k``'s batch (1) and window (4,096)
+                  through ``make_prefill_step`` / ``make_serve_step``: a
+                  4,096-token prompt into a 4,096-wide cache (flash at (1,
+                  4096, 32, 32, 112)), 64 rolling-window steps (108 RMSNorm
+                  a step, no flash; each ring shifted and appended bit for
+                  bit, ``ring_step_faults``; peak memory flat), 4 steps
+                  with ``len`` at 524,287 on the same cache, ``call_gate``
+                  on a window step; (c) flash attention at (8, 512, 32, 32,
+                  112) and (1, 4096, 32, 32, 112), RMSNorm at 4096 x 3584,
+                  beside their bounds and PyTorch calls (under ``at``).
+                  Each kernel record gains ``hybrid_configs_launches``.
 
 Phase 3 also holds the three model kernels (RMSNorm, flash attention, the
 selective scan) against their plain versions at model shapes, in bf16 and
 f32 (tolerances in ``MODEL_TOL``): flash attention at every head dim, a
 ragged S, S = T = 1, non-causal, Hq = Hkv and a group of 4, phase 11's
-shapes, and phase 12's group of 7 and non-causal S queries over T != S keys
-(T 1,024 at S 512 and 1, a ragged T of 1,000 at S 200); RMSNorm at both
+shapes, phase 12's group of 7 and non-causal S queries over T != S keys
+(T 1,024 at S 512 and 1, a ragged T of 1,000 at S 200), and phase 14's head
+dim 112 (Hq = Hkv = 32, a ragged S, non-causal over T != S); RMSNorm at both
 models' prefill and decode rows, qwen2's prefill rows (4096 x 1536), widths
-7168 and 2048, and a D off the 16-byte vector; an unaligned
+7168, 3584 and 2048, and a D off the 16-byte vector; an unaligned
 input to both; the scan in its base and fused modes, y and h_S, at the
 serving shape, a ragged S, N = 8, S = 1 and DI, N off the 16-byte vector,
 the fused mode's z the strided half of an xz (and once contiguous); and a
@@ -308,7 +329,7 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
-ALL_PHASES = ("1", "2", "3", "4", "5", "6", "7", "8", "9", "10", "11", "12", "13")
+ALL_PHASES = ("1", "2", "3", "4", "5", "6", "7", "8", "9", "10", "11", "12", "13", "14")
 SOURCE = "src/repro_torch/kernels/dfc_reduce/csrc/dfc_reduce.cu"
 GRID_SOURCE = "src/repro_torch/kernels/dfc_reduce/csrc/phase_grid.cu"
 KINDS = ("stack", "queue", "deque", "map")
@@ -1175,12 +1196,17 @@ def phase_volatile(torch, T, K, serve_shards, records):
         kfn, pfn = fns[kind]
         outs_k = kfn(*kargs)
         torch.cuda.synchronize()
+        t0 = time.perf_counter()
         outs_p = pfn(*kargs)
+        torch.cuda.synchronize()
+        compared_ms = (time.perf_counter() - t0) * 1e3
         compare_outputs(f"{kind} at main-path shapes", outs_k, outs_p)
-        reps, preps = (3, 2) if kind == "map" else (20, 3)
-        ms = cuda_ms(lambda: kfn(*kargs), reps)
+        ms = cuda_ms(lambda: kfn(*kargs), 3 if kind == "map" else 20)
         timing, other = time_combine(torch, NAMES[kind], kfn, kargs)
-        plain_ms = cuda_ms(lambda: pfn(*kargs), preps, warmup=0)
+        # the map's plain version takes tens of seconds a call at these shapes
+        # (its serial walk on the host side): the comparison call is its time
+        plain_ms = (compared_ms if kind == "map"
+                    else cuda_ms(lambda: pfn(*kargs), 3, warmup=0))
         bound_ms, bound_by = bound(kind, kargs)
         touched = (g[0] != T.OP_NONE).any(1)
         if kind == "map":
@@ -1200,6 +1226,7 @@ def phase_volatile(torch, T, K, serve_shards, records):
             "replaces": REPLACES[kind], "launches": launches[kind],
             "max_abs_err": max_abs_err(outs_k, outs_p), "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "plain_ms_by": "host, one call" if kind == "map" else "cuda events",
             "library_ms": None, "bit_equal": True, **timing,
         }
         if other is not None:
@@ -1208,7 +1235,8 @@ def phase_volatile(torch, T, K, serve_shards, records):
                  f"lanes in a shard, {int(map_live(kargs[5]).sum())} in all"
                  if kind == "map" else "")
         print(f"kernel {NAMES[kind]} S,N={shape}: {ms:.4f} ms, {timing_text(timing, other)} "
-              f"(plain {plain_ms:.3f} ms, bound {bound_ms:.5f} ms by {bound_by}), "
+              f"(plain {plain_ms:.3f} ms by {records[kind]['plain_ms_by']}, bound "
+              f"{bound_ms:.5f} ms by {bound_by}), "
               f"{launches[kind] / out['phases']:.0f} launch/step{extra}", flush=True)
     ring_line = []
     for k in ("stack", "queue", "deque"):
@@ -1687,8 +1715,9 @@ def phase_model_kernels(torch):
     group of 4; RMSNorm at both models' prefill and decode
     rows, a D off the 16-byte vector; the dense configs' shapes of phase
     11; phase 12's: a group of 7, non-causal over T != S keys, a ragged key
-    tile and S = 1 among them, RMSNorm at widths 7168 and 2048; an
-    unaligned input to both); then a
+    tile and S = 1 among them, RMSNorm at widths 7168 and 2048; phase 14's
+    head dim 112 with Hq = Hkv, a ragged S and non-causal over T != S,
+    RMSNorm at width 3584; an unaligned input to both); then a
     kernel launched under ``torch.cuda.stream`` runs on that stream."""
     from repro_torch.kernels import nvcc
     from repro_torch.kernels.flash_attention.kernel import HEAD_DIMS
@@ -1711,6 +1740,13 @@ def phase_model_kernels(torch):
               ("flash_attention", (2, 512, 32, 8, 128, 1024), {"causal": False}),
               ("flash_attention", (2, 200, 32, 8, 128, 1000), {"causal": False}),
               ("flash_attention", (2, 1, 32, 8, 128, 1024), {"causal": False})]
+    # phase 14's head dim 112 (zamba2: 32 heads in d 3584, Hq = Hkv): a
+    # ragged S, the prefill's shape, non-causal S over T != S; RMSNorm at
+    # width 3584 (the group of 3 at hd 112 is among the head dims above)
+    cases += [("flash_attention", (2, 200, 32, 32, 112), {}),
+              ("flash_attention", (2, 512, 32, 32, 112), {}),
+              ("flash_attention", (2, 200, 32, 32, 112, 1000), {"causal": False}),
+              ("rmsnorm", (4096, 3584), {})]
     lines = []
     for name, shape, kw in cases:
         for dtype in (torch.bfloat16, torch.float32):
@@ -1778,13 +1814,16 @@ def _expected_model_launches(cfg, prefills, steps):
     # every attention family has two norms a block (the vlm's L = G x E
     # blocks: E - 1 self and one cross a group) and one flash launch a block
     # a prefill (the vlm's cross blocks without the mask); the MoE FFN runs no
-    # kernel
+    # kernel.  The hybrid: one norm a mamba2 layer, two and one flash launch
+    # a prefill for each of the G applications of the shared block (mamba2's
+    # SSD and gated norm are plain PyTorch, as in the reference)
     attn = cfg.family in ("dense", "moe", "audio", "vlm")
-    norms = 2 * L + 1 if attn else L + 1
+    shared = cfg.n_layers // cfg.attn_every if cfg.family == "hybrid" else 0
+    norms = 2 * L + 1 if attn else L + 2 * shared + 1
     if cfg.norm != "rmsnorm":  # olmo's LayerNorm is plain PyTorch in both packages
         norms = 0
     return {"rmsnorm": (prefills + steps) * norms,
-            "flash_attention": prefills * L if attn else 0,
+            "flash_attention": prefills * (L if attn else shared),
             "selective_scan": prefills * L if cfg.family == "ssm" else 0}
 
 
@@ -3469,7 +3508,7 @@ def held_to_plain(calls, roll_kv=False):
         layers.rmsnorm_op, layers.attention = saved
 
 
-def call_gate(torch, cfg, params, batch, step):
+def call_gate(torch, cfg, params, batch, step, max_len=None, window=0):
     """The model's kernels held to their plain versions at every call of a
     prefill and of a decode step, on the plain backend's inputs: the gate of
     a model whose whole-model replay cannot part a right kernel from a wrong
@@ -3478,10 +3517,13 @@ def call_gate(torch, cfg, params, batch, step):
     cross blocks), runs on the plain backend's stream with the kernel
     backend, every RMSNorm and flash call of it held to the op's plain
     version on the same inputs (``held_to_plain``); so is one decode step
-    (``step``) on the plain prefill's cache.  Every call must be within
-    MODEL_TOL's bf16 tolerance (relative max-abs).  Controls, which must
-    fail it: the first self block, and the vlm's first cross block, with
-    flash given K/V rolled by one head.  Printed, not gated: what each block
+    (``step``) on the plain prefill's cache (``max_len`` wide, default the
+    prompt + FRONTEND_GEN + 8; a rolling-window step where ``window``).
+    The hybrid's blocks are its mamba2 layers (RMSNorm only) and each
+    application of the shared block.  Every call must be within MODEL_TOL's
+    bf16 tolerance (relative max-abs).  Controls, which must fail it: the
+    first self block, and the vlm's first cross block, with flash given K/V
+    rolled by one head.  Printed, not gated: what each block
     gives alone against the plain block (it reaches 3 bf16 ulps with right
     kernels, and a wrong cross-attention moves its block by less: the
     controls' block errors), and the plain model's change under a one-ulp
@@ -3498,8 +3540,19 @@ def call_gate(torch, cfg, params, batch, step):
     def cross_block(cp, kv):
         return lambda h, backend: M._cross_block(h, cp, cfg, positions, kv, backend)
 
+    def mamba_layer(bp):
+        return lambda h, backend: M._mamba_layer(h, bp, cfg, backend=backend)[0]
+
     blocks = []  # (kind, block(h, backend))
-    if cfg.family == "vlm":
+    if cfg.family == "hybrid":
+        groups, tail = M._hybrid_groups(cfg)
+        for g in range(groups):
+            blocks += [("mamba", mamba_layer(M._layer(params["mamba_groups"], (g, j))))
+                       for j in range(cfg.attn_every)]
+            blocks.append(("self", self_block(params["shared_attn"])))
+        blocks += [("mamba", mamba_layer(M._layer(params["mamba_tail"], i)))
+                   for i in range(tail)]
+    elif cfg.family == "vlm":
         img = M._img_embeds(cfg, batch)
         groups, per = M._groups(cfg)
         for g in range(groups):
@@ -3516,18 +3569,18 @@ def call_gate(torch, cfg, params, batch, step):
             one = fn(h, "kernel")
         nxt = fn(h, "ref")
         alone.append((rel_max_abs(one, nxt), i, kind))
-        if kind not in controls:
+        if kind not in controls and kind != "mamba":
             wrong = {}
             with held_to_plain(wrong, roll_kv=True):
                 bad = fn(h, "kernel")
             controls[kind] = (i, wrong["flash_attention"][0], rel_max_abs(bad, nxt))
         h = nxt
     del h, one, nxt
-    max_len = positions.numel() + FRONTEND_GEN + 8
+    max_len = max_len or positions.numel() + FRONTEND_GEN + 8
     plain, cache = M.prefill(params, cfg, batch, max_len, backend="ref")
     decode = {}
     with held_to_plain(decode):
-        M.decode_step(params, cfg, cache, step, backend="kernel")
+        M.decode_step(params, cfg, cache, step, backend="kernel", window=window)
     del cache
     embed = M._embed
     M._embed = lambda *a: (lambda h: (h.view(torch.int16) + 1).view(h.dtype))(embed(*a))
@@ -3538,7 +3591,8 @@ def call_gate(torch, cfg, params, batch, step):
     torch.cuda.synchronize()
     text = (f"every kernel call within {tol} of its plain version: prefill " + ", ".join(
         f"{n} max {e:.4g} ({c} calls)" for n, (e, c) in calls.items()) + "; decode step "
-        + ", ".join(f"{n} max {e:.4g} ({c} calls)" for n, (e, c) in decode.items()))
+        + ", ".join(f"{n} max {e:.4g} ({c} calls)" for n, (e, c) in decode.items())
+        + (f" (a rolling-window step, W {window})" if window else ""))
     text += "; controls, flash given K/V rolled by one head: " + ", ".join(
         f"{k} block {i} call {c:.4g} (block {b:.4g})" for k, (i, c, b) in controls.items())
     kinds = dict.fromkeys(k for _, _, k in alone)
@@ -3985,6 +4039,253 @@ def phase_moe(torch, K, records):
     check(not failed, "; ".join(failed))
 
 
+# ----------------------------------------------------------- hybrid configs
+# phase 14: zamba2-7b (13 groups of 6 mamba2 layers, the shared attention
+# block after each group, a tail of 3; 32 heads of 112) at full width: (a)
+# through the launcher at phase 11's flags; (b) long_500k's batch and window
+# through the steps: a 4,096-token prompt prefilled into a 4,096-wide cache
+# (the insert-at-length layout is then the ring's), 64 rolling-window steps,
+# then 4 steps at long_500k's last position (524,287) on the same cache
+HYBRID_SERVE = ["--arch", "zamba2-7b", "--batch", "8", "--prompt-len", "512", "--gen", "32",
+                "--sessions", "16", "--device", "cuda"]
+HYBRID_STEPS = 64  # rolling-window steps after the long prefill
+HYBRID_FAR_STEPS = 4  # steps with len at long_500k's last position
+HYBRID_PEAK_SLACK = 16 * 2**20  # bytes a window step's peak may differ from step 1's
+HYBRID_KERNEL_SHAPES = {
+    "flash_attention": [("zamba2-7b prefill", (8, 512, 32, 32, 112)),
+                        ("zamba2-7b long_500k window prefill", (1, 4096, 32, 32, 112))],
+    "rmsnorm": [("zamba2-7b", (4096, 3584))]}
+
+
+@contextlib.contextmanager
+def ring_inputs():
+    """Inside, every ``_ring_attention`` call of the model records its
+    input (the shared block's normed x) and positions, in call order."""
+    from repro_torch.models import model as M
+    inner, seen = M._ring_attention, []
+
+    def spy(x, p, cfg, positions, cache):
+        seen.append((x, positions))
+        return inner(x, p, cfg, positions, cache)
+
+    M._ring_attention = spy
+    try:
+        yield seen
+    finally:
+        M._ring_attention = inner
+
+
+def ring_step_faults(torch, cfg, params, cache, prev_k, prev_v, seen):
+    """What a rolling-window step broke, as text (empty: nothing): each
+    ring keeps its shape, its slots 0..W-2 bit-equal to the previous step's
+    1..W-1, and slot W-1 of every group bit-equal to that step's roped K
+    and V recomputed from the ring's input (``seen``, one per group)."""
+    from repro_torch.models.layers import apply_rope, rope_freqs
+    k, v = cache["attn_k"], cache["attn_v"]
+    groups, b, w, hkv, hd = k.shape
+    faults = []
+    if k.shape != prev_k.shape or v.shape != prev_v.shape:
+        faults.append(f"ring shape {tuple(k.shape)}, was {tuple(prev_k.shape)}")
+        return faults
+    if not (torch.equal(k[:, :, :-1], prev_k[:, :, 1:])
+            and torch.equal(v[:, :, :-1], prev_v[:, :, 1:])):
+        faults.append("slots 0..W-2 are not the previous step's 1..W-1")
+    if len(seen) != groups:
+        faults.append(f"{len(seen)} ring calls for {groups} groups")
+        return faults
+    p = params["shared_attn"]["attn"]
+    for g, (x, positions) in enumerate(seen):
+        cos, sin = rope_freqs(hd, cfg.rope_theta, positions)
+        kk = apply_rope(torch.matmul(x, p["wk"]).reshape(b, 1, hkv, hd), cos, sin)
+        vv = torch.matmul(x, p["wv"]).reshape(b, 1, hkv, hd)
+        if not (torch.equal(k[g, :, -1:], kk.to(k.dtype))
+                and torch.equal(v[g, :, -1:], vv.to(v.dtype))):
+            faults.append(f"group {g}: slot W-1 is not the step's roped K/V")
+    return faults
+
+
+def hybrid_window(torch, cfg, params, gated, totals):
+    """Phase 14 (b): long_500k's batch and window through ``make_prefill_step``
+    / ``make_serve_step(window=)``: the prefill (exact launches, flash
+    causal over T = W), HYBRID_STEPS window steps (RMSNorm only; each ring
+    shifted and appended bit for bit, ``ring_step_faults``; each step's peak
+    memory within HYBRID_PEAK_SLACK of step 1's), HYBRID_FAR_STEPS steps at
+    long_500k's last position on the same cache (the same checks and
+    peak), then ``call_gate`` on a window step."""
+    from repro_torch.configs.shapes import SHAPES
+    from repro_torch.launch.steps import make_prefill_step, make_serve_step
+    sh = SHAPES["long_500k"]
+    w, b, last_pos = sh.window, sh.global_batch, sh.seq_len - 1
+    groups = cfg.n_layers // cfg.attn_every
+    g = torch.Generator(device="cuda").manual_seed(1)
+    prompt = torch.randint(0, cfg.vocab, (b, w), generator=g, device="cuda")
+    prefill_step, serve_step = make_prefill_step(cfg, w), make_serve_step(cfg, window=w)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_model_launches()
+    with flash_modes() as modes:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        last, cache = prefill_step(params, {"tokens": prompt})
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t0
+    pre, pre_peak = model_launches(), torch.cuda.max_memory_allocated()
+    want = _expected_model_launches(cfg, 1, 0)
+    check(pre == want, f"{cfg.name} window prefill: launches {pre}, expected {want}")
+    check(modes == {f"causal T={w}": groups}, f"{cfg.name} window prefill: attention {modes}")
+    for k_, v_ in pre.items():
+        totals[k_] += v_
+
+    def steps(n, far):
+        """n window steps (each at ``last_pos`` where ``far``): seconds,
+        peaks, faults, launches."""
+        nonlocal cache, tok
+        secs, peaks, faults = [], [], []
+        reset_model_launches()
+        with ring_inputs() as seen:
+            for i in range(n):
+                if far:
+                    cache = dict(cache, len=last_pos)
+                prev_k, prev_v = cache["attn_k"].clone(), cache["attn_v"].clone()
+                seen.clear()
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                t0 = time.perf_counter()
+                out, cache = serve_step(params, cache, {"tokens": tok})
+                torch.cuda.synchronize()
+                secs.append(time.perf_counter() - t0)
+                peaks.append(torch.cuda.max_memory_allocated())
+                launches = model_launches()
+                faults += [f"step {i + 1}: {f}" for f in
+                           ring_step_faults(torch, cfg, params, cache, prev_k, prev_v, seen)]
+                check(model_launches() == launches, "the ring check launched a kernel")
+                check(bool(torch.isfinite(out["logits"]).all()), "window step logits not finite")
+                tok = out["next_token"][:, None]
+                del prev_k, prev_v
+        return secs, peaks, faults, model_launches()
+
+    tok = torch.argmax(last[:, -1], dim=-1)[:, None]
+    near_s, near_peaks, faults, near = steps(HYBRID_STEPS, False)
+    want = _expected_model_launches(cfg, 0, HYBRID_STEPS)
+    check(near == want, f"{cfg.name} window steps: launches {near}, expected {want}")
+    far_s, far_peaks, far_faults, far = steps(HYBRID_FAR_STEPS, True)
+    check(far == _expected_model_launches(cfg, 0, HYBRID_FAR_STEPS),
+          f"{cfg.name} steps at {last_pos}: launches {far}")
+    for k_, v_ in list(near.items()) + list(far.items()):
+        totals[k_] += v_
+    check(tuple(cache["attn_k"].shape) == (groups, b, w, cfg.n_kv_heads, cfg.hd()),
+          f"ring shape {tuple(cache['attn_k'].shape)}")
+    check(not faults + far_faults, "; ".join(faults + far_faults)[:2000])
+    spread = max(near_peaks + far_peaks) - min(near_peaks + far_peaks)
+    check(spread <= HYBRID_PEAK_SLACK,
+          f"window steps' peak memory not flat: {min(near_peaks + far_peaks)}.."
+          f"{max(near_peaks + far_peaks)} bytes")
+    ring_gb = 2 * cache["attn_k"][0].numel() * cache["attn_k"].element_size() / 1e9
+    lines = [
+        f"window {cfg.name}: long_500k's batch {b} and window {w}: prefill of {w} tokens into "
+        f"a {w}-wide cache {prefill_s * 1e3:.3f} ms ({b * w / prefill_s:.0f} tok/s, the first "
+        f"call at this shape), launches {pre}, attention {modes}, peak "
+        f"{pre_peak / 2**30:.2f} GiB",
+        f"window {cfg.name}: {HYBRID_STEPS} rolling-window steps, {statistics.median(near_s) * 1e3:.3f} "
+        f"ms per step median (first {near_s[0] * 1e3:.3f}, last {near_s[-1] * 1e3:.3f}), launches "
+        f"{near} (no flash: the ring attends in plain PyTorch); every step: the rings ({groups} "
+        f"groups x {ring_gb:.4f} GB of K and V) keep shape {tuple(cache['attn_k'].shape)}, slots "
+        f"0..W-2 bit-equal to the previous step's 1..W-1, slot W-1 of every group bit-equal "
+        f"to the step's roped K/V recomputed; peak memory per step "
+        f"{near_peaks[0] / 2**30:.4f} GiB at step 1, {min(near_peaks) / 2**30:.4f}.."
+        f"{max(near_peaks) / 2**30:.4f} over the {HYBRID_STEPS} (flat: within "
+        f"{HYBRID_PEAK_SLACK / 2**20:.0f} MiB; the previous rings' copies for the check "
+        "included)",
+        f"window {cfg.name}: {HYBRID_FAR_STEPS} steps with len set to {last_pos} (long_500k's "
+        f"last position) on the same window cache: {statistics.median(far_s) * 1e3:.3f} ms "
+        f"per step median ({', '.join(f'{t * 1e3:.3f}' for t in far_s)}), peak "
+        f"{max(far_peaks) / 2**30:.4f} GiB (step 1: {near_peaks[0] / 2**30:.4f}), the ring "
+        f"checks as above. The window's keys were roped at positions {HYBRID_STEPS}-"
+        f"{w + HYBRID_STEPS - 1} (the prompt's at 0-{w - 1}, rolled on by the {HYBRID_STEPS} "
+        f"steps); these steps time a step at position {last_pos}, not a {sh.seq_len}-token text: a "
+        f"prefill of {sh.seq_len} tokens attends causally over the whole sequence and its K/V "
+        f"cache alone would take {2 * groups * sh.seq_len * cfg.n_kv_heads * cfg.hd() * 2 / 1e9:.1f} GB"]
+    for line in lines:
+        print(line, flush=True)
+    del cache, last
+    torch.cuda.empty_cache()
+    gated(call_gate, torch, cfg, params, {"tokens": prompt}, {"tokens": tok}, max_len=w,
+          window=w)
+
+
+def phase_hybrid(torch, K, records):
+    """Phase 14: ``zamba2-7b`` at full width (81 layers, d 3,584, 6.75 B
+    parameters): (a) served through the launcher at phase 11's flags (exact
+    launches: RMSNorm L + 2G + 1 per prefill and step, flash G per prefill,
+    causal; the tier's kernels; ``call_gate``; the first batch replayed on
+    the plain backend, gated at REPLAY_REL_TOL unless
+    ``WHOLE_REPLAY_UNGATED`` names it; a profile; the peak memory); (b)
+    long_500k's batch and window (``hybrid_window``); (c) flash at both
+    prefills' shapes and RMSNorm at width 3584 against their bounds and
+    PyTorch calls.  A gate that fails fails the phase at its end.  Each
+    record gains ``hybrid_configs_launches``."""
+    from repro_torch.launch import serve as serve_mod
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    totals = {k: 0 for k in list(K.LAUNCHES) + list(MODEL_KERNELS)}
+    gen, failed = FRONTEND_GEN, []
+    gated = functools.partial(run_gate, failed, "14")
+
+    # (a) through the launcher
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    with flash_modes() as modes:
+        out, first, model = serve_and_check(torch, serve_mod, K, HYBRID_SERVE)
+    cfg = out["cfg"]
+    groups, tail = cfg.n_layers // cfg.attn_every, cfg.n_layers % cfg.attn_every
+    check(modes == {f"causal T={FRONTEND_LEN}": model["flash_attention"]},
+          f"{cfg.name}: attention modes {modes}")
+    for k, v in list(model.items()) + list(K.LAUNCHES.items()):
+        totals[k] += v
+    peak = torch.cuda.max_memory_allocated()
+    print(f"hybrid {cfg.name}: every width and layer kept: {groups} groups of "
+          f"{cfg.attn_every} mamba2 layers (d_inner {cfg.d_inner()}, {cfg.d_inner() // cfg.ssm_head_dim} "
+          f"heads of {cfg.ssm_head_dim}, state {cfg.ssm_state}), the shared block ({cfg.n_heads} "
+          f"heads of {cfg.hd()}, d_ff {cfg.d_ff}) after each, a tail of {tail}; "
+          f"{cfg.param_count() / 1e9:.3f} B params; launches {model} for {out['batches']} "
+          f"batches", flush=True)
+    params = out["params"]
+    batch, step = {"tokens": first["prompts"]}, {"tokens": first["tokens"][:, :1]}
+    gated(call_gate, torch, cfg, params, batch, step)
+    gated(replay_first_batch, torch, out, first, gen, gate=cfg.name not in WHOLE_REPLAY_UNGATED)
+    profile_model(torch, out, first, gen)
+    prefill_s = statistics.median(out["prefill_s"])
+    print(f"serve {cfg.name}: prefill {prefill_s * 1e3:.3f} ms per batch median "
+          f"({first['prompts'].numel() / prefill_s:.0f} tok/s), decode "
+          f"{statistics.median(out['decode_step_s']) * 1e3:.3f} ms per step median over "
+          f"{len(out['decode_step_s'])} steps, {out['decoded_tokens'] / out['seconds']:.1f} "
+          f"tok/s end to end, peak memory {peak / 2**30:.2f} GiB", flush=True)
+    del out, first, batch, step
+    torch.cuda.empty_cache()
+
+    # (b) long_500k's batch and window, on the same weights
+    hybrid_window(torch, cfg, params, gated, totals)
+    del params
+    torch.cuda.empty_cache()
+
+    # (c) the kernels at the new shapes
+    bf16 = torch.bfloat16
+    for name, runs in HYBRID_KERNEL_SHAPES.items():
+        rec = records.get(name)
+        for label, shape in runs:
+            fields = measure_model_kernel(torch, name, shape, bf16)
+            if rec is None:
+                src, replaces = MODEL_KERNELS[name]
+                rec = records[name] = {"name": name, "route": "cuda", "source": src,
+                                       "replaces": replaces, "launches": totals[name], **fields}
+            rec.setdefault("at", {})[f"{label} " + "x".join(map(str, shape))] = fields
+    for name, n in totals.items():
+        if name in records:
+            records[name]["hybrid_configs_launches"] = n
+    print(f"hybrid configs: launches {totals}", flush=True)
+    check(not failed, "; ".join(failed))
+
+
 def turns_kernels(root):
     """The combine-kernel wrappers (``kernel.py``) of the repository checkout
     at ``root``, loaded beside this tree's: its ``csrc`` sources build into
@@ -4103,6 +4404,10 @@ def main(argv=None) -> int:
     if "13" in run:
         with phase("13 moe configs"):
             phase_moe(torch, K, records)
+
+    if "14" in run:
+        with phase("14 hybrid configs"):
+            phase_hybrid(torch, K, records)
 
     print(card, flush=True)
     order = list(KINDS) + [f"phase_grid_{k}" for k in KINDS] + list(MODEL_KERNELS)

@@ -1,11 +1,12 @@
 """Architecture registry: ``get_config(arch_id)`` / ``get_reduced(arch_id)``.
 
-Counterpart of the JAX package's ``configs/__init__.py`` for the ported
-architectures.  Each module holds the exact published configuration and a
-smoke (reduced) configuration of the same family for CPU tests.  The
-reference's one remaining architecture, ``zamba2-7b`` (hybrid), waits for
-its slice (see ``ROADMAP.md``).  ``launch/tuned.py`` holds the tuning the
-reference's launcher applies on top (``moe_groups`` for the two MoE archs).
+Counterpart of the JAX package's ``configs/__init__.py``: all ten of the
+reference's architectures.  Each module holds the exact published
+configuration and a smoke (reduced) configuration of the same family for
+CPU tests.  ``launch/tuned.py`` holds the tuning the reference's launcher
+applies on top (``moe_groups`` for the two MoE archs); ``configs/shapes.py``
+the reference's input shapes (``long_500k``: zamba2-7b and falcon-mamba-7b
+only).
 """
 
 from __future__ import annotations
@@ -25,6 +26,7 @@ _MODULES: Dict[str, str] = {
     "llama-3.2-vision-11b": "repro_torch.configs.llama_3_2_vision_11b",
     "arctic-480b": "repro_torch.configs.arctic_480b",
     "dbrx-132b": "repro_torch.configs.dbrx_132b",
+    "zamba2-7b": "repro_torch.configs.zamba2_7b",
 }
 
 ARCH_IDS: List[str] = list(_MODULES)

@@ -39,7 +39,8 @@
 // T) and double-buffered: tile i+1 loads while tile i is used.  Rows are
 // padded by 16 bytes (hd + 8 bf16), so the 8 row addresses of every ldmatrix
 // fall in 8 different 16-byte bank groups: no bank conflicts at any hd of
-// 16..128.  Per tile a warp computes S = Q K^T (16 x
+// 16..128 (at hd 112 a row is 240 bytes, 60 words: 8 rows start at words
+// 0, 28, 24, ..., 4 mod 32).  Per tile a warp computes S = Q K^T (16 x
 // 64) with mma.sync.m16n8k16 (bf16 in, f32 accumulate; Q and K fragments by
 // ldmatrix), scales it into the exp2 domain (scale * log2 e), masks keys
 // t >= T and, on tiles that reach past the warp's first row, keys t > s to
@@ -54,7 +55,13 @@
 // KB of dynamic shared memory (85 KB at hd 128; cudaFuncSetAttribute before
 // the first launch), so 4 blocks are resident per SM, by registers and
 // shared memory alike, and the 576 blocks run as 528 and then the 48
-// lightest; at hd 128, 2 blocks per SM, by shared memory.
+// lightest; at hd 128, 2 blocks per SM, by shared memory.  Head dim 112
+// (zamba2's 32 heads in d 3584): 7 k-steps of Q K^T, 14 accumulator column
+// blocks (7 ldmatrix.x4.trans a key step, two products each), 14 16-byte
+// chunks a row, 128 registers (no spills) and 75 KB of shared memory, so 2
+// blocks per SM, by shared memory.  Measured (chip_smoke.py phase 14, H100
+// 80GB HBM3 at 700 W): 0.1022 ms of device time at zamba2's prefill (8, 512,
+// 32, 32, 112), 2.9x its byte bound and 1.84x scaled_dot_product_attention's.
 //
 // Numerics.  Q K^T multiplies bf16 by bf16 exactly into f32 (8-bit
 // significands, 16-bit products), as the reference's f32 dot of bf16-valued
@@ -67,7 +74,9 @@
 // f32: flash_scalar_kernel, exact to 1e-5 and on no serving path.  One
 // thread per query row holding its q row and f32 accumulator in registers,
 // K and V tiles in shared memory as f32, keys 16 at a time per rescale; its
-// products are scalar f32 FMAs, whose peak (67 TFLOP/s) bounds it.
+// products are scalar f32 FMAs, whose peak (67 TFLOP/s) bounds it.  At hd
+// 112 and 128 its per-thread q row and accumulator fill the 255 registers
+// and spill a little (84 and 844 bytes of stores, `-Xptxas -v`).
 
 #include <math.h>
 
@@ -86,7 +95,9 @@ __global__ void __launch_bounds__(kBQ)
 flash_scalar_kernel(const T* __restrict__ q, const T* __restrict__ k,
                     const T* __restrict__ v, T* __restrict__ out, int S, int Tk, int Hq,
                     int Hkv, int causal, float scale) {
-  constexpr int BK = HD >= 128 ? 32 : 64;  // keys per shared-memory tile
+  // keys per shared-memory tile: K and V tiles of f32 within the 48 KB of
+  // static shared memory (hd 112 at 64 keys would need 56 KB)
+  constexpr int BK = HD > 64 ? 32 : 64;
   constexpr int H4 = HD / 4;
   __shared__ float4 Ks[BK * H4];
   __shared__ float4 Vs[BK * H4];
@@ -436,6 +447,7 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, 
     case 16: return is_bf16 ? launch_mma<16>(FLASH_ARGS) : launch_scalar<16>(FLASH_ARGS);
     case 32: return is_bf16 ? launch_mma<32>(FLASH_ARGS) : launch_scalar<32>(FLASH_ARGS);
     case 64: return is_bf16 ? launch_mma<64>(FLASH_ARGS) : launch_scalar<64>(FLASH_ARGS);
+    case 112: return is_bf16 ? launch_mma<112>(FLASH_ARGS) : launch_scalar<112>(FLASH_ARGS);
     case 128: return is_bf16 ? launch_mma<128>(FLASH_ARGS) : launch_scalar<128>(FLASH_ARGS);
     default: return (int)cudaErrorInvalidValue;
   }

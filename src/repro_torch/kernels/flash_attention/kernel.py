@@ -26,7 +26,7 @@ _HERE = Path(__file__).resolve().parent
 LIBRARIES = (nvcc.Library("flash_attention", _HERE / "csrc" / "flash_attention.cu",
                           (nvcc.MODEL_COMMON,)),)
 LAUNCHES: Dict[str, int] = {"flash_attention": 0}
-HEAD_DIMS = (16, 32, 64, 128)  # the head widths the kernel is instantiated for
+HEAD_DIMS = (16, 32, 64, 112, 128)  # the head widths the kernel is instantiated for
 _DTYPES = (torch.float32, torch.bfloat16)
 _BF16 = torch.bfloat16
 _FWD = None  # the C entry point, resolved once, at the first launch

@@ -54,8 +54,15 @@ configuration is ``--arch``'s (its smoke configuration with
       --reduced --batch 4 --prompt-len 16 --gen 8 --sessions 12 --k-classes 3 \\
       --quantum 2 --durable --trace --state-dir D --crash-at 300 --device cpu
 
-``--window`` (rolling-window decode) waits for the long-context slice and
-raises ``NotImplementedError``.  The frontend-stub archs (``musicgen-large``:
+``--window W`` makes every decode step a rolling-window step over the
+attention caches, as the reference's launcher does: the prefill still fills
+an insert-at-length cache ``prompt_len + gen + 8`` wide, and the ring takes
+its width from that cache, not from W (``models/model.py``).  So W itself is
+ignored (only ``W > 0`` is read), and each step rolls that whole cache,
+whose right end holds zeros where the prompt's keys should be: the window
+attention differs from the full model's.  A prefill whose ``max_len`` is W,
+then ``decode_step(window=W)``, is the well-defined ring.  The
+frontend-stub archs (``musicgen-large``:
 frame embeddings in; ``llama-3.2-vision-11b``: image embeddings beside the
 tokens) are refused outside ``--tier-only``, as the reference's launcher
 refuses them: drive their model through ``launch/steps.py`` with an
@@ -1299,7 +1306,9 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--prompt-len", type=int, default=16)
     ap.add_argument("--gen", type=int, default=32)
     ap.add_argument("--window", type=int, default=0,
-                    help="rolling-window decode (waits for the long-context slice)")
+                    help="rolling-window decode steps (0: insert-at-length caches); "
+                         "only W > 0 is read: the ring is as wide as the prefill's "
+                         "cache (prompt_len + gen + 8), as in the reference launcher")
     ap.add_argument("--sessions", type=int, default=0,
                     help="total sessions through the request-queue tier "
                          "(default: one round of --batch)")
@@ -1392,8 +1401,6 @@ def serve(args: argparse.Namespace, params: Optional[Dict[str, Any]] = None,
     ``decode_step_s`` (host clock after a device synchronize), and
     ``batches`` (batch path) or ``rounds`` and ``quantum`` (``--k-classes``).
     """
-    if args.window:
-        raise NotImplementedError("--window waits for the long-context slice")
     if cfg is None:
         cfg = apply_tuning(get_reduced(args.arch) if args.reduced else get_config(args.arch))
     if not args.tier_only and (cfg.embedding_inputs or cfg.family == "vlm"):
@@ -1416,8 +1423,9 @@ def serve(args: argparse.Namespace, params: Optional[Dict[str, Any]] = None,
             params = init_params(cfg, seed=0, device=device)
         max_len = args.prompt_len + args.gen + 8
         prefill_step = make_prefill_step(cfg, max_len=max_len)
-        serve_step = make_serve_step(cfg)
-        quantum_step = make_quantum_step(cfg, quantum=quantum) if k else None
+        serve_step = make_serve_step(cfg, window=args.window)
+        quantum_step = (make_quantum_step(cfg, quantum=quantum, window=args.window)
+                        if k else None)
 
     n_sessions = args.sessions or args.batch
     arrival = args.arrival or args.batch

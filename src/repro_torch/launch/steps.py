@@ -5,9 +5,9 @@ package's ``launch/steps.py``), plain functions over the port's model:
   serve_step(params, cache, batch)   -> ({"logits", "next_token"}, cache)
   quantum_step(params, cache, tok)   -> ({"tokens", "next_token"}, cache)
 
-PyTorch runs eagerly, so nothing is traced or compiled.  ``make_train_step``
-waits for the training slice, the reference's ``window`` (rolling-window
-decode) for the long-context slice.
+``window`` (a keyword, as the reference's launcher passes it) > 0 makes the
+decode steps rolling-window steps (the model's ``decode_step(window=)``).  PyTorch runs eagerly, so nothing is traced or
+compiled.  ``make_train_step`` waits for the training slice.
 """
 
 from __future__ import annotations
@@ -25,16 +25,18 @@ def make_prefill_step(cfg: ModelConfig, max_len: int, backend: str = "kernel"):
     return prefill_step
 
 
-def make_serve_step(cfg: ModelConfig, backend: str = "kernel"):
+def make_serve_step(cfg: ModelConfig, backend: str = "kernel", *, window: int = 0):
     def serve_step(params, cache, batch):
-        logits, new_cache = decode_step(params, cfg, cache, batch, backend=backend)
+        logits, new_cache = decode_step(params, cfg, cache, batch, backend=backend,
+                                        window=window)
         next_token = torch.argmax(logits[:, -1], dim=-1)
         return {"logits": logits, "next_token": next_token}, new_cache
 
     return serve_step
 
 
-def make_quantum_step(cfg: ModelConfig, quantum: int = 8, backend: str = "kernel"):
+def make_quantum_step(cfg: ModelConfig, quantum: int = 8, backend: str = "kernel", *,
+                      window: int = 0):
     """Greedy-decode ``quantum`` tokens per call: ``tok`` is (B, 1), the
     last token already emitted; returns ``tokens`` (B, quantum), where
     ``tokens[:, 0]`` is the token decoded from ``tok``, and ``next_token``
@@ -44,7 +46,7 @@ def make_quantum_step(cfg: ModelConfig, quantum: int = 8, backend: str = "kernel
         toks = []
         for _ in range(quantum):
             logits, cache = decode_step(params, cfg, cache, {"tokens": tok},
-                                        backend=backend)
+                                        backend=backend, window=window)
             tok = torch.argmax(logits[:, -1], dim=-1)[:, None]
             toks.append(tok)
         return {"tokens": torch.cat(toks, dim=1), "next_token": tok}, cache

@@ -7,8 +7,10 @@ through the RMSNorm kernel, and prefill or forward attention (queries from
 position 0 over the prompt's own keys, or a cross-attention's queries over
 every key of its source) through the flash-attention kernel.
 ``backend="ref"`` runs the kernels' plain versions instead.  Decode
-attention (one query against the cache) stays plain PyTorch, as the
-reference computes it in jnp.  Matrix products are ``torch.matmul``.
+attention (one query against the cache) and a sliding-window attention
+(``window`` > 0: neither the Pallas kernel nor the flash kernel has a
+window) stay plain PyTorch, as the reference computes them in jnp.  Matrix
+products are ``torch.matmul``.
 """
 
 from __future__ import annotations
@@ -74,11 +76,12 @@ def apply_rope(x, cos, sin):
 
 
 # --------------------------------------------------------------- attention
-def gqa_attention(q, k, v, causal: bool = True, q_offset: int = 0):
+def gqa_attention(q, k, v, causal: bool = True, q_offset: int = 0, window: int = 0):
     """Grouped-query attention in plain PyTorch, f32 softmax, optional
-    causal mask.  q: (B, S, Hq, hd); k/v: (B, T, Hkv, hd); q[0] sits at
-    absolute position ``q_offset`` (decode: the cache length).  The
-    reference's sliding ``window`` waits for the long-context slice."""
+    causal and sliding-window masks.  q: (B, S, Hq, hd); k/v: (B, T, Hkv,
+    hd); q[0] sits at absolute position ``q_offset`` (decode: the cache
+    length); ``window`` > 0 hides keys at or before query position -
+    ``window``."""
     b, s, hq, hd = q.shape
     t, hkv = k.shape[1], k.shape[2]
     group = hq // hkv
@@ -88,6 +91,8 @@ def gqa_attention(q, k, v, causal: bool = True, q_offset: int = 0):
     kpos = torch.arange(t, device=q.device)[None, :]
     if causal:
         scores = scores.masked_fill(kpos > qpos, -1e30)
+    if window:
+        scores = scores.masked_fill(kpos <= qpos - window, -1e30)
     probs = torch.softmax(scores, dim=-1)
     out = torch.einsum("bkgst,btkd->bskgd", probs, v.float())
     return out.reshape(b, s, hq, hd).to(q.dtype)
@@ -112,6 +117,7 @@ def attention_block(
     kv_cache: Optional[Tuple] = None,  # (k_cache, v_cache, length)
     kv_override=None,  # cross-attention: source (B, T, D), or its (k, v)
     backend: str = "kernel",
+    window: int = 0,  # sliding window over the keys, 0 = full
 ):
     """Self- or cross-attention, optionally over a KV cache.
 
@@ -125,7 +131,9 @@ def attention_block(
     PyTorch.  Cross-attention (``kv_override``: the source, or the pair
     :func:`cross_kv` makes of it) puts the bias and the rope on the queries
     only and attends over every key, through the flash kernel's non-causal
-    mode.
+    mode.  ``window`` > 0 (self-attention only) masks keys more than
+    ``window`` - 1 positions back, in plain PyTorch over the cache (or the
+    prompt's own keys without one).
     """
     b, s, _ = x.shape
     hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd()
@@ -154,10 +162,12 @@ def attention_block(
         k_cache[:, length:length + s] = k
         v_cache[:, length:length + s] = v
         new_cache = (k_cache, v_cache, length + s)
-    if length == 0:
+    if length == 0 and not window:
         out = attention(q, k, v, causal=True, backend=backend)
+    elif kv_cache is None:
+        out = gqa_attention(q, k, v, causal=True, window=window)
     else:
-        out = gqa_attention(q, k_cache, v_cache, causal=True, q_offset=length)
+        out = gqa_attention(q, k_cache, v_cache, causal=True, q_offset=length, window=window)
     out = torch.matmul(out.reshape(b, s, hq * hd), p["wo"])
     return out, new_cache
 

@@ -6,8 +6,13 @@ fused mode (``kernels/mamba_scan``), which also returns the final state the
 decode cache keeps; a decode step (one token with a carried state) is one
 step of the recurrence in plain PyTorch, as the reference computes it in
 jnp.  ``mamba1_scan`` is the plain
-recurrence over precomputed ``(abar, bx)``.  mamba2 (zamba2's SSD) waits for
-the hybrid slice.
+recurrence over precomputed ``(abar, bx)``.
+
+mamba2 (zamba2): the SSD chunked algorithm (``ssd_chunked``: intra-chunk
+products, an inter-chunk state recurrence over the chunks) and the block
+around it (``mamba2_block``), in plain PyTorch, as the reference computes
+them in jnp outside any Pallas kernel.  Every product is a pairwise
+``torch.einsum``, so no (B, C, Q, Q, H, P) intermediate is ever made.
 """
 
 from __future__ import annotations
@@ -18,8 +23,6 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels.mamba_scan.ops import selective_scan_op
-
-_SLICE_HYBRID = "the hybrid slice"
 
 
 # --------------------------------------------------------------- primitives
@@ -93,9 +96,105 @@ def mamba1_block(x, p, cfg, state: Optional[Tuple] = None, backend: str = "kerne
 
 
 # ------------------------------------------------------------------ mamba2
-def ssd_chunked(*args, **kwargs):
-    raise NotImplementedError(f"mamba2's SSD waits for {_SLICE_HYBRID}")
+def ssd_chunked(xh, dt, a_log, b_ssm, c_ssm, chunk: int, init_state=None):
+    """Mamba2 SSD forward, in f32.
+
+    xh:    (B, S, H, P)   value heads
+    dt:    (B, S, H)      positive step sizes (already softplus'd)
+    a_log: (H,)           per-head log decay
+    b_ssm: (B, S, N)      input projection (single group)
+    c_ssm: (B, S, N)      output projection
+    ``chunk`` divides S.  The recurrence starts from ``init_state`` (B, H,
+    P, N), or from zero.  Returns (y (B, S, H, P), final_state (B, H, P, N)).
+    """
+    bsz, s, h, p_dim = xh.shape
+    n = b_ssm.shape[-1]
+    nc, q = s // chunk, chunk
+    f32 = torch.float32
+
+    da = dt.float() * (-torch.exp(a_log.float()))[None, None]  # (B, S, H) <= 0
+    da = da.reshape(bsz, nc, q, h)
+    xc = xh.reshape(bsz, nc, q, h, p_dim).float()
+    dtc = dt.reshape(bsz, nc, q, h).float()
+    bc = b_ssm.reshape(bsz, nc, q, n).float()
+    cc = c_ssm.reshape(bsz, nc, q, n).float()
+
+    cum = torch.cumsum(da, dim=2)  # (B, C, Q, H) cumulative log decay
+    total = cum[:, :, -1]  # (B, C, H)
+
+    # intra-chunk: Y[t] = sum_{tau<=t} exp(cum_t - cum_tau) (C_t . B_tau) dt_tau x_tau.
+    # Above the diagonal exp() may overflow to inf: select, never multiply
+    # by a 0/1 mask (inf * 0 is NaN).
+    decay = torch.exp(cum[:, :, :, None] - cum[:, :, None, :])  # (B, C, Qt, Qtau, H)
+    tri = torch.ones((q, q), dtype=torch.bool, device=xh.device).tril()
+    decay = torch.where(tri[None, None, :, :, None], decay, 0.0)
+    cb = torch.einsum("bcqn,bckn->bcqk", cc, bc)  # (B, C, Qt, Qtau)
+    w = decay.mul_(cb[..., None]).mul_(dtc[:, :, None])  # (B, C, Qt, Qtau, H)
+    y_diag = torch.einsum("bcqkh,bckhp->bcqhp", w, xc)
+    del decay, w
+
+    # chunk states: S_c = sum_tau exp(total - cum_tau) B_tau (dt_tau x_tau)
+    state_decay = torch.exp(total[:, :, None] - cum)  # (B, C, Q, H)
+    xw = xc * (state_decay * dtc)[..., None]  # (B, C, Q, H, P)
+    s_chunk = torch.einsum("bckhp,bckn->bchpn", xw, bc)
+    del xw
+
+    # inter-chunk recurrence over C: the state entering each chunk
+    state = (init_state.float() if init_state is not None
+             else torch.zeros((bsz, h, p_dim, n), dtype=f32, device=xh.device))
+    s_prevs = torch.empty((bsz, nc, h, p_dim, n), dtype=f32, device=xh.device)
+    for c in range(nc):
+        s_prevs[:, c] = state
+        state = state * torch.exp(total[:, c])[:, :, None, None] + s_chunk[:, c]
+
+    # off-diagonal: Y_off[t] = exp(cum_t) C_t . S_prev
+    y_off = torch.einsum("bcqn,bchpn->bcqhp", cc, s_prevs) * torch.exp(cum)[..., None]
+    y = (y_diag + y_off).reshape(bsz, s, h, p_dim)
+    return y, state
 
 
-def mamba2_block(*args, **kwargs):
-    raise NotImplementedError(f"mamba2 waits for {_SLICE_HYBRID}")
+def mamba2_block(x, p, cfg, state: Optional[Tuple] = None):
+    """Mamba2 block (zamba2).  x: (B, S, D); state: (ssm (B, H, P, N) f32,
+    conv_tail (B, d_conv - 1, DI + 2N)).  Returns (out, (final, new_tail)).
+
+    One token with a state is one step of the recurrence; otherwise the
+    chunked SSD, in chunks of min(128, S) where that divides S, else one
+    chunk of S (the reference's rule), started from ``state[0]`` where a
+    state is given (unlike ``mamba1_block``, which starts from zero: the
+    reference differs there too).  The gated RMSNorm, norm(y * silu(z)),
+    is computed inline in f32 (eps 1e-6) and cast after the scale, as the
+    reference does, not through the RMSNorm kernel."""
+    b, s, _ = x.shape
+    di, n = cfg.d_inner(), cfg.ssm_state
+    hp = cfg.ssm_head_dim
+    nh = di // hp
+    zxbcdt = torch.matmul(x, p["in_proj"])  # (B, S, 2*DI + 2N + H)
+    z, xbc, dt_raw = torch.split(zxbcdt, [di, di + 2 * n, nh], dim=-1)
+    conv_tail = state[1] if state is not None else None
+    xbc, new_tail = _causal_conv(xbc, p["conv_w"], p["conv_b"], conv_tail)
+    xbc = F.silu(xbc)
+    xpart, b_ssm, c_ssm = torch.split(xbc, [di, n, n], dim=-1)
+    dt = F.softplus(dt_raw + p["dt_bias"])  # (B, S, H)
+
+    xh = xpart.reshape(b, s, nh, hp)
+    d_skip = p["D_skip"].float()
+    if state is not None and s == 1:
+        dt0, x0 = dt[:, 0].float(), xh[:, 0].float()
+        da = torch.exp(dt0 * (-torch.exp(p["A_log"].float()))[None])  # (B, H)
+        upd = (dt0[:, :, None] * x0)[..., None] * b_ssm[:, 0].float()[:, None, None, :]
+        final = state[0] * da[:, :, None, None] + upd  # (B, H, P, N)
+        yh = torch.einsum("bhpn,bn->bhp", final, c_ssm[:, 0].float())
+        yh = yh + d_skip[None, :, None] * x0
+        y = yh.reshape(b, 1, di)
+    else:
+        chunk = min(128, s) if s % min(128, s) == 0 else s
+        y4, final = ssd_chunked(xh, dt, p["A_log"], b_ssm, c_ssm, chunk,
+                                init_state=state[0] if state is not None else None)
+        y4 = y4 + d_skip[None, None, :, None] * xh.float()
+        y = y4.reshape(b, s, di)
+    # gated RMSNorm (mamba2 style): norm(y * silu(z))
+    g = y * F.silu(z.float())
+    var = g.square().mean(-1, keepdim=True)
+    g = g * torch.rsqrt(var + 1e-6) * p["norm_scale"].float()
+    out = torch.matmul(g.to(x.dtype), p["out_proj"])
+    return out, (final, new_tail)

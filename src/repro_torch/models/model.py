@@ -1,5 +1,5 @@
-"""The model, for the ``dense``, ``moe``, ``audio``, ``vlm`` and ``ssm``
-families (counterpart of the JAX package's ``models/model.py``).
+"""The model, for every family of the reference (counterpart of the JAX
+package's ``models/model.py``).
 
   dense / audio : L identical pre-norm blocks (attention + MLP); audio reads
                   precomputed frame embeddings instead of token ids
@@ -9,29 +9,40 @@ families (counterpart of the JAX package's ``models/model.py``).
                   self blocks and one tanh-gated cross-attention block over
                   precomputed image embeddings (llama-3.2-vision)
   ssm           : L mamba1 blocks
+  hybrid        : G = L // attn_every groups of attn_every mamba2 blocks,
+                  one *shared* attention + MLP block (one set of weights)
+                  after every group, then a tail of L - G * attn_every
+                  mamba2 blocks (zamba2)
 
 Parameters keep the reference's names, shapes and dtypes: a nested dict of
 tensors whose per-layer leaves are stacked along a leading layer axis.  The
 reference's scan over that axis is a Python loop here, each layer reading
 views ``leaf[i]``.  Entry points:
 
-  forward(params, cfg, batch)                 -> (logits, aux)
-  init_cache(cfg, batch, max_len)             -> cache dict
-  prefill(params, cfg, batch, max_len)        -> (last_logits, cache)
-  decode_step(params, cfg, cache, batch)      -> (logits, cache)
+  forward(params, cfg, batch)                         -> (logits, aux)
+  init_cache(cfg, batch, max_len, window=0)           -> cache dict
+  prefill(params, cfg, batch, max_len)                -> (last_logits, cache)
+  decode_step(params, cfg, cache, batch, window=0)    -> (logits, cache)
 
 ``backend="kernel"`` (the default) runs RMSNorm, prefill attention and the
 selective scan through the hand-written kernels (their plain versions for
 CPU tensors); ``backend="ref"`` runs the plain versions wherever the tensors
 lie, for a replay on the card.  Caches are updated in place.  ``forward``'s
 aux is the MoE load-balance loss summed over the layers (zero for the other
-families).  The hybrid family raises ``NotImplementedError`` naming its
-slice; the reference's rolling-window decode (``window``) waits for the
-long-context slice.
+families).
+
+Rolling window (``window > 0``, zamba2's ``long_500k``): ``init_cache``
+makes attention caches ``window`` wide, and ``decode_step`` treats every
+self-attention cache as a right-aligned ring (``_ring_attention``) whose
+width is the cache's own, as the reference does.  ``prefill`` always fills
+an insert-at-length cache ``max_len`` wide, so a window decode after a
+prefill is the ring the reference defines only where ``max_len`` equals the
+window.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Any, Dict, Tuple
 
 import numpy as np
@@ -47,22 +58,18 @@ from repro_torch.models.layers import (
     mlp_block,
     rope_freqs,
 )
-from repro_torch.models.mamba import mamba1_block
+from repro_torch.models.mamba import mamba1_block, mamba2_block
 from repro_torch.models.moe import moe_ffn
 from repro_torch.runtime.dfc_shard import resolve_device
 
 Params = Dict[str, Any]
-FAMILIES = ("dense", "moe", "audio", "vlm", "ssm")
+FAMILIES = ("dense", "moe", "audio", "vlm", "ssm", "hybrid")
 _ATTN = ("dense", "moe", "audio")  # the families of L identical attention blocks
-_SLICES = {"hybrid": "the hybrid slice"}
 
 
 def _check_family(cfg: ModelConfig) -> None:
     if cfg.family not in FAMILIES:
-        slice_ = _SLICES.get(cfg.family)
-        if slice_ is None:
-            raise ValueError(cfg.family)
-        raise NotImplementedError(f"the {cfg.family} family waits for {slice_}")
+        raise ValueError(cfg.family)
 
 
 # ============================================================== initialization
@@ -118,6 +125,33 @@ def param_spec(cfg: ModelConfig) -> Dict[str, Any]:
             p["dense"] = mlp(*lead)
         return p
 
+    def mamba(*lead):  # mamba1 (falcon) or mamba2 (zamba2) leaves
+        di, n = cfg.d_inner(), cfg.ssm_state
+        if cfg.ssm_version == 1:
+            dtr = cfg.dtr()
+            return {
+                "in_proj": dense((*lead, d, 2 * di)),
+                "conv_w": dense((*lead, di, cfg.d_conv), 0.1),
+                "conv_b": ((*lead, di), dt, ("zeros",)),
+                "x_proj": dense((*lead, di, dtr + 2 * n)),
+                "dt_proj": dense((*lead, dtr, di)),
+                "dt_bias": ((*lead, di), dt, ("full", -4.6)),  # softplus^-1(0.01)
+                "A_log": ((*lead, di, n), f32, ("a_log",)),
+                "D_skip": ((*lead, di), f32, ("ones",)),
+                "out_proj": dense((*lead, di, d)),
+            }
+        nh, conv_c = di // cfg.ssm_head_dim, di + 2 * n
+        return {
+            "in_proj": dense((*lead, d, 2 * di + 2 * n + nh)),
+            "conv_w": dense((*lead, conv_c, cfg.d_conv), 0.1),
+            "conv_b": ((*lead, conv_c), dt, ("zeros",)),
+            "dt_bias": ((*lead, nh), dt, ("zeros",)),
+            "A_log": ((*lead, nh), f32, ("zeros",)),
+            "D_skip": ((*lead, nh), f32, ("ones",)),
+            "norm_scale": ((*lead, di), dt, ("ones",)),
+            "out_proj": dense((*lead, di, d)),
+        }
+
     spec: Dict[str, Any] = {}
     if not cfg.embedding_inputs:
         spec["embed"] = dense((v, d))
@@ -130,30 +164,28 @@ def param_spec(cfg: ModelConfig) -> Dict[str, Any]:
         g, per = _groups(cfg)
         spec["self_blocks"] = block(g, per)
         spec["cross_blocks"] = dict(block(g), gate=((g,), f32, ("zeros",)))  # tanh gate
+    elif cfg.family == "hybrid":
+        g, tail = _hybrid_groups(cfg)
+        spec["mamba_groups"] = {"norm1": norm(g, cfg.attn_every),
+                                "mamba": mamba(g, cfg.attn_every)}
+        if tail:
+            spec["mamba_tail"] = {"norm1": norm(tail), "mamba": mamba(tail)}
+        spec["shared_attn"] = block()  # one block, applied after every group
     else:
-        if cfg.ssm_version != 1:
-            raise NotImplementedError(f"mamba2 layers wait for {_SLICES['hybrid']}")
-        di, n, dtr = cfg.d_inner(), cfg.ssm_state, cfg.dtr()
-        spec["blocks"] = {
-            "norm1": norm(L),
-            "mamba": {
-                "in_proj": dense((L, d, 2 * di)),
-                "conv_w": dense((L, di, cfg.d_conv), 0.1),
-                "conv_b": ((L, di), dt, ("zeros",)),
-                "x_proj": dense((L, di, dtr + 2 * n)),
-                "dt_proj": dense((L, dtr, di)),
-                "dt_bias": ((L, di), dt, ("full", -4.6)),  # softplus^-1(0.01)
-                "A_log": ((L, di, n), f32, ("a_log",)),
-                "D_skip": ((L, di), f32, ("ones",)),
-                "out_proj": dense((L, di, d)),
-            },
-        }
+        spec["blocks"] = {"norm1": norm(L), "mamba": mamba(L)}
     return spec
 
 
 def _groups(cfg: ModelConfig) -> Tuple[int, int]:
     """The vlm's groups and the self blocks in each (one cross block each)."""
     return cfg.n_layers // cfg.cross_attn_every, cfg.cross_attn_every - 1
+
+
+def _hybrid_groups(cfg: ModelConfig) -> Tuple[int, int]:
+    """The hybrid's groups of ``attn_every`` mamba2 layers (one shared block
+    after each) and the mamba2 layers of its tail."""
+    g = cfg.n_layers // cfg.attn_every
+    return g, cfg.n_layers - g * cfg.attn_every
 
 
 def _init_leaf(leaf, gen: torch.Generator, device) -> torch.Tensor:
@@ -201,14 +233,20 @@ def _layer(tree, i):
 
 
 # ================================================================ block bodies
-def _self_block(h, bp, cfg, positions, cache=None, backend="kernel"):
+def _self_block(h, bp, cfg, positions, cache=None, backend="kernel", window=0, ring=False):
     """Pre-norm attention + FFN (an MLP, or the MoE FFN where ``bp`` holds
-    ``moe``).  Returns (h, new_cache, aux): the MoE auxiliary loss, None
-    for an MLP block (the reference's zero)."""
+    ``moe``).  ``ring``: a decode step over a rolling-window cache
+    (``_ring_attention``); else ``window`` > 0 masks keys more than
+    ``window`` - 1 positions back (plain PyTorch).  Returns (h, new_cache,
+    aux): the MoE auxiliary loss, None for an MLP block (the reference's
+    zero)."""
     x = apply_norm(cfg.norm, h, bp["norm1"], backend)
-    attn_out, new_cache = attention_block(
-        x, bp["attn"], cfg, positions, kv_cache=cache, backend=backend
-    )
+    if ring:
+        attn_out, new_cache = _ring_attention(x, bp["attn"], cfg, positions, cache)
+    else:
+        attn_out, new_cache = attention_block(
+            x, bp["attn"], cfg, positions, kv_cache=cache, backend=backend, window=window
+        )
     h = h + attn_out
     x = apply_norm(cfg.norm, h, bp["norm2"], backend)
     if "moe" in bp:
@@ -241,8 +279,46 @@ def _cross_block(h, bp, cfg, positions, img_kv, backend="kernel", cached=False):
 
 def _mamba_layer(h, bp, cfg, state=None, backend="kernel"):
     x = apply_norm(cfg.norm, h, bp["norm1"], backend)
-    out, new_state = mamba1_block(x, bp["mamba"], cfg, state, backend)
+    if cfg.ssm_version == 1:
+        out, new_state = mamba1_block(x, bp["mamba"], cfg, state, backend)
+    else:
+        out, new_state = mamba2_block(x, bp["mamba"], cfg, state)
     return h + out, new_state
+
+
+# ---------------------------------------------------- rolling-window attention
+def _ring_attention(x, p, cfg, positions, cache):
+    """Decode attention over a right-aligned rolling KV window.
+
+    cache = (k_win (B, W, Hkv, hd) roped, v_win, length); x: (B, 1, D).  The
+    window is shifted left by one and this token's roped K/V appended at
+    slot W - 1, IN PLACE; slot j holds absolute position length - (W-1-j)
+    and is valid iff that is >= 0.  W is the cache's width.  As the
+    reference, no QKV bias is added here; softmax in f32, -1e30 on the
+    invalid slots."""
+    b, s, _ = x.shape
+    if s != 1:
+        raise ValueError(f"ring attention decodes one token, got {s}")
+    hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd()
+    k_win, v_win, length = cache
+    w = k_win.shape[1]
+    q = torch.matmul(x, p["wq"]).reshape(b, 1, hq, hd)
+    k = torch.matmul(x, p["wk"]).reshape(b, 1, hkv, hd)
+    v = torch.matmul(x, p["wv"]).reshape(b, 1, hkv, hd)
+    cos, sin = rope_freqs(hd, cfg.rope_theta, positions)
+    q = apply_rope(q, cos, sin)
+    k = apply_rope(k, cos, sin)
+    k_win.copy_(torch.cat([k_win[:, 1:], k.to(k_win.dtype)], dim=1))
+    v_win.copy_(torch.cat([v_win[:, 1:], v.to(v_win.dtype)], dim=1))
+    valid = torch.arange(w, device=x.device) >= (w - 1 - length)
+    group = hq // hkv
+    qf = q.reshape(b, 1, hkv, group, hd).float()
+    scores = torch.einsum("bskgd,btkd->bkgst", qf, k_win.float()) / math.sqrt(hd)
+    scores = scores.masked_fill(~valid, -1e30)
+    probs = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bkgst,btkd->bskgd", probs, v_win.float())
+    out = out.reshape(b, 1, hq * hd).to(x.dtype)
+    return torch.matmul(out, p["wo"]), (k_win, v_win, length + 1)
 
 
 # ===================================================================== forward
@@ -280,6 +356,15 @@ def forward(params: Params, cfg: ModelConfig, batch, backend: str = "kernel"
                 h, _, _ = _self_block(h, _layer(params["self_blocks"], (g, j)), cfg, positions,
                                       backend=backend)
             h = _cross_block(h, _layer(params["cross_blocks"], g), cfg, positions, img, backend)
+    elif cfg.family == "hybrid":
+        groups, tail = _hybrid_groups(cfg)
+        for g in range(groups):
+            for j in range(cfg.attn_every):
+                h, _ = _mamba_layer(h, _layer(params["mamba_groups"], (g, j)), cfg,
+                                    backend=backend)
+            h, _, _ = _self_block(h, params["shared_attn"], cfg, positions, backend=backend)
+        for i in range(tail):
+            h, _ = _mamba_layer(h, _layer(params["mamba_tail"], i), cfg, backend=backend)
     else:
         for i in range(cfg.n_layers):
             bp = _layer(params["blocks"], i)
@@ -293,71 +378,123 @@ def forward(params: Params, cfg: ModelConfig, batch, backend: str = "kernel"
 
 
 # ====================================================================== decode
-def init_cache(cfg: ModelConfig, batch_size: int, max_len: int, device="cuda"):
+def init_cache(cfg: ModelConfig, batch_size: int, max_len: int, window: int = 0,
+               device="cuda"):
     """Zero decode caches: per-layer K/V buffers (dense, moe, audio; the vlm's
-    per self layer of each group, and each group's image K/V) or the SSM
-    state and conv tail (ssm), and the filled length."""
+    per self layer of each group, and each group's image K/V), the SSM
+    state and conv tail (ssm), or both for the hybrid (each group's mamba2
+    states, one K/V slot per application of the shared block, the tail's
+    states), and the filled length.  ``window`` > 0: the attention caches
+    are ``window`` wide (rolling windows), else ``max_len``."""
     _check_family(cfg)
     dev = resolve_device(device)
     dtype = cfg.act_dtype()
     hkv, hd = cfg.n_kv_heads, cfg.hd()
+    wlen = window or max_len
 
-    def zeros(*shape):
-        return torch.zeros(shape, dtype=dtype, device=dev)
+    def zeros(*shape, dt=dtype):
+        return torch.zeros(shape, dtype=dt, device=dev)
 
     if cfg.family in _ATTN:
-        shape = (cfg.n_layers, batch_size, max_len, hkv, hd)
+        shape = (cfg.n_layers, batch_size, wlen, hkv, hd)
         return {"k": zeros(*shape), "v": zeros(*shape), "len": 0}
     if cfg.family == "vlm":
         groups, per = _groups(cfg)
-        shape = (groups, per, batch_size, max_len, hkv, hd)
+        shape = (groups, per, batch_size, wlen, hkv, hd)
         img = (groups, batch_size, cfg.n_img_tokens, hkv, hd)
         return {"k": zeros(*shape), "v": zeros(*shape), "img_k": zeros(*img),
                 "img_v": zeros(*img), "len": 0}
-    L, di, n = cfg.n_layers, cfg.d_inner(), cfg.ssm_state
-    return {
-        "ssm": torch.zeros((L, batch_size, di, n), dtype=torch.float32, device=dev),
-        "conv": zeros(L, batch_size, cfg.d_conv - 1, di),
-        "len": 0,
-    }
+    di, n = cfg.d_inner(), cfg.ssm_state
+    f32 = torch.float32
+    if cfg.family == "ssm":
+        L = cfg.n_layers
+        return {"ssm": zeros(L, batch_size, di, n, dt=f32),
+                "conv": zeros(L, batch_size, cfg.d_conv - 1, di), "len": 0}
+    nh, hp = di // cfg.ssm_head_dim, cfg.ssm_head_dim
+    groups, tail = _hybrid_groups(cfg)
+    e, conv_c = cfg.attn_every, di + 2 * n
+    kv = (groups, batch_size, wlen, hkv, hd)
+    out = {"ssm": zeros(groups, e, batch_size, nh, hp, n, dt=f32),
+           "conv": zeros(groups, e, batch_size, cfg.d_conv - 1, conv_c),
+           "attn_k": zeros(*kv), "attn_v": zeros(*kv), "len": 0}
+    if tail:
+        out["tail_ssm"] = zeros(tail, batch_size, nh, hp, n, dt=f32)
+        out["tail_conv"] = zeros(tail, batch_size, cfg.d_conv - 1, conv_c)
+    return out
 
 
-def decode_step(params: Params, cfg: ModelConfig, cache, batch, backend: str = "kernel"):
+def _mamba_cached(h, bp, cfg, ssm, conv, state, backend):
+    """One mamba layer whose final SSM state and conv tail are written into
+    the cache rows ``ssm`` / ``conv`` (``state``: read from them first, or
+    None for a prefill)."""
+    h, (ns, nc) = _mamba_layer(h, bp, cfg, state=state, backend=backend)
+    ssm.copy_(ns)
+    conv.copy_(nc)
+    return h
+
+
+def _hybrid_trunk(h, params, cfg, cache, positions, length, backend, decode, window=0):
+    """The hybrid's groups, shared block and tail over ``cache`` (prefill:
+    the states written, K/V inserted at 0; ``decode``: one step from the
+    cached states, K/V into the ring where ``window`` > 0)."""
+    groups, tail = _hybrid_groups(cfg)
+    for g in range(groups):
+        for j in range(cfg.attn_every):
+            ssm, conv = cache["ssm"][g, j], cache["conv"][g, j]
+            h = _mamba_cached(h, _layer(params["mamba_groups"], (g, j)), cfg, ssm, conv,
+                              (ssm, conv) if decode else None, backend)
+        h, _, _ = _self_block(h, params["shared_attn"], cfg, positions,
+                              cache=(cache["attn_k"][g], cache["attn_v"][g], length),
+                              backend=backend, window=window, ring=window > 0)
+    for i in range(tail):
+        ssm, conv = cache["tail_ssm"][i], cache["tail_conv"][i]
+        h = _mamba_cached(h, _layer(params["mamba_tail"], i), cfg, ssm, conv,
+                          (ssm, conv) if decode else None, backend)
+    return h
+
+
+def decode_step(params: Params, cfg: ModelConfig, cache, batch, backend: str = "kernel",
+                window: int = 0):
     """One-token decode.  batch: {tokens (B, 1)} or {embeddings (B, 1, D)}.
-    Returns (logits, cache); the cache's tensors are updated in place."""
+    ``window`` > 0: every self-attention cache is a rolling window
+    (``_ring_attention``).  Returns (logits, cache); the cache's tensors
+    are updated in place."""
     _check_family(cfg)
     h = _embed(params, cfg, batch)
     length = int(cache["len"])
     positions = torch.full((1,), length, dtype=torch.int64, device=h.device)
+    ring = window > 0
     if cfg.family == "vlm":
         groups, per = _groups(cfg)
         for g in range(groups):
             for j in range(per):
                 h, _, _ = _self_block(h, _layer(params["self_blocks"], (g, j)), cfg, positions,
                                       cache=(cache["k"][g, j], cache["v"][g, j], length),
-                                      backend=backend)
+                                      backend=backend, window=window, ring=ring)
             h = _cross_block(h, _layer(params["cross_blocks"], g), cfg, positions,
                              (cache["img_k"][g], cache["img_v"][g]), backend, cached=True)
+    elif cfg.family == "hybrid":
+        h = _hybrid_trunk(h, params, cfg, cache, positions, length, backend, True, window)
     else:
         for i in range(cfg.n_layers):
             bp = _layer(params["blocks"], i)
             if cfg.family in _ATTN:
                 h, _, _ = _self_block(h, bp, cfg, positions,
                                       cache=(cache["k"][i], cache["v"][i], length),
-                                      backend=backend)
+                                      backend=backend, window=window, ring=ring)
             else:
-                h, (ns, nc) = _mamba_layer(h, bp, cfg, state=(cache["ssm"][i], cache["conv"][i]),
-                                           backend=backend)
-                cache["ssm"][i].copy_(ns)
-                cache["conv"][i].copy_(nc)
+                ssm, conv = cache["ssm"][i], cache["conv"][i]
+                h = _mamba_cached(h, bp, cfg, ssm, conv, (ssm, conv), backend)
     return _logits(params, cfg, h, backend), dict(cache, len=length + 1)
 
 
 def prefill(params: Params, cfg: ModelConfig, batch, max_len: int, backend: str = "kernel"):
     """Full-sequence forward that also fills the decode cache: K/V of the
-    prompt (dense, moe, audio, vlm), each vlm group's image K/V (computed once,
-    for the cache and the cross-attention), or the scan's final state and
-    conv tail (ssm).  Returns (last_logits (B, 1, V), cache)."""
+    prompt (dense, moe, audio, vlm; the hybrid's shared block, one slot per
+    group), each vlm group's image K/V (computed once, for the cache and the
+    cross-attention), or the scans' final states and conv tails (ssm,
+    hybrid).  The attention caches are insert-at-length, ``max_len`` wide.
+    Returns (last_logits (B, 1, V), cache)."""
     _check_family(cfg)
     h = _embed(params, cfg, batch)
     b, s, _ = h.shape
@@ -376,6 +513,8 @@ def prefill(params: Params, cfg: ModelConfig, batch, max_len: int, backend: str 
             cache["img_k"][g].copy_(img_kv[0])
             cache["img_v"][g].copy_(img_kv[1])
             h = _cross_block(h, cp, cfg, positions, img_kv, backend)
+    elif cfg.family == "hybrid":
+        h = _hybrid_trunk(h, params, cfg, cache, positions, 0, backend, False)
     else:
         for i in range(cfg.n_layers):
             bp = _layer(params["blocks"], i)
@@ -383,8 +522,6 @@ def prefill(params: Params, cfg: ModelConfig, batch, max_len: int, backend: str 
                 h, _, _ = _self_block(h, bp, cfg, positions,
                                       cache=(cache["k"][i], cache["v"][i], 0), backend=backend)
             else:
-                h, (ns, nc) = _mamba_layer(h, bp, cfg, backend=backend)
-                cache["ssm"][i].copy_(ns)
-                cache["conv"][i].copy_(nc)
+                h = _mamba_cached(h, bp, cfg, cache["ssm"][i], cache["conv"][i], None, backend)
     cache["len"] = s
     return _logits(params, cfg, h[:, -1:], backend), cache

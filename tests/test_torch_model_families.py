@@ -154,6 +154,7 @@ def test_full_config_param_count_matches_spec(arch):
         "falcon-mamba-7b": (6.0e9, 8.5e9),
         "arctic-480b": (430e9, 520e9),
         "dbrx-132b": (120e9, 145e9),
+        "zamba2-7b": (6.0e9, 8.8e9),
     }[arch]
     assert expected[0] <= n <= expected[1], f"{arch}: {n / 1e9:.2f}B params"
 

@@ -233,29 +233,33 @@ def test_bf16_leaves_cross_bit_for_bit():
 
 @pytest.mark.parametrize("family", ["moe", "vlm", "hybrid", "audio"])
 def test_unported_families_raise(family):
-    """The hybrid family still raises, naming its slice; the moe, audio and
-    vlm families, ported since, build their params and caches
-    (``tests/test_torch_model_families.py`` and ``tests/test_torch_moe.py``
-    hold them against JAX)."""
+    """Every family of the reference is ported now: the moe, audio, vlm and
+    hybrid families build their params and caches (``tests/test_torch_
+    model_families.py``, ``tests/test_torch_moe.py`` and ``tests/test_torch_
+    hybrid.py`` hold them against JAX); an unknown family raises."""
     extra = {"vlm": dict(cross_attn_every=2, n_img_tokens=4),
              "audio": dict(embedding_inputs=True, mlp="gelu"),
-             "moe": dict(n_experts=4, top_k=2, moe_dff=48)}.get(family, {})
+             "moe": dict(n_experts=4, top_k=2, moe_dff=48),
+             "hybrid": dict(ssm_version=2, ssm_state=8, ssm_head_dim=16, attn_every=1)
+             }.get(family, {})
     cfg = ModelConfig(name="x", family=family, n_layers=2, d_model=32, n_heads=4,
                       n_kv_heads=2, d_ff=64, vocab=64, dtype="float32", **extra)
-    if family in TM.FAMILIES:
-        params = TM.init_params(cfg, device="cpu")
-        cache = TM.init_cache(cfg, 1, 8, device="cpu")
-        if family == "moe":
-            assert params["blocks"]["moe"]["w1"].shape == (2, 4, 32, 48)
-            assert "mlp" not in params["blocks"]
-        else:
-            assert "embed" not in params if family == "audio" else "self_blocks" in params
-        assert cache["k"].shape[-3:] == (8, 2, 8) and cache["len"] == 0
-        return
-    with pytest.raises(NotImplementedError, match="slice"):
-        TM.init_params(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="slice"):
-        TM.init_cache(cfg, 1, 8, device="cpu")
+    assert family in TM.FAMILIES
+    params = TM.init_params(cfg, device="cpu")
+    cache = TM.init_cache(cfg, 1, 8, device="cpu")
+    if family == "moe":
+        assert params["blocks"]["moe"]["w1"].shape == (2, 4, 32, 48)
+        assert "mlp" not in params["blocks"]
+    elif family == "hybrid":  # two groups of one mamba2 layer, one shared block, no tail
+        assert params["mamba_groups"]["mamba"]["in_proj"].shape == (2, 1, 32, 2 * 64 + 16 + 4)
+        assert "mamba_tail" not in params and "wq" in params["shared_attn"]["attn"]
+        assert cache["ssm"].shape == (2, 1, 1, 4, 16, 8) and "tail_ssm" not in cache
+    else:
+        assert "embed" not in params if family == "audio" else "self_blocks" in params
+    kv = cache["attn_k"] if family == "hybrid" else cache["k"]
+    assert kv.shape[-3:] == (8, 2, 8) and cache["len"] == 0
+    with pytest.raises(ValueError, match="nope"):
+        TM.init_params(dataclasses.replace(cfg, family="nope"), device="cpu")
 
 
 def test_cross_attention_raises():

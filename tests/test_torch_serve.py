@@ -211,7 +211,8 @@ def test_priority_crash_sweep_exactly_once_matches_jax(tmp_path):
 
 def test_later_slice_options_raise():
     """Per-side lanes and autosplit build a working tier and the launcher
-    takes their flags; ``--window`` still waits for the long-context slice."""
+    takes their flags; so it does ``--window`` (rolling-window decode, held
+    against the reference in ``tests/test_torch_hybrid.py``)."""
     tier = TV.RequestQueueTier(split_lanes=True, reshard_backlog=4, device="cpu")
     assert tier.split_lanes and tier.reshard_backlog == 4
     tier.submit(list(range(1, 9)))
@@ -226,9 +227,9 @@ def test_later_slice_options_raise():
             assert TV.serve(args)["completed"] == 8
     args = TV.build_parser().parse_args(
         ["--arch", "smollm-135m", "--reduced", "--tier-only", "--device", "cpu",
-         "--window", "16"])
-    with pytest.raises(NotImplementedError, match="long-context"):
-        TV.serve(args)
+         "--sessions", "4", "--window", "16"])
+    with contextlib.redirect_stdout(io.StringIO()):
+        assert TV.serve(args)["completed"] == 4
     # the continuous server and the flight recorder are ported: they run
     args = TV.build_parser().parse_args(
         ["--arch", "smollm-135m", "--reduced", "--tier-only", "--device", "cpu",
