@@ -329,7 +329,8 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
-ALL_PHASES = ("1", "2", "3", "4", "5", "6", "7", "8", "9", "10", "11", "12", "13", "14")
+ALL_PHASES = ("1", "2", "3", "4", "5", "6", "7", "8", "9", "10", "11", "12", "13", "14",
+              "15")
 SOURCE = "src/repro_torch/kernels/dfc_reduce/csrc/dfc_reduce.cu"
 GRID_SOURCE = "src/repro_torch/kernels/dfc_reduce/csrc/phase_grid.cu"
 KINDS = ("stack", "queue", "deque", "map")
@@ -378,6 +379,12 @@ MODEL_KERNELS = {
                         "src/repro/kernels/flash_attention/kernel.py:77"),
     "selective_scan": ("src/repro_torch/kernels/mamba_scan/csrc/selective_scan.cu",
                        "src/repro/kernels/mamba_scan/kernel.py:51"),
+    # the port's own backward kernels: the reference differentiates its jnp
+    # versions of the functions the forward kernels above replace
+    "rmsnorm_bwd": ("src/repro_torch/kernels/rmsnorm/csrc/rmsnorm.cu",
+                    "src/repro/kernels/rmsnorm/kernel.py:27"),
+    "flash_attention_bwd": ("src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
+                            "src/repro/kernels/flash_attention/kernel.py:77"),
 }
 MODEL_TOL = {"float32": 1e-5, "bfloat16": 1e-2}
 SCAN_TOL_F32 = 1e-4  # the scan: 512 dependent steps of rounding
@@ -1824,7 +1831,8 @@ def _expected_model_launches(cfg, prefills, steps):
         norms = 0
     return {"rmsnorm": (prefills + steps) * norms,
             "flash_attention": prefills * (L if attn else shared),
-            "selective_scan": prefills * L if cfg.family == "ssm" else 0}
+            "selective_scan": prefills * L if cfg.family == "ssm" else 0,
+            "rmsnorm_bwd": 0, "flash_attention_bwd": 0}
 
 
 def serve_and_check(torch, serve_mod, K, argv, params=None, cfg=None):
@@ -2119,7 +2127,7 @@ def phase_serve(torch, K, records):
     from repro_torch.launch import serve as serve_mod
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    totals = {"rmsnorm": 0, "flash_attention": 0, "selective_scan": 0}
+    totals = {k: 0 for k in MODEL_KERNELS}
     params = {}
     for arch, argv in SERVE_RUNS.items():
         torch.cuda.reset_peak_memory_stats()  # the peak of this run alone
@@ -2313,7 +2321,7 @@ def phase_continuous(torch, K, records, params):
     def at():
         return f"[{time.perf_counter() - t0:.1f} s into phase 8]"
 
-    totals = {"rmsnorm": 0, "flash_attention": 0, "selective_scan": 0}
+    totals = {k: 0 for k in MODEL_KERNELS}
     tier_totals = {k: 0 for k in K.LAUNCHES}
     arch = "smollm-135m"
     base = CONT_RUNS[arch] + ["--durable"]
@@ -4286,6 +4294,445 @@ def phase_hybrid(torch, K, records):
     check(not failed, "; ".join(failed))
 
 
+# ------------------------------------------------------------------ training
+# phase 15: smollm-135m trained at full width (batch 8 x SmolLM's published
+# context of 2,048) through launch/train.py's code path, with its default
+# remat, checkpointed by DFC-Checkpoint every 10 steps; the backward kernels
+# checked against their plain versions and timed at the training shapes
+TRAIN_ARGV = ["--arch", "smollm-135m", "--steps", "20", "--batch", "8", "--seq", "2048",
+              "--ckpt-every", "10", "--workers", "4", "--device", "cuda"]
+TRAIN_GATE_ROWS = 1  # batch rows of the backward call gate's plain stream (remat off)
+TRAIN_CFG = None  # a configuration in place of --arch's (a rehearsal's reduced one)
+RMSNORM_BWD_SHAPES = [(16384, 576)] + [(4096, d) for d in (1536, 2048, 3584, 4096, 6144,
+                                                           7168, 100)]
+FLASH_BWD_SHAPES = [((8, 2048, 9, 3, 64), True)]
+FLASH_BWD_SHAPES += [((2, 200, 9, 3, hd), True) for hd in (16, 32, 64, 112, 128)]
+FLASH_BWD_SHAPES += [((2, 200, 9, 3, hd, 300), False) for hd in (16, 32, 64, 112, 128)]
+FLASH_BWD_SHAPES += [((2, 130, 4, 4, 64), True), ((2, 130, 14, 2, 32), True),
+                     ((1, 77, 7, 1, 128, 50), False)]  # groups of 1 and 7
+TRAIN_KERNEL_SHAPES = {"rmsnorm_bwd": (16384, 576), "flash_attention_bwd": (8, 2048, 9, 3, 64)}
+
+
+def identical(a, b):
+    """Bit-equal tensors (f32 and bf16 by their raw bits)."""
+    import torch
+    if a.shape != b.shape or a.dtype != b.dtype:
+        return False
+    raw = {torch.float32: torch.int32, torch.bfloat16: torch.int16}.get(a.dtype)
+    return bool(torch.equal(a.view(raw), b.view(raw))) if raw else bool(torch.equal(a, b))
+
+
+def bwd_case(torch, name, shape, dtype, causal=True, seed=3):
+    """(the backward kernel's call, its plain version's, the inputs) at
+    ``shape``: RMSNorm (R, D) with dy; flash (B, S, Hq, Hkv, hd[, T]) with
+    the forward kernel's output and row log-sum-exp, and dO."""
+    from repro_torch.kernels.flash_attention import kernel as FK
+    from repro_torch.kernels.flash_attention.ref import attention_bwd_ref
+    from repro_torch.kernels.rmsnorm import kernel as RK
+    from repro_torch.kernels.rmsnorm.ref import rmsnorm_bwd_ref
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    if name == "rmsnorm_bwd":
+        x, w = model_inputs(torch, "rmsnorm", shape, dtype)
+        dy = (torch.randn(shape, generator=g, device="cuda") * 0.5).to(dtype)
+        return (lambda: RK.rmsnorm_bwd(x, w, dy), lambda: rmsnorm_bwd_ref(x, w, dy),
+                (x, w, dy))
+    q, k, v = model_inputs(torch, "flash_attention", shape, dtype)
+    o, lse = FK.flash_attention_lse(q, k, v, causal=causal)
+    do = (torch.randn(q.shape, generator=g, device="cuda") * 0.5).to(dtype)
+    return (lambda: FK.flash_attention_bwd(q, k, v, o, lse, do, causal=causal),
+            lambda: attention_bwd_ref(q, k, v, o, lse, do, causal), (q, k, v, o, lse, do))
+
+
+def bwd_vs_plain(torch, name, shape, dtype, causal=True):
+    """The backward kernel against its plain version on the same inputs:
+    every output within MODEL_TOL (relative max-abs) and finite, two
+    launches bit-equal; the forward kernel at the same shape within
+    MODEL_TOL of its plain version; for flash also the forward with the row
+    log-sum-exp bit-equal to the forward without it and its LSE within
+    MODEL_TOL of the plain version's.  Returns (max abs err, max relative
+    err) of the backward and the forward's relative err."""
+    from repro_torch.kernels.flash_attention import kernel as FK
+    from repro_torch.kernels.flash_attention.ref import attention_lse_ref, attention_ref
+    from repro_torch.kernels.rmsnorm import kernel as RK
+    from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref
+    fn, plain, args = bwd_case(torch, name, shape, dtype, causal)
+    key = "float32" if dtype == torch.float32 else "bfloat16"
+    tol = MODEL_TOL[key]
+    what = f"{name} {shape} {key}{'' if causal else ' non-causal'}"
+    if name == "flash_attention_bwd":
+        q, k, v, o, lse = args[:5]
+        check(identical(o, FK.flash_attention(q, k, v, causal=causal)),
+              f"{what}: the forward with the LSE differs from the forward without it")
+        e = rel_max_abs(lse, attention_lse_ref(q, k, causal=causal))
+        check(bool(torch.isfinite(lse).all()) and e <= tol,
+              f"{what}: the forward's LSE {e:.3g} from the plain version's, over {tol}")
+        y, y_plain = o, attention_ref(q, k, v, causal=causal)
+    else:
+        x, w = args[:2]
+        y, y_plain = RK.rmsnorm(x, w), rmsnorm_ref(x, w)
+    fwd = rel_max_abs(y, y_plain)
+    check(bool(torch.isfinite(y.float()).all()) and fwd <= tol,
+          f"{what}: the forward {fwd:.3g} from its plain version, over {tol}")
+    del y, y_plain
+    got, again = fn(), fn()
+    torch.cuda.synchronize()
+    want = plain()
+    check(all(identical(a, b) for a, b in zip(got, again)),
+          f"{what}: two launches on the same inputs differ (not deterministic)")
+    abs_err = rel = 0.0
+    for a, b in zip(got, want):
+        check(a.shape == b.shape and a.dtype == b.dtype and bool(torch.isfinite(a.float()).all()),
+              f"{what}: an output's shape, dtype or finiteness differs from the plain version")
+        abs_err = max(abs_err, float((a.float() - b.float()).abs().max()))
+        rel = max(rel, rel_max_abs(a, b))
+    check(rel <= tol, f"{what}: relative max-abs err {rel:.3g} over {tol}")
+    return abs_err, rel, fwd
+
+
+def bwd_bound(name, shape, dtype_bytes, causal=True):
+    """(least ms, what bounds it) of one backward call: inputs read once and
+    outputs written once at the HBM rate, against the products at the peak
+    for the type.  RMSNorm: x, dy, w in, dx, dw out; about 8 flops an
+    element at the f32 rate.  Flash: q, k, v, o, dO and the f32 LSE in, dq,
+    dk, dv out; five products of 2 hd flops a visible (query, key) pair
+    (the scores again, dP = dO V^T, dV, dK, dQ)."""
+    if name == "rmsnorm_bwd":
+        r, d = shape
+        nbytes = (3 * r * d + 2 * d) * dtype_bytes
+        t_ops = 8 * r * d / SCALAR_OPS_PER_S
+    else:
+        b, s, hq, hkv, hd, t = flash_dims(shape)
+        nbytes = (4 * b * s * hq * hd + 4 * b * t * hkv * hd) * dtype_bytes + b * hq * s * 4
+        pairs = b * hq * (s * (s + 1) // 2 if causal else s * t)
+        rate = BF16_TENSOR_OPS_PER_S if dtype_bytes == 2 else SCALAR_OPS_PER_S
+        t_ops = 10 * hd * pairs / rate
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    return (t_bytes * 1e3, "bytes") if t_bytes >= t_ops else (t_ops * 1e3, "operations")
+
+
+def library_bwd(torch, name, args):
+    """One PyTorch call computing the same backward (a yardstick the port
+    never calls): autograd of ``F.rms_norm`` or of
+    ``F.scaled_dot_product_attention`` (K/V repeated over the group)."""
+    import torch.nn.functional as F
+    if name == "rmsnorm_bwd":
+        x, w, dy = args
+        xl, wl = x.detach().requires_grad_(True), w.detach().requires_grad_(True)
+        y = F.rms_norm(xl, (x.shape[-1],), weight=wl, eps=1e-6)
+        return lambda: torch.autograd.grad(y, (xl, wl), dy, retain_graph=True)
+    q, k, v, _, _, do = args
+    group = q.shape[2] // k.shape[2]
+    qt = q.transpose(1, 2).contiguous().requires_grad_(True)
+    kt = k.repeat_interleave(group, dim=2).transpose(1, 2).contiguous().requires_grad_(True)
+    vt = v.repeat_interleave(group, dim=2).transpose(1, 2).contiguous().requires_grad_(True)
+    out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+    dot = do.transpose(1, 2).contiguous()
+    return lambda: torch.autograd.grad(out, (qt, kt, vt), dot, retain_graph=True)
+
+
+def device_ms_per_call(torch, fn, n=10):
+    """(device ms per call, how): the profiler's (``profiler_device_ms``)
+    where it kept at least half the launches, else CUDA events around ``n``
+    calls (the launches' host gaps included: small beside a call of ms)."""
+    dev, kept = profiler_device_ms(torch, fn, n)
+    if dev is not None:
+        return dev, f"profiler; {kept} of {n} launches kept"
+
+    def many():
+        for _ in range(n):
+            fn()
+    return cuda_ms(many, 3) / n, f"events over {n} calls; the profiler kept {kept} of {n}"
+
+
+def measure_bwd(torch, name, shape, dtype):
+    """A backward kernel at ``shape``: held to its plain version, then timed
+    in turns with the library's backward (library, kernel, kernel,
+    library), beside its bound and the plain version's time."""
+    err, rel, _ = bwd_vs_plain(torch, name, shape, dtype)
+    fn, plain, args = bwd_case(torch, name, shape, dtype)
+    lib = library_bwd(torch, name, args)
+    turns = [(lib, "lib"), (fn, "kernel"), (fn, "kernel"), (lib, "lib")]
+    got = {"kernel": [], "lib": []}
+    for f, who in turns:
+        dev, how = device_ms_per_call(torch, f)
+        got[who].append((cuda_ms(f, 10), dev, how))
+    mean = lambda xs, i: sum(x[i] for x in xs) / len(xs)
+    bound_ms, bound_by = bwd_bound(name, shape, 2 if dtype == torch.bfloat16 else 4)
+    rec = {"max_abs_err": err, "rel_max_abs_err": rel, "ms": mean(got["kernel"], 0),
+           "device_ms": mean(got["kernel"], 1), "device_ms_by": got["kernel"][0][2],
+           "plain_ms": cuda_ms(plain, 3), "bound_ms": bound_ms, "bound_by": bound_by,
+           "library_ms": mean(got["lib"], 0), "library_device_ms": mean(got["lib"], 1),
+           "shape": list(shape), "dtype": str(dtype)[6:], "tolerance": MODEL_TOL[
+               "bfloat16" if dtype == torch.bfloat16 else "float32"], "backward": True}
+    print(f"kernel {name} {shape} {str(dtype)[6:]}: {rec['ms']:.4f} ms, device "
+          f"{rec['device_ms']:.4f} ms ({rec['device_ms_by']}); library backward "
+          f"{rec['library_ms']:.4f} ms, device {rec['library_device_ms']:.4f} ms; plain "
+          f"{rec['plain_ms']:.4f} ms; bound {bound_ms:.6f} ms by {bound_by}; max abs err "
+          f"{err:.3g} (relative {rel:.3g})", flush=True)
+    return rec
+
+
+def train_bwd_checks(torch):
+    """(a): each backward kernel against its plain version at the training
+    shapes and around them, in bf16 and f32."""
+    lines = []
+    for dtype in (torch.bfloat16, torch.float32):
+        for shape in RMSNORM_BWD_SHAPES:
+            _, rel, fwd = bwd_vs_plain(torch, "rmsnorm_bwd", shape, dtype)
+            lines.append(f"rmsnorm_bwd{shape} {str(dtype)[6:]} {rel:.3g} (forward {fwd:.3g})")
+        for shape, causal in FLASH_BWD_SHAPES:
+            _, rel, fwd = bwd_vs_plain(torch, "flash_attention_bwd", shape, dtype, causal)
+            lines.append(f"flash_attention_bwd{shape}{'' if causal else ' non-causal'} "
+                         f"{str(dtype)[6:]} {rel:.3g} (forward {fwd:.3g})")
+    print("backward kernels vs plain (relative max-abs err; f32 within 1e-5, bf16 within "
+          "1e-2; the forward kernel at each shape held the same; forward with LSE bit-equal "
+          "to without, LSE held; two launches bit-equal): " + "; ".join(lines), flush=True)
+
+
+def expected_train_launches(cfg, steps):
+    """Model-kernel launches of ``steps`` training steps of a dense model
+    under ``nothing_saveable`` remat: the forward (2L+1 norms, L flash), each
+    block again in the backward (2L norms, L flash), and the backward
+    kernels (2L+1 norms, L flash)."""
+    L = cfg.n_layers
+    again = L if cfg.remat == "nothing_saveable" else 0
+    return {"rmsnorm": steps * (2 * L + 1 + 2 * again),
+            "flash_attention": steps * (L + again), "selective_scan": 0,
+            "rmsnorm_bwd": steps * (2 * L + 1), "flash_attention_bwd": steps * L}
+
+
+def leaf_names(tree, prefix=""):
+    """A state tree's leaf paths, in ``tree_flatten``'s order."""
+    if isinstance(tree, dict):
+        return [n for k in sorted(tree) for n in leaf_names(tree[k], f"{prefix}/{k}")]
+    if isinstance(tree, (list, tuple)):
+        return [n for i, x in enumerate(tree) for n in leaf_names(x, f"{prefix}/{i}")]
+    return [prefix or "/"]
+
+
+def train_grads(torch, cfg, params, batch, backend="kernel"):
+    from repro_torch.models.model import loss_fn
+    from repro_torch.tree import tree_flatten, tree_unflatten
+    leaves = [p.detach().requires_grad_(True) for p in tree_flatten(params)]
+    loss = loss_fn(tree_unflatten(params, leaves), cfg, batch, backend=backend)
+    return loss.detach(), torch.autograd.grad(loss, leaves)
+
+
+def train_call_gate(torch, cfg, params, batch):
+    """The backward kernels held to their plain versions at every call of a
+    training step, fed the plain backend's stream: a loss and backward on
+    the plain backend (remat off, ``TRAIN_GATE_ROWS`` rows), where each
+    RMSNorm and flash call's output gradient (the plain stream's dy / dO)
+    is handed, with that call's inputs, to the backward kernel and to its
+    plain version (flash: with the forward kernel's output and row LSE on
+    those inputs).  Every call within MODEL_TOL's bf16 tolerance (relative
+    max-abs); a control, dK / dV from K rolled by one head at the first
+    flash call, must fail it."""
+    import dataclasses
+    from repro_torch.kernels.flash_attention import kernel as FK
+    from repro_torch.kernels.flash_attention.ref import attention_bwd_ref
+    from repro_torch.kernels.rmsnorm import kernel as RK
+    from repro_torch.kernels.rmsnorm.ref import rmsnorm_bwd_ref
+    from repro_torch.models import layers
+    tol = MODEL_TOL["bfloat16"]
+    calls = {"rmsnorm_bwd": [0.0, 0], "flash_attention_bwd": [0.0, 0]}
+    control = []
+    saved = layers.rmsnorm_op, layers.attention
+
+    def note(name, got, want):
+        e = max(rel_max_abs(a, b) for a, b in zip(got, want))
+        calls[name][0] = max(calls[name][0], e)
+        calls[name][1] += 1
+
+    def norm(x, w, *, backend="kernel", eps=1e-6):
+        out = saved[0](x, w, backend="ref", eps=eps)
+        x2, w2 = x.detach().reshape(-1, x.shape[-1]).contiguous(), w.detach()
+
+        def hook(g):
+            dy = g.reshape(x2.shape).contiguous()
+            note("rmsnorm_bwd", RK.rmsnorm_bwd(x2, w2, dy, eps=eps),
+                 rmsnorm_bwd_ref(x2, w2, dy, eps))
+        out.register_hook(hook)
+        return out
+
+    def attn(q, k, v, *, causal=True, backend="kernel"):
+        out = saved[1](q, k, v, causal=causal, backend="ref")
+        qd, kd, vd = (t.detach().contiguous() for t in (q, k, v))
+
+        def hook(g):
+            do = g.contiguous()
+            o, lse = FK.flash_attention_lse(qd, kd, vd, causal=causal)
+            want = attention_bwd_ref(qd, kd, vd, o, lse, do, causal)
+            note("flash_attention_bwd", FK.flash_attention_bwd(qd, kd, vd, o, lse, do,
+                                                               causal=causal), want)
+            if not control:
+                dim = 2 if kd.shape[2] > 1 else 1  # by one head (one position if one head)
+                bad = FK.flash_attention_bwd(qd, kd.roll(1, dim), vd, o, lse, do, causal=causal)
+                control.append(max(rel_max_abs(bad[1], want[1]), rel_max_abs(bad[2], want[2])))
+        out.register_hook(hook)
+        return out
+
+    layers.rmsnorm_op, layers.attention = norm, attn
+    try:
+        rows = {k: v[:TRAIN_GATE_ROWS] for k, v in batch.items()}
+        train_grads(torch, dataclasses.replace(cfg, remat="none"), params, rows, backend="ref")
+        torch.cuda.synchronize()
+    finally:
+        layers.rmsnorm_op, layers.attention = saved
+    L = cfg.n_layers
+    print(f"train call gate {cfg.name}: every backward call within {tol} of its plain "
+          f"version on the plain stream ({TRAIN_GATE_ROWS} x {batch['tokens'].shape[1]}): "
+          + ", ".join(f"{n} max {e:.4g} ({c} calls)" for n, (e, c) in calls.items())
+          + f"; control, dK/dV from K rolled by one head: {control[0] if control else None}",
+          flush=True)
+    check(calls["rmsnorm_bwd"][1] == 2 * L + 1 and calls["flash_attention_bwd"][1] == L,
+          f"the train call gate held {calls}, expected {2 * L + 1} and {L} calls")
+    for n, (e, _) in calls.items():
+        check(e <= tol, f"a {n} call {e:.4g} from its plain version, over {tol}")
+    check(control and control[0] > tol,
+          f"the control (K rolled by one head) is {control} from the plain version, within "
+          f"{tol}: the gate cannot fail")
+
+
+def phase_train(torch, K, records):
+    """Phase 15: (a) the backward kernels against their plain versions; (b)
+    smollm-135m trained at full width through ``launch/train.py``'s code path
+    (exact launches, every grad finite and non-zero, the loss falling, one
+    batch's loss on the kernels within bf16's tolerance of the plain
+    backend's, the backward call gate, ms a step, tokens/s, the busy share,
+    the peak); (c) a crash inside the second combine, recovered on
+    ``fs.crash()`` and finished: the losses after the resume and the final
+    state bit-equal to (b)'s; (d) the backward kernels timed at the training
+    shapes.  A gate that fails fails the phase at its end.  Each record
+    gains ``train_launches``."""
+    from repro_torch.checkpoint.dfc_checkpoint import CrashNow, FaultInjector
+    from repro_torch.launch import train as train_mod
+    from repro_torch.models.model import loss_fn
+    from repro_torch.optim.adamw import init_opt_state
+    from repro_torch.runtime.train_loop import TrainRuntime
+    from repro_torch.tree import tree_flatten
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    failed = []
+    gated = functools.partial(run_gate, failed, "15")
+    gated(train_bwd_checks, torch)
+    print(f"train (a): {time.perf_counter() - t0:.1f} s into phase 15", flush=True)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        # (b) the training run
+        args = train_mod.parse_args(TRAIN_ARGV + ["--ckpt-dir", f"{tmp}/run"])
+        cfg, fs, rt = train_mod.build(args, cfg=TRAIN_CFG)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        K.reset_launches()
+        reset_model_launches()
+        t1 = time.perf_counter()
+        params, opt, losses = rt.train(args.steps)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t1
+        launches = model_launches()
+        peak = torch.cuda.max_memory_allocated()
+        step_s = list(rt.step_s)
+        want = expected_train_launches(cfg, args.steps)
+        check(launches == want, f"training launches {launches}, expected {want}")
+        check(not any(K.LAUNCHES.values()), f"training launched combine kernels {K.LAUNCHES}")
+        n_params = sum(p.numel() for p in tree_flatten(params))
+        state_gb = sum(t.numel() * t.element_size() for t in tree_flatten((params, opt))) / 1e9
+        tokens = args.batch * args.seq
+        steady = statistics.median(step_s[1:]) if len(step_s) > 1 else step_s[0]
+        print(f"train {cfg.name}: {cfg.n_layers} layers, d {cfg.d_model}, {cfg.n_heads} / "
+              f"{cfg.n_kv_heads} heads of {cfg.hd()}, vocab {cfg.vocab}, {cfg.dtype}, remat "
+              f"{cfg.remat}; {n_params / 1e6:.2f} M params, {state_gb:.3f} GB of params and "
+              f"AdamW state; batch {args.batch} x {args.seq}, {args.steps} steps, ckpt every "
+              f"{args.ckpt_every}: loss {losses[0]:.4f} -> {losses[-1]:.4f}; step 1 "
+              f"{step_s[0] * 1e3:.1f} ms, then {steady * 1e3:.1f} ms a step median "
+              f"({tokens / steady:.0f} tok/s); {wall:.1f} s in all with the checkpoints; "
+              f"persistence {fs.stats}; peak memory {peak / 2**30:.2f} GiB; launches "
+              f"{launches} (as predicted)", flush=True)
+        check(all(math.isfinite(x) for x in losses) and losses[-1] < losses[0],
+              f"the loss did not fall: {losses[0]} -> {losses[-1]}")
+
+        # every leaf's grad finite and non-zero; the same bits twice
+        fresh, _ = rt._fresh_state()
+        batch = rt._batch(0)
+        loss1, g1 = train_grads(torch, cfg, fresh, batch)
+        _, g2 = train_grads(torch, cfg, fresh, batch)
+        with torch.no_grad():
+            plain_loss = loss_fn(fresh, cfg, batch, backend="ref")
+        loss_err = abs(float(loss1) - float(plain_loss)) / abs(float(plain_loss))
+        print(f"train loss on the kernels {float(loss1):.6f}, on the plain backend "
+              f"{float(plain_loss):.6f}: relative err {loss_err:.3g} (within "
+              f"{MODEL_TOL['bfloat16']})", flush=True)
+        gated(check, loss_err <= MODEL_TOL["bfloat16"],
+              f"the kernels' loss {float(loss1)} is {loss_err:.3g} from the plain backend's "
+              f"{float(plain_loss)}, over {MODEL_TOL['bfloat16']}")
+        names = leaf_names(fresh)
+        bad = [n for n, g in zip(names, g1)
+               if not (bool(torch.isfinite(g.float()).all()) and float(g.abs().max()) > 0)]
+        differ = [n for n, a, b in zip(names, g1, g2) if not identical(a, b)]
+        print(f"train grads: {len(g1)} leaves, every one finite and non-zero: {not bad} "
+              f"(smallest max |g| {min(float(g.abs().max()) for g in g1):.3g}); two backward "
+              f"passes on one batch bit-equal: {not differ}"
+              + (f" (differ: {', '.join(differ)})" if differ else ""), flush=True)
+        gated(check, not bad, f"grads not finite or all zero: {bad}")
+        del g1, g2
+        gated(train_call_gate, torch, cfg, fresh, batch)
+        opt0 = init_opt_state(fresh, rt.opt_cfg)
+        profile_calls(torch, f"{cfg.name} train step", lambda: rt._step_fn(fresh, opt0, batch),
+                      2)
+        del fresh, opt0, batch
+        torch.cuda.empty_cache()
+        print(f"train (b): {time.perf_counter() - t0:.1f} s into phase 15", flush=True)
+
+        # (c) a crash inside the second combine, recovered and finished
+        total_ops = fs.stats["pwb"] + fs.stats["pfence"]
+        per_ckpt = total_ops // 2
+        crash_at = total_ops - (per_ckpt - 5 * args.workers) // 2  # among its leaf writes
+        args2 = train_mod.parse_args(TRAIN_ARGV + ["--ckpt-dir", f"{tmp}/crash"])
+        _, fs2, rt2 = train_mod.build(args2, cfg=TRAIN_CFG)
+        fs2.injector = FaultInjector(crash_at=crash_at)
+        try:
+            rt2.train(args.steps)
+            crashed = False
+        except CrashNow:
+            crashed = True
+        check(crashed, f"no crash at persistence op {crash_at} of {total_ops}")
+        rt3 = TrainRuntime(rt2.cfg, rt2.opt_cfg, rt2.pipeline, fs2.crash(),
+                           n_workers=rt2.n_workers, ckpt_every=rt2.ckpt_every, device=rt2.device)
+        _, _, step, cursor, report = rt3.boot()
+        p3, o3, losses3 = rt3.train(args.steps)
+        torch.cuda.synchronize()
+        same_losses = losses3 == losses[step:]
+        differ = [n for n, a, b in zip(leaf_names((params, opt)), tree_flatten((params, opt)),
+                                       tree_flatten((p3, o3))) if not identical(a, b)]
+        print(f"train exactly once: crashed at persistence op {crash_at} of {total_ops} "
+              f"(inside the second combine), booted on the durable view at step {step} cursor "
+              f"{cursor}, verdicts {report}; {len(losses3)} steps to {args.steps}: losses "
+              f"bit-equal to the uninterrupted run's: {same_losses}; final params and AdamW "
+              f"state bit-equal: {not differ}" + (f" (differ: {', '.join(differ)})"
+                                                  if differ else ""), flush=True)
+        gated(check, step == args.ckpt_every and cursor == step
+              and all(not r["committed"] and r["step"] == args.steps for r in report.values()),
+              f"resumed at step {step} cursor {cursor}, verdicts {report}")
+        gated(check, same_losses and not differ,
+              "the resumed run is not bit-equal to the uninterrupted run")
+        del params, opt, p3, o3, rt, rt2, rt3
+        torch.cuda.empty_cache()
+    print(f"train (c): {time.perf_counter() - t0:.1f} s into phase 15", flush=True)
+
+    # (d) the backward kernels timed at the training shapes
+    for name, shape in TRAIN_KERNEL_SHAPES.items():
+        src, replaces = MODEL_KERNELS[name]
+        records[name] = {"name": name, "route": "cuda", "source": src, "replaces": replaces,
+                         "launches": launches[name],
+                         **measure_bwd(torch, name, shape, torch.bfloat16)}
+    for name, n in launches.items():
+        if name in records:
+            records[name]["train_launches"] = n
+    check(not failed, "; ".join(failed))
+
+
 def turns_kernels(root):
     """The combine-kernel wrappers (``kernel.py``) of the repository checkout
     at ``root``, loaded beside this tree's: its ``csrc`` sources build into
@@ -4408,6 +4855,10 @@ def main(argv=None) -> int:
     if "14" in run:
         with phase("14 hybrid configs"):
             phase_hybrid(torch, K, records)
+
+    if "15" in run:
+        with phase("15 training"):
+            phase_train(torch, K, records)
 
     print(card, flush=True)
     order = list(KINDS) + [f"phase_grid_{k}" for k in KINDS] + list(MODEL_KERNELS)

@@ -18,8 +18,9 @@ announcement, and recovery that rounds an odd epoch up, collects the slot
 pool and reports per worker whether its step committed.  A state tree
 flattens as the JAX pytree does (a structure state in field order, dict
 entries in sorted key order, lists and tuples in order), and each leaf is
-saved with ``np.save`` in its own dtype, so both packages write the same
-bytes.
+saved with ``np.save`` in its own dtype (a bf16 tensor as the reference's
+bf16 leaf: raw 16 bits under a ``<V2`` header, ``"bfloat16"`` in the
+manifest), so both packages write the same bytes.
 """
 
 from __future__ import annotations
@@ -29,7 +30,7 @@ import io
 import json
 import os
 from pathlib import Path
-from typing import Any, Callable, Dict, List, Optional
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -37,6 +38,7 @@ import torch
 from repro_torch.core.torch_dfc import STRUCTS, struct_kind
 from repro_torch.nvm.memory import PersistStats
 from repro_torch.obs import NULL_OBS
+from repro_torch.tree import tree_flatten
 
 
 class CrashNow(Exception):
@@ -136,25 +138,50 @@ class SimFS:
 BOT = None  # the paper's ⊥: an announcement whose response is not yet written
 
 
-def tree_leaves(tree) -> List[np.ndarray]:
-    """The leaves of a state tree as numpy arrays, in the JAX pytree's
-    flatten order: a structure state's fields in order, a dict's entries by
-    sorted key, lists and tuples in order, ``None`` no leaf."""
-    if tree is None:
-        return []
+def tree_leaves(tree) -> List[Any]:
+    """The leaves of a state tree in the JAX pytree's flatten order (a
+    structure state's fields in order, a dict's entries by sorted key, lists
+    and tuples in order, ``None`` no leaf): tensors detached on the CPU,
+    anything else as a numpy array."""
     if hasattr(tree, "leaves") and dataclasses.is_dataclass(tree):
         return [_leaf(x) for x in tree.leaves()]
-    if isinstance(tree, dict):
-        return [leaf for k in sorted(tree) for leaf in tree_leaves(tree[k])]
-    if isinstance(tree, (list, tuple)):
-        return [leaf for x in tree for leaf in tree_leaves(x)]
-    return [_leaf(tree)]
+    return [_leaf(x) for x in tree_flatten(tree)]
 
 
-def _leaf(x) -> np.ndarray:
+def _leaf(x):
     if torch.is_tensor(x):
-        return x.detach().cpu().numpy()
+        return x.detach().cpu()
     return np.asarray(x)
+
+
+def _npy(leaf) -> Tuple[bytes, List[int], str]:
+    """``np.save``'s bytes of one leaf, its shape and its dtype's name, as
+    the reference writes them.  A bf16 tensor is written as JAX hands numpy
+    its bf16 leaves: the raw 16 bits under the header ``'descr': '<V2'``,
+    named ``"bfloat16"`` in the manifest (numpy has no bf16 type of its
+    own; the reference's ``ml_dtypes`` bf16 saves so)."""
+    buf = io.BytesIO()
+    if torch.is_tensor(leaf) and leaf.dtype == torch.bfloat16:
+        arr = leaf.contiguous().view(torch.int16).numpy().view("V2")
+        np.save(buf, arr)
+        data = buf.getvalue().replace(b"'descr': '|V2'", b"'descr': '<V2'", 1)
+        return data, list(arr.shape), "bfloat16"
+    arr = leaf.numpy() if torch.is_tensor(leaf) else leaf
+    np.save(buf, arr)
+    return buf.getvalue(), list(arr.shape), str(arr.dtype)
+
+
+def leaf_tensor(arr: np.ndarray, dtype: str, device) -> torch.Tensor:
+    """A leaf that ``load_active`` read, as a tensor on ``device``, typed by
+    its manifest ``dtype``: a ``"bfloat16"`` leaf (numpy reads its ``<V2``
+    header as raw 2-byte voids) is viewed as bf16, bit for bit."""
+    if dtype == "bfloat16":
+        t = torch.from_numpy(np.ascontiguousarray(arr).view(np.int16)).view(torch.bfloat16)
+    else:
+        if str(arr.dtype) != dtype:
+            raise ValueError(f"leaf of dtype {arr.dtype}, the manifest says {dtype}")
+        t = torch.from_numpy(np.array(arr))
+    return t.to(device)
 
 
 def _load(data: bytes) -> np.ndarray:
@@ -251,14 +278,13 @@ class DFCCheckpointManager:
         slot = self._slot_dir(epoch, nxt=True)
         manifest = {"leaves": [], "epoch": epoch + 2, "meta": extra_meta or {}}
         files = []
-        for i, arr in enumerate(tree_leaves(state_tree)):
+        for i, leaf in enumerate(tree_leaves(state_tree)):
             rel = f"{slot}/leaf_{i}.npy"
-            buf = io.BytesIO()
-            np.save(buf, arr)
-            self.fs.write(rel, buf.getvalue())  # pwb per tensor
+            data, shape, dtype = _npy(leaf)
+            self.fs.write(rel, data)  # pwb per tensor
             files.append(rel)
-            manifest["leaves"].append({"file": f"leaf_{i}.npy", "shape": list(arr.shape),
-                                       "dtype": str(arr.dtype)})
+            manifest["leaves"].append({"file": f"leaf_{i}.npy", "shape": shape,
+                                       "dtype": dtype})
         self.fs.write(f"{slot}/manifest.json", json.dumps(manifest).encode())
         files.append(f"{slot}/manifest.json")
 

@@ -93,8 +93,8 @@ constexpr int kChunk = 16;  // keys per online-softmax rescale
 template <typename T, int HD>
 __global__ void __launch_bounds__(kBQ)
 flash_scalar_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                    const T* __restrict__ v, T* __restrict__ out, int S, int Tk, int Hq,
-                    int Hkv, int causal, float scale) {
+                    const T* __restrict__ v, T* __restrict__ out, float* __restrict__ lse,
+                    int S, int Tk, int Hq, int Hkv, int causal, float scale) {
   // keys per shared-memory tile: K and V tiles of f32 within the 48 KB of
   // static shared memory (hd 112 at 64 keys would need 56 KB)
   constexpr int BK = HD > 64 ? 32 : 64;
@@ -191,18 +191,20 @@ flash_scalar_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   if (!live) return;
   const float inv = 1.f / fmaxf(l, 1e-30f);
+  if (lse != nullptr) lse[((size_t)b * Hq + h) * S + qpos] = m + logf(l);
   T* op = out + (((size_t)b * S + qpos) * Hq + h) * HD;
 #pragma unroll
   for (int d = 0; d < HD; ++d) op[d] = model::from_f<T>(acc[d] * inv);
 }
 
 template <int HD>
-int launch_scalar(const void* q, const void* k, const void* v, void* out, int B, int S,
-                  int Tk, int Hq, int Hkv, int causal, float scale, cudaStream_t stream) {
+int launch_scalar(const void* q, const void* k, const void* v, void* out, float* lse, int B,
+                  int S, int Tk, int Hq, int Hkv, int causal, float scale, cudaStream_t stream) {
   const dim3 grid((S + kBQ - 1) / kBQ, Hq, B);
   flash_scalar_kernel<float, HD><<<grid, kBQ, 0, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(out), S, Tk, Hq, Hkv, causal, scale);
+      static_cast<const float*>(v), static_cast<float*>(out), lse, S, Tk, Hq, Hkv, causal,
+      scale);
   return (int)cudaGetLastError();
 }
 
@@ -264,8 +266,8 @@ __device__ __forceinline__ float quad_sum(float x) {
 template <int HD>
 __global__ void __launch_bounds__(32 * kPosWarps)
 flash_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                 const bf16* __restrict__ v, bf16* __restrict__ out, int B, int S, int Tk,
-                 int Hq, int Hkv, int causal, float scale_log2) {
+                 const bf16* __restrict__ v, bf16* __restrict__ out, float* __restrict__ lse,
+                 int B, int S, int Tk, int Hq, int Hkv, int causal, float scale_log2) {
   constexpr int NT = 32 * kPosWarps;  // threads
   constexpr int LD = HD + 8;   // bf16 per shared row: 16 bytes of padding
   constexpr int CH = HD / 8;   // 16-byte chunks per row
@@ -400,7 +402,13 @@ flash_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   bf16* st = Qs + p0 * LD;
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
-    const float inv = 1.f / fmaxf(quad_sum(l[r]), 1e-30f);
+    const float tot = quad_sum(l[r]);
+    const float inv = 1.f / fmaxf(tot, 1e-30f);
+    // the row's log-sum-exp of the unscaled-domain scores: m is in the exp2
+    // domain (scores * scale * log2 e), so lse = (m + log2 l) * ln 2
+    const int s_row = row_lo + 8 * r;
+    if (lse != nullptr && (lane & 3) == 0 && s_row < S)
+      lse[((size_t)b * Hq + h) * S + s_row] = (m[r] + log2f(tot)) * 0.6931471805599453f;
     bf16* row = st + (lane / 4 + 8 * r) * LD + (lane & 3) * 2;
 #pragma unroll
     for (int d = 0; d < DB; ++d)
@@ -418,8 +426,8 @@ flash_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 }
 
 template <int HD>
-int launch_mma(const void* q, const void* k, const void* v, void* out, int B, int S, int Tk,
-               int Hq, int Hkv, int causal, float scale, cudaStream_t stream) {
+int launch_mma(const void* q, const void* k, const void* v, void* out, float* lse, int B, int S,
+               int Tk, int Hq, int Hkv, int causal, float scale, cudaStream_t stream) {
   // the kernel copies 16-byte rows
   if (((uintptr_t)q | (uintptr_t)k | (uintptr_t)v | (uintptr_t)out) % 16)
     return (int)cudaErrorMisalignedAddress;
@@ -430,19 +438,586 @@ int launch_mma(const void* q, const void* k, const void* v, void* out, int B, in
   const long long blocks = (long long)((S + kRows - 1) / kRows) * Hq * B;
   flash_mma_kernel<HD><<<(unsigned)blocks, 32 * kPosWarps, smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<bf16*>(out), B, S, Tk, Hq, Hkv, causal, scale * 1.4426950408889634f);
+      static_cast<bf16*>(out), lse, B, S, Tk, Hq, Hkv, causal, scale * 1.4426950408889634f);
+  return (int)cudaGetLastError();
+}
+
+// ---------------------------------------------------------------- backward
+// The port's own kernels (the reference differentiates its jnp attention and
+// has no backward Pallas kernel): f32 on the scalar kernels below, bf16 on
+// the tensor-core kernels after them.  Given the forward's output o and row
+// log-sum-exp lse (natural log of the scaled scores' exp-sum, (B, Hq, S)
+// f32), and the output's gradient dO:
+//   P[s,t]  = exp(scale q_s.k_t - lse_s)   (0 where masked: t >= T, or t > s)
+//   D_s     = dO_s . o_s
+//   dS[s,t] = P[s,t] (dO_s . v_t - D_s)
+//   dq_s = scale sum_t dS[s,t] k_t,  dk_t = scale sum_{s,h in group} dS q_s,
+//   dv_t = sum_{s,h in group} P[s,t] dO_s.
+// flash_bwd_dq_kernel runs first: one block per (query tile, query head,
+// batch row); it writes dq and D (B, Hq, S) f32 into a scratch buffer.
+// flash_bwd_dkdv_kernel then runs one block per (key tile, kv head, batch
+// row), looping over the group's query heads and the query tiles that can
+// see its keys, and writes dk and dv.  Neither uses atomics: every output
+// element is summed by one thread in a fixed order, so two runs give the
+// same bits.  Both read, compute in and store f32.
+//
+// Layout: a row (query or key) is owned by TPR consecutive lanes, lane j of
+// the group holding dims j, j + TPR, ... (EPT of them): its rows of q / dO /
+// dq (dq kernel) or k / v / dk / dv (dk/dv kernel) stay in registers.  The
+// other side's tile of 32 rows sits in shared memory as f32; all the row
+// groups of a warp read the same shared row at once (a broadcast), the TPR
+// lanes of a group consecutive words (no bank conflict).  Each (row, tile
+// row) pair takes two partial dots over the thread's dims, a butterfly sum
+// over the group's lanes (__shfl_xor_sync), one exp and two axpys.
+//
+// What bounds the scalar kernels: the products, 8 hd flops a visible
+// (query, key) pair in the dk/dv kernel and 6 in the dq kernel, on scalar
+// f32 FMAs (67 TFLOP/s); the shared-memory reads (one word a lane per FMA
+// pair) hold them at about half the FMA rate.  Measured (chip_smoke.py phase
+// 15, H100 80GB HBM3 at 700 W) when they also ran bf16: 9.30 ms of device at
+// smollm's training shape (8, 2048, 9, 3, 64), 27x SDPA's backward.
+constexpr int kBwdThreads = 128;
+constexpr int kBwdTile = 32;  // rows of the shared-memory tile
+
+template <int HD> struct BwdLayout {
+  static constexpr int TPR = HD >= 112 ? 8 : HD / 16;  // lanes per row
+  static constexpr int EPT = HD / TPR;                  // dims a lane holds
+  static constexpr int RPB = kBwdThreads / TPR;         // rows per block
+};
+
+template <int TPR> __device__ __forceinline__ float group_sum(float x) {
+#pragma unroll
+  for (int o = 1; o < TPR; o <<= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
+  return x;
+}
+
+template <int HD>
+__global__ void __launch_bounds__(kBwdThreads)
+flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                    const float* __restrict__ v, const float* __restrict__ o,
+                    const float* __restrict__ lse, const float* __restrict__ dout,
+                    float* __restrict__ dq, float* __restrict__ dsum, int S, int Tk, int Hq,
+                    int Hkv, int causal, float scale) {
+  using L = BwdLayout<HD>;
+  __shared__ float Ks[kBwdTile][HD];
+  __shared__ float Vs[kBwdTile][HD];
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int kvh = h / (Hq / Hkv);
+  const int s0 = blockIdx.x * L::RPB;
+  const int sub = threadIdx.x % L::TPR;
+  const int s = s0 + threadIdx.x / L::TPR;
+  const bool live = s < S;
+
+  float qr[L::EPT], dor[L::EPT], acc[L::EPT];
+  float dd = 0.f;
+  const size_t row = (((size_t)b * S + (live ? s : 0)) * Hq + h) * HD;
+#pragma unroll
+  for (int e = 0; e < L::EPT; ++e) {
+    const int d = sub + L::TPR * e;
+    qr[e] = live ? q[row + d] : 0.f;
+    dor[e] = live ? dout[row + d] : 0.f;
+    dd = fmaf(dor[e], live ? o[row + d] : 0.f, dd);
+    acc[e] = 0.f;
+  }
+  dd = group_sum<L::TPR>(dd);
+  const size_t srow = ((size_t)b * Hq + h) * S + (live ? s : 0);
+  const float ls = live ? lse[srow] : 0.f;
+  if (live && sub == 0) dsum[srow] = dd;
+
+  const int s_end = min(S, s0 + L::RPB);  // one past the block's last query
+  const int kv_end = causal ? min(Tk, s_end) : Tk;
+  for (int t0 = 0; t0 < kv_end; t0 += kBwdTile) {
+    __syncthreads();  // the previous tile's readers are done
+    for (int i = threadIdx.x; i < kBwdTile * HD; i += kBwdThreads) {
+      const int r = i / HD, c = i % HD, t = t0 + r;
+      float kk = 0.f, vv = 0.f;
+      if (t < Tk) {
+        const size_t off = (((size_t)b * Tk + t) * Hkv + kvh) * HD + c;
+        kk = k[off];
+        vv = v[off];
+      }
+      Ks[r][c] = kk;
+      Vs[r][c] = vv;
+    }
+    __syncthreads();
+    const int n = min(kBwdTile, kv_end - t0);
+    for (int r = 0; r < n; ++r) {
+      const int t = t0 + r;
+      float qk = 0.f, dp = 0.f;
+#pragma unroll
+      for (int e = 0; e < L::EPT; ++e) {
+        const int d = sub + L::TPR * e;
+        qk = fmaf(qr[e], Ks[r][d], qk);
+        dp = fmaf(dor[e], Vs[r][d], dp);
+      }
+      qk = group_sum<L::TPR>(qk);
+      dp = group_sum<L::TPR>(dp);
+      const bool vis = live && (!causal || t <= s);
+      const float p = vis ? expf(qk * scale - ls) : 0.f;
+      const float ds = p * (dp - dd);
+#pragma unroll
+      for (int e = 0; e < L::EPT; ++e) acc[e] = fmaf(ds, Ks[r][sub + L::TPR * e], acc[e]);
+    }
+  }
+  if (!live) return;
+#pragma unroll
+  for (int e = 0; e < L::EPT; ++e) dq[row + sub + L::TPR * e] = acc[e] * scale;
+}
+
+template <int HD>
+__global__ void __launch_bounds__(kBwdThreads)
+flash_bwd_dkdv_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                      const float* __restrict__ v, const float* __restrict__ lse,
+                      const float* __restrict__ dout, const float* __restrict__ dsum,
+                      float* __restrict__ dk, float* __restrict__ dv, int S, int Tk, int Hq,
+                      int Hkv, int causal, float scale) {
+  using L = BwdLayout<HD>;
+  __shared__ float Qs[kBwdTile][HD];
+  __shared__ float Ds[kBwdTile][HD];  // dO rows
+  __shared__ float Ls[kBwdTile], Dd[kBwdTile];
+  const int kvh = blockIdx.y, b = blockIdx.z;
+  const int group = Hq / Hkv;
+  const int t0 = blockIdx.x * L::RPB;
+  const int sub = threadIdx.x % L::TPR;
+  const int t = t0 + threadIdx.x / L::TPR;
+  const bool live = t < Tk;
+
+  float kr[L::EPT], vr[L::EPT], dka[L::EPT], dva[L::EPT];
+  const size_t row = (((size_t)b * Tk + (live ? t : 0)) * Hkv + kvh) * HD;
+#pragma unroll
+  for (int e = 0; e < L::EPT; ++e) {
+    const int d = sub + L::TPR * e;
+    kr[e] = live ? k[row + d] : 0.f;
+    vr[e] = live ? v[row + d] : 0.f;
+    dka[e] = dva[e] = 0.f;
+  }
+  // queries before the block's first key see none of its keys
+  const int q_begin = causal ? t0 / kBwdTile * kBwdTile : 0;
+  for (int j = 0; j < group; ++j) {
+    const int h = kvh * group + j;
+    for (int s0 = q_begin; s0 < S; s0 += kBwdTile) {
+      __syncthreads();  // the previous tile's readers are done
+      for (int i = threadIdx.x; i < kBwdTile * HD; i += kBwdThreads) {
+        const int r = i / HD, c = i % HD, s = s0 + r;
+        float qq = 0.f, gg = 0.f;
+        if (s < S) {
+          const size_t off = (((size_t)b * S + s) * Hq + h) * HD + c;
+          qq = q[off];
+          gg = dout[off];
+        }
+        Qs[r][c] = qq;
+        Ds[r][c] = gg;
+      }
+      if (threadIdx.x < kBwdTile) {
+        const int s = s0 + threadIdx.x;
+        const size_t srow = ((size_t)b * Hq + h) * S + s;
+        Ls[threadIdx.x] = s < S ? lse[srow] : 0.f;
+        Dd[threadIdx.x] = s < S ? dsum[srow] : 0.f;
+      }
+      __syncthreads();
+      const int n = min(kBwdTile, S - s0);
+      for (int r = 0; r < n; ++r) {
+        const int s = s0 + r;
+        float qk = 0.f, dp = 0.f;
+#pragma unroll
+        for (int e = 0; e < L::EPT; ++e) {
+          const int d = sub + L::TPR * e;
+          qk = fmaf(kr[e], Qs[r][d], qk);
+          dp = fmaf(vr[e], Ds[r][d], dp);
+        }
+        qk = group_sum<L::TPR>(qk);
+        dp = group_sum<L::TPR>(dp);
+        const bool vis = live && (!causal || t <= s);
+        const float p = vis ? expf(qk * scale - Ls[r]) : 0.f;
+        const float ds = p * (dp - Dd[r]);
+#pragma unroll
+        for (int e = 0; e < L::EPT; ++e) {
+          const int d = sub + L::TPR * e;
+          dva[e] = fmaf(p, Ds[r][d], dva[e]);
+          dka[e] = fmaf(ds, Qs[r][d], dka[e]);
+        }
+      }
+    }
+  }
+  if (!live) return;
+#pragma unroll
+  for (int e = 0; e < L::EPT; ++e) {
+    const int d = sub + L::TPR * e;
+    dk[row + d] = dka[e] * scale;
+    dv[row + d] = dva[e];
+  }
+}
+
+template <int HD>
+int launch_bwd(const void* q, const void* k, const void* v, const void* o, const float* lse,
+               const void* dout, void* dq, void* dk, void* dv, float* dsum, int B, int S,
+               int Tk, int Hq, int Hkv, int causal, float scale, cudaStream_t stream) {
+  using L = BwdLayout<HD>;
+  const float *qp = static_cast<const float*>(q), *kp = static_cast<const float*>(k),
+              *vp = static_cast<const float*>(v), *gp = static_cast<const float*>(dout);
+  const dim3 gq((S + L::RPB - 1) / L::RPB, Hq, B);
+  flash_bwd_dq_kernel<HD><<<gq, kBwdThreads, 0, stream>>>(
+      qp, kp, vp, static_cast<const float*>(o), lse, gp, static_cast<float*>(dq), dsum, S, Tk,
+      Hq, Hkv, causal, scale);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  const dim3 gk((Tk + L::RPB - 1) / L::RPB, Hkv, B);
+  flash_bwd_dkdv_kernel<HD><<<gk, kBwdThreads, 0, stream>>>(
+      qp, kp, vp, lse, gp, dsum, static_cast<float*>(dk), static_cast<float*>(dv), S, Tk, Hq,
+      Hkv, causal, scale);
+  return (int)cudaGetLastError();
+}
+
+// ------------------------------------------------ backward, bf16, tensor cores
+// The bf16 backward (the training path) on mma.sync.m16n8k16 with the
+// forward's fragment layouts, in the same two kernels' roles.  Tiles of 64
+// rows, 4 warps of 16 rows each; every operand is staged in shared memory by
+// cp.async (16-byte rows padded to HD + 8 bf16: no ldmatrix bank conflicts),
+// single-buffered.  P and dS are formed in f32 from the f32 accumulators,
+// then rounded to bf16 as the A operand of the next product (as the forward
+// rounds P for P V), so the products stay on the tensor cores:
+//   dq kernel, per warp of 16 queries and per key tile:
+//     S = Q K^T, dP = dO V^T (B: K, V rows), dS = P (dP - D), dQ += dS K
+//     (B: K rows by ldmatrix.trans); D = rowsum(dO o) of the block's rows
+//     is written to the scratch buffer for the dk/dv kernel;
+//   dk/dv kernel, per warp of 16 keys and per query tile of each head of
+//     the group: S^T = K Q^T, dP^T = V dO^T (B: Q, dO rows), dV += P^T dO,
+//     dK += dS^T Q (B: dO, Q rows by ldmatrix.trans).
+// Sums of the products run in a fixed order (no atomics): deterministic.
+// Rounding P and dS to bf16 costs accuracy: within 0.0043-0.0073 relative
+// max-abs of the f32 plain backward on bf16 inputs (the scalar kernels on the
+// same inputs: 0.0009-0.0027), held to 1e-2 as the forward is.
+//
+// What bounds it: at smollm's training shape (8, 2048, 9, 3, 64) the five
+// products of the backward are 96.7 GFLOP (0.098 ms at 989 TFLOP/s) against
+// 101 MB of inputs and outputs (0.030 ms), so the products.  Measured
+// (chip_smoke.py phase 15, H100 80GB HBM3 at 700 W): 0.7755 ms of device
+// (dk/dv 0.441, dq 0.336), 7.9x the bound and 2.3x SDPA's backward (0.3395);
+// the scalar kernels took 9.30 ms.  Registers: 164-168 for the dq kernel,
+// 165 for dk/dv at hd 64 and 248-254 at hd 112 and 128 (no spills): 3
+// blocks an SM at hd 64, 2 at hd 112 and 128; 37 KB of shared memory at hd 64.
+constexpr int kTile = 64;  // rows of every shared tile
+
+template <int HD> constexpr int bwd_mma_smem_bytes() {
+  return 4 * kTile * (HD + 8) * (int)sizeof(bf16) + 2 * kTile * (int)sizeof(float);
+}
+
+// 64 rows of a (rows, H, HD) bf16 tensor at head h, from row r0 (zeros past
+// n), into a shared tile, by cp.async
+template <int HD>
+__device__ __forceinline__ void load_tile(bf16* dst, const bf16* src, int b, int r0, int n,
+                                          int H, int h) {
+  constexpr int LD = HD + 8, CH = HD / 8;
+  for (int c = threadIdx.x; c < kTile * CH; c += 32 * kPosWarps) {
+    const int r = c / CH, ch = c % CH, t = r0 + r;
+    const bf16* g = src + (((size_t)b * n + min(t, n - 1)) * H + h) * HD + ch * 8;
+    cp_async16(dst + r * LD + ch * 8, g, t < n ? 16 : 0);
+  }
+}
+
+template <int HD>
+__global__ void __launch_bounds__(32 * kPosWarps)
+flash_bwd_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                        const bf16* __restrict__ v, const bf16* __restrict__ o,
+                        const float* __restrict__ lse, const bf16* __restrict__ dout,
+                        bf16* __restrict__ dq, float* __restrict__ dsum, int S, int Tk, int Hq,
+                        int Hkv, int causal, float scale_log2, float scale) {
+  constexpr int LD = HD + 8, CH = HD / 8, KS = HD / 16, DB = HD / 8;
+  extern __shared__ __align__(16) unsigned char smem[];
+  bf16* Qs = reinterpret_cast<bf16*>(smem);  // [64][LD] the block's queries
+  bf16* Gs = Qs + kTile * LD;                // [64][LD] their dO rows
+  bf16* Ks = Gs + kTile * LD;                // [64][LD] one key tile
+  bf16* Vs = Ks + kTile * LD;                // [64][LD]
+  float* Ls = reinterpret_cast<float*>(Vs + kTile * LD);  // lse * log2 e
+  float* Dd = Ls + kTile;                                 // rowsum(dO o)
+  const int q0 = blockIdx.x * kTile, h = blockIdx.y, b = blockIdx.z;
+  const int kvh = h / (Hq / Hkv);
+  const int lane = threadIdx.x % 32, p0 = 16 * (threadIdx.x / 32);
+
+  load_tile<HD>(Qs, q, b, q0, S, Hq, h);
+  load_tile<HD>(Gs, dout, b, q0, S, Hq, h);
+  cp_async_commit();
+  // D and the scaled lse of the warp's 16 rows
+  for (int r = 0; r < 16; ++r) {
+    const int s = q0 + p0 + r;
+    float dd = 0.f;
+    if (s < S) {
+      const size_t off = (((size_t)b * S + s) * Hq + h) * HD;
+      for (int d = lane; d < HD; d += 32)
+        dd = fmaf(__bfloat162float(dout[off + d]), __bfloat162float(o[off + d]), dd);
+    }
+#pragma unroll
+    for (int x = 16; x; x >>= 1) dd += __shfl_xor_sync(0xffffffffu, dd, x);
+    if (lane == 0) {
+      const size_t srow = ((size_t)b * Hq + h) * S + s;
+      Dd[p0 + r] = dd;
+      Ls[p0 + r] = s < S ? lse[srow] * 1.4426950408889634f : 0.f;
+      if (s < S) dsum[srow] = dd;
+    }
+  }
+  __syncwarp();
+  const int row_lo = q0 + p0 + lane / 4;  // this lane's rows: row_lo, row_lo + 8
+  const float lrow[2] = {Ls[p0 + lane / 4], Ls[p0 + lane / 4 + 8]};
+  const float drow[2] = {Dd[p0 + lane / 4], Dd[p0 + lane / 4 + 8]};
+
+  float acc[DB][4];
+#pragma unroll
+  for (int d = 0; d < DB; ++d) acc[d][0] = acc[d][1] = acc[d][2] = acc[d][3] = 0.f;
+  const int kv_end = causal ? min(Tk, min(S, q0 + kTile)) : Tk;
+  for (int k0 = 0; k0 < kv_end; k0 += kTile) {
+    __syncthreads();  // the previous tile's readers are done
+    load_tile<HD>(Ks, k, b, k0, Tk, Hkv, kvh);
+    load_tile<HD>(Vs, v, b, k0, Tk, Hkv, kvh);
+    cp_async_commit();
+    cp_async_wait<0>();
+    __syncthreads();
+    float sc[8][4], dp[8][4];
+#pragma unroll
+    for (int nb = 0; nb < 8; ++nb)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) sc[nb][e] = dp[nb][e] = 0.f;
+#pragma unroll
+    for (int ks = 0; ks < KS; ++ks) {
+      uint32_t a[4], g[4];
+      ldsm_x4(a, Qs + (p0 + (lane & 15)) * LD + ks * 16 + (lane >> 4) * 8);
+      ldsm_x4(g, Gs + (p0 + (lane & 15)) * LD + ks * 16 + (lane >> 4) * 8);
+#pragma unroll
+      for (int np = 0; np < 4; ++np) {
+        const int off = (np * 16 + (lane & 7) + (lane >> 4) * 8) * LD + ks * 16 +
+                        ((lane >> 3) & 1) * 8;
+        uint32_t kb[4], vb[4];
+        ldsm_x4(kb, Ks + off);
+        ldsm_x4(vb, Vs + off);
+        mma_bf16(sc[2 * np], a, kb[0], kb[1]);
+        mma_bf16(sc[2 * np + 1], a, kb[2], kb[3]);
+        mma_bf16(dp[2 * np], g, vb[0], vb[1]);
+        mma_bf16(dp[2 * np + 1], g, vb[2], vb[3]);
+      }
+    }
+    const bool masked = k0 + kTile > Tk || (causal && k0 + kTile - 1 > q0 + p0);
+    uint32_t da[4][4];  // dS as the A operand of key steps 0..3
+#pragma unroll
+    for (int nb = 0; nb < 8; ++nb) {
+      float ds[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = e >> 1;
+        float p = exp2f(sc[nb][e] * scale_log2 - lrow[r]);
+        if (masked) {
+          const int t = k0 + nb * 8 + (lane & 3) * 2 + (e & 1);
+          if (t >= Tk || (causal && t > row_lo + 8 * r)) p = 0.f;
+        }
+        ds[e] = p * (dp[nb][e] - drow[r]);
+      }
+      da[nb / 2][(nb & 1) * 2] = pack_bf16(ds[0], ds[1]);
+      da[nb / 2][(nb & 1) * 2 + 1] = pack_bf16(ds[2], ds[3]);
+    }
+#pragma unroll
+    for (int ks = 0; ks < 4; ++ks) {
+#pragma unroll
+      for (int dj = 0; dj < DB / 2; ++dj) {
+        uint32_t kb[4];
+        ldsm_x4_trans(kb, Ks + (ks * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * LD + dj * 16 +
+                              (lane >> 4) * 8);
+        mma_bf16(acc[2 * dj], da[ks], kb[0], kb[1]);
+        mma_bf16(acc[2 * dj + 1], da[ks], kb[2], kb[3]);
+      }
+    }
+  }
+
+  // dq = scale * acc, staged through the warp's own Q rows, 16-byte stores
+  __syncwarp();
+  bf16* st = Qs + p0 * LD;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    bf16* row = st + (lane / 4 + 8 * r) * LD + (lane & 3) * 2;
+#pragma unroll
+    for (int d = 0; d < DB; ++d)
+      *reinterpret_cast<uint32_t*>(row + d * 8) =
+          pack_bf16(acc[d][2 * r] * scale, acc[d][2 * r + 1] * scale);
+  }
+  __syncwarp();
+  for (int c = lane; c < 16 * CH; c += 32) {
+    const int r = c / CH, ch = c % CH, s = q0 + p0 + r;
+    if (s < S)
+      *reinterpret_cast<uint4*>(dq + (((size_t)b * S + s) * Hq + h) * HD + ch * 8) =
+          *reinterpret_cast<const uint4*>(st + r * LD + ch * 8);
+  }
+}
+
+template <int HD>
+__global__ void __launch_bounds__(32 * kPosWarps)
+flash_bwd_dkdv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                          const bf16* __restrict__ v, const float* __restrict__ lse,
+                          const bf16* __restrict__ dout, const float* __restrict__ dsum,
+                          bf16* __restrict__ dk, bf16* __restrict__ dv, int S, int Tk, int Hq,
+                          int Hkv, int causal, float scale_log2, float scale) {
+  constexpr int LD = HD + 8, CH = HD / 8, KS = HD / 16, DB = HD / 8;
+  extern __shared__ __align__(16) unsigned char smem[];
+  bf16* Ks = reinterpret_cast<bf16*>(smem);  // [64][LD] the block's keys
+  bf16* Vs = Ks + kTile * LD;                // [64][LD] their values
+  bf16* Qs = Vs + kTile * LD;                // [64][LD] one query tile
+  bf16* Gs = Qs + kTile * LD;                // [64][LD] its dO rows
+  float* Ls = reinterpret_cast<float*>(Gs + kTile * LD);  // lse * log2 e
+  float* Dd = Ls + kTile;                                 // rowsum(dO o)
+  const int t0 = blockIdx.x * kTile, kvh = blockIdx.y, b = blockIdx.z;
+  const int group = Hq / Hkv;
+  const int lane = threadIdx.x % 32, p0 = 16 * (threadIdx.x / 32);
+  const int w0 = t0 + p0;  // the warp's first key
+  const int t_lo = w0 + lane / 4;  // this lane's keys: t_lo, t_lo + 8
+
+  load_tile<HD>(Ks, k, b, t0, Tk, Hkv, kvh);
+  load_tile<HD>(Vs, v, b, t0, Tk, Hkv, kvh);
+  cp_async_commit();
+  float dka[DB][4], dva[DB][4];
+#pragma unroll
+  for (int d = 0; d < DB; ++d)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dka[d][e] = dva[d][e] = 0.f;
+  // queries before the block's first key see none of its keys
+  const int q_begin = causal ? t0 : 0;
+  for (int j = 0; j < group; ++j) {
+    const int h = kvh * group + j;
+    for (int s0 = q_begin; s0 < S; s0 += kTile) {
+      __syncthreads();  // the previous tile's readers are done
+      load_tile<HD>(Qs, q, b, s0, S, Hq, h);
+      load_tile<HD>(Gs, dout, b, s0, S, Hq, h);
+      cp_async_commit();
+      for (int i = threadIdx.x; i < kTile; i += 32 * kPosWarps) {
+        const int s = s0 + i;
+        const size_t srow = ((size_t)b * Hq + h) * S + s;
+        Ls[i] = s < S ? lse[srow] * 1.4426950408889634f : 0.f;
+        Dd[i] = s < S ? dsum[srow] : 0.f;
+      }
+      cp_async_wait<0>();
+      __syncthreads();
+      float st[8][4], dpt[8][4];  // S^T and dP^T: the warp's 16 keys x 64 queries
+#pragma unroll
+      for (int nb = 0; nb < 8; ++nb)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) st[nb][e] = dpt[nb][e] = 0.f;
+#pragma unroll
+      for (int ks = 0; ks < KS; ++ks) {
+        uint32_t a[4], w[4];
+        ldsm_x4(a, Ks + (p0 + (lane & 15)) * LD + ks * 16 + (lane >> 4) * 8);
+        ldsm_x4(w, Vs + (p0 + (lane & 15)) * LD + ks * 16 + (lane >> 4) * 8);
+#pragma unroll
+        for (int np = 0; np < 4; ++np) {
+          const int off = (np * 16 + (lane & 7) + (lane >> 4) * 8) * LD + ks * 16 +
+                          ((lane >> 3) & 1) * 8;
+          uint32_t qb[4], gb[4];
+          ldsm_x4(qb, Qs + off);
+          ldsm_x4(gb, Gs + off);
+          mma_bf16(st[2 * np], a, qb[0], qb[1]);
+          mma_bf16(st[2 * np + 1], a, qb[2], qb[3]);
+          mma_bf16(dpt[2 * np], w, gb[0], gb[1]);
+          mma_bf16(dpt[2 * np + 1], w, gb[2], gb[3]);
+        }
+      }
+      const bool masked = s0 + kTile > S || w0 + 16 > Tk || (causal && s0 < w0 + 16);
+      uint32_t pa[4][4], da[4][4];  // P^T and dS^T as A operands of query steps 0..3
+#pragma unroll
+      for (int nb = 0; nb < 8; ++nb) {
+        float p[4], ds[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int col = nb * 8 + (lane & 3) * 2 + (e & 1);
+          p[e] = exp2f(st[nb][e] * scale_log2 - Ls[col]);
+          if (masked) {
+            const int s = s0 + col, t = t_lo + (e >> 1) * 8;
+            if (s >= S || t >= Tk || (causal && t > s)) p[e] = 0.f;
+          }
+          ds[e] = p[e] * (dpt[nb][e] - Dd[col]);
+        }
+        pa[nb / 2][(nb & 1) * 2] = pack_bf16(p[0], p[1]);
+        pa[nb / 2][(nb & 1) * 2 + 1] = pack_bf16(p[2], p[3]);
+        da[nb / 2][(nb & 1) * 2] = pack_bf16(ds[0], ds[1]);
+        da[nb / 2][(nb & 1) * 2 + 1] = pack_bf16(ds[2], ds[3]);
+      }
+#pragma unroll
+      for (int ks = 0; ks < 4; ++ks) {
+#pragma unroll
+        for (int dj = 0; dj < DB / 2; ++dj) {
+          const int off = (ks * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * LD + dj * 16 +
+                          (lane >> 4) * 8;
+          uint32_t gb[4], qb[4];
+          ldsm_x4_trans(gb, Gs + off);
+          ldsm_x4_trans(qb, Qs + off);
+          mma_bf16(dva[2 * dj], pa[ks], gb[0], gb[1]);
+          mma_bf16(dva[2 * dj + 1], pa[ks], gb[2], gb[3]);
+          mma_bf16(dka[2 * dj], da[ks], qb[0], qb[1]);
+          mma_bf16(dka[2 * dj + 1], da[ks], qb[2], qb[3]);
+        }
+      }
+    }
+  }
+  cp_async_wait<0>();  // the K/V copies, where no query tile ran
+  __syncthreads();
+
+  // dk = scale * dka and dv, staged through the warp's own K and V rows
+  bf16* sk = Ks + p0 * LD;
+  bf16* sv = Vs + p0 * LD;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int ro = (lane / 4 + 8 * r) * LD + (lane & 3) * 2;
+#pragma unroll
+    for (int d = 0; d < DB; ++d) {
+      *reinterpret_cast<uint32_t*>(sk + ro + d * 8) =
+          pack_bf16(dka[d][2 * r] * scale, dka[d][2 * r + 1] * scale);
+      *reinterpret_cast<uint32_t*>(sv + ro + d * 8) = pack_bf16(dva[d][2 * r], dva[d][2 * r + 1]);
+    }
+  }
+  __syncwarp();
+  for (int c = lane; c < 16 * CH; c += 32) {
+    const int r = c / CH, ch = c % CH, t = w0 + r;
+    if (t < Tk) {
+      const size_t off = (((size_t)b * Tk + t) * Hkv + kvh) * HD + ch * 8;
+      *reinterpret_cast<uint4*>(dk + off) = *reinterpret_cast<const uint4*>(sk + r * LD + ch * 8);
+      *reinterpret_cast<uint4*>(dv + off) = *reinterpret_cast<const uint4*>(sv + r * LD + ch * 8);
+    }
+  }
+}
+
+template <int HD>
+int launch_bwd_mma(const void* q, const void* k, const void* v, const void* o, const float* lse,
+                   const void* dout, void* dq, void* dk, void* dv, float* dsum, int B, int S,
+                   int Tk, int Hq, int Hkv, int causal, float scale, cudaStream_t stream) {
+  // the kernels copy 16-byte rows
+  if (((uintptr_t)q | (uintptr_t)k | (uintptr_t)v | (uintptr_t)o | (uintptr_t)dout |
+       (uintptr_t)dq | (uintptr_t)dk | (uintptr_t)dv) % 16)
+    return (int)cudaErrorMisalignedAddress;
+  constexpr int smem = bwd_mma_smem_bytes<HD>();
+  static const cudaError_t attr_dq = cudaFuncSetAttribute(
+      flash_bwd_dq_mma_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  static const cudaError_t attr_dkdv = cudaFuncSetAttribute(
+      flash_bwd_dkdv_mma_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (attr_dq != cudaSuccess) return (int)attr_dq;
+  if (attr_dkdv != cudaSuccess) return (int)attr_dkdv;
+  const bf16 *qp = static_cast<const bf16*>(q), *kp = static_cast<const bf16*>(k),
+             *vp = static_cast<const bf16*>(v), *gp = static_cast<const bf16*>(dout);
+  const float scale_log2 = scale * 1.4426950408889634f;
+  const dim3 gq((S + kTile - 1) / kTile, Hq, B);
+  flash_bwd_dq_mma_kernel<HD><<<gq, 32 * kPosWarps, smem, stream>>>(
+      qp, kp, vp, static_cast<const bf16*>(o), lse, gp, static_cast<bf16*>(dq), dsum, S, Tk,
+      Hq, Hkv, causal, scale_log2, scale);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  const dim3 gk((Tk + kTile - 1) / kTile, Hkv, B);
+  flash_bwd_dkdv_mma_kernel<HD><<<gk, 32 * kPosWarps, smem, stream>>>(
+      qp, kp, vp, lse, gp, dsum, static_cast<bf16*>(dk), static_cast<bf16*>(dv), S, Tk, Hq,
+      Hkv, causal, scale_log2, scale);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // q (B,S,Hq,HD), k/v (B,Tk,Hkv,HD), out (B,S,Hq,HD); one dtype for all four;
-// bf16 pointers 16-byte aligned
+// bf16 pointers 16-byte aligned; lse (B,Hq,S) f32, or null to write none
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, void* out,
-                                   int B, int S, int Tk, int Hq, int Hkv, int HD,
+                                   float* lse, int B, int S, int Tk, int Hq, int Hkv, int HD,
                                    int causal, float scale, int is_bf16, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define FLASH_ARGS q, k, v, out, B, S, Tk, Hq, Hkv, causal, scale, s
+#define FLASH_ARGS q, k, v, out, lse, B, S, Tk, Hq, Hkv, causal, scale, s
   switch (HD) {
     case 16: return is_bf16 ? launch_mma<16>(FLASH_ARGS) : launch_scalar<16>(FLASH_ARGS);
     case 32: return is_bf16 ? launch_mma<32>(FLASH_ARGS) : launch_scalar<32>(FLASH_ARGS);
@@ -452,4 +1027,29 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, 
     default: return (int)cudaErrorInvalidValue;
   }
 #undef FLASH_ARGS
+}
+
+// The backward: q, o, dout, dq (B,S,Hq,HD), k, v, dk, dv (B,Tk,Hkv,HD) in one
+// dtype; lse and the scratch dsum (B,Hq,S) f32.  Two launches: dq (which
+// writes dsum), then dk/dv.
+extern "C" int flash_attention_bwd(const void* q, const void* k, const void* v, const void* o,
+                                   const float* lse, const void* dout, void* dq, void* dk,
+                                   void* dv, float* dsum, int B, int S, int Tk, int Hq,
+                                   int Hkv, int HD, int causal, float scale, int is_bf16,
+                                   void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define BWD_ARGS q, k, v, o, lse, dout, dq, dk, dv, dsum, B, S, Tk, Hq, Hkv, causal, scale, st
+#define BWD_CASE(HD_)                                                            \
+  case HD_:                                                                      \
+    return is_bf16 ? launch_bwd_mma<HD_>(BWD_ARGS) : launch_bwd<HD_>(BWD_ARGS);
+  switch (HD) {
+    BWD_CASE(16)
+    BWD_CASE(32)
+    BWD_CASE(64)
+    BWD_CASE(112)
+    BWD_CASE(128)
+    default: return (int)cudaErrorInvalidValue;
+  }
+#undef BWD_CASE
+#undef BWD_ARGS
 }

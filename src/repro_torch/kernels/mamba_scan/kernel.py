@@ -6,8 +6,12 @@ For CUDA tensors :func:`selective_scan` checks device, dtype, shape and
 layout, allocates its outputs, launches on the current stream, raises if the
 launch reports an error, and adds one to ``LAUNCHES["selective_scan"]``.
 For CPU tensors it returns the plain version (``ref.py``); there is no
-fallback from the card to the CPU.  The library is built at first use
-(``kernels/nvcc.py``); nothing is built or loaded on import.
+fallback from the card to the CPU.  The kernel has no backward yet
+(ROADMAP A7): a CUDA call that autograd would record raises
+``NotImplementedError`` rather than return an output that silently cuts the
+gradient; the CPU's plain version stays differentiable.  The library is
+built at first use (``kernels/nvcc.py``); nothing is built or loaded on
+import.
 """
 
 from __future__ import annotations
@@ -29,6 +33,8 @@ MAX_STATE = 16  # the kernel keeps up to 16 states per channel in registers
 _DTYPES = (torch.float32, torch.bfloat16)
 _BF16 = torch.bfloat16
 _FWD = None  # the C entry point, resolved once, at the first launch
+SCAN_NO_BACKWARD = ("the selective scan kernel has no backward yet (ROADMAP A7): "
+                    "training an ssm model on the card waits for it")
 
 
 def reset_launches() -> None:
@@ -107,6 +113,10 @@ def selective_scan(dt, a_log, b_ssm, c_ssm, x, d_skip, *, dt_bias=None, z=None):
         raise ValueError(f"state size {n} outside [1, {MAX_STATE}]")
     if not dt.is_cuda:
         return selective_scan_ref(dt, a_log, b_ssm, c_ssm, x, d_skip, dt_bias=dt_bias, z=z)
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad
+            for t in (dt, a_log, b_ssm, c_ssm, x, d_skip, dt_bias, z)):
+        raise NotImplementedError(SCAN_NO_BACKWARD)
     y = torch.empty_like(dt)
     if bsz * s * di == 0:
         return y, torch.zeros((bsz, di, n), dtype=torch.float32, device=dev)

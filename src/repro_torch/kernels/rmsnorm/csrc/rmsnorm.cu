@@ -210,6 +210,131 @@ int launch(const void* xv, const void* wv, void* outv, int R, int D, float eps,
   return (int)cudaGetLastError();
 }
 
+// ---------------------------------------------------------------- backward
+// The port's own kernels (the reference differentiates its jnp RMSNorm and
+// has no backward Pallas kernel).  With r = rsqrt(mean(x^2) + eps),
+// xhat = x r and g = dy w per row:
+//   dx = r (g - xhat mean(g xhat)),   dw = sum over rows of dy xhat,
+// in f32, dx stored in x's dtype and dw in w's.  rmsnorm_bwd_kernel gives
+// each of kBwdBlocks blocks a contiguous run of rows; the block's threads
+// share a row, thread i holding columns i, i + 256, ... (at most
+// kBwdMaxCols of them, so D <= 8192), and two block-wide sums per row give
+// mean(x^2) and mean(g xhat).  Each thread sums its columns' dy xhat over
+// the block's rows in registers and writes them as the block's partial row
+// of dw (kBwdBlocks x D f32); rmsnorm_dw_kernel then sums the partials of
+// each column in block order.  No atomics: two runs give the same bits.
+//
+// What bounds it: bytes (x and dy read once, dx written once: 3 R D
+// elements; the partials are 256 D f32), a few flops an element.  The
+// block-wide sums per row cost two barriers; at 16,384 rows that is 64
+// rows a block.
+constexpr int kBwdBlocks = 256;
+constexpr int kBwdMaxCols = 32;  // columns a thread holds (D <= 8192)
+
+__device__ __forceinline__ float2 block_sum2(float a, float b, float2* scratch) {
+  a = warp_sum(a);
+  b = warp_sum(b);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  if (lane == 0) scratch[warp] = make_float2(a, b);
+  __syncthreads();
+  float2 t = make_float2(0.f, 0.f);
+#pragma unroll
+  for (int i = 0; i < kThreads / 32; ++i) {
+    t.x += scratch[i].x;
+    t.y += scratch[i].y;
+  }
+  __syncthreads();  // scratch is written again for the next row
+  return t;
+}
+
+template <typename T, typename W, int CPT>
+__global__ void __launch_bounds__(kThreads)
+rmsnorm_bwd_kernel(const T* __restrict__ x, const W* __restrict__ w, const T* __restrict__ dy,
+                   T* __restrict__ dx, float* __restrict__ partial, int R, int D, float eps) {
+  __shared__ float2 scratch[kThreads / 32];
+  const long long r0 = (long long)R * blockIdx.x / gridDim.x;
+  const long long r1 = (long long)R * (blockIdx.x + 1) / gridDim.x;
+  float wc[CPT], dw[CPT];
+#pragma unroll
+  for (int j = 0; j < CPT; ++j) {
+    const int c = threadIdx.x + j * kThreads;
+    wc[j] = c < D ? model::to_f(w[c]) : 0.f;
+    dw[j] = 0.f;
+  }
+  for (long long row = r0; row < r1; ++row) {
+    const T* xr = x + (size_t)row * D;
+    const T* gr = dy + (size_t)row * D;
+    float xv[CPT], gv[CPT];
+    float ss = 0.f, gx = 0.f;
+#pragma unroll
+    for (int j = 0; j < CPT; ++j) {
+      const int c = threadIdx.x + j * kThreads;
+      xv[j] = c < D ? model::to_f(xr[c]) : 0.f;
+      gv[j] = c < D ? model::to_f(gr[c]) : 0.f;
+      ss = fmaf(xv[j], xv[j], ss);
+      gx = fmaf(gv[j] * wc[j], xv[j], gx);  // sum of g x; mean(g xhat) = r gx / D
+    }
+    const float2 t = block_sum2(ss, gx, scratch);
+    const float r = rsqrtf(t.x / (float)D + eps);
+    const float c_mean = r * t.y / (float)D;  // mean(g xhat)
+    T* dr = dx + (size_t)row * D;
+#pragma unroll
+    for (int j = 0; j < CPT; ++j) {
+      const int c = threadIdx.x + j * kThreads;
+      if (c < D) {
+        const float xh = xv[j] * r;
+        dr[c] = model::from_f<T>(r * (gv[j] * wc[j] - xh * c_mean));
+        dw[j] = fmaf(gv[j], xh, dw[j]);
+      }
+    }
+  }
+  float* pr = partial + (size_t)blockIdx.x * D;
+#pragma unroll
+  for (int j = 0; j < CPT; ++j) {
+    const int c = threadIdx.x + j * kThreads;
+    if (c < D) pr[c] = dw[j];
+  }
+}
+
+template <typename W>
+__global__ void __launch_bounds__(kThreads)
+rmsnorm_dw_kernel(const float* __restrict__ partial, W* __restrict__ dw, int blocks, int D) {
+  const int c = blockIdx.x * kThreads + threadIdx.x;
+  if (c >= D) return;
+  float acc = 0.f;
+  for (int i = 0; i < blocks; ++i) acc += partial[(size_t)i * D + c];
+  dw[c] = model::from_f<W>(acc);
+}
+
+template <typename T, typename W, int CPT>
+int launch_bwd_cols(const void* x, const void* w, const void* dy, void* dx, void* dw,
+                    float* partial, int R, int D, float eps, cudaStream_t stream) {
+  const int blocks = R < kBwdBlocks ? R : kBwdBlocks;
+  rmsnorm_bwd_kernel<T, W, CPT><<<blocks, kThreads, 0, stream>>>(
+      static_cast<const T*>(x), static_cast<const W*>(w), static_cast<const T*>(dy),
+      static_cast<T*>(dx), partial, R, D, eps);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  rmsnorm_dw_kernel<W><<<(D + kThreads - 1) / kThreads, kThreads, 0, stream>>>(
+      partial, static_cast<W*>(dw), blocks, D);
+  return (int)cudaGetLastError();
+}
+
+template <typename T, typename W>
+int launch_bwd(const void* x, const void* w, const void* dy, void* dx, void* dw,
+               float* partial, int R, int D, float eps, cudaStream_t stream) {
+  const int cols = (D + kThreads - 1) / kThreads;
+#define BWD_ARGS x, w, dy, dx, dw, partial, R, D, eps, stream
+  if (cols <= 1) return launch_bwd_cols<T, W, 1>(BWD_ARGS);
+  if (cols <= 2) return launch_bwd_cols<T, W, 2>(BWD_ARGS);
+  if (cols <= 4) return launch_bwd_cols<T, W, 4>(BWD_ARGS);
+  if (cols <= 8) return launch_bwd_cols<T, W, 8>(BWD_ARGS);
+  if (cols <= 16) return launch_bwd_cols<T, W, 16>(BWD_ARGS);
+  if (cols <= kBwdMaxCols) return launch_bwd_cols<T, W, kBwdMaxCols>(BWD_ARGS);
+#undef BWD_ARGS
+  return (int)cudaErrorInvalidValue;
+}
+
 }  // namespace
 
 extern "C" int rmsnorm_fwd(const void* x, const void* w, void* out, int R, int D,
@@ -219,4 +344,17 @@ extern "C" int rmsnorm_fwd(const void* x, const void* w, void* out, int R, int D
   if (x_bf16) return launch<__nv_bfloat16, float>(x, w, out, R, D, eps, s);
   if (w_bf16) return launch<float, __nv_bfloat16>(x, w, out, R, D, eps, s);
   return launch<float, float>(x, w, out, R, D, eps, s);
+}
+
+// The backward: x, dy, dx (R, D) in x's dtype; w, dw (D,) in w's; partial
+// (min(R, 256), D) f32 scratch.  Two launches: dx and the partials, then dw.
+extern "C" int rmsnorm_bwd(const void* x, const void* w, const void* dy, void* dx, void* dw,
+                           float* partial, int R, int D, int x_bf16, int w_bf16, float eps,
+                           void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  typedef __nv_bfloat16 bf;
+  if (x_bf16 && w_bf16) return launch_bwd<bf, bf>(x, w, dy, dx, dw, partial, R, D, eps, s);
+  if (x_bf16) return launch_bwd<bf, float>(x, w, dy, dx, dw, partial, R, D, eps, s);
+  if (w_bf16) return launch_bwd<float, bf>(x, w, dy, dx, dw, partial, R, D, eps, s);
+  return launch_bwd<float, float>(x, w, dy, dx, dw, partial, R, D, eps, s);
 }

@@ -1,13 +1,14 @@
-"""Step functions the serving launcher runs (counterpart of the JAX
-package's ``launch/steps.py``), plain functions over the port's model:
+"""Step functions the launchers run (counterpart of the JAX package's
+``launch/steps.py``), plain functions over the port's model:
 
+  train_step(params, opt_state, batch) -> (params, opt_state, metrics)
   prefill_step(params, batch)        -> (last_logits, cache)
   serve_step(params, cache, batch)   -> ({"logits", "next_token"}, cache)
   quantum_step(params, cache, tok)   -> ({"tokens", "next_token"}, cache)
 
 ``window`` (a keyword, as the reference's launcher passes it) > 0 makes the
-decode steps rolling-window steps (the model's ``decode_step(window=)``).  PyTorch runs eagerly, so nothing is traced or
-compiled.  ``make_train_step`` waits for the training slice.
+decode steps rolling-window steps (the model's ``decode_step(window=)``).
+PyTorch runs eagerly, so nothing is traced or compiled.
 """
 
 from __future__ import annotations
@@ -15,7 +16,27 @@ from __future__ import annotations
 import torch
 
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.model import decode_step, prefill
+from repro_torch.models.model import decode_step, loss_fn, prefill
+from repro_torch.optim.adamw import AdamWConfig, adamw_update
+from repro_torch.tree import tree_flatten, tree_unflatten
+
+
+def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig, backend: str = "kernel"):
+    """One training step: the loss and every parameter's gradient
+    (``torch.autograd.grad``; a leaf the loss does not read gets zeros, as
+    ``jax.grad`` gives), then :func:`adamw_update`.  ``batch`` holds tensors
+    on the parameters' device; ``metrics`` are 0-d tensors: ``loss``,
+    ``grad_norm`` and ``lr``.  The given params and state are not changed."""
+
+    def train_step(params, opt_state, batch):
+        leaves = [p.detach().requires_grad_(True) for p in tree_flatten(params)]
+        loss = loss_fn(tree_unflatten(params, leaves), cfg, batch, backend=backend)
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True, materialize_grads=True)
+        new_params, new_opt, metrics = adamw_update(
+            params, tree_unflatten(params, list(grads)), opt_state, opt_cfg)
+        return new_params, new_opt, dict(metrics, loss=loss.detach())
+
+    return train_step
 
 
 def make_prefill_step(cfg: ModelConfig, max_len: int, backend: str = "kernel"):

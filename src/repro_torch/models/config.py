@@ -4,11 +4,13 @@ The fields that change the math, for every family of the reference, so a
 copied configuration reads the same in both packages.  ``moe_groups`` is one
 of them: the reference calls it a dispatch layout, but its grouped dispatch
 gives each group its own expert capacity, so it changes which assignments
-are dropped.  The reference's sharding and scheduling levers (activation
+are dropped.  ``remat`` (rematerialise each block in the backward:
+``"none"`` or ``"nothing_saveable"``) and ``loss_chunk`` (the loss's
+head and cross-entropy per sequence chunk) shape training as the
+reference's do.  The reference's sharding and scheduling levers (activation
 sharding, the MoE capacity buffer's sharding anchor, context-parallel
-attention, sequence-parallel residual, chunked loss and attention) mean
-nothing on one card and are not carried; ``remat`` stays as an inert field
-because the copied smoke configurations set it.
+attention, sequence-parallel residual, chunked attention) mean nothing on
+one card and are not carried.
 """
 
 from __future__ import annotations
@@ -67,7 +69,8 @@ class ModelConfig:
 
     # numerics
     dtype: str = "bfloat16"
-    remat: str = "nothing_saveable"  # inert on one card (no autodiff here yet)
+    remat: str = "nothing_saveable"  # none | nothing_saveable (dots_saveable: ROADMAP A8)
+    loss_chunk: int = 0  # sequence-chunked CE loss (0 = off): the head and CE per chunk
 
     def hd(self) -> int:
         return self.head_dim or self.d_model // self.n_heads

@@ -20,6 +20,7 @@ reference's scan over that axis is a Python loop here, each layer reading
 views ``leaf[i]``.  Entry points:
 
   forward(params, cfg, batch)                         -> (logits, aux)
+  loss_fn(params, cfg, batch)                         -> scalar loss
   init_cache(cfg, batch, max_len, window=0)           -> cache dict
   prefill(params, cfg, batch, max_len)                -> (last_logits, cache)
   decode_step(params, cfg, cache, batch, window=0)    -> (logits, cache)
@@ -29,7 +30,9 @@ selective scan through the hand-written kernels (their plain versions for
 CPU tensors); ``backend="ref"`` runs the plain versions wherever the tensors
 lie, for a replay on the card.  Caches are updated in place.  ``forward``'s
 aux is the MoE load-balance loss summed over the layers (zero for the other
-families).
+families).  ``forward`` and ``loss_fn`` run the blocks through ``_trunk``;
+under autograd the kernels' Functions give the RMSNorm and flash calls
+backward kernels on the card, and ``cfg.remat`` rematerialises each block.
 
 Rolling window (``window > 0``, zamba2's ``long_500k``): ``init_cache``
 makes attention caches ``window`` wide, and ``decode_step`` treats every
@@ -47,6 +50,7 @@ from typing import Any, Dict, Tuple
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (
@@ -339,42 +343,134 @@ def _img_embeds(cfg, batch):
     return batch["image_embeddings"].to(cfg.act_dtype())
 
 
+def _remat(cfg: ModelConfig, fn):
+    """``fn`` under the configuration's rematerialisation, as the
+    reference's ``_remat`` wraps its scan bodies: ``"none"`` keeps every
+    activation for the backward; ``"nothing_saveable"`` keeps a block's
+    inputs only and recomputes the block in the backward
+    (``torch.utils.checkpoint``, non-reentrant), where autograd records."""
+    if cfg.remat == "none":
+        return fn
+    if cfg.remat == "dots_saveable":
+        raise NotImplementedError("remat='dots_saveable' (keep the matmul outputs) is not "
+                                  "ported: it comes with the launch tooling, ROADMAP A8")
+    if cfg.remat != "nothing_saveable":
+        raise ValueError(f"unknown remat {cfg.remat!r}")
+
+    def remat(*args):
+        if not torch.is_grad_enabled():
+            return fn(*args)
+        return checkpoint(fn, *args, use_reentrant=False, preserve_rng_state=False)
+
+    return remat
+
+
+def _trunk(params: Params, cfg: ModelConfig, batch, backend: str = "kernel"
+           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Every block before the head (the reference's ``_trunk``), each block
+    (a vlm or hybrid group, a hybrid tail layer) under ``_remat``.  Returns
+    (h, aux): the hidden states and the MoE load-balance loss summed over
+    the layers (zero for the other families)."""
+    _check_family(cfg)
+    h = _embed(params, cfg, batch)
+    positions = torch.arange(h.shape[1], device=h.device)
+    aux = torch.zeros((), dtype=torch.float32, device=h.device)
+    if cfg.family == "vlm":
+        img = _img_embeds(cfg, batch)
+        groups, per = _groups(cfg)
+
+        def group_body(h, g):
+            for j in range(per):
+                h, _, _ = _self_block(h, _layer(params["self_blocks"], (g, j)), cfg, positions,
+                                      backend=backend)
+            return _cross_block(h, _layer(params["cross_blocks"], g), cfg, positions, img,
+                                backend)
+
+        body = _remat(cfg, group_body)
+        for g in range(groups):
+            h = body(h, g)
+    elif cfg.family == "hybrid":
+        groups, tail = _hybrid_groups(cfg)
+
+        def group_body(h, g):
+            for j in range(cfg.attn_every):
+                h, _ = _mamba_layer(h, _layer(params["mamba_groups"], (g, j)), cfg,
+                                    backend=backend)
+            return _self_block(h, params["shared_attn"], cfg, positions, backend=backend)[0]
+
+        def tail_body(h, i):
+            return _mamba_layer(h, _layer(params["mamba_tail"], i), cfg, backend=backend)[0]
+
+        body, tail_fn = _remat(cfg, group_body), _remat(cfg, tail_body)
+        for g in range(groups):
+            h = body(h, g)
+        for i in range(tail):
+            h = tail_fn(h, i)
+    elif cfg.family in _ATTN:
+
+        def block_body(h, i):
+            h, _, a = _self_block(h, _layer(params["blocks"], i), cfg, positions,
+                                  backend=backend)
+            return h, a
+
+        body = _remat(cfg, block_body)
+        for i in range(cfg.n_layers):
+            h, a = body(h, i)
+            if a is not None:
+                aux = aux + a
+    else:
+
+        def mamba_body(h, i):
+            return _mamba_layer(h, _layer(params["blocks"], i), cfg, backend=backend)[0]
+
+        body = _remat(cfg, mamba_body)
+        for i in range(cfg.n_layers):
+            h = body(h, i)
+    return h, aux
+
+
 def forward(params: Params, cfg: ModelConfig, batch, backend: str = "kernel"
             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Full-sequence causal forward.  batch: {tokens (B, S)} or {embeddings
     (B, S, D)}, plus image_embeddings (B, T, D) for the vlm.  Returns
     (logits, aux)."""
-    _check_family(cfg)
-    h = _embed(params, cfg, batch)
-    positions = torch.arange(h.shape[1], device=h.device)
-    aux = torch.zeros((), dtype=torch.float32, device=h.device)  # summed over MoE layers
-    if cfg.family == "vlm":
-        img = _img_embeds(cfg, batch)
-        groups, per = _groups(cfg)
-        for g in range(groups):
-            for j in range(per):
-                h, _, _ = _self_block(h, _layer(params["self_blocks"], (g, j)), cfg, positions,
-                                      backend=backend)
-            h = _cross_block(h, _layer(params["cross_blocks"], g), cfg, positions, img, backend)
-    elif cfg.family == "hybrid":
-        groups, tail = _hybrid_groups(cfg)
-        for g in range(groups):
-            for j in range(cfg.attn_every):
-                h, _ = _mamba_layer(h, _layer(params["mamba_groups"], (g, j)), cfg,
-                                    backend=backend)
-            h, _, _ = _self_block(h, params["shared_attn"], cfg, positions, backend=backend)
-        for i in range(tail):
-            h, _ = _mamba_layer(h, _layer(params["mamba_tail"], i), cfg, backend=backend)
-    else:
-        for i in range(cfg.n_layers):
-            bp = _layer(params["blocks"], i)
-            if cfg.family in _ATTN:
-                h, _, a = _self_block(h, bp, cfg, positions, backend=backend)
-                if a is not None:
-                    aux = aux + a
-            else:
-                h, _ = _mamba_layer(h, bp, cfg, backend=backend)
+    h, aux = _trunk(params, cfg, batch, backend)
     return _logits(params, cfg, h, backend), aux
+
+
+def _ce_terms(logits, labels):
+    """(summed token NLL, token count) in f32 over the labels >= 0 (a
+    negative label is masked out; its index wraps as the reference's
+    ``take_along_axis`` does, and the mask zeroes it)."""
+    lf = logits.float()
+    logz = torch.logsumexp(lf, dim=-1)
+    idx = labels.long().remainder(lf.shape[-1])
+    gold = torch.gather(lf, -1, idx[..., None])[..., 0]
+    mask = (labels >= 0).float()
+    return torch.sum((logz - gold) * mask), torch.sum(mask)
+
+
+def loss_fn(params: Params, cfg: ModelConfig, batch, backend: str = "kernel") -> torch.Tensor:
+    """Mean next-token cross-entropy plus 0.01 x the MoE aux loss (the
+    reference's ``loss_fn``).  batch: the forward's inputs and ``labels``
+    (B, S), negative = masked.  With ``cfg.loss_chunk`` dividing S (and
+    below it), the trunk runs once and the head and cross-entropy run per
+    chunk of the sequence, so the whole (B, S, V) logits never exist at
+    once."""
+    labels = batch["labels"]
+    chunk = cfg.loss_chunk
+    if chunk and labels.shape[1] % chunk == 0 and labels.shape[1] > chunk:
+        hs, aux = _trunk(params, cfg, batch, backend)
+        total = torch.zeros((), dtype=torch.float32, device=hs.device)
+        count = torch.zeros((), dtype=torch.float32, device=hs.device)
+        for i in range(0, labels.shape[1], chunk):
+            lg = _logits(params, cfg, hs[:, i:i + chunk], backend)
+            t, c = _ce_terms(lg, labels[:, i:i + chunk])
+            total, count = total + t, count + c
+        return total / torch.clamp(count, min=1.0) + 0.01 * aux
+    logits, aux = forward(params, cfg, batch, backend)
+    t, c = _ce_terms(logits, labels)
+    return t / torch.clamp(c, min=1.0) + 0.01 * aux
 
 
 # ====================================================================== decode

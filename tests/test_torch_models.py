@@ -30,6 +30,7 @@ from repro_torch.models import layers as L  # noqa: E402
 from repro_torch.models import model as TM  # noqa: E402
 from repro_torch.models.config import ModelConfig  # noqa: E402
 from repro_torch.models.convert import params_from_numpy, params_to_numpy  # noqa: E402
+from repro_torch.tree import tree_flatten, tree_unflatten  # noqa: E402
 
 jax.config.update("jax_platform_name", "cpu")
 
@@ -288,3 +289,22 @@ def test_gqa_attention_matches_jax_with_offset():
     want = JL.gqa_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), q_offset=6)
     got = L.gqa_attention(*(torch.from_numpy(a) for a in (q, k, v)), q_offset=6)
     _close(got, want, 1e-6)
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_forward_is_trunk_then_logits(arch):
+    """``forward`` is ``_trunk`` then ``_logits``, bit for bit, under remat
+    or not; with grad disabled no Function runs and no graph is built, and
+    under autograd the output is the same bits."""
+    _, tcfg, _, tparams, tokens = _setup(arch)
+    batch = _tt(tokens)
+    with torch.no_grad():
+        h, aux = TM._trunk(tparams, tcfg, batch)
+        want = TM._logits(tparams, tcfg, h)
+        for remat in ("none", "nothing_saveable"):
+            got, got_aux = TM.forward(tparams, dataclasses.replace(tcfg, remat=remat), batch)
+            assert got.grad_fn is None and torch.equal(got, want) and torch.equal(got_aux, aux)
+    live = {k: v for k, v in tparams.items()}
+    leaves = [p.detach().requires_grad_(True) for p in tree_flatten(live)]
+    got, _ = TM.forward(tree_unflatten(live, leaves), tcfg, batch)
+    assert got.grad_fn is not None and torch.equal(got.detach(), want)

@@ -317,3 +317,40 @@ def test_serve_model_tokens_match_jax(arch):
             lg, cache = j_dec(jparams, cache, {"tokens": jnp.asarray([[want[-1]]], jnp.int32)})
             want.append(int(jnp.argmax(lg[0, -1])))
         assert toks == want, sid
+
+
+def test_served_model_calls_are_unchanged_without_grad(monkeypatch):
+    """The served path calls RMSNorm 2L+1 times per prefill and decode step
+    and flash attention L times per prefill, as before the backward existed,
+    and never through the autograd Functions or the forward with the rows'
+    log-sum-exp."""
+    from repro_torch.kernels.flash_attention import kernel as FK
+    from repro_torch.kernels.rmsnorm import kernel as RK
+    from repro_torch.models import layers
+
+    def refuse(*a, **k):
+        raise AssertionError("the served path went through autograd's Function")
+
+    monkeypatch.setattr(RK._RMSNormFn, "apply", refuse)
+    monkeypatch.setattr(FK._FlashFn, "apply", refuse)
+    monkeypatch.setattr(FK, "flash_attention_lse", refuse)
+    calls = {"rmsnorm": 0, "flash_attention": 0}
+
+    def counted(name, op):
+        def call(*args, **kw):
+            calls[name] += 1
+            return op(*args, **kw)
+        return call
+
+    monkeypatch.setattr(layers, "rmsnorm_op", counted("rmsnorm", layers.rmsnorm_op))
+    monkeypatch.setattr(layers, "attention", counted("flash_attention", layers.attention))
+    batch, gen, sessions = 2, 4, 4
+    args = TV.build_parser().parse_args(
+        ["--arch", "smollm-135m", "--reduced", "--batch", str(batch), "--prompt-len", "6",
+         "--gen", str(gen), "--sessions", str(sessions), "--device", "cpu"])
+    with contextlib.redirect_stdout(io.StringIO()):
+        out = TV.serve(args)
+    L, prefills = out["cfg"].n_layers, out["batches"]
+    assert prefills == sessions // batch
+    assert calls == {"rmsnorm": (prefills + prefills * (gen - 1)) * (2 * L + 1),
+                     "flash_attention": prefills * L}
