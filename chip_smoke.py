@@ -287,7 +287,29 @@ script exits non-zero without printing a result):
                   on a window step; (c) flash attention at (8, 512, 32, 32,
                   112) and (1, 4096, 32, 32, 112), RMSNorm at 4096 x 3584,
                   beside their bounds and PyTorch calls (under ``at``).
-                  Each kernel record gains ``hybrid_configs_launches``.
+                  Each kernel record gains ``hybrid_configs_launches``,
+  15. training -- (a) the RMSNorm and flash backward kernels against their
+                  plain versions in bf16 and f32; (b) ``smollm-135m`` trained
+                  at full width through ``launch/train.py``'s code path
+                  (``TRAIN_ARGV``: 8 x 2,048, 20 steps, a checkpoint every
+                  10; exact launches, a falling loss, the kernels' loss
+                  against the plain backend's, every grad finite, non-zero
+                  and the same bits twice, ``train_call_gate``, a profile,
+                  the peak); (c) a crash inside the second combine, booted
+                  on the durable view and finished bit-equal to (b); (d)
+                  the backward kernels timed at the training shapes.  Each
+                  kernel record gains ``train_launches``,
+  16. ssm training -- (a) the selective scan's backward kernel against
+                  its plain version in both modes, f32 and bf16 (the
+                  shapes of ``SCAN_BWD_SHAPES``, z strided and contiguous,
+                  h_S's gradient given and not, and the training shape),
+                  two launches bit-equal, the forward keeping its chunk
+                  states bit-equal to the forward without; (b)-(c) as
+                  phase 15's for ``falcon-mamba-7b`` cut to 8 of 64 layers
+                  with every width kept (``SSM_TRAIN_ARGV``: 8 x 2,048, 10
+                  steps, a checkpoint every 5); (d) the scan's backward
+                  timed at the training shape.  Each kernel record gains
+                  ``ssm_train_launches``.
 
 Phase 3 also holds the three model kernels (RMSNorm, flash attention, the
 selective scan) against their plain versions at model shapes, in bf16 and
@@ -323,6 +345,7 @@ import os
 import statistics
 import subprocess
 import sys
+import shutil
 import tempfile
 import textwrap
 import time
@@ -330,7 +353,7 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 ALL_PHASES = ("1", "2", "3", "4", "5", "6", "7", "8", "9", "10", "11", "12", "13", "14",
-              "15")
+              "15", "16")
 SOURCE = "src/repro_torch/kernels/dfc_reduce/csrc/dfc_reduce.cu"
 GRID_SOURCE = "src/repro_torch/kernels/dfc_reduce/csrc/phase_grid.cu"
 KINDS = ("stack", "queue", "deque", "map")
@@ -385,6 +408,8 @@ MODEL_KERNELS = {
                     "src/repro/kernels/rmsnorm/kernel.py:27"),
     "flash_attention_bwd": ("src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
                             "src/repro/kernels/flash_attention/kernel.py:77"),
+    "selective_scan_bwd": ("src/repro_torch/kernels/mamba_scan/csrc/selective_scan.cu",
+                           "src/repro/kernels/mamba_scan/kernel.py:51"),
 }
 MODEL_TOL = {"float32": 1e-5, "bfloat16": 1e-2}
 SCAN_TOL_F32 = 1e-4  # the scan: 512 dependent steps of rounding
@@ -419,6 +444,10 @@ CONT_RUNS = {
                         "--gen", "16", "--sessions", "8", "--k-classes", "2",
                         "--quantum", "4", "--device", "cuda"],
 }
+# the layers phase 8 keeps of each model, every width kept (its batch-1
+# decode steps are bound by the host's launches, a layer's worth a step; the
+# whole model is served in phase 7)
+CONT_DEPTH = {"smollm-135m": 4, "falcon-mamba-7b": 8}
 # a smollm run at the main run's mix (8 slots, sessions of 32 tokens, quantum
 # 8, two batches of sessions) under the profiler: the device's busy share
 CONT_PROFILE = ["--arch", "smollm-135m", "--batch", "8", "--prompt-len", "512", "--gen",
@@ -1832,7 +1861,7 @@ def _expected_model_launches(cfg, prefills, steps):
     return {"rmsnorm": (prefills + steps) * norms,
             "flash_attention": prefills * (L if attn else shared),
             "selective_scan": prefills * L if cfg.family == "ssm" else 0,
-            "rmsnorm_bwd": 0, "flash_attention_bwd": 0}
+            "rmsnorm_bwd": 0, "flash_attention_bwd": 0, "selective_scan_bwd": 0}
 
 
 def serve_and_check(torch, serve_mod, K, argv, params=None, cfg=None):
@@ -2188,8 +2217,9 @@ def phase_serve(torch, K, records):
 
 
 # -------------------------------------------------------------- continuous
-def _cont_run(serve_mod, K, argv, params=None, first=None, min_len=0):
-    """One continuous-server run of the port's launcher with every counter
+def _cont_run(serve_mod, K, argv, params=None, first=None, min_len=0, cfg=None):
+    """One continuous-server run of the port's launcher (``cfg`` in place of
+    ``--arch``'s) with every counter
     zeroed just before and read just after; ``first`` (a dict) receives the
     session, input row and last-position logits of the first prefill longer
     than ``min_len``.  Returns the run record (``prefill_lens``: the
@@ -2204,13 +2234,13 @@ def _cont_run(serve_mod, K, argv, params=None, first=None, min_len=0):
 
     K.reset_launches()
     reset_model_launches()
-    out = _run_serve(serve_mod, argv, params=params, hook=hook)
+    out = _run_serve(serve_mod, argv, params=params, hook=hook, cfg=cfg)
     model, fabric = model_launches(), dict(K.LAUNCHES)
     out["prefill_lens"] = lens
     return out, model, fabric
 
 
-def _history_crash_point(serve_mod, argv, tmp, total):
+def _history_crash_point(serve_mod, argv, tmp, total, cfg=None):
     """The first persistence op from ``total // 2`` on (in strides of
     ``total // 64``) at which a crash leaves an unserved session with part of
     its tokens in the consumer's log, so that the resume re-prefills prompt
@@ -2220,7 +2250,7 @@ def _history_crash_point(serve_mod, argv, tmp, total):
     for crash in range(total // 2, total, max(1, total // 64)):
         d = Path(tmp) / f"probe_{crash}"
         out = _run_serve(serve_mod, argv + ["--tier-only", "--state-dir", str(d), "--crash-at",
-                                            str(crash)], echo=False)
+                                            str(crash)], echo=False, cfg=cfg)
         check(out["crashed"], f"the tier-only run did not crash at persistence op {crash}")
         served = set(serve_mod._read_served(d))
         if any(0 < len(e) < gen for sid, e in serve_mod._read_token_entries(d).items()
@@ -2299,22 +2329,28 @@ def time_tier_kernels(torch, captured, records):
 
 
 def phase_continuous(torch, K, records, params):
-    """The continuous-batching server at full width: smollm-135m durable and
+    """The continuous-batching server at full width, each model cut to its
+    ``CONT_DEPTH`` layers: smollm-135m durable and
     traced (launch counts, exactly once, the starvation bound, the traced
     root against an untraced tier-only run, a plain replay of the first
     prefill, a crash from halfway on, a resume exactly once and a plain
     replay of its first re-prefill), falcon-mamba-7b volatile and shorter,
     a profiled run, the kernels at the path's batch-1 shapes and the
-    combine kernels on the tier phases it dispatched."""
-    from repro_torch.configs import get_config
+    combine kernels on the tier phases it dispatched.  ``params``: phase
+    7's, whose falcon-mamba-7b it frees (phase 9 takes its smollm)."""
     from repro_torch.launch import serve as serve_mod
     from repro_torch.models.model import init_params
     from repro_torch.obs import durable_digest, read_trace
 
+    params.pop("falcon-mamba-7b", None)
+    torch.cuda.empty_cache()
+    cut = {arch: depth_cut(arch, n, "continuous") for arch, n in CONT_DEPTH.items()}
+    cut_params = {}
+
     def params_for(arch):
-        if arch not in params:
-            params[arch] = init_params(get_config(arch), seed=0, device=torch.device("cuda"))
-        return params[arch]
+        if arch not in cut_params:
+            cut_params[arch] = init_params(cut[arch], seed=0, device=torch.device("cuda"))
+        return cut_params[arch]
 
     t0 = time.perf_counter()
 
@@ -2332,7 +2368,8 @@ def phase_continuous(torch, K, records, params):
         whole = Path(tmp) / "whole"
         first = {}
         out, model, fabric = _cont_run(serve_mod, K, base + ["--trace", "--state-dir",
-                                                             str(whole)], params_for(arch), first)
+                                                             str(whole)], params_for(arch), first,
+                                       cfg=cut[arch])
         check(not out["crashed"] and out["completed"] == n,
               f"continuous {arch}: served {out.get('completed')} of {n} sessions")
         cfg, tier = out["cfg"], out["tier"]
@@ -2382,7 +2419,8 @@ def phase_continuous(torch, K, records, params):
         # server dispatched, which time_tier_kernels checks and times)
         only = Path(tmp) / "tier_only"
         with captured_combines(K) as tier_calls:
-            out_t = _run_serve(serve_mod, base + ["--tier-only", "--state-dir", str(only)])
+            out_t = _run_serve(serve_mod, base + ["--tier-only", "--state-dir", str(only)],
+                               cfg=cut[arch])
         check(durable_digest(whole / "tier") == durable_digest(only / "tier")
               and tier.rt.fs.pstats.as_dict() == out_t["tier"].rt.fs.pstats.as_dict(),
               f"continuous {arch}: the traced root or its per-tag counts differ from the "
@@ -2399,15 +2437,16 @@ def phase_continuous(torch, K, records, params):
         # crashed from halfway through the persistence ops where a session
         # is part-served, then resumed
         total = tier.rt.fs.injector.count
-        crash = _history_crash_point(serve_mod, base, tmp, total)
+        crash = _history_crash_point(serve_mod, base, tmp, total, cut[arch])
         cdir = Path(tmp) / "crash"
         out_c = _run_serve(serve_mod, base + ["--trace", "--state-dir", str(cdir),
-                                              "--crash-at", str(crash)], params_for(arch))
+                                              "--crash-at", str(crash)], params_for(arch),
+                           cfg=cut[arch])
         check(out_c["crashed"], f"continuous {arch} did not crash at persistence op {crash}")
         first_r = {}  # the first re-prefill of prompt + committed history
         out_r, model_r, _ = _cont_run(serve_mod, K, base + [
             "--trace", "--state-dir", str(cdir), "--resume", "--expect-exactly-once"],
-            params_for(arch), first_r, min_len=args.prompt_len)
+            params_for(arch), first_r, min_len=args.prompt_len, cfg=cut[arch])
         check(not out_r["crashed"] and out_r["completed"] == n,
               f"continuous {arch}: the resume served {out_r.get('completed')} of {n}")
         check(first_r, f"continuous {arch}: the resume re-prefilled no session's history "
@@ -2440,7 +2479,7 @@ def phase_continuous(torch, K, records, params):
     arch = "falcon-mamba-7b"
     argv = CONT_RUNS[arch]
     args = serve_mod.build_parser().parse_args(argv)
-    out, model, fabric = _cont_run(serve_mod, K, argv, params_for(arch))
+    out, model, fabric = _cont_run(serve_mod, K, argv, params_for(arch), cfg=cut[arch])
     prefills, steps = len(out["prefill_s"]), len(out["decode_step_s"])
     want = _expected_model_launches(out["cfg"], prefills, steps)
     check(not out["crashed"] and out["completed"] == args.sessions and prefills == args.sessions
@@ -2460,7 +2499,7 @@ def phase_continuous(torch, K, records, params):
           f"{dec[len(dec) // 2] * 1e3:.3f} ms/step median; launches {model}, tier {fabric} "
           f"{at()}", flush=True)
     del out
-    params.pop(arch)
+    cut_params.pop(arch)
     torch.cuda.empty_cache()
 
     # the device's busy share over a whole smollm run at the main run's mix
@@ -2470,7 +2509,8 @@ def phase_continuous(torch, K, records, params):
     profile_calls(torch, f"continuous {pargs.arch} ({pargs.sessions} sessions of "
                          f"{pargs.gen} tokens, {pargs.batch} slots, one run)",
                   lambda: prof.update(_run_serve(serve_mod, CONT_PROFILE,
-                                                 params_for(pargs.arch))), 1, warmup=False)
+                                                 params_for(pargs.arch), cfg=cut[pargs.arch])),
+                  1, warmup=False)
     check(prof["completed"] == pargs.sessions and prof["rounds"] >= 2,
           f"continuous profile run: {prof.get('completed')} sessions in {prof.get('rounds')} "
           "rounds")
@@ -3476,9 +3516,11 @@ def frontend_run(torch, cfg, params, batch, frames):
 
 
 def rel_max_abs(a, b):
-    """Relative max-abs error of ``a`` against ``b``."""
+    """Relative max-abs error of ``a`` against ``b`` (absolute where ``b`` is
+    all zero)."""
     a, b = a.float(), b.float()
-    return float((a - b).abs().max() / b.abs().max())
+    err, scale = float((a - b).abs().max()), float(b.abs().max())
+    return err / scale if scale > 0 else err
 
 
 @contextlib.contextmanager
@@ -3765,22 +3807,31 @@ MOE_KERNEL_SHAPES = {"flash_attention": [("dbrx-132b", (8, 512, 48, 8, 128))],
                      "rmsnorm": [("dbrx-132b", (4096, 6144))]}
 
 
-def moe_cut(name, layers):
-    """The reference launcher's configuration of ``name`` (tuned), cut to
-    ``layers`` layers; every width kept."""
+def depth_cut(name, layers, label):
+    """The launcher's configuration of ``name`` (tuned), cut to ``layers``
+    layers; every width kept.  Prints the cut under ``label``."""
     import dataclasses
     from repro_torch.configs import get_config
     from repro_torch.launch.tuned import apply_tuning
     full = apply_tuning(get_config(name))
     cfg = dataclasses.replace(full, n_layers=layers)
-    print(f"moe {name}: n_layers {full.n_layers} -> {layers} (every width kept: d "
-          f"{cfg.d_model}, {cfg.n_heads} / {cfg.n_kv_heads} heads of {cfg.hd()}, "
-          f"{cfg.n_experts} experts top-{cfg.top_k} of width {cfg.moe_dff}"
-          + (f", a dense residual of width {cfg.d_ff}" if cfg.dense_residual else "")
-          + f", moe_groups {cfg.moe_groups}); {cfg.param_count() / 1e9:.3f} B params "
-          f"({cfg.active_param_count() / 1e9:.3f} B active) of the full "
-          f"{full.param_count() / 1e9:.3f} B ({full.active_param_count() / 1e9:.3f} B active)",
-          flush=True)
+    if cfg.family == "moe":
+        widths = (f"{cfg.n_heads} / {cfg.n_kv_heads} heads of {cfg.hd()}, {cfg.n_experts} "
+                  f"experts top-{cfg.top_k} of width {cfg.moe_dff}"
+                  + (f", a dense residual of width {cfg.d_ff}" if cfg.dense_residual else "")
+                  + f", moe_groups {cfg.moe_groups}")
+        counts = (f"{cfg.param_count() / 1e9:.3f} B params ({cfg.active_param_count() / 1e9:.3f}"
+                  f" B active) of the full {full.param_count() / 1e9:.3f} B "
+                  f"({full.active_param_count() / 1e9:.3f} B active)")
+    else:
+        widths = (f"d_inner {cfg.d_inner()}, {cfg.ssm_state} states, dt rank {cfg.dtr()}, "
+                  f"vocab {cfg.vocab}" if cfg.family == "ssm" else
+                  f"{cfg.n_heads} / {cfg.n_kv_heads} heads of {cfg.hd()}, d_ff {cfg.d_ff}, "
+                  f"vocab {cfg.vocab}")
+        counts = (f"{cfg.param_count() / 1e9:.3f} B params of the full "
+                  f"{full.param_count() / 1e9:.3f} B")
+    print(f"{label} {name}: n_layers {full.n_layers} -> {layers} (every width kept: d "
+          f"{cfg.d_model}, {widths}); {counts}", flush=True)
     return cfg
 
 
@@ -3984,7 +4035,7 @@ def phase_moe(torch, K, records):
     name, layers, argv = MOE_SERVE
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    cfg = moe_cut(name, layers)
+    cfg = depth_cut(name, layers, "moe")
     with flash_modes() as modes:
         out, first, model = serve_and_check(torch, serve_mod, K, argv, cfg=cfg)
     check(modes == {f"causal T={FRONTEND_LEN}": model["flash_attention"]},
@@ -4004,7 +4055,7 @@ def phase_moe(torch, K, records):
     # (b) arctic-480b through the steps
     name, layers = MOE_STEPS
     torch.cuda.reset_peak_memory_stats()
-    cfg = moe_cut(name, layers)
+    cfg = depth_cut(name, layers, "moe")
     t0 = time.perf_counter()
     params = init_params(cfg, seed=0, device="cuda")
     batch, _ = frontend_inputs(torch, cfg)
@@ -4490,15 +4541,22 @@ def train_bwd_checks(torch):
 
 
 def expected_train_launches(cfg, steps):
-    """Model-kernel launches of ``steps`` training steps of a dense model
-    under ``nothing_saveable`` remat: the forward (2L+1 norms, L flash), each
-    block again in the backward (2L norms, L flash), and the backward
-    kernels (2L+1 norms, L flash)."""
+    """Model-kernel launches of ``steps`` training steps under
+    ``nothing_saveable`` remat: the forward, each block again in the
+    backward, and the backward kernels.  A dense model: 2L+1 norms and L
+    flash, 2L norms and L flash again, 2L+1 norms and L flash backward; an
+    ssm model: L+1 norms and L scans, L norms and L scans again, L+1 norms
+    and L scans backward."""
     L = cfg.n_layers
     again = L if cfg.remat == "nothing_saveable" else 0
+    if cfg.family == "ssm":
+        return {"rmsnorm": steps * (L + 1 + again), "flash_attention": 0,
+                "selective_scan": steps * (L + again), "rmsnorm_bwd": steps * (L + 1),
+                "flash_attention_bwd": 0, "selective_scan_bwd": steps * L}
     return {"rmsnorm": steps * (2 * L + 1 + 2 * again),
             "flash_attention": steps * (L + again), "selective_scan": 0,
-            "rmsnorm_bwd": steps * (2 * L + 1), "flash_attention_bwd": steps * L}
+            "rmsnorm_bwd": steps * (2 * L + 1), "flash_attention_bwd": steps * L,
+            "selective_scan_bwd": 0}
 
 
 def leaf_names(tree, prefix=""):
@@ -4521,23 +4579,29 @@ def train_grads(torch, cfg, params, batch, backend="kernel"):
 def train_call_gate(torch, cfg, params, batch):
     """The backward kernels held to their plain versions at every call of a
     training step, fed the plain backend's stream: a loss and backward on
-    the plain backend (remat off, ``TRAIN_GATE_ROWS`` rows), where each
-    RMSNorm and flash call's output gradient (the plain stream's dy / dO)
-    is handed, with that call's inputs, to the backward kernel and to its
-    plain version (flash: with the forward kernel's output and row LSE on
-    those inputs).  Every call within MODEL_TOL's bf16 tolerance (relative
-    max-abs); a control, dK / dV from K rolled by one head at the first
-    flash call, must fail it."""
+    the plain backend (remat off, ``TRAIN_GATE_ROWS`` rows; the scan's
+    backward by its plain formula, ``PlainScan``), where each RMSNorm, flash
+    and scan call's output gradient (the plain stream's dy / dO) is handed,
+    with that call's inputs, to the backward kernel and to its plain version
+    (flash: with the forward kernel's output and row LSE on those inputs;
+    the scan: from the forward kernel's chunk states on those inputs).
+    Every call within MODEL_TOL's bf16 tolerance (relative max-abs); a
+    control must fail it: dK / dV from K rolled by one head at the first
+    flash call (a dense model), dC / dx from B rolled by one state at the
+    first scan call (an ssm model)."""
     import dataclasses
     from repro_torch.kernels.flash_attention import kernel as FK
     from repro_torch.kernels.flash_attention.ref import attention_bwd_ref
+    from repro_torch.kernels.mamba_scan import kernel as SK
+    from repro_torch.kernels.mamba_scan.ref import selective_scan_bwd_ref, selective_scan_ref
     from repro_torch.kernels.rmsnorm import kernel as RK
     from repro_torch.kernels.rmsnorm.ref import rmsnorm_bwd_ref
-    from repro_torch.models import layers
+    from repro_torch.models import layers, mamba
     tol = MODEL_TOL["bfloat16"]
-    calls = {"rmsnorm_bwd": [0.0, 0], "flash_attention_bwd": [0.0, 0]}
+    calls = {"rmsnorm_bwd": [0.0, 0], "flash_attention_bwd": [0.0, 0],
+             "selective_scan_bwd": [0.0, 0]}
     control = []
-    saved = layers.rmsnorm_op, layers.attention
+    saved = layers.rmsnorm_op, layers.attention, mamba.selective_scan_op
 
     def note(name, got, want):
         e = max(rel_max_abs(a, b) for a, b in zip(got, want))
@@ -4572,57 +4636,85 @@ def train_call_gate(torch, cfg, params, batch):
         out.register_hook(hook)
         return out
 
-    layers.rmsnorm_op, layers.attention = norm, attn
+    class PlainScan(torch.autograd.Function):
+        """The plain scan: ``selective_scan_ref`` forward, and backward its
+        plain backward formula (what autograd of the plain forward gives,
+        held to it within 1e-5 by the CPU tests), without recording the
+        forward's 2,048 steps for autograd; the backward kernel is held to
+        that formula on each call's inputs."""
+
+        @staticmethod
+        def forward(ctx, dt, a_log, b_ssm, c_ssm, x, d_skip, dt_bias, z):
+            ctx.ins = (dt, a_log, b_ssm, c_ssm, x, d_skip)
+            ctx.kw = {} if z is None else {"dt_bias": dt_bias, "z": z}
+            ctx.set_materialize_grads(False)
+            return selective_scan_ref(dt, a_log, b_ssm, c_ssm, x, d_skip, **ctx.kw)
+
+        @staticmethod
+        def backward(ctx, dy, dh):
+            ins, kw = ctx.ins, ctx.kw
+            dy = torch.zeros_like(ins[0]) if dy is None else dy.contiguous()
+            hs = SK.selective_scan_states(*ins, **kw)[2]
+            want = selective_scan_bwd_ref(*ins, dy, dh, **kw)
+            note("selective_scan_bwd", SK.selective_scan_bwd(*ins, dy, dh, **kw,
+                                                             chunk_states=hs), want)
+            if not control:
+                bad = SK.selective_scan_bwd(ins[0], ins[1], ins[2].roll(1, -1), *ins[3:], dy,
+                                            dh, **kw, chunk_states=hs)
+                control.append(max(rel_max_abs(bad[3], want[3]), rel_max_abs(bad[4], want[4])))
+            return (*want, *(None,) * (8 - len(want)))
+
+    def scan(dt, a_log, b_ssm, c_ssm, x, d_skip, *, dt_bias=None, z=None, backend="kernel"):
+        return PlainScan.apply(dt, a_log, b_ssm, c_ssm, x, d_skip, dt_bias, z)
+
+    layers.rmsnorm_op, layers.attention, mamba.selective_scan_op = norm, attn, scan
     try:
         rows = {k: v[:TRAIN_GATE_ROWS] for k, v in batch.items()}
         train_grads(torch, dataclasses.replace(cfg, remat="none"), params, rows, backend="ref")
         torch.cuda.synchronize()
     finally:
-        layers.rmsnorm_op, layers.attention = saved
+        layers.rmsnorm_op, layers.attention, mamba.selective_scan_op = saved
     L = cfg.n_layers
+    if cfg.family == "ssm":
+        want_calls = {"rmsnorm_bwd": L + 1, "flash_attention_bwd": 0, "selective_scan_bwd": L}
+        what = "dC/dx from B rolled by one state"
+    else:
+        want_calls = {"rmsnorm_bwd": 2 * L + 1, "flash_attention_bwd": L,
+                      "selective_scan_bwd": 0}
+        what = "dK/dV from K rolled by one head"
     print(f"train call gate {cfg.name}: every backward call within {tol} of its plain "
           f"version on the plain stream ({TRAIN_GATE_ROWS} x {batch['tokens'].shape[1]}): "
-          + ", ".join(f"{n} max {e:.4g} ({c} calls)" for n, (e, c) in calls.items())
-          + f"; control, dK/dV from K rolled by one head: {control[0] if control else None}",
-          flush=True)
-    check(calls["rmsnorm_bwd"][1] == 2 * L + 1 and calls["flash_attention_bwd"][1] == L,
-          f"the train call gate held {calls}, expected {2 * L + 1} and {L} calls")
+          + ", ".join(f"{n} max {e:.4g} ({c} calls)" for n, (e, c) in calls.items() if c)
+          + f"; control, {what}: {control[0] if control else None}", flush=True)
+    check({n: c for n, (_, c) in calls.items()} == want_calls,
+          f"the train call gate held {calls}, expected {want_calls} calls")
     for n, (e, _) in calls.items():
         check(e <= tol, f"a {n} call {e:.4g} from its plain version, over {tol}")
     check(control and control[0] > tol,
-          f"the control (K rolled by one head) is {control} from the plain version, within "
-          f"{tol}: the gate cannot fail")
+          f"the control ({what}) is {control} from the plain version, within {tol}: the gate "
+          "cannot fail")
 
 
-def phase_train(torch, K, records):
-    """Phase 15: (a) the backward kernels against their plain versions; (b)
-    smollm-135m trained at full width through ``launch/train.py``'s code path
-    (exact launches, every grad finite and non-zero, the loss falling, one
-    batch's loss on the kernels within bf16's tolerance of the plain
-    backend's, the backward call gate, ms a step, tokens/s, the busy share,
-    the peak); (c) a crash inside the second combine, recovered on
-    ``fs.crash()`` and finished: the losses after the resume and the final
-    state bit-equal to (b)'s; (d) the backward kernels timed at the training
-    shapes.  A gate that fails fails the phase at its end.  Each record
-    gains ``train_launches``."""
+def train_and_resume(torch, K, argv, cfg_in, gated, t0, phase_name):
+    """(b) and (c) of a training phase.  (b) the run of ``argv`` through
+    ``launch/train.py``'s code path (``cfg_in`` in place of the launcher's
+    configuration where given): exact launches, every grad finite and
+    non-zero, the loss falling, one batch's loss on the kernels within
+    bf16's tolerance of the plain backend's, the backward call gate, ms a
+    step, tokens/s, the busy share, the peak.  (c) a crash inside the
+    second combine, recovered on ``fs.crash()`` and finished: the losses
+    after the resume and the final state bit-equal to (b)'s.  Returns the
+    launches of (b)'s run."""
     from repro_torch.checkpoint.dfc_checkpoint import CrashNow, FaultInjector
     from repro_torch.launch import train as train_mod
     from repro_torch.models.model import loss_fn
     from repro_torch.optim.adamw import init_opt_state
     from repro_torch.runtime.train_loop import TrainRuntime
     from repro_torch.tree import tree_flatten
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    t0 = time.perf_counter()
-    failed = []
-    gated = functools.partial(run_gate, failed, "15")
-    gated(train_bwd_checks, torch)
-    print(f"train (a): {time.perf_counter() - t0:.1f} s into phase 15", flush=True)
-
     with tempfile.TemporaryDirectory() as tmp:
         # (b) the training run
-        args = train_mod.parse_args(TRAIN_ARGV + ["--ckpt-dir", f"{tmp}/run"])
-        cfg, fs, rt = train_mod.build(args, cfg=TRAIN_CFG)
+        args = train_mod.parse_args(argv + ["--ckpt-dir", f"{tmp}/run"])
+        cfg, fs, rt = train_mod.build(args, cfg=cfg_in)
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         K.reset_launches()
@@ -4641,19 +4733,22 @@ def phase_train(torch, K, records):
         state_gb = sum(t.numel() * t.element_size() for t in tree_flatten((params, opt))) / 1e9
         tokens = args.batch * args.seq
         steady = statistics.median(step_s[1:]) if len(step_s) > 1 else step_s[0]
-        print(f"train {cfg.name}: {cfg.n_layers} layers, d {cfg.d_model}, {cfg.n_heads} / "
-              f"{cfg.n_kv_heads} heads of {cfg.hd()}, vocab {cfg.vocab}, {cfg.dtype}, remat "
-              f"{cfg.remat}; {n_params / 1e6:.2f} M params, {state_gb:.3f} GB of params and "
-              f"AdamW state; batch {args.batch} x {args.seq}, {args.steps} steps, ckpt every "
-              f"{args.ckpt_every}: loss {losses[0]:.4f} -> {losses[-1]:.4f}; step 1 "
-              f"{step_s[0] * 1e3:.1f} ms, then {steady * 1e3:.1f} ms a step median "
-              f"({tokens / steady:.0f} tok/s); {wall:.1f} s in all with the checkpoints; "
-              f"persistence {fs.stats}; peak memory {peak / 2**30:.2f} GiB; launches "
-              f"{launches} (as predicted)", flush=True)
+        shape = (f"d_inner {cfg.d_inner()}, {cfg.ssm_state} states" if cfg.family == "ssm"
+                 else f"{cfg.n_heads} / {cfg.n_kv_heads} heads of {cfg.hd()}")
+        print(f"train {cfg.name}: {cfg.n_layers} layers, d {cfg.d_model}, {shape}, vocab "
+              f"{cfg.vocab}, {cfg.dtype}, remat {cfg.remat}; {n_params / 1e6:.2f} M params, "
+              f"{state_gb:.3f} GB of params and AdamW state; batch {args.batch} x {args.seq}, "
+              f"{args.steps} steps, ckpt every {args.ckpt_every}: loss {losses[0]:.4f} -> "
+              f"{losses[-1]:.4f}; step 1 {step_s[0] * 1e3:.1f} ms, then {steady * 1e3:.1f} ms "
+              f"a step median ({tokens / steady:.0f} tok/s); {wall:.1f} s in all with the "
+              f"checkpoints; persistence {fs.stats}; peak memory {peak / 2**30:.2f} GiB; "
+              f"launches {launches} (as predicted)", flush=True)
         check(all(math.isfinite(x) for x in losses) and losses[-1] < losses[0],
               f"the loss did not fall: {losses[0]} -> {losses[-1]}")
+        marks = {"run": time.perf_counter() - t1}
 
         # every leaf's grad finite and non-zero; the same bits twice
+        t2 = time.perf_counter()
         fresh, _ = rt._fresh_state()
         batch = rt._batch(0)
         loss1, g1 = train_grads(torch, cfg, fresh, batch)
@@ -4676,21 +4771,30 @@ def phase_train(torch, K, records):
               f"passes on one batch bit-equal: {not differ}"
               + (f" (differ: {', '.join(differ)})" if differ else ""), flush=True)
         gated(check, not bad, f"grads not finite or all zero: {bad}")
+        gated(check, not differ, f"two backward passes differ: {differ}")
         del g1, g2
+        marks["grads and plain loss"] = time.perf_counter() - t2
+        t2 = time.perf_counter()
         gated(train_call_gate, torch, cfg, fresh, batch)
+        marks["call gate"] = time.perf_counter() - t2
+        t2 = time.perf_counter()
         opt0 = init_opt_state(fresh, rt.opt_cfg)
         profile_calls(torch, f"{cfg.name} train step", lambda: rt._step_fn(fresh, opt0, batch),
                       2)
+        marks["profile"] = time.perf_counter() - t2
         del fresh, opt0, batch
         torch.cuda.empty_cache()
-        print(f"train (b): {time.perf_counter() - t0:.1f} s into phase 15", flush=True)
+        print(f"train (b): {time.perf_counter() - t0:.1f} s into phase {phase_name} ("
+              + ", ".join(f"{k} {v:.1f} s" for k, v in marks.items()) + ")", flush=True)
 
         # (c) a crash inside the second combine, recovered and finished
+        t2 = time.perf_counter()
         total_ops = fs.stats["pwb"] + fs.stats["pfence"]
         per_ckpt = total_ops // 2
         crash_at = total_ops - (per_ckpt - 5 * args.workers) // 2  # among its leaf writes
-        args2 = train_mod.parse_args(TRAIN_ARGV + ["--ckpt-dir", f"{tmp}/crash"])
-        _, fs2, rt2 = train_mod.build(args2, cfg=TRAIN_CFG)
+        shutil.rmtree(f"{tmp}/run")  # (b)'s checkpoints: the crash run writes its own
+        args2 = train_mod.parse_args(argv + ["--ckpt-dir", f"{tmp}/crash"])
+        _, fs2, rt2 = train_mod.build(args2, cfg=cfg_in)
         fs2.injector = FaultInjector(crash_at=crash_at)
         try:
             rt2.train(args.steps)
@@ -4698,11 +4802,16 @@ def phase_train(torch, K, records):
         except CrashNow:
             crashed = True
         check(crashed, f"no crash at persistence op {crash_at} of {total_ops}")
+        torch.cuda.empty_cache()
+        marks = {"crash run": time.perf_counter() - t2}
+        t2 = time.perf_counter()
         rt3 = TrainRuntime(rt2.cfg, rt2.opt_cfg, rt2.pipeline, fs2.crash(),
                            n_workers=rt2.n_workers, ckpt_every=rt2.ckpt_every, device=rt2.device)
-        _, _, step, cursor, report = rt3.boot()
-        p3, o3, losses3 = rt3.train(args.steps)
+        p3, o3, losses3 = rt3.train(args.steps)  # boots on the durable view
         torch.cuda.synchronize()
+        marks["resume"] = time.perf_counter() - t2
+        marks["its steps"] = sum(rt3.step_s)
+        step, cursor, report = rt3.last_boot
         same_losses = losses3 == losses[step:]
         differ = [n for n, a, b in zip(leaf_names((params, opt)), tree_flatten((params, opt)),
                                        tree_flatten((p3, o3))) if not identical(a, b)]
@@ -4719,7 +4828,27 @@ def phase_train(torch, K, records):
               "the resumed run is not bit-equal to the uninterrupted run")
         del params, opt, p3, o3, rt, rt2, rt3
         torch.cuda.empty_cache()
-    print(f"train (c): {time.perf_counter() - t0:.1f} s into phase 15", flush=True)
+    print(f"train (c): {time.perf_counter() - t0:.1f} s into phase {phase_name} ("
+          + ", ".join(f"{k} {v:.1f} s" for k, v in marks.items()) + "; the resume boots, "
+          "steps and checkpoints)", flush=True)
+    return launches
+
+
+def phase_train(torch, K, records):
+    """Phase 15: (a) the backward kernels against their plain versions; (b)
+    smollm-135m trained at full width through ``launch/train.py``'s code path
+    and (c) crashed inside the second combine and resumed bit-equal
+    (``train_and_resume``); (d) the backward kernels timed at the training
+    shapes.  A gate that fails fails the phase at its end.  Each record
+    gains ``train_launches``."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    failed = []
+    gated = functools.partial(run_gate, failed, "15")
+    gated(train_bwd_checks, torch)
+    print(f"train (a): {time.perf_counter() - t0:.1f} s into phase 15", flush=True)
+    launches = train_and_resume(torch, K, TRAIN_ARGV, TRAIN_CFG, gated, t0, "15")
 
     # (d) the backward kernels timed at the training shapes
     for name, shape in TRAIN_KERNEL_SHAPES.items():
@@ -4730,6 +4859,184 @@ def phase_train(torch, K, records):
     for name, n in launches.items():
         if name in records:
             records[name]["train_launches"] = n
+    check(not failed, "; ".join(failed))
+
+
+# -------------------------------------------------------------- ssm training
+# phase 16: falcon-mamba-7b trained, cut to 8 of its 64 layers with every
+# width kept (the whole model's 7.27 B parameters take 87 GB at 12 bytes a
+# parameter: bf16 weights and grads, f32 AdamW moments; 8 layers take 16.5),
+# at phase 15's batch through launch/train.py's code path with the config's
+# remat, checkpointed by DFC-Checkpoint every 5 steps; the scan's backward
+# kernel checked against its plain version around the training shape and
+# timed there
+SSM_TRAIN = ("falcon-mamba-7b", 8)  # (arch, layers kept)
+SSM_TRAIN_ARGV = ["--arch", "falcon-mamba-7b", "--steps", "10", "--batch", "8", "--seq",
+                  "2048", "--ckpt-every", "5", "--workers", "4", "--device", "cuda"]
+SSM_TRAIN_CFG = None  # a configuration in place of the cut one (a rehearsal's reduced one)
+# (B, S, DI, N) of (a): phase 3's scan shapes at batch 2 (a ragged S, N 8,
+# S 1, DI and N off the 16-byte vector), each in both modes and dtypes
+SCAN_BWD_SHAPES = ((2, 512, 8192, 16), (2, 200, 8192, 16), (2, 512, 8192, 8),
+                   (2, 1, 8192, 16), (2, 70, 100, 5))
+SCAN_TRAIN_SHAPE = (8, 2048, 8192, 16)  # the training run's calls (bf16, fused)
+SCAN_BWD_NAMES = ("dt", "a_log", "b", "c", "x", "d_skip", "dt_bias", "z")
+
+
+def scan_bwd_case(torch, shape, dtype, fused, z_layout="half", with_dh=True):
+    """(the forward's args, kwargs, dy, dh_last) at (B, S, DI, N):
+    ``scan_case``'s inputs, dy ~ N(0, 0.25) in ``dtype``, dh_last ~ N(0,
+    0.09) f32 or None."""
+    args, kw = scan_case(torch, shape, dtype, fused, z_layout)
+    b, s, di, n = shape
+    g = torch.Generator(device="cuda").manual_seed(5)
+    dy = (torch.randn((b, s, di), generator=g, device="cuda") * 0.5).to(dtype)
+    dh = torch.randn((b, di, n), generator=g, device="cuda") * 0.3 if with_dh else None
+    return args, kw, dy, dh
+
+
+def scan_bwd_vs_plain(torch, shape, dtype, fused, z_layout="half", with_dh=True):
+    """The scan's backward kernel against ``selective_scan_bwd_ref`` on the
+    same inputs: every gradient finite, of its input's shape and dtype, and
+    within ``SCAN_TOL_F32`` (an f32 gradient) or MODEL_TOL's bf16 tolerance
+    (a bf16 one), relative max-abs; two launches bit-equal; the forward
+    keeping its chunk states bit-equal to the forward without.  Returns
+    (max abs err, worst relative err of f32 gradients, of bf16 ones)."""
+    from repro_torch.kernels.mamba_scan import kernel as SK
+    from repro_torch.kernels.mamba_scan.ref import selective_scan_bwd_ref
+    args, kw, dy, dh = scan_bwd_case(torch, shape, dtype, fused, z_layout, with_dh)
+    mode = f"fused, z {z_layout}" if fused else "base"
+    what = (f"selective_scan_bwd {shape} {str(dtype)[6:]} {mode}"
+            f"{', dh_last' if with_dh else ''}")
+    y0, h0 = SK.selective_scan(*args, **kw)
+    y1, h1, hs = SK.selective_scan_states(*args, **kw)
+    check(identical(y0, y1) and identical(h0, h1),
+          f"{what}: the forward with its chunk states differs from the forward without")
+    del y0, h0, y1, h1
+    got = SK.selective_scan_bwd(*args, dy, dh, **kw, chunk_states=hs)
+    again = SK.selective_scan_bwd(*args, dy, dh, **kw, chunk_states=hs)
+    torch.cuda.synchronize()
+    check(all(identical(a, b) for a, b in zip(got, again)),
+          f"{what}: two launches on the same inputs differ (not deterministic)")
+    del again
+    want = selective_scan_bwd_ref(*args, dy, dh, **kw)
+    abs_err, worst = 0.0, {torch.float32: 0.0, torch.bfloat16: 0.0}
+    for name, a, b in zip(SCAN_BWD_NAMES, got, want):
+        check(a.shape == b.shape and a.dtype == b.dtype and bool(torch.isfinite(a.float()).all()),
+              f"{what}: d{name}'s shape, dtype or finiteness differs from the plain version")
+        tol = SCAN_TOL_F32 if b.dtype == torch.float32 else MODEL_TOL["bfloat16"]
+        e = rel_max_abs(a, b)
+        check(e <= tol, f"{what}: d{name} relative max-abs err {e:.3g} over {tol}")
+        abs_err = max(abs_err, float((a.float() - b.float()).abs().max()))
+        worst[b.dtype] = max(worst[b.dtype], e)
+    return abs_err, worst[torch.float32], worst[torch.bfloat16]
+
+
+def scan_bwd_checks(torch, held):
+    """(a): the scan's backward kernel against its plain version at
+    ``SCAN_BWD_SHAPES`` in both modes and dtypes (z the strided half of an
+    xz, and once contiguous; h_S's gradient given at every other case), and
+    at the training shape in bf16, fused, whose errors go into ``held``."""
+    cases = [(shape, dtype, fused, "half", i % 2 == 0)
+             for i, (shape, fused) in enumerate((sh, f) for sh in SCAN_BWD_SHAPES
+                                                for f in (False, True))
+             for dtype in (torch.float32, torch.bfloat16)]
+    cases += [(SCAN_BWD_SHAPES[0], torch.bfloat16, True, "contiguous", False),
+              (SCAN_BWD_SHAPES[0], torch.float32, True, "contiguous", True),
+              (SCAN_TRAIN_SHAPE, torch.bfloat16, True, "half", False)]
+    lines = []
+    for shape, dtype, fused, z_layout, with_dh in cases:
+        errs = scan_bwd_vs_plain(torch, shape, dtype, fused, z_layout, with_dh)
+        _, e32, e16 = errs
+        if shape == SCAN_TRAIN_SHAPE:
+            held.update(errs=errs)
+        mode = f"fused z {z_layout}" if fused else "base"
+        lines.append(f"{shape} {str(dtype)[6:]} {mode}{' dh' if with_dh else ''} "
+                     f"f32 {e32:.3g} bf16 {e16:.3g}")
+        torch.cuda.empty_cache()
+    print(f"selective_scan_bwd vs plain (relative max-abs err of the f32 gradients within "
+          f"{SCAN_TOL_F32}, of the bf16 ones within {MODEL_TOL['bfloat16']}; two launches "
+          "bit-equal; the forward with chunk states bit-equal to without): "
+          + "; ".join(lines), flush=True)
+
+
+def scan_bwd_bound(shape, dtype_bytes):
+    """(least ms, what bounds it) of one backward call in the fused mode:
+    dt_pre, x, z and dy read, d dt_pre, dx and dz written (``dtype_bytes``
+    each), B and C read and dB, dC written, the forward's chunk states (f32)
+    read once; A_log, D, dt_bias and their gradients.  The operations: one
+    exp a state and step (abar), two a channel and step (the gate's sigmoid
+    and softplus's e^u) on the SFUs, against 10 f32 operations a state and
+    step at the f32 rate (the partials are the kernel's own)."""
+    b, s, di, n = shape
+    elems = b * s * di
+    chunks = -(-s // (64 // dtype_bytes))
+    nbytes = (7 * elems + 4 * b * s * n + 4 * di) * dtype_bytes + 4 * b * chunks * di * n \
+        + 2 * (di * n + di) * 4
+    t_ops = max((elems * n + 2 * elems) / sfu_per_s(), 10 * elems * n / SCALAR_OPS_PER_S)
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    return (t_bytes * 1e3, "bytes") if t_bytes >= t_ops else (t_ops * 1e3, "operations")
+
+
+def measure_scan_bwd(torch, shape, errs=None):
+    """The scan's backward at ``shape`` (bf16, fused, as the training run
+    calls it): its max abs err against the plain version (``errs``, from
+    (a), or checked here), its time by CUDA events, its device time
+    (``device_ms_per_call``: the profiler, or events where it drops
+    launches), the plain version's time and the bound.  No PyTorch call
+    computes the scan's backward: no library time."""
+    from repro_torch.kernels.mamba_scan import kernel as SK
+    from repro_torch.kernels.mamba_scan.ref import selective_scan_bwd_ref
+    bf16 = torch.bfloat16
+    err, e32, e16 = errs or scan_bwd_vs_plain(torch, shape, bf16, True, "half", False)
+    args, kw, dy, _ = scan_bwd_case(torch, shape, bf16, True, "half", False)
+    hs = SK.selective_scan_states(*args, **kw)[2]
+    fn = lambda: SK.selective_scan_bwd(*args, dy, **kw, chunk_states=hs)
+    ms = cuda_ms(fn, 10)
+    dev, how = device_ms_per_call(torch, fn)
+    plain_ms = cuda_ms(lambda: selective_scan_bwd_ref(*args, dy, **kw), 1, warmup=0)
+    bound_ms, bound_by = scan_bwd_bound(shape, 2)
+    rec = {"max_abs_err": err, "rel_max_abs_err": max(e32, e16), "ms": ms, "device_ms": dev,
+           "device_ms_by": how, "plain_ms": plain_ms, "bound_ms": bound_ms,
+           "bound_by": bound_by, "library_ms": None, "shape": list(shape), "dtype": "bfloat16",
+           "fused": True, "tolerance": {"float32": SCAN_TOL_F32,
+                                        "bfloat16": MODEL_TOL["bfloat16"]},
+           "backward": True}
+    print(f"kernel selective_scan_bwd {shape} bf16 fused: {ms:.4f} ms, device {dev:.4f} ms "
+          f"({how}); library none (no PyTorch call computes the scan's backward); plain "
+          f"{plain_ms:.4f} ms; bound {bound_ms:.6f} ms by {bound_by}; max abs err {err:.3g} "
+          f"(relative: f32 gradients {e32:.3g}, bf16 {e16:.3g})", flush=True)
+    return rec
+
+
+def phase_ssm_train(torch, K, records):
+    """Phase 16: (a) the scan's backward kernel against its plain version
+    (``scan_bwd_checks``); (b) falcon-mamba-7b, cut to ``SSM_TRAIN``'s
+    layers with every width kept, trained through ``launch/train.py``'s code
+    path and (c) crashed inside the second combine and resumed bit-equal
+    (``train_and_resume``); (d) the scan's backward timed at the training
+    shape.  A gate that fails fails the phase at its end.  Each record gains
+    ``ssm_train_launches``."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    failed = []
+    gated = functools.partial(run_gate, failed, "16")
+    held = {}
+    gated(scan_bwd_checks, torch, held)
+    print(f"ssm train (a): {time.perf_counter() - t0:.1f} s into phase 16", flush=True)
+    cfg = SSM_TRAIN_CFG or depth_cut(*SSM_TRAIN, "ssm train")
+    launches = train_and_resume(torch, K, SSM_TRAIN_ARGV, cfg, gated, t0, "16")
+
+    # (d) the scan's backward timed at the training shape
+    src, replaces = MODEL_KERNELS["selective_scan_bwd"]
+    records["selective_scan_bwd"] = {
+        "name": "selective_scan_bwd", "route": "cuda", "source": src, "replaces": replaces,
+        "launches": launches["selective_scan_bwd"],
+        **measure_scan_bwd(torch, SCAN_TRAIN_SHAPE, held.get("errs"))}
+    for name, n in launches.items():
+        if name in records:
+            records[name]["ssm_train_launches"] = n
+    print(f"ssm train (d): {time.perf_counter() - t0:.1f} s into phase 16", flush=True)
     check(not failed, "; ".join(failed))
 
 
@@ -4859,6 +5166,10 @@ def main(argv=None) -> int:
     if "15" in run:
         with phase("15 training"):
             phase_train(torch, K, records)
+
+    if "16" in run:
+        with phase("16 ssm training"):
+            phase_ssm_train(torch, K, records)
 
     print(card, flush=True)
     order = list(KINDS) + [f"phase_grid_{k}" for k in KINDS] + list(MODEL_KERNELS)

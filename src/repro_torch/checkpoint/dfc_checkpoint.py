@@ -18,9 +18,11 @@ announcement, and recovery that rounds an odd epoch up, collects the slot
 pool and reports per worker whether its step committed.  A state tree
 flattens as the JAX pytree does (a structure state in field order, dict
 entries in sorted key order, lists and tuples in order), and each leaf is
-saved with ``np.save`` in its own dtype (a bf16 tensor as the reference's
-bf16 leaf: raw 16 bits under a ``<V2`` header, ``"bfloat16"`` in the
-manifest), so both packages write the same bytes.
+saved with ``np.save``'s bytes in its own dtype (a bf16 tensor as the
+reference's bf16 leaf: raw 16 bits under a ``<V2`` header, ``"bfloat16"`` in
+the manifest), so both packages write the same bytes.  A tensor leaf's file
+is built in one buffer, copied once from the tensor wherever it lies, and a
+leaf is read back into one writable buffer that its array views.
 """
 
 from __future__ import annotations
@@ -115,6 +117,22 @@ class SimFS:
         p = self._p(rel)
         return p.read_bytes() if p.exists() else None
 
+    def read_durable_buffer(self, rel: str) -> Optional[bytearray]:
+        """:meth:`read_durable`'s bytes in a writable buffer, read into it
+        directly (a leaf's array can then view them)."""
+        p = self._p(rel)
+        if not p.exists():
+            return None
+        with open(p, "rb", buffering=0) as f:
+            buf = bytearray(os.fstat(f.fileno()).st_size)
+            view, n = memoryview(buf), 0
+            while n < len(buf):
+                got = f.readinto(view[n:])
+                if not got:
+                    raise OSError(f"{p}: short read ({n} of {len(buf)} bytes)")
+                n += got
+        return buf
+
     def exists(self, rel: str) -> bool:
         return rel in self.pending or self._p(rel).exists()
 
@@ -141,7 +159,7 @@ BOT = None  # the paper's ⊥: an announcement whose response is not yet written
 def tree_leaves(tree) -> List[Any]:
     """The leaves of a state tree in the JAX pytree's flatten order (a
     structure state's fields in order, a dict's entries by sorted key, lists
-    and tuples in order, ``None`` no leaf): tensors detached on the CPU,
+    and tuples in order, ``None`` no leaf): tensors detached where they lie,
     anything else as a numpy array."""
     if hasattr(tree, "leaves") and dataclasses.is_dataclass(tree):
         return [_leaf(x) for x in tree.leaves()]
@@ -150,7 +168,7 @@ def tree_leaves(tree) -> List[Any]:
 
 def _leaf(x):
     if torch.is_tensor(x):
-        return x.detach().cpu()
+        return x.detach()
     return np.asarray(x)
 
 
@@ -159,16 +177,30 @@ def _npy(leaf) -> Tuple[bytes, List[int], str]:
     the reference writes them.  A bf16 tensor is written as JAX hands numpy
     its bf16 leaves: the raw 16 bits under the header ``'descr': '<V2'``,
     named ``"bfloat16"`` in the manifest (numpy has no bf16 type of its
-    own; the reference's ``ml_dtypes`` bf16 saves so)."""
-    buf = io.BytesIO()
-    if torch.is_tensor(leaf) and leaf.dtype == torch.bfloat16:
-        arr = leaf.contiguous().view(torch.int16).numpy().view("V2")
-        np.save(buf, arr)
-        data = buf.getvalue().replace(b"'descr': '|V2'", b"'descr': '<V2'", 1)
-        return data, list(arr.shape), "bfloat16"
-    arr = leaf.numpy() if torch.is_tensor(leaf) else leaf
-    np.save(buf, arr)
-    return buf.getvalue(), list(arr.shape), str(arr.dtype)
+    own; the reference's ``ml_dtypes`` bf16 saves so).  A tensor's bytes
+    are np.save's header (numpy's own version 1.0 header, which np.save
+    writes for these) and the tensor's C-order bytes, copied once into one
+    buffer from wherever the tensor lies."""
+    if not torch.is_tensor(leaf):
+        buf = io.BytesIO()
+        np.save(buf, leaf)
+        return buf.getvalue(), list(leaf.shape), str(leaf.dtype)
+    t = leaf.contiguous()
+    if t.dtype == torch.bfloat16:
+        descr, name = "<V2", "bfloat16"
+    else:
+        npd = np.dtype(str(t.dtype).removeprefix("torch."))
+        descr, name = np.lib.format.dtype_to_descr(npd), str(npd)
+    head = io.BytesIO()
+    np.lib.format.write_array_header_1_0(
+        head, {"descr": descr, "fortran_order": False, "shape": tuple(t.shape)})
+    h = head.getvalue()  # a multiple of 64 bytes: the data stays aligned
+    out = bytearray(len(h) + t.numel() * t.element_size())
+    out[:len(h)] = h
+    if t.numel():
+        torch.frombuffer(out, dtype=torch.uint8, offset=len(h)).view(t.dtype).view(
+            t.shape).copy_(t)
+    return out, list(t.shape), name
 
 
 def leaf_tensor(arr: np.ndarray, dtype: str, device) -> torch.Tensor:
@@ -180,12 +212,28 @@ def leaf_tensor(arr: np.ndarray, dtype: str, device) -> torch.Tensor:
     else:
         if str(arr.dtype) != dtype:
             raise ValueError(f"leaf of dtype {arr.dtype}, the manifest says {dtype}")
-        t = torch.from_numpy(np.array(arr))
+        # the loader's writable view needs no copy
+        t = torch.from_numpy(arr if arr.flags.writeable and arr.flags.c_contiguous
+                             else np.array(arr))
     return t.to(device)
 
 
-def _load(data: bytes) -> np.ndarray:
-    return np.load(io.BytesIO(data))
+def _load(data) -> np.ndarray:
+    """The array of an ``.npy`` file's bytes, as ``np.load`` reads it: a
+    view of ``data`` (writable where ``data`` is, as the buffers of
+    ``read_durable_buffer`` are), with no copy."""
+    f = io.BytesIO(data)
+    version = np.lib.format.read_magic(f)
+    shape, fortran, dtype = (np.lib.format.read_array_header_1_0(f) if version == (1, 0)
+                             else np.lib.format.read_array_header_2_0(f))
+    count = int(np.prod(shape))
+    arr = np.frombuffer(data, dtype=dtype, count=count, offset=f.tell())
+    return arr.reshape(shape, order="F" if fortran else "C")
+
+
+def _read_leaves(fs: SimFS, slot: str, entries) -> List[np.ndarray]:
+    """The durable leaves a manifest lists."""
+    return [_load(fs.read_durable_buffer(f"{slot}/{e['file']}")) for e in entries]
 
 
 class DFCCheckpointManager:
@@ -346,7 +394,7 @@ class DFCCheckpointManager:
         state = None
         if man_raw:
             man = json.loads(man_raw.decode())
-            state = [_load(fs.read_durable(f"{active}/{e['file']}")) for e in man["leaves"]]
+            state = _read_leaves(fs, active, man["leaves"])
 
         # recovery combine (L39): a checkpoint announcement's payload died
         # with the crash, so roll forward only when the caller can still
@@ -374,17 +422,26 @@ class DFCCheckpointManager:
             }
         return state, report
 
-    def load_active(self):
-        """The committed checkpoint: ``(leaves, manifest)`` or ``(None, None)``."""
+    def _active(self):
+        """The committed slot and its manifest (None where there is none)."""
         epoch = self._read_epoch()
         if epoch % 2 == 1:
             epoch += 1
         active = self._slot_dir(epoch, nxt=False)
         man_raw = self.fs.read_durable(f"{active}/manifest.json")
-        if not man_raw:
+        return active, (json.loads(man_raw.decode()) if man_raw else None)
+
+    def active_manifest(self):
+        """The committed checkpoint's manifest, or None: what
+        :meth:`load_active` returns beside the leaves, without reading them."""
+        return self._active()[1]
+
+    def load_active(self):
+        """The committed checkpoint: ``(leaves, manifest)`` or ``(None, None)``."""
+        active, man = self._active()
+        if man is None:
             return None, None
-        man = json.loads(man_raw.decode())
-        leaves = [_load(self.fs.read_durable(f"{active}/{e['file']}")) for e in man["leaves"]]
+        leaves = _read_leaves(self.fs, active, man["leaves"])
         return leaves, man
 
     # ------------------------------------------------- DFC structure states

@@ -4,8 +4,10 @@ Selects an architecture (``--arch``), builds the model and AdamW state on
 ``--device`` (the card by default), and runs the fault-tolerant training
 loop with DFC-Checkpoint (``runtime/train_loop.py``), through the model's
 kernels and their backward kernels.  The audio and vlm archs are refused,
-as the reference's launcher refuses them; on the card so are the ssm archs,
-whose selective-scan kernel has no backward yet (ROADMAP A7).
+as the reference's launcher refuses them; every other family trains on
+either device.  The full falcon-mamba-7b (7.27 B parameters, about 87 GB of
+bf16 weights and grads and f32 AdamW moments) needs more memory than one
+80 GB card holds.
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch smollm-135m \\
       --reduced --steps 50 --ckpt-dir /tmp/dfc_ckpt --device cpu
@@ -21,7 +23,6 @@ from pathlib import Path
 from repro_torch.checkpoint.dfc_checkpoint import SimFS
 from repro_torch.configs import ARCH_IDS, get_config, get_reduced
 from repro_torch.data.pipeline import DataPipeline
-from repro_torch.kernels.mamba_scan.kernel import SCAN_NO_BACKWARD
 from repro_torch.launch.tuned import apply_tuning
 from repro_torch.optim.adamw import AdamWConfig
 from repro_torch.runtime.train_loop import TrainRuntime
@@ -53,8 +54,6 @@ def build(args, cfg=None):
             cfg = apply_tuning(cfg)
     if cfg.family in ("vlm", "audio"):
         raise SystemExit(f"{args.arch}: frontend-stub arch — drive via examples/ or dryrun")
-    if cfg.family == "ssm" and args.device != "cpu":
-        raise SystemExit(f"{args.arch}: {SCAN_NO_BACKWARD}")
     pipe = DataPipeline(vocab=cfg.vocab, batch_size=args.batch, seq_len=args.seq)
     fs = SimFS(Path(args.ckpt_dir))
     rt = TrainRuntime(cfg, AdamWConfig(), pipe, fs, n_workers=args.workers,

@@ -69,7 +69,7 @@ class ModelConfig:
 
     # numerics
     dtype: str = "bfloat16"
-    remat: str = "nothing_saveable"  # none | nothing_saveable (dots_saveable: ROADMAP A8)
+    remat: str = "nothing_saveable"  # none | nothing_saveable (dots_saveable: ROADMAP A4)
     loss_chunk: int = 0  # sequence-chunked CE loss (0 = off): the head and CE per chunk
 
     def hd(self) -> int:

@@ -353,7 +353,7 @@ def _remat(cfg: ModelConfig, fn):
         return fn
     if cfg.remat == "dots_saveable":
         raise NotImplementedError("remat='dots_saveable' (keep the matmul outputs) is not "
-                                  "ported: it comes with the launch tooling, ROADMAP A8")
+                                  "ported: it comes with the launch tooling, ROADMAP A4")
     if cfg.remat != "nothing_saveable":
         raise ValueError(f"unknown remat {cfg.remat!r}")
 

@@ -49,6 +49,7 @@ class TrainRuntime:
         self.mgr = DFCCheckpointManager(self.fs, self.n_workers)
         self._step_fn = make_train_step(self.cfg, self.opt_cfg)
         self.step_s: List[float] = []  # host seconds of each step of the last train()
+        self.last_boot = None  # (step, cursor, report) of the last boot()
 
     # ------------------------------------------------------------------ step
     def _fresh_state(self):
@@ -61,11 +62,15 @@ class TrainRuntime:
 
     # ------------------------------------------------------------------ boot
     def boot(self):
-        """Start or resume: returns (params, opt, step, cursor, report)."""
+        """Start or resume: returns (params, opt, step, cursor, report), and
+        keeps (step, cursor, report) in ``last_boot``.  The committed leaves
+        are the ones recovery reads (the active slot, which a recovery
+        without a state getter leaves as it is), read once."""
         params, opt = self._fresh_state()
-        _, report = self.mgr.recover()
-        leaves, man = self.mgr.load_active()
+        leaves, report = self.mgr.recover()
+        man = self.mgr.active_manifest()
         if leaves is None:
+            self.last_boot = (0, 0, report)
             return params, opt, 0, 0, report
         template = tree_flatten((params, opt))
         if len(leaves) != len(template):
@@ -78,6 +83,7 @@ class TrainRuntime:
                                  f"holds {tuple(like.shape)} {like.dtype}")
             tensors.append(t)
         params, opt = tree_unflatten((params, opt), tensors)
+        self.last_boot = (man["meta"]["step"], man["meta"]["cursor"], report)
         return params, opt, man["meta"]["step"], man["meta"]["cursor"], report
 
     # ------------------------------------------------------------------ train

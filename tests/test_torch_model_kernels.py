@@ -226,10 +226,13 @@ def test_cpu_calls_launch_nothing_and_check_like_the_kernels():
     RK.rmsnorm(xg, torch.ones(16)).sum().backward()
     qg = q.clone().requires_grad_(True)
     FK.flash_attention(qg, kv, kv).sum().backward()
-    assert xg.grad is not None and qg.grad is not None
+    dtg = torch.rand(1, 4, 8).requires_grad_(True)
+    SK.selective_scan(dtg, torch.rand(8, 2), torch.randn(1, 4, 2), torch.randn(1, 4, 2),
+                      torch.randn(1, 4, 8), torch.ones(8))[0].sum().backward()
+    assert xg.grad is not None and qg.grad is not None and dtg.grad is not None
     assert RK.LAUNCHES == {"rmsnorm": 0, "rmsnorm_bwd": 0}
     assert FK.LAUNCHES == {"flash_attention": 0, "flash_attention_bwd": 0}
-    assert SK.LAUNCHES == {"selective_scan": 0}
+    assert SK.LAUNCHES == {"selective_scan": 0, "selective_scan_bwd": 0}
     # the CPU path takes only what the kernel takes: a strided view, a
     # dtype or a head width the kernel has no instance for
     with pytest.raises(ValueError, match="contiguous"):

@@ -206,7 +206,7 @@ def test_fused_mode_checks_its_arguments_on_the_cpu(case, exc, match):
     args, kw = _bad(case)
     with pytest.raises(exc, match=match):
         SK.selective_scan(*args, **kw)
-    assert SK.LAUNCHES == {"selective_scan": 0}
+    assert SK.LAUNCHES == {"selective_scan": 0, "selective_scan_bwd": 0}
 
 
 def test_z_row_strides_the_kernel_takes():

@@ -2,14 +2,15 @@
 
 ``adamw_update`` and ``lr_schedule`` against the reference's on a random
 tree of f32 and bf16 leaves with f32 and bf16 states; ``loss_fn`` and every
-leaf's gradient against ``jax.value_and_grad(loss_fn)`` for six reduced
-configs, in f32, with the reference's ``init_params(PRNGKey(0))`` carried
-across (atol = rtol = 1e-4: f32 on both sides, sums in other orders over a
-few layers); the chunked loss; ``remat="nothing_saveable"`` against
+leaf's gradient against ``jax.value_and_grad(loss_fn)`` for seven reduced
+configs (falcon-mamba's through the scan's Function), in f32, with the
+reference's ``init_params(PRNGKey(0))`` carried across (atol = rtol = 1e-4:
+f32 on both sides, sums in other orders over a few layers); the chunked loss; ``remat="nothing_saveable"`` against
 ``"none"`` bit for bit; the kernels' autograd Functions, whose CPU path runs
 the plain forward and the plain backward formula, against
 ``torch.autograd`` of the plain forward and ``jax.vjp`` of the reference's
-plain versions (1e-5); ``make_train_step`` against the reference's.
+plain versions (1e-5; the scan's in ``test_torch_scan_backward.py``);
+``make_train_step`` against the reference's.
 """
 
 import dataclasses
@@ -49,7 +50,8 @@ jax.config.update("jax_platform_name", "cpu")
 # deepseek-coder-33b's reduced config has head dim 8, which the flash
 # wrapper refuses on either device: it runs the plain backend
 LOSS_ARCHS = {"smollm-135m": "kernel", "qwen2-1.5b": "kernel", "olmo-1b": "kernel",
-              "dbrx-132b": "kernel", "zamba2-7b": "kernel", "deepseek-coder-33b": "ref"}
+              "dbrx-132b": "kernel", "zamba2-7b": "kernel", "deepseek-coder-33b": "ref",
+              "falcon-mamba-7b": "kernel"}
 B, S, ATOL = 2, 16, 1e-4
 
 
@@ -144,7 +146,8 @@ def test_chunked_loss_matches_jax_and_unchunked(arch):
     _close(got.detach(), plain.detach(), atol=1e-6, rtol=1e-6)
 
 
-@pytest.mark.parametrize("arch", ["smollm-135m", "dbrx-132b", "zamba2-7b", "olmo-1b"])
+@pytest.mark.parametrize("arch", ["smollm-135m", "dbrx-132b", "zamba2-7b", "olmo-1b",
+                                  "falcon-mamba-7b"])
 def test_remat_is_bit_equal_to_none(arch):
     tcfg, tparams, batch = _port_only(arch)
     a_loss, a = _port_grads(tparams, dataclasses.replace(tcfg, remat="none"), batch, "kernel")
@@ -157,7 +160,7 @@ def test_remat_is_bit_equal_to_none(arch):
 
 def test_dots_saveable_names_the_roadmap():
     tcfg, tparams, batch = _port_only("smollm-135m", remat="dots_saveable")
-    with pytest.raises(NotImplementedError, match="A8"):
+    with pytest.raises(NotImplementedError, match="ROADMAP A4"):
         TM.loss_fn(tparams, tcfg, _tb(batch))
 
 

@@ -208,10 +208,11 @@ def _run(main, argv, monkeypatch, as_argv=False):
     return out.getvalue().splitlines()
 
 
-def test_launcher_matches_the_reference(tmp_path, monkeypatch):
-    flags = ["--arch", "smollm-135m", "--reduced", "--steps", "6", "--ckpt-every", "3",
+@pytest.mark.parametrize("arch", ["smollm-135m", "falcon-mamba-7b"])
+def test_launcher_matches_the_reference(arch, tmp_path, monkeypatch):
+    flags = ["--arch", arch, "--reduced", "--steps", "6", "--ckpt-every", "3",
              "--workers", "2"]
-    cfg = JCFG.get_reduced("smollm-135m")
+    cfg = JCFG.get_reduced(arch)
     params = jax.device_get(JM.init_params(cfg, jax.random.PRNGKey(0)))
 
     def fresh(self):
@@ -245,10 +246,15 @@ def test_launcher_refuses_frontend_stubs(arch, tmp_path):
 
 
 def test_launcher_refuses_ssm_on_the_card_only(tmp_path):
+    """The ssm family, once refused on the card, is refused on neither
+    device: ``--device cpu`` builds its runtime, and the default device
+    without a card fails where any family's would, in ``resolve_device``."""
     args = TTRAIN.parse_args(["--arch", "falcon-mamba-7b", "--reduced", "--ckpt-dir",
                               str(tmp_path)])
-    with pytest.raises(SystemExit, match="ROADMAP A7"):
-        TTRAIN.build(args)
+    assert args.device == "cuda"
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            TTRAIN.build(args)
     args.device = "cpu"
     cfg, _, rt = TTRAIN.build(args)
     assert cfg.family == "ssm" and rt.device == torch.device("cpu")
