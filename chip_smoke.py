@@ -297,8 +297,9 @@ script exits non-zero without printing a result):
                   and the same bits twice, ``train_call_gate``, a profile,
                   the peak); (c) a crash inside the second combine, booted
                   on the durable view and finished bit-equal to (b); (d)
-                  the backward kernels timed at the training shapes.  Each
-                  kernel record gains ``train_launches``,
+                  the backward kernels timed at the training shapes (the
+                  RMSNorm's also at falcon-mamba's 16,384 x 4,096, under
+                  ``at``).  Each kernel record gains ``train_launches``,
   16. ssm training -- (a) the selective scan's backward kernel against
                   its plain version in both modes, f32 and bf16 (the
                   shapes of ``SCAN_BWD_SHAPES``, z strided and contiguous,
@@ -327,7 +328,10 @@ launch under ``torch.cuda.stream`` runs on that stream.
 ``--phases`` runs a subset (default all).  ``--turns DIR`` also builds the
 combine kernels of the checkout at DIR and times each of them in turns with
 this tree's (DIR's, this, this, DIR's) on the same inputs in phases 4 and 5,
-after holding their outputs bit for bit (``turns_tree`` in the records).
+after holding their outputs bit for bit, and DIR's RMSNorm and selective-scan
+backward kernels in turns with this tree's at the training shapes in phases
+15 (d) and 16 (d), after holding their outputs to the plain versions
+(``turns_tree`` in the records).
 
 Then the card line (nvidia-smi), one JSON line with a record per kernel and,
 last, ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
@@ -930,7 +934,9 @@ def grid_bound(kind, state, g_ops):
     return (float(t_bytes), "bytes") if t_bytes >= t_ops else (float(t_ops), "operations")
 
 
-PARENT = {"K": None}  # the combine-kernel module of the tree given by --turns
+# the kernel modules of the tree given by --turns: the combine kernels (K),
+# the selective scan (SK) and RMSNorm (RK)
+PARENT = {"K": None, "SK": None, "RK": None}
 B5_DEVICE_CALLS, B5_HOST_CALLS = 5, 20  # B5 outputs K full states a call
 
 
@@ -4354,14 +4360,20 @@ TRAIN_ARGV = ["--arch", "smollm-135m", "--steps", "20", "--batch", "8", "--seq",
               "--ckpt-every", "10", "--workers", "4", "--device", "cuda"]
 TRAIN_GATE_ROWS = 1  # batch rows of the backward call gate's plain stream (remat off)
 TRAIN_CFG = None  # a configuration in place of --arch's (a rehearsal's reduced one)
-RMSNORM_BWD_SHAPES = [(16384, 576)] + [(4096, d) for d in (1536, 2048, 3584, 4096, 6144,
-                                                           7168, 100)]
+RMSNORM_BWD_SHAPES = [(16384, 576), (16384, 4096)] + [(4096, d) for d in (
+    1536, 2048, 3584, 4096, 6144, 7168, 100)]
 FLASH_BWD_SHAPES = [((8, 2048, 9, 3, 64), True)]
 FLASH_BWD_SHAPES += [((2, 200, 9, 3, hd), True) for hd in (16, 32, 64, 112, 128)]
 FLASH_BWD_SHAPES += [((2, 200, 9, 3, hd, 300), False) for hd in (16, 32, 64, 112, 128)]
 FLASH_BWD_SHAPES += [((2, 130, 4, 4, 64), True), ((2, 130, 14, 2, 32), True),
                      ((1, 77, 7, 1, 128, 50), False)]  # groups of 1 and 7
 TRAIN_KERNEL_SHAPES = {"rmsnorm_bwd": (16384, 576), "flash_attention_bwd": (8, 2048, 9, 3, 64)}
+# the RMSNorm backward's other training rows, timed under "at": falcon-mamba's
+RMSNORM_TRAIN_MORE = ((16384, 4096),)
+# the step medians before the RMSNorm and scan backward kernels were
+# redesigned (phases 15 (b) and 16 (b) on an H100 80GB HBM3 at 700 W),
+# printed beside this run's
+EARLIER_STEP_MS = {"smollm-135m": "189.9-205.9", "falcon-mamba-7b": "598.9-605.0"}
 
 
 def identical(a, b):
@@ -4509,18 +4521,59 @@ def measure_bwd(torch, name, shape, dtype):
         got[who].append((cuda_ms(f, 10), dev, how))
     mean = lambda xs, i: sum(x[i] for x in xs) / len(xs)
     bound_ms, bound_by = bwd_bound(name, shape, 2 if dtype == torch.bfloat16 else 4)
+    turns = None
+    if name == "rmsnorm_bwd" and PARENT["RK"] is not None:
+        x, w, dy = args
+        tol = MODEL_TOL["bfloat16" if dtype == torch.bfloat16 else "float32"]
+        turns = bwd_turns(torch, f"{name} {shape}", fn,
+                          lambda: PARENT["RK"].rmsnorm_bwd(x, w, dy), plain(), (tol, tol))
     rec = {"max_abs_err": err, "rel_max_abs_err": rel, "ms": mean(got["kernel"], 0),
            "device_ms": mean(got["kernel"], 1), "device_ms_by": got["kernel"][0][2],
            "plain_ms": cuda_ms(plain, 3), "bound_ms": bound_ms, "bound_by": bound_by,
            "library_ms": mean(got["lib"], 0), "library_device_ms": mean(got["lib"], 1),
            "shape": list(shape), "dtype": str(dtype)[6:], "tolerance": MODEL_TOL[
                "bfloat16" if dtype == torch.bfloat16 else "float32"], "backward": True}
+    if turns is not None:
+        rec["turns"], rec["turns_tree"] = turns
     print(f"kernel {name} {shape} {str(dtype)[6:]}: {rec['ms']:.4f} ms, device "
           f"{rec['device_ms']:.4f} ms ({rec['device_ms_by']}); library backward "
           f"{rec['library_ms']:.4f} ms, device {rec['library_device_ms']:.4f} ms; plain "
           f"{rec['plain_ms']:.4f} ms; bound {bound_ms:.6f} ms by {bound_by}; max abs err "
-          f"{err:.3g} (relative {rel:.3g})", flush=True)
+          f"{err:.3g} (relative {rel:.3g})" + turns_text(turns), flush=True)
     return rec
+
+
+def bwd_turns(torch, what, fn, par, want, tols):
+    """A backward call of the --turns tree (``par``) held to the plain
+    version's outputs ``want`` (each finite and within its tolerance in
+    ``tols``, relative max-abs; not bit for bit: the two designs sum in
+    other orders), then timed in turns with this tree's ``fn`` (DIR's,
+    this, this, DIR's): each turn's ms by CUDA events over 10 calls and
+    device ms per call (``device_ms_per_call``).  Returns (this tree's, the
+    --turns tree's) means of their two turns."""
+    got = par()
+    for i, (a, b, tol) in enumerate(zip(got, want, tols)):
+        e = rel_max_abs(a, b)
+        check(bool(torch.isfinite(a.float()).all()) and e <= tol,
+              f"{what}: the --turns tree's output {i} is {e:.3g} from the plain version, "
+              f"over {tol}")
+    del got
+    runs = {"this": [], "turns": []}
+    for who, f in (("turns", par), ("this", fn), ("this", fn), ("turns", par)):
+        dev, how = device_ms_per_call(torch, f)
+        runs[who].append({"ms": cuda_ms(f, 10), "device_ms": dev, "device_ms_by": how})
+    return tuple({"ms": (r[0]["ms"] + r[1]["ms"]) / 2,
+                  "device_ms": (r[0]["device_ms"] + r[1]["device_ms"]) / 2,
+                  "device_ms_by": r[0]["device_ms_by"]} for r in (runs["this"], runs["turns"]))
+
+
+def turns_text(turns):
+    if turns is None:
+        return ""
+    cur, par = turns
+    return (f"; in turns with the --turns tree's: this {cur['ms']:.4f} ms, device "
+            f"{cur['device_ms']:.4f} ms; --turns tree {par['ms']:.4f} ms, device "
+            f"{par['device_ms']:.4f} ms")
 
 
 def train_bwd_checks(torch):
@@ -4733,6 +4786,8 @@ def train_and_resume(torch, K, argv, cfg_in, gated, t0, phase_name):
         state_gb = sum(t.numel() * t.element_size() for t in tree_flatten((params, opt))) / 1e9
         tokens = args.batch * args.seq
         steady = statistics.median(step_s[1:]) if len(step_s) > 1 else step_s[0]
+        earlier = (f"; before the backward kernels' redesign {EARLIER_STEP_MS[cfg.name]} ms "
+                   "on an H100 80GB HBM3 at 700 W" if cfg.name in EARLIER_STEP_MS else "")
         shape = (f"d_inner {cfg.d_inner()}, {cfg.ssm_state} states" if cfg.family == "ssm"
                  else f"{cfg.n_heads} / {cfg.n_kv_heads} heads of {cfg.hd()}")
         print(f"train {cfg.name}: {cfg.n_layers} layers, d {cfg.d_model}, {shape}, vocab "
@@ -4740,7 +4795,7 @@ def train_and_resume(torch, K, argv, cfg_in, gated, t0, phase_name):
               f"{state_gb:.3f} GB of params and AdamW state; batch {args.batch} x {args.seq}, "
               f"{args.steps} steps, ckpt every {args.ckpt_every}: loss {losses[0]:.4f} -> "
               f"{losses[-1]:.4f}; step 1 {step_s[0] * 1e3:.1f} ms, then {steady * 1e3:.1f} ms "
-              f"a step median ({tokens / steady:.0f} tok/s); {wall:.1f} s in all with the "
+              f"a step median ({tokens / steady:.0f} tok/s{earlier}); {wall:.1f} s in all with the "
               f"checkpoints; persistence {fs.stats}; peak memory {peak / 2**30:.2f} GiB; "
               f"launches {launches} (as predicted)", flush=True)
         check(all(math.isfinite(x) for x in losses) and losses[-1] < losses[0],
@@ -4856,6 +4911,9 @@ def phase_train(torch, K, records):
         records[name] = {"name": name, "route": "cuda", "source": src, "replaces": replaces,
                          "launches": launches[name],
                          **measure_bwd(torch, name, shape, torch.bfloat16)}
+    for shape in RMSNORM_TRAIN_MORE:
+        records["rmsnorm_bwd"].setdefault("at", {})["x".join(map(str, shape))] = measure_bwd(
+            torch, "rmsnorm_bwd", shape, torch.bfloat16)
     for name, n in launches.items():
         if name in records:
             records[name]["train_launches"] = n
@@ -4876,8 +4934,11 @@ SSM_TRAIN_ARGV = ["--arch", "falcon-mamba-7b", "--steps", "10", "--batch", "8", 
 SSM_TRAIN_CFG = None  # a configuration in place of the cut one (a rehearsal's reduced one)
 # (B, S, DI, N) of (a): phase 3's scan shapes at batch 2 (a ragged S, N 8,
 # S 1, DI and N off the 16-byte vector), each in both modes and dtypes
+# (2, 33, ...) and (2, 45, 200, ...) are the backward's layout edges: S
+# ragged against the chunk and the 4-step sub-chunk, DI off the 128-channel
+# block (a block whose last warp holds no channel)
 SCAN_BWD_SHAPES = ((2, 512, 8192, 16), (2, 200, 8192, 16), (2, 512, 8192, 8),
-                   (2, 1, 8192, 16), (2, 70, 100, 5))
+                   (2, 1, 8192, 16), (2, 70, 100, 5), (2, 33, 8192, 16), (2, 45, 200, 16))
 SCAN_TRAIN_SHAPE = (8, 2048, 8192, 16)  # the training run's calls (bf16, fused)
 SCAN_BWD_NAMES = ("dt", "a_log", "b", "c", "x", "d_skip", "dt_bias", "z")
 
@@ -4993,7 +5054,16 @@ def measure_scan_bwd(torch, shape, errs=None):
     fn = lambda: SK.selective_scan_bwd(*args, dy, **kw, chunk_states=hs)
     ms = cuda_ms(fn, 10)
     dev, how = device_ms_per_call(torch, fn)
-    plain_ms = cuda_ms(lambda: selective_scan_bwd_ref(*args, dy, **kw), 1, warmup=0)
+    plain = lambda: selective_scan_bwd_ref(*args, dy, **kw)
+    plain_ms = cuda_ms(plain, 1, warmup=0)
+    turns = None
+    if PARENT["SK"] is not None:
+        want = plain()
+        turns = bwd_turns(
+            torch, f"selective_scan_bwd {shape}", fn,
+            lambda: PARENT["SK"].selective_scan_bwd(*args, dy, **kw, chunk_states=hs), want,
+            [SCAN_TOL_F32 if t.dtype == torch.float32 else MODEL_TOL["bfloat16"] for t in want])
+        del want
     bound_ms, bound_by = scan_bwd_bound(shape, 2)
     rec = {"max_abs_err": err, "rel_max_abs_err": max(e32, e16), "ms": ms, "device_ms": dev,
            "device_ms_by": how, "plain_ms": plain_ms, "bound_ms": bound_ms,
@@ -5001,10 +5071,12 @@ def measure_scan_bwd(torch, shape, errs=None):
            "fused": True, "tolerance": {"float32": SCAN_TOL_F32,
                                         "bfloat16": MODEL_TOL["bfloat16"]},
            "backward": True}
+    if turns is not None:
+        rec["turns"], rec["turns_tree"] = turns
     print(f"kernel selective_scan_bwd {shape} bf16 fused: {ms:.4f} ms, device {dev:.4f} ms "
           f"({how}); library none (no PyTorch call computes the scan's backward); plain "
           f"{plain_ms:.4f} ms; bound {bound_ms:.6f} ms by {bound_by}; max abs err {err:.3g} "
-          f"(relative: f32 gradients {e32:.3g}, bf16 {e16:.3g})", flush=True)
+          f"(relative: f32 gradients {e32:.3g}, bf16 {e16:.3g})" + turns_text(turns), flush=True)
     return rec
 
 
@@ -5040,14 +5112,15 @@ def phase_ssm_train(torch, K, records):
     check(not failed, "; ".join(failed))
 
 
-def turns_kernels(root):
-    """The combine-kernel wrappers (``kernel.py``) of the repository checkout
-    at ``root``, loaded beside this tree's: its ``csrc`` sources build into
-    this tree's ``build/`` under their own content hash."""
+def turns_kernels(root, package):
+    """The kernel wrappers (``kernel.py``) of one kernel package (the
+    combine kernels, ``mamba_scan`` or ``rmsnorm``) of the repository
+    checkout at ``root``, loaded beside this tree's: its ``csrc`` sources
+    build into this tree's ``build/`` under their own content hash."""
     import importlib.util
-    path = Path(root).resolve() / "src/repro_torch/kernels/dfc_reduce/kernel.py"
+    path = Path(root).resolve() / f"src/repro_torch/kernels/{package}/kernel.py"
     check(path.is_file(), f"--turns {root}: no {path}")
-    spec = importlib.util.spec_from_file_location("turns_dfc_kernel", path)
+    spec = importlib.util.spec_from_file_location(f"turns_{package}_kernel", path)
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
@@ -5060,7 +5133,9 @@ def main(argv=None) -> int:
     ap.add_argument("--turns", metavar="DIR",
                     help="also time the combine kernels of the repository checkout at DIR "
                          "in turns with this tree's (DIR's, this, this, DIR's) in phases 4 "
-                         "and 5, on the same inputs, after holding their outputs bit for bit")
+                         "and 5, on the same inputs, after holding their outputs bit for bit, "
+                         "and its RMSNorm and selective-scan backward kernels in phases 15 "
+                         "(d) and 16 (d), after holding their outputs to the plain versions")
     opts = ap.parse_args(argv)
     run = set(opts.phases.split(",")) | {"1", "2"}
     if not (ROOT / "src" / "repro_torch").is_dir():
@@ -5102,8 +5177,10 @@ def main(argv=None) -> int:
         with contextlib.redirect_stdout(log):
             libs = nvcc.build(libraries, verbose=True)
             if opts.turns:
-                PARENT["K"] = turns_kernels(opts.turns)
-                libs.update({f"{k} (--turns)": v for k, v in PARENT["K"].build().items()})
+                for key, package in (("K", "dfc_reduce"), ("SK", "mamba_scan"),
+                                     ("RK", "rmsnorm")):
+                    PARENT[key] = turns_kernels(opts.turns, package)
+                    libs.update({f"{k} (--turns)": v for k, v in PARENT[key].build().items()})
         usage = [ln.strip() for ln in log.getvalue().splitlines()
                  if "registers" in ln or "Compiling entry" in ln or "spill" in ln]
         print(f"build: {', '.join(str(p.relative_to(ROOT)) for p in libs.values())} in "

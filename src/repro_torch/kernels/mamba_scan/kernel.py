@@ -34,7 +34,7 @@ LIBRARIES = (nvcc.Library("mamba_scan", _HERE / "csrc" / "selective_scan.cu",
                           (nvcc.MODEL_COMMON,)),)
 LAUNCHES: Dict[str, int] = {"selective_scan": 0, "selective_scan_bwd": 0}
 MAX_STATE = 16  # the kernel keeps up to 16 states per channel in registers
-BLOCK_CHANNELS = 64  # selective_scan.cu's kCh: channels of one block
+BLOCK_CHANNELS = 128  # selective_scan.cu's kBwdCh: channels of one backward block
 _DTYPES = (torch.float32, torch.bfloat16)
 _BF16 = torch.bfloat16
 _LIB = {}  # the C entry points, resolved once, at the first launch
@@ -65,6 +65,16 @@ def chunk_steps(dtype) -> int:
     """Steps of one chunk of the kernels (64 bytes of ``dtype``: 32 in bf16,
     16 in f32): the forward keeps the state entering each chunk."""
     return 64 // dtype.itemsize
+
+
+def bwd_scratch(bsz: int, s: int, di: int, n: int):
+    """Sizes in f32 elements of the backward kernel's two scratch buffers
+    for (B, S, DI, N): ``part_bc``, the per-block partial sums of dB then dC
+    (each (blocks, B, S, N), blocks = ceil(DI / BLOCK_CHANNELS)), and
+    ``part_row``, the per-batch-row sums over time of d a (B, DI, N), dD
+    (B, DI) and d dt_bias (B, DI)."""
+    blocks = -(-di // BLOCK_CHANNELS)
+    return 2 * blocks * bsz * s * n, bsz * di * n + 2 * bsz * di
 
 
 def _check_z(z, shape, dtype, device) -> int:
@@ -186,9 +196,9 @@ def selective_scan_bwd(dt, a_log, b_ssm, c_ssm, x, d_skip, dy, dh_last=None, *, 
                                                          device=dev)]
     if bsz * s * di == 0:
         return tuple(g.zero_() for g in grads)
-    blocks = -(-di // BLOCK_CHANNELS)
-    part_bc = torch.empty(2 * blocks * bsz * s * n, dtype=torch.float32, device=dev)
-    part_row = torch.empty(bsz * di * n + 2 * bsz * di, dtype=torch.float32, device=dev)
+    n_bc, n_row = bwd_scratch(bsz, s, di, n)
+    part_bc = torch.empty(n_bc, dtype=torch.float32, device=dev)
+    part_row = torch.empty(n_row, dtype=torch.float32, device=dev)
     err = _entry("bwd")(
         dt.data_ptr(), a_log.data_ptr(), b_ssm.data_ptr(), c_ssm.data_ptr(), x.data_ptr(),
         d_skip.data_ptr(), dt_bias.data_ptr() if fused else None,

@@ -31,8 +31,8 @@ LIBRARIES = (nvcc.Library("rmsnorm", _HERE / "csrc" / "rmsnorm.cu", (nvcc.MODEL_
 LAUNCHES: Dict[str, int] = {"rmsnorm": 0, "rmsnorm_bwd": 0}
 _DTYPES = (torch.float32, torch.bfloat16)
 _BF16 = torch.bfloat16
-BWD_BLOCKS = 256  # rmsnorm.cu's kBwdBlocks: rows of the dw partials
-BWD_MAX_D = 8192  # rmsnorm.cu's kThreads x kBwdMaxCols
+BWD_BLOCKS = 512  # rmsnorm.cu's kBwdBlocks: most rows of the dw partials
+BWD_MAX_D = 8192  # rmsnorm.cu's kThreads x kBwdMaxCols (and 1024 vectors of bf16)
 _LIB = {}  # the C entry points, resolved once, at the first launch
 
 
@@ -76,7 +76,8 @@ def _fwd_kernel(x, w, eps):
 def rmsnorm_bwd(x, w, dy, *, eps: float = 1e-6):
     """The backward: x, dy (R, D) in one dtype; w (D,) -> ``(dx, dw)`` in
     x's and w's dtypes.  CUDA tensors launch the kernels (dx and the dw
-    partials, then dw summed in block order), CPU tensors run
+    partials, then dw summed in block order; an input whose storage is off
+    the 16-byte vector is copied to aligned storage first), CPU tensors run
     :func:`ref.rmsnorm_bwd_ref`."""
     r, d = x.shape
     nvcc.check_tensors(x.device, ("x", x, _DTYPES, (r, d)), ("w", w, _DTYPES, (d,)),
@@ -88,6 +89,8 @@ def rmsnorm_bwd(x, w, dy, *, eps: float = 1e-6):
     dx = torch.empty_like(x)
     if r == 0 or d == 0:
         return dx, torch.zeros_like(w)
+    # the row kernel reads 16-byte vectors: align an offset view
+    x, dy = (t.clone() if t.data_ptr() % 16 else t for t in (x, dy))
     dw = torch.empty_like(w)
     partial = torch.empty((min(r, BWD_BLOCKS), d), dtype=torch.float32, device=x.device)
     err = _entry("rmsnorm_bwd")(x.data_ptr(), w.data_ptr(), dy.data_ptr(), dx.data_ptr(),

@@ -201,6 +201,40 @@ def test_backward_wrapper_checks_its_arguments():
         SK.selective_scan_states(*args, **kw)
 
 
+@pytest.mark.parametrize("b,s,di,n", [(8, 2048, 8192, 16), (2, 33, 200, 5), (1, 1, 1, 1)])
+def test_backward_scratch_follows_the_kernel_layout(b, s, di, n):
+    """``bwd_scratch`` against the layout it documents: per block of
+    ``BLOCK_CHANNELS`` channels (the source's kBwdCh) a partial of dB and of
+    dC, (blocks, B, S, N) each; per batch row d a (DI, N), dD and
+    d dt_bias (DI each)."""
+    src = (SK._HERE / "csrc" / "selective_scan.cu").read_text()
+    assert f"constexpr int kBwdCh = {SK.BLOCK_CHANNELS};" in src
+    blocks = -(-di // 128)
+    assert SK.BLOCK_CHANNELS == 128
+    assert SK.bwd_scratch(b, s, di, n) == (2 * blocks * b * s * n, b * di * n + 2 * b * di)
+
+
+def test_backward_checks_under_the_block_layout():
+    """The wrapper's checks at a DI off the 128-channel block and an S
+    ragged against both the 32-step chunk and the 4-step sub-chunk (bf16:
+    two chunks of states), and its CPU path equal to the plain backward."""
+    bf = torch.bfloat16
+    ins = _inputs(1, 33, 130, 4, True, seed=6)
+    (dt, a_log, bm, cm, x, d), kw = _port_args(ins, False)
+    args = (dt.to(bf), a_log, bm.to(bf), cm.to(bf), x.to(bf), d)
+    kw = {k: v.to(bf) for k, v in kw.items()}
+    dy = _t(ins["dy"]).to(bf)
+    assert SK.chunk_steps(torch.bfloat16) == 32
+    for chunks in (1, 3):  # ceil(33 / 32) = 2 chunks
+        with pytest.raises(ValueError):
+            SK.selective_scan_bwd(*args, dy, **kw, chunk_states=torch.zeros(1, chunks, 130, 4))
+    with pytest.raises(TypeError):  # bf16 chunk states
+        SK.selective_scan_bwd(*args, dy, **kw,
+                              chunk_states=torch.zeros(1, 2, 130, 4, dtype=torch.bfloat16))
+    ok = SK.selective_scan_bwd(*args, dy, **kw, chunk_states=torch.zeros(1, 2, 130, 4))
+    assert all(torch.equal(a, b) for a, b in zip(ok, selective_scan_bwd_ref(*args, dy, **kw)))
+
+
 def _falcon_runtime(root, injector=None):
     cfg = get_reduced("falcon-mamba-7b")
     return TrainRuntime(cfg, AdamWConfig(lr=1e-3), DataPipeline(vocab=cfg.vocab, batch_size=2,

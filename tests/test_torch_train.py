@@ -272,7 +272,8 @@ def _rand(rng, *shape, scale=0.5):
     return (rng.standard_normal(shape) * scale).astype(np.float32)
 
 
-@pytest.mark.parametrize("rows,d", [(16, 48), (7, 100), (1, 576)])
+# (8, 4096): the backward kernel's rows of a group of 4 warps; (8, 7168): of 8
+@pytest.mark.parametrize("rows,d", [(16, 48), (7, 100), (1, 576), (8, 4096), (8, 7168)])
 def test_rmsnorm_backward_formula(rows, d):
     rng = np.random.default_rng(d)
     x, w, dy = _rand(rng, rows, d), _rand(rng, d) + 1.0, _rand(rng, rows, d)
