@@ -306,11 +306,26 @@ script exits non-zero without printing a result):
                   h_S's gradient given and not, and the training shape),
                   two launches bit-equal, the forward keeping its chunk
                   states bit-equal to the forward without; (b)-(c) as
-                  phase 15's for ``falcon-mamba-7b`` cut to 8 of 64 layers
+                  phase 15's for ``falcon-mamba-7b`` cut to 2 of 64 layers
                   with every width kept (``SSM_TRAIN_ARGV``: 8 x 2,048, 10
                   steps, a checkpoint every 5); (d) the scan's backward
                   timed at the training shape.  Each kernel record gains
                   ``ssm_train_launches``.
+  17. hybrid and moe training -- (a) the flash backward at zamba2's and
+                  dbrx's attention layouts (batch 2) and the RMSNorm
+                  backward at their training rows, bf16, against their
+                  plain versions, two launches bit-equal; (b) as phase 15's
+                  for ``zamba2-7b`` cut to 12 of 81 layers and
+                  ``dbrx-132b`` cut to 1 of 40, every width kept
+                  (``MORE_TRAIN``: zamba2 at 4 x 2,048, dbrx at 8 x 2,048
+                  with a loss chunk of 512; their real combines, the disk's
+                  free space checked first); (c') in place of the
+                  crash and resume, each run's steps replayed from a fresh
+                  state through a fresh runtime's step, without combines,
+                  every loss and the final state bit-equal to (b)'s; (d)
+                  the backward kernels timed at each model's training
+                  shapes, under ``at``.  Each kernel record gains
+                  ``more_train_launches``.
 
 Phase 3 also holds the three model kernels (RMSNorm, flash attention, the
 selective scan) against their plain versions at model shapes, in bf16 and
@@ -357,7 +372,7 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 ALL_PHASES = ("1", "2", "3", "4", "5", "6", "7", "8", "9", "10", "11", "12", "13", "14",
-              "15", "16")
+              "15", "16", "17")
 SOURCE = "src/repro_torch/kernels/dfc_reduce/csrc/dfc_reduce.cu"
 GRID_SOURCE = "src/repro_torch/kernels/dfc_reduce/csrc/phase_grid.cu"
 KINDS = ("stack", "queue", "deque", "map")
@@ -3813,25 +3828,29 @@ MOE_KERNEL_SHAPES = {"flash_attention": [("dbrx-132b", (8, 512, 48, 8, 128))],
                      "rmsnorm": [("dbrx-132b", (4096, 6144))]}
 
 
-def depth_cut(name, layers, label):
+def depth_cut(name, layers, label, **extra):
     """The launcher's configuration of ``name`` (tuned), cut to ``layers``
-    layers; every width kept.  Prints the cut under ``label``."""
+    layers, with the fields ``extra`` (a loss chunk); every width kept.
+    Prints the cut under ``label``."""
     import dataclasses
     from repro_torch.configs import get_config
     from repro_torch.launch.tuned import apply_tuning
     full = apply_tuning(get_config(name))
-    cfg = dataclasses.replace(full, n_layers=layers)
+    cfg = dataclasses.replace(full, n_layers=layers, **extra)
     if cfg.family == "moe":
         widths = (f"{cfg.n_heads} / {cfg.n_kv_heads} heads of {cfg.hd()}, {cfg.n_experts} "
                   f"experts top-{cfg.top_k} of width {cfg.moe_dff}"
                   + (f", a dense residual of width {cfg.d_ff}" if cfg.dense_residual else "")
-                  + f", moe_groups {cfg.moe_groups}")
+                  + f", moe_groups {cfg.moe_groups}"
+                  + (f", loss chunk {cfg.loss_chunk}" if cfg.loss_chunk else ""))
         counts = (f"{cfg.param_count() / 1e9:.3f} B params ({cfg.active_param_count() / 1e9:.3f}"
                   f" B active) of the full {full.param_count() / 1e9:.3f} B "
                   f"({full.active_param_count() / 1e9:.3f} B active)")
     else:
         widths = (f"d_inner {cfg.d_inner()}, {cfg.ssm_state} states, dt rank {cfg.dtr()}, "
                   f"vocab {cfg.vocab}" if cfg.family == "ssm" else
+                  f"{hybrid_shape(cfg)}, d_ff {cfg.d_ff}, vocab {cfg.vocab}"
+                  if cfg.family == "hybrid" else
                   f"{cfg.n_heads} / {cfg.n_kv_heads} heads of {cfg.hd()}, d_ff {cfg.d_ff}, "
                   f"vocab {cfg.vocab}")
         counts = (f"{cfg.param_count() / 1e9:.3f} B params of the full "
@@ -3839,6 +3858,16 @@ def depth_cut(name, layers, label):
     print(f"{label} {name}: n_layers {full.n_layers} -> {layers} (every width kept: d "
           f"{cfg.d_model}, {widths}); {counts}", flush=True)
     return cfg
+
+
+def hybrid_shape(cfg):
+    """A hybrid's groups and tail, its shared block's heads and its mamba2
+    layers' widths."""
+    g = cfg.n_layers // cfg.attn_every
+    return (f"{g} groups of {cfg.attn_every} mamba2 layers and a tail of "
+            f"{cfg.n_layers - g * cfg.attn_every}, the shared block's {cfg.n_heads} / "
+            f"{cfg.n_kv_heads} heads of {cfg.hd()}, d_inner {cfg.d_inner()}, {cfg.ssm_state} "
+            f"states, head dim {cfg.ssm_head_dim}")
 
 
 @contextlib.contextmanager
@@ -4373,7 +4402,7 @@ RMSNORM_TRAIN_MORE = ((16384, 4096),)
 # the step medians before the RMSNorm and scan backward kernels were
 # redesigned (phases 15 (b) and 16 (b) on an H100 80GB HBM3 at 700 W),
 # printed beside this run's
-EARLIER_STEP_MS = {"smollm-135m": "189.9-205.9", "falcon-mamba-7b": "598.9-605.0"}
+EARLIER_STEP_MS = {("smollm-135m", 30): "189.9-205.9", ("falcon-mamba-7b", 8): "598.9-605.0"}
 
 
 def identical(a, b):
@@ -4593,23 +4622,42 @@ def train_bwd_checks(torch):
           "to without, LSE held; two launches bit-equal): " + "; ".join(lines), flush=True)
 
 
-def expected_train_launches(cfg, steps):
-    """Model-kernel launches of ``steps`` training steps under
-    ``nothing_saveable`` remat: the forward, each block again in the
-    backward, and the backward kernels.  A dense model: 2L+1 norms and L
-    flash, 2L norms and L flash again, 2L+1 norms and L flash backward; an
-    ssm model: L+1 norms and L scans, L norms and L scans again, L+1 norms
-    and L scans backward."""
+def train_blocks(cfg):
+    """(norms, flash launches, scans) of each block the trunk runs under
+    ``_remat``, in order: a dense or MoE block two norms and one flash
+    launch (the MoE FFN runs no kernel); an ssm layer one norm and one scan;
+    a hybrid group ``attn_every`` mamba2 layers of one norm each (the SSD
+    and its gated norm are plain PyTorch) and the shared block's two norms
+    and one flash launch, then each tail layer one norm."""
     L = cfg.n_layers
-    again = L if cfg.remat == "nothing_saveable" else 0
+    if cfg.family == "hybrid":
+        g = L // cfg.attn_every
+        return [(cfg.attn_every + 2, 1, 0)] * g + [(1, 0, 0)] * (L - g * cfg.attn_every)
     if cfg.family == "ssm":
-        return {"rmsnorm": steps * (L + 1 + again), "flash_attention": 0,
-                "selective_scan": steps * (L + again), "rmsnorm_bwd": steps * (L + 1),
-                "flash_attention_bwd": 0, "selective_scan_bwd": steps * L}
-    return {"rmsnorm": steps * (2 * L + 1 + 2 * again),
-            "flash_attention": steps * (L + again), "selective_scan": 0,
-            "rmsnorm_bwd": steps * (2 * L + 1), "flash_attention_bwd": steps * L,
-            "selective_scan_bwd": 0}
+        return [(1, 0, 1)] * L
+    check(cfg.family in ("dense", "moe"), f"the launcher trains no {cfg.family} model")
+    return [(2, 1, 0)] * L
+
+
+def expected_train_launches(cfg, steps, seq):
+    """Model-kernel launches of ``steps`` training steps over sequences of
+    ``seq``: the forward (each block's norms and the final norm, once per
+    chunk of a chunked loss), each block again in the backward under
+    ``nothing_saveable`` remat, and a backward kernel for each forward call
+    (``train_blocks``).  A config whose norm is not RMSNorm launches no norm
+    kernel, as in serving."""
+    norms, flash, scans = (sum(b[i] for b in train_blocks(cfg)) for i in range(3))
+    again = cfg.remat == "nothing_saveable"
+    chunk = cfg.loss_chunk
+    heads = seq // chunk if chunk and seq % chunk == 0 and seq > chunk else 1
+    if cfg.norm != "rmsnorm":
+        norms, fwd_norms = 0, 0
+    else:
+        fwd_norms = norms + heads  # the final norm, outside every block
+    return {"rmsnorm": steps * (fwd_norms + again * norms),
+            "flash_attention": steps * flash * (1 + again),
+            "selective_scan": steps * scans * (1 + again), "rmsnorm_bwd": steps * fwd_norms,
+            "flash_attention_bwd": steps * flash, "selective_scan_bwd": steps * scans}
 
 
 def leaf_names(tree, prefix=""):
@@ -4638,10 +4686,11 @@ def train_call_gate(torch, cfg, params, batch):
     with that call's inputs, to the backward kernel and to its plain version
     (flash: with the forward kernel's output and row LSE on those inputs;
     the scan: from the forward kernel's chunk states on those inputs).
-    Every call within MODEL_TOL's bf16 tolerance (relative max-abs); a
-    control must fail it: dK / dV from K rolled by one head at the first
-    flash call (a dense model), dC / dx from B rolled by one state at the
-    first scan call (an ssm model)."""
+    Every call within MODEL_TOL's bf16 tolerance (relative max-abs), as many
+    calls as ``expected_train_launches`` gives a step; a control must fail
+    it: dK / dV from K rolled by one head at the first flash call (every
+    family with attention), dC / dx from B rolled by one state at the first
+    scan call (an ssm model)."""
     import dataclasses
     from repro_torch.kernels.flash_attention import kernel as FK
     from repro_torch.kernels.flash_attention.ref import attention_bwd_ref
@@ -4727,14 +4776,10 @@ def train_call_gate(torch, cfg, params, batch):
         torch.cuda.synchronize()
     finally:
         layers.rmsnorm_op, layers.attention, mamba.selective_scan_op = saved
-    L = cfg.n_layers
-    if cfg.family == "ssm":
-        want_calls = {"rmsnorm_bwd": L + 1, "flash_attention_bwd": 0, "selective_scan_bwd": L}
-        what = "dC/dx from B rolled by one state"
-    else:
-        want_calls = {"rmsnorm_bwd": 2 * L + 1, "flash_attention_bwd": L,
-                      "selective_scan_bwd": 0}
-        what = "dK/dV from K rolled by one head"
+    want_calls = {n: c for n, c in expected_train_launches(
+        cfg, 1, batch["tokens"].shape[1]).items() if n in calls}
+    what = ("dK/dV from K rolled by one head" if want_calls["flash_attention_bwd"]
+            else "dC/dx from B rolled by one state")
     print(f"train call gate {cfg.name}: every backward call within {tol} of its plain "
           f"version on the plain stream ({TRAIN_GATE_ROWS} x {batch['tokens'].shape[1]}): "
           + ", ".join(f"{n} max {e:.4g} ({c} calls)" for n, (e, c) in calls.items() if c)
@@ -4748,99 +4793,151 @@ def train_call_gate(torch, cfg, params, batch):
           "cannot fail")
 
 
-def train_and_resume(torch, K, argv, cfg_in, gated, t0, phase_name):
-    """(b) and (c) of a training phase.  (b) the run of ``argv`` through
+def train_checked(torch, K, argv, cfg_in, gated, t0, phase_name, ckpt_dir, keep_state=True):
+    """(b) of a training phase: the run of ``argv`` through
     ``launch/train.py``'s code path (``cfg_in`` in place of the launcher's
-    configuration where given): exact launches, every grad finite and
-    non-zero, the loss falling, one batch's loss on the kernels within
-    bf16's tolerance of the plain backend's, the backward call gate, ms a
-    step, tokens/s, the busy share, the peak.  (c) a crash inside the
-    second combine, recovered on ``fs.crash()`` and finished: the losses
-    after the resume and the final state bit-equal to (b)'s.  Returns the
-    launches of (b)'s run."""
-    from repro_torch.checkpoint.dfc_checkpoint import CrashNow, FaultInjector
+    configuration where given), checkpointed into ``ckpt_dir``: exact
+    launches, every grad finite and non-zero, the loss falling, one batch's
+    loss on the kernels within bf16's tolerance of the plain backend's, the
+    backward call gate, ms a step, tokens/s, the busy share, the peak, each
+    combine's seconds.  Without ``keep_state`` the run's final state leaves
+    the card before the checks that draw a fresh one, and the bytes its last
+    combine wrote (the final state: a run ends with a combine) are kept in
+    its place, each leaf as the manager reads it back.  Returns the run (its
+    args, cfg, store, runtime, final params and AdamW state or None, the
+    last combine's leaves (numpy arrays with their manifest dtypes) or None,
+    losses, launches, step and combine seconds, peak)."""
+    from repro_torch.checkpoint.dfc_checkpoint import _load
     from repro_torch.launch import train as train_mod
     from repro_torch.models.model import loss_fn
     from repro_torch.optim.adamw import init_opt_state
+    from repro_torch.tree import tree_flatten
+    args = train_mod.parse_args(argv + ["--ckpt-dir", ckpt_dir])
+    cfg, fs, rt = train_mod.build(args, cfg=cfg_in)
+    combine_s, combine, write, written = [], rt.mgr.combine, fs.write, {}
+
+    def timed_combine(*a, **kw):
+        t = time.perf_counter()
+        written.clear()
+        out = combine(*a, **kw)
+        combine_s.append(time.perf_counter() - t)
+        return out
+
+    def kept_write(rel, data, tag=None):
+        written[rel] = data
+        write(rel, data, tag)
+    rt.mgr.combine = timed_combine
+    if not keep_state:
+        fs.write = kept_write
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_launches()
+    reset_model_launches()
+    t1 = time.perf_counter()
+    params, opt, losses = rt.train(args.steps)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t1
+    launches = model_launches()
+    peak = torch.cuda.max_memory_allocated()
+    step_s = list(rt.step_s)
+    want = expected_train_launches(cfg, args.steps, args.seq)
+    check(launches == want, f"training launches {launches}, expected {want}")
+    check(not any(K.LAUNCHES.values()), f"training launched combine kernels {K.LAUNCHES}")
+    n_params = sum(p.numel() for p in tree_flatten(params))
+    state_gb = sum(t.numel() * t.element_size() for t in tree_flatten((params, opt))) / 1e9
+    tokens = args.batch * args.seq
+    steady = statistics.median(step_s[1:]) if len(step_s) > 1 else step_s[0]
+    layers = (cfg.name, cfg.n_layers)
+    earlier = (f"; before the backward kernels' redesign {EARLIER_STEP_MS[layers]} ms "
+               "on an H100 80GB HBM3 at 700 W" if layers in EARLIER_STEP_MS else "")
+    shape = (f"d_inner {cfg.d_inner()}, {cfg.ssm_state} states" if cfg.family == "ssm"
+             else hybrid_shape(cfg) if cfg.family == "hybrid"
+             else f"{cfg.n_heads} / {cfg.n_kv_heads} heads of {cfg.hd()}")
+    if cfg.family == "moe":
+        shape += (f", {cfg.n_experts} experts top-{cfg.top_k}, moe_groups {cfg.moe_groups}"
+                  + (f", loss chunk {cfg.loss_chunk}" if cfg.loss_chunk else ""))
+    print(f"train {cfg.name}: {cfg.n_layers} layers, d {cfg.d_model}, {shape}, vocab "
+          f"{cfg.vocab}, {cfg.dtype}, remat {cfg.remat}; {n_params / 1e6:.2f} M params, "
+          f"{state_gb:.3f} GB of params and AdamW state; batch {args.batch} x {args.seq}, "
+          f"{args.steps} steps, ckpt every {args.ckpt_every}: loss {losses[0]:.4f} -> "
+          f"{losses[-1]:.4f}; step 1 {step_s[0] * 1e3:.1f} ms, then {steady * 1e3:.1f} ms "
+          f"a step median ({tokens / steady:.0f} tok/s{earlier}); {wall:.1f} s in all with the "
+          f"checkpoints; persistence {fs.stats}; peak memory {peak / 2**30:.2f} GiB; "
+          f"launches {launches} (as predicted)", flush=True)
+    check(all(math.isfinite(x) for x in losses) and losses[-1] < losses[0],
+          f"the loss did not fall: {losses[0]} -> {losses[-1]}")
+    ckpt = None
+    if not keep_state:  # one card holds (b)'s state or a fresh one, not both
+        fs.write = write
+        man = next(r for r in written if r.endswith("/manifest.json"))
+        slot = man.rsplit("/", 1)[0]
+        ckpt = [(_load(written[f"{slot}/{e['file']}"]), e["dtype"])
+                for e in json.loads(bytes(written[man]))["leaves"]]
+        params = opt = None
+        written.clear()
+        torch.cuda.empty_cache()
+    marks = {"run": time.perf_counter() - t1}
+
+    # every leaf's grad finite and non-zero; the same bits twice
+    t2 = time.perf_counter()
+    fresh = rt._fresh_state()[0]  # the AdamW state not kept
+    batch = rt._batch(0)
+    loss1, g1 = train_grads(torch, cfg, fresh, batch)
+    _, g2 = train_grads(torch, cfg, fresh, batch)
+    with torch.no_grad():
+        plain_loss = loss_fn(fresh, cfg, batch, backend="ref")
+    loss_err = abs(float(loss1) - float(plain_loss)) / abs(float(plain_loss))
+    print(f"train loss on the kernels {float(loss1):.6f}, on the plain backend "
+          f"{float(plain_loss):.6f}: relative err {loss_err:.3g} (within "
+          f"{MODEL_TOL['bfloat16']})", flush=True)
+    gated(check, loss_err <= MODEL_TOL["bfloat16"],
+          f"the kernels' loss {float(loss1)} is {loss_err:.3g} from the plain backend's "
+          f"{float(plain_loss)}, over {MODEL_TOL['bfloat16']}")
+    names = leaf_names(fresh)
+    bad = [n for n, g in zip(names, g1)
+           if not (bool(torch.isfinite(g.float()).all()) and float(g.abs().max()) > 0)]
+    differ = [n for n, a, b in zip(names, g1, g2) if not identical(a, b)]
+    print(f"train grads: {len(g1)} leaves, every one finite and non-zero: {not bad} "
+          f"(smallest max |g| {min(float(g.abs().max()) for g in g1):.3g}); two backward "
+          f"passes on one batch bit-equal: {not differ}"
+          + (f" (differ: {', '.join(differ)})" if differ else ""), flush=True)
+    gated(check, not bad, f"grads not finite or all zero: {bad}")
+    gated(check, not differ, f"two backward passes differ: {differ}")
+    del g1, g2
+    marks["grads and plain loss"] = time.perf_counter() - t2
+    t2 = time.perf_counter()
+    gated(train_call_gate, torch, cfg, fresh, batch)
+    marks["call gate"] = time.perf_counter() - t2
+    t2 = time.perf_counter()
+    torch.cuda.empty_cache()  # the cached blocks of the checks above, for one more step
+    opt0 = init_opt_state(fresh, rt.opt_cfg)
+    profile_calls(torch, f"{cfg.name} train step", lambda: rt._step_fn(fresh, opt0, batch),
+                  2)
+    marks["profile"] = time.perf_counter() - t2
+    del fresh, opt0, batch
+    torch.cuda.empty_cache()
+    print(f"train (b): {time.perf_counter() - t0:.1f} s into phase {phase_name} ("
+          + ", ".join(f"{k} {v:.1f} s" for k, v in marks.items()) + ")", flush=True)
+
+    return {"args": args, "cfg": cfg, "fs": fs, "rt": rt, "params": params, "opt": opt,
+            "losses": losses, "launches": launches, "step_s": step_s, "combine_s": combine_s,
+            "peak": peak, "ckpt": ckpt}
+
+
+def train_and_resume(torch, K, argv, cfg_in, gated, t0, phase_name):
+    """(b) and (c) of a training phase.  (b) ``train_checked``.  (c) a crash
+    inside the second combine, recovered on ``fs.crash()`` and finished: the
+    losses after the resume and the final state bit-equal to (b)'s.
+    Returns the launches of (b)'s run."""
+    from repro_torch.checkpoint.dfc_checkpoint import CrashNow, FaultInjector
+    from repro_torch.launch import train as train_mod
     from repro_torch.runtime.train_loop import TrainRuntime
     from repro_torch.tree import tree_flatten
     with tempfile.TemporaryDirectory() as tmp:
-        # (b) the training run
-        args = train_mod.parse_args(argv + ["--ckpt-dir", f"{tmp}/run"])
-        cfg, fs, rt = train_mod.build(args, cfg=cfg_in)
-        torch.cuda.empty_cache()
-        torch.cuda.reset_peak_memory_stats()
-        K.reset_launches()
-        reset_model_launches()
-        t1 = time.perf_counter()
-        params, opt, losses = rt.train(args.steps)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t1
-        launches = model_launches()
-        peak = torch.cuda.max_memory_allocated()
-        step_s = list(rt.step_s)
-        want = expected_train_launches(cfg, args.steps)
-        check(launches == want, f"training launches {launches}, expected {want}")
-        check(not any(K.LAUNCHES.values()), f"training launched combine kernels {K.LAUNCHES}")
-        n_params = sum(p.numel() for p in tree_flatten(params))
-        state_gb = sum(t.numel() * t.element_size() for t in tree_flatten((params, opt))) / 1e9
-        tokens = args.batch * args.seq
-        steady = statistics.median(step_s[1:]) if len(step_s) > 1 else step_s[0]
-        earlier = (f"; before the backward kernels' redesign {EARLIER_STEP_MS[cfg.name]} ms "
-                   "on an H100 80GB HBM3 at 700 W" if cfg.name in EARLIER_STEP_MS else "")
-        shape = (f"d_inner {cfg.d_inner()}, {cfg.ssm_state} states" if cfg.family == "ssm"
-                 else f"{cfg.n_heads} / {cfg.n_kv_heads} heads of {cfg.hd()}")
-        print(f"train {cfg.name}: {cfg.n_layers} layers, d {cfg.d_model}, {shape}, vocab "
-              f"{cfg.vocab}, {cfg.dtype}, remat {cfg.remat}; {n_params / 1e6:.2f} M params, "
-              f"{state_gb:.3f} GB of params and AdamW state; batch {args.batch} x {args.seq}, "
-              f"{args.steps} steps, ckpt every {args.ckpt_every}: loss {losses[0]:.4f} -> "
-              f"{losses[-1]:.4f}; step 1 {step_s[0] * 1e3:.1f} ms, then {steady * 1e3:.1f} ms "
-              f"a step median ({tokens / steady:.0f} tok/s{earlier}); {wall:.1f} s in all with the "
-              f"checkpoints; persistence {fs.stats}; peak memory {peak / 2**30:.2f} GiB; "
-              f"launches {launches} (as predicted)", flush=True)
-        check(all(math.isfinite(x) for x in losses) and losses[-1] < losses[0],
-              f"the loss did not fall: {losses[0]} -> {losses[-1]}")
-        marks = {"run": time.perf_counter() - t1}
-
-        # every leaf's grad finite and non-zero; the same bits twice
-        t2 = time.perf_counter()
-        fresh, _ = rt._fresh_state()
-        batch = rt._batch(0)
-        loss1, g1 = train_grads(torch, cfg, fresh, batch)
-        _, g2 = train_grads(torch, cfg, fresh, batch)
-        with torch.no_grad():
-            plain_loss = loss_fn(fresh, cfg, batch, backend="ref")
-        loss_err = abs(float(loss1) - float(plain_loss)) / abs(float(plain_loss))
-        print(f"train loss on the kernels {float(loss1):.6f}, on the plain backend "
-              f"{float(plain_loss):.6f}: relative err {loss_err:.3g} (within "
-              f"{MODEL_TOL['bfloat16']})", flush=True)
-        gated(check, loss_err <= MODEL_TOL["bfloat16"],
-              f"the kernels' loss {float(loss1)} is {loss_err:.3g} from the plain backend's "
-              f"{float(plain_loss)}, over {MODEL_TOL['bfloat16']}")
-        names = leaf_names(fresh)
-        bad = [n for n, g in zip(names, g1)
-               if not (bool(torch.isfinite(g.float()).all()) and float(g.abs().max()) > 0)]
-        differ = [n for n, a, b in zip(names, g1, g2) if not identical(a, b)]
-        print(f"train grads: {len(g1)} leaves, every one finite and non-zero: {not bad} "
-              f"(smallest max |g| {min(float(g.abs().max()) for g in g1):.3g}); two backward "
-              f"passes on one batch bit-equal: {not differ}"
-              + (f" (differ: {', '.join(differ)})" if differ else ""), flush=True)
-        gated(check, not bad, f"grads not finite or all zero: {bad}")
-        gated(check, not differ, f"two backward passes differ: {differ}")
-        del g1, g2
-        marks["grads and plain loss"] = time.perf_counter() - t2
-        t2 = time.perf_counter()
-        gated(train_call_gate, torch, cfg, fresh, batch)
-        marks["call gate"] = time.perf_counter() - t2
-        t2 = time.perf_counter()
-        opt0 = init_opt_state(fresh, rt.opt_cfg)
-        profile_calls(torch, f"{cfg.name} train step", lambda: rt._step_fn(fresh, opt0, batch),
-                      2)
-        marks["profile"] = time.perf_counter() - t2
-        del fresh, opt0, batch
-        torch.cuda.empty_cache()
-        print(f"train (b): {time.perf_counter() - t0:.1f} s into phase {phase_name} ("
-              + ", ".join(f"{k} {v:.1f} s" for k, v in marks.items()) + ")", flush=True)
+        run = train_checked(torch, K, argv, cfg_in, gated, t0, phase_name, f"{tmp}/run")
+        args, fs, rt, params, opt, losses, launches = (
+            run[k] for k in ("args", "fs", "rt", "params", "opt", "losses", "launches"))
+        del run
 
         # (c) a crash inside the second combine, recovered and finished
         t2 = time.perf_counter()
@@ -4921,14 +5018,14 @@ def phase_train(torch, K, records):
 
 
 # -------------------------------------------------------------- ssm training
-# phase 16: falcon-mamba-7b trained, cut to 8 of its 64 layers with every
+# phase 16: falcon-mamba-7b trained, cut to 2 of its 64 layers with every
 # width kept (the whole model's 7.27 B parameters take 87 GB at 12 bytes a
-# parameter: bf16 weights and grads, f32 AdamW moments; 8 layers take 16.5),
+# parameter: bf16 weights and grads, f32 AdamW moments; 2 layers take 8.9),
 # at phase 15's batch through launch/train.py's code path with the config's
 # remat, checkpointed by DFC-Checkpoint every 5 steps; the scan's backward
 # kernel checked against its plain version around the training shape and
 # timed there
-SSM_TRAIN = ("falcon-mamba-7b", 8)  # (arch, layers kept)
+SSM_TRAIN = ("falcon-mamba-7b", 2)  # (arch, layers kept; 8 until phase 17 took the time)
 SSM_TRAIN_ARGV = ["--arch", "falcon-mamba-7b", "--steps", "10", "--batch", "8", "--seq",
                   "2048", "--ckpt-every", "5", "--workers", "4", "--device", "cuda"]
 SSM_TRAIN_CFG = None  # a configuration in place of the cut one (a rehearsal's reduced one)
@@ -5112,6 +5209,181 @@ def phase_ssm_train(torch, K, records):
     check(not failed, "; ".join(failed))
 
 
+# ------------------------------------------------- hybrid and MoE training
+# phase 17: zamba2-7b cut to 12 of its 81 layers (two groups of 6 mamba2
+# layers and the shared block after each: the least depth at which the
+# block's one set of weights takes its gradients from two applications) and
+# dbrx-132b cut to 1 of its 40 (4.49 B parameters: 45 GB of bf16 weights and
+# f32 AdamW moments, the most one card holds), every width kept, trained at
+# phase 15's batch through launch/train.py's code path with the configs'
+# remat and real combines.  In place of a crash and resume, a replay without
+# combines is held bit-equal to the run: dbrx's 54 GB checkpoint takes most
+# of a minute to write, and a crash inside a second combine leaves up to two
+# slots of it, more than the card machine's free disk; the resume itself is
+# the same protocol and manager as in phases 15 and 16, whatever the family.
+# zamba2 trains at batch 4: at 8, a group's recompute holds its 6 SSDs' f32
+# intermediates (about 11 GB each: the (B, C, Q, Q, H) decay matrix and the
+# copies autograd keeps of it, and the (B, S, H, P) values) and ran out of
+# the card's memory; the batch is the only cut that keeps the widths, the
+# reference's remat and the forward's bits
+MORE_TRAIN = (
+    ("zamba2-7b", 12, ["--arch", "zamba2-7b", "--steps", "6", "--batch", "4", "--seq", "2048",
+                       "--ckpt-every", "3", "--workers", "4", "--device", "cuda"]),
+    ("dbrx-132b", 1, ["--arch", "dbrx-132b", "--steps", "4", "--batch", "8", "--seq", "2048",
+                      "--ckpt-every", "4", "--workers", "4", "--device", "cuda"]))
+MORE_TRAIN_CFG = {}  # arch -> a configuration in place of the cut one (a rehearsal's reduced one)
+# dbrx's step fit the card at 8 x 2,048 without a loss chunk in phase 17
+# alone (peak 73.09 GiB), but its profiled step ran out of memory after
+# phases 1-16 (the f32 logits' gradient, 6.12 GiB, against a fragmented
+# cache): the reference's loss chunk keeps the head's tensors a quarter as big
+MORE_LOSS_CHUNK = {"dbrx-132b": 512}  # arch -> the loss chunk its step needs
+DISK_MARGIN = 2 * 2**30  # bytes left free beside a run's checkpoints
+# (a): the two models' attention layouts at batch 2, where the plain f32
+# attention backward is small, and their RMSNorm training rows
+MORE_BWD_SHAPES = (("flash_attention_bwd", (2, 2048, 32, 32, 112)),
+                   ("flash_attention_bwd", (2, 2048, 48, 8, 128)),
+                   ("rmsnorm_bwd", (16384, 3584)), ("rmsnorm_bwd", (16384, 6144)))
+# (d): each model's backward calls at its training shape, timed under "at"
+MORE_TIMED = {"zamba2-7b": (("flash_attention_bwd", (8, 2048, 32, 32, 112)),
+                            ("rmsnorm_bwd", (16384, 3584))),
+              "dbrx-132b": (("flash_attention_bwd", (8, 2048, 48, 8, 128)),
+                            ("rmsnorm_bwd", (16384, 6144)))}
+
+
+def state_bytes(cfg):
+    """Bytes of ``cfg``'s parameters and AdamW state (``AdamWConfig``'s f32
+    moments), as a checkpoint slot holds them."""
+    import torch
+    from repro_torch.models.model import param_spec
+
+    def leaves(node):
+        return ([x for k in node for x in leaves(node[k])] if isinstance(node, dict)
+                else [node])
+    total = 4  # the step count
+    for shape, dtype, _ in leaves(param_spec(cfg)):
+        total += math.prod(shape) * (torch.empty((), dtype=dtype).element_size() + 8)
+    return total
+
+
+def more_bwd_checks(torch):
+    """(a): each backward kernel against its plain version at
+    ``MORE_BWD_SHAPES`` in bf16 (``bwd_vs_plain``)."""
+    lines = []
+    for name, shape in MORE_BWD_SHAPES:
+        _, rel, fwd = bwd_vs_plain(torch, name, shape, torch.bfloat16)
+        lines.append(f"{name}{shape} {rel:.3g} (forward {fwd:.3g})")
+        torch.cuda.empty_cache()
+    print(f"backward kernels vs plain at the hybrid's and the MoE's training layouts "
+          f"(relative max-abs err; bf16 within {MODEL_TOL['bfloat16']}; the forward kernel "
+          "held the same; two launches bit-equal): " + "; ".join(lines), flush=True)
+
+
+def train_and_replay(torch, K, argv, cfg_in, gated, t0):
+    """(b) and (c') of phase 17.  (b) ``train_checked``, after checking that
+    the disk holds its checkpoint slots; the run's final state kept as its
+    last combine wrote it.  (c') a runtime built from the same flags replays
+    the run's steps from ``_fresh_state()`` and ``_batch(cursor)`` through
+    its own step function, with no combine: every loss, the final params
+    and AdamW state bit-equal to (b)'s.  Returns (b)'s launches and
+    steps."""
+    from repro_torch.checkpoint.dfc_checkpoint import leaf_tensor
+    from repro_torch.launch import train as train_mod
+    from repro_torch.tree import tree_flatten
+    args = train_mod.parse_args(argv)
+    slots = min(2, -(-args.steps // args.ckpt_every))  # the combines alternate two slots
+    with tempfile.TemporaryDirectory() as tmp:
+        slot_bytes = state_bytes(cfg_in)
+        free = shutil.disk_usage(tmp).free
+        need = slots * slot_bytes + DISK_MARGIN
+        print(f"train {cfg_in.name} disk: {slots} checkpoint slot(s) of {slot_bytes / 1e9:.2f} "
+              f"GB and a {DISK_MARGIN / 2**30:.0f} GiB margin need {need / 1e9:.2f} GB; "
+              f"{free / 1e9:.2f} GB free", flush=True)
+        check(free >= need, f"{cfg_in.name}: the disk is {(need - free) / 1e9:.2f} GB short "
+                            f"of its checkpoints ({need / 1e9:.2f} GB needed, "
+                            f"{free / 1e9:.2f} GB free)")
+        run = train_checked(torch, K, argv, cfg_in, gated, t0, "17", f"{tmp}/run",
+                            keep_state=False)
+        print(f"train {cfg_in.name} combines: " + ", ".join(f"{x:.1f}" for x in run["combine_s"])
+              + f" s ({slot_bytes / 1e9:.2f} GB each)", flush=True)
+        shutil.rmtree(f"{tmp}/run")
+
+        # (c') the run's steps replayed without combines
+        t2 = time.perf_counter()
+        twin = train_mod.parse_args(argv + ["--ckpt-dir", f"{tmp}/twin"])
+        _, fs, rt = train_mod.build(twin, cfg=cfg_in)
+        params, opt = rt._fresh_state()
+        losses = []
+        for cursor in range(args.steps):
+            params, opt, metrics = rt._step_fn(params, opt, rt._batch(cursor))
+            losses.append(float(metrics["loss"]))
+        marks = {"replay": time.perf_counter() - t2}
+        t2 = time.perf_counter()
+        same_losses = losses == run["losses"]
+        differ = [n for n, (arr, dtype), b in zip(leaf_names((params, opt)), run["ckpt"],
+                                                  tree_flatten((params, opt)))
+                  if not identical(leaf_tensor(arr, dtype, b.device), b)]
+        marks["compare"] = time.perf_counter() - t2
+        print(f"train {cfg_in.name} replayed: {args.steps} steps from a fresh state through a "
+              f"fresh runtime's step, no combine (persistence {fs.stats}): losses bit-equal to "
+              f"the run's: {same_losses}; final params and AdamW state bit-equal: {not differ}"
+              + (f" (differ: {', '.join(differ)})" if differ else "") + "; in place of a crash "
+              f"and resume, since one {slot_bytes / 1e9:.2f} GB checkpoint took "
+              f"{max(run['combine_s']):.1f} s to write and a crash inside a second combine "
+              f"leaves up to {2 * slot_bytes / 1e9:.2f} GB of slots on a disk with "
+              f"{free / 1e9:.2f} GB free", flush=True)
+        gated(check, same_losses and not differ,
+              f"{cfg_in.name}: the replay is not bit-equal to the run")
+        del params, opt, rt, run["ckpt"], run["rt"]
+        torch.cuda.empty_cache()
+    print(f"train (c'): {time.perf_counter() - t0:.1f} s into phase 17 ("
+          + ", ".join(f"{k} {v:.1f} s" for k, v in marks.items()) + ")", flush=True)
+    return run["launches"], args.steps
+
+
+def phase_more_train(torch, K, records):
+    """Phase 17: (a) the backward kernels against their plain versions at
+    the hybrid's and the MoE's training layouts; (b) zamba2-7b and
+    dbrx-132b, each cut by ``MORE_TRAIN`` with every width kept, trained
+    through ``launch/train.py``'s code path and (c') replayed bit-equal
+    without combines (``train_and_replay``); (d) the backward kernels timed
+    at each model's training shapes, under ``at`` in their records.  A gate
+    that fails fails the phase at its end.  Each record gains
+    ``more_train_launches``."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    failed = []
+    gated = functools.partial(run_gate, failed, "17")
+    gated(more_bwd_checks, torch)
+    print(f"more train (a): {time.perf_counter() - t0:.1f} s into phase 17", flush=True)
+    per_step, totals = {}, {}
+    for arch, layers, argv in MORE_TRAIN:
+        extra = {"loss_chunk": MORE_LOSS_CHUNK[arch]} if arch in MORE_LOSS_CHUNK else {}
+        cfg = MORE_TRAIN_CFG.get(arch) or depth_cut(arch, layers, "more train", **extra)
+        launches, steps = train_and_replay(torch, K, argv, cfg, gated, t0)
+        per_step[arch] = {n: c // steps for n, c in launches.items()}
+        for n, c in launches.items():
+            totals[n] = totals.get(n, 0) + c
+        torch.cuda.empty_cache()
+
+    # (d) the backward kernels timed at each model's training shapes
+    for arch, timed in MORE_TIMED.items():
+        for name, shape in timed:
+            src, replaces = MODEL_KERNELS[name]
+            rec = records.setdefault(name, {"name": name, "route": "cuda", "source": src,
+                                            "replaces": replaces})
+            got = measure_bwd(torch, name, shape, torch.bfloat16)
+            got.update(arch=arch, launches_a_step=per_step[arch][name])
+            print(f"  {arch}: {name} {per_step[arch][name]} launches a step", flush=True)
+            rec.setdefault("at", {})["x".join(map(str, shape))] = got
+            torch.cuda.empty_cache()
+    for name, n in totals.items():
+        if name in records:
+            records[name]["more_train_launches"] = n
+    print(f"more train (d): {time.perf_counter() - t0:.1f} s into phase 17", flush=True)
+    check(not failed, "; ".join(failed))
+
+
 def turns_kernels(root, package):
     """The kernel wrappers (``kernel.py``) of one kernel package (the
     combine kernels, ``mamba_scan`` or ``rmsnorm``) of the repository
@@ -5247,6 +5519,10 @@ def main(argv=None) -> int:
     if "16" in run:
         with phase("16 ssm training"):
             phase_ssm_train(torch, K, records)
+
+    if "17" in run:
+        with phase("17 hybrid and moe training"):
+            phase_more_train(torch, K, records)
 
     print(card, flush=True)
     order = list(KINDS) + [f"phase_grid_{k}" for k in KINDS] + list(MODEL_KERNELS)

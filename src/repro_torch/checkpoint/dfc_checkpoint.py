@@ -221,13 +221,19 @@ def leaf_tensor(arr: np.ndarray, dtype: str, device) -> torch.Tensor:
 def _load(data) -> np.ndarray:
     """The array of an ``.npy`` file's bytes, as ``np.load`` reads it: a
     view of ``data`` (writable where ``data`` is, as the buffers of
-    ``read_durable_buffer`` are), with no copy."""
-    f = io.BytesIO(data)
-    version = np.lib.format.read_magic(f)
+    ``read_durable_buffer`` are), with no copy.  Only the header goes
+    through a file object (``io.BytesIO`` copies a bytearray it is given:
+    a second copy of every leaf)."""
+    view = memoryview(data)
+    version = np.lib.format.read_magic(io.BytesIO(view[:8]))
+    width = 2 if version == (1, 0) else 4  # the header length's bytes
+    start = 8 + width + int.from_bytes(view[8:8 + width], "little")
+    f = io.BytesIO(view[:start])
+    np.lib.format.read_magic(f)
     shape, fortran, dtype = (np.lib.format.read_array_header_1_0(f) if version == (1, 0)
                              else np.lib.format.read_array_header_2_0(f))
     count = int(np.prod(shape))
-    arr = np.frombuffer(data, dtype=dtype, count=count, offset=f.tell())
+    arr = np.frombuffer(data, dtype=dtype, count=count, offset=start)
     return arr.reshape(shape, order="F" if fortran else "C")
 
 

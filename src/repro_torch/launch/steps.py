@@ -21,19 +21,22 @@ from repro_torch.optim.adamw import AdamWConfig, adamw_update
 from repro_torch.tree import tree_flatten, tree_unflatten
 
 
-def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig, backend: str = "kernel"):
+def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig, backend: str = "kernel",
+                    donate: bool = False):
     """One training step: the loss and every parameter's gradient
     (``torch.autograd.grad``; a leaf the loss does not read gets zeros, as
     ``jax.grad`` gives), then :func:`adamw_update`.  ``batch`` holds tensors
     on the parameters' device; ``metrics`` are 0-d tensors: ``loss``,
-    ``grad_norm`` and ``lr``.  The given params and state are not changed."""
+    ``grad_norm`` and ``lr``.  The given params and state are not changed,
+    unless ``donate``: then the new values are written into them (the
+    same bits), and the returned trees hold them."""
 
     def train_step(params, opt_state, batch):
         leaves = [p.detach().requires_grad_(True) for p in tree_flatten(params)]
         loss = loss_fn(tree_unflatten(params, leaves), cfg, batch, backend=backend)
         grads = torch.autograd.grad(loss, leaves, allow_unused=True, materialize_grads=True)
         new_params, new_opt, metrics = adamw_update(
-            params, tree_unflatten(params, list(grads)), opt_state, opt_cfg)
+            params, tree_unflatten(params, list(grads)), opt_state, opt_cfg, donate=donate)
         return new_params, new_opt, dict(metrics, loss=loss.detach())
 
     return train_step

@@ -5,9 +5,12 @@ Selects an architecture (``--arch``), builds the model and AdamW state on
 loop with DFC-Checkpoint (``runtime/train_loop.py``), through the model's
 kernels and their backward kernels.  The audio and vlm archs are refused,
 as the reference's launcher refuses them; every other family trains on
-either device.  The full falcon-mamba-7b (7.27 B parameters, about 87 GB of
-bf16 weights and grads and f32 AdamW moments) needs more memory than one
-80 GB card holds.
+either device.  One 80 GB card holds a state of bf16 weights and grads and
+f32 AdamW moments, 12 bytes a parameter, up to a few billion parameters:
+dbrx-132b trains one of its 40 layers at full width (4.49 B parameters with
+its embedding and head, about 54 GB); arctic-480b trains no full-width
+layer (one layer and its embedding and head are 14.07 B parameters, about
+169 GB); the full falcon-mamba-7b (7.27 B, about 87 GB) does not fit.
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch smollm-135m \\
       --reduced --steps 50 --ckpt-dir /tmp/dfc_ckpt --device cpu

@@ -124,10 +124,14 @@ def ssd_chunked(xh, dt, a_log, b_ssm, c_ssm, chunk: int, init_state=None):
 
     # intra-chunk: Y[t] = sum_{tau<=t} exp(cum_t - cum_tau) (C_t . B_tau) dt_tau x_tau.
     # Above the diagonal exp() may overflow to inf: select, never multiply
-    # by a 0/1 mask (inf * 0 is NaN).
-    decay = torch.exp(cum[:, :, :, None] - cum[:, :, None, :])  # (B, C, Qt, Qtau, H)
-    tri = torch.ones((q, q), dtype=torch.bool, device=xh.device).tril()
-    decay = torch.where(tri[None, None, :, :, None], decay, 0.0)
+    # by a 0/1 mask (inf * 0 is NaN).  The select comes before exp too (the
+    # reference's only after): exp(-inf) is the same 0 there, and exp's
+    # gradient 0 * 0 where grad * inf would be NaN.  The select after exp
+    # keeps exp's output, which its gradient reads, out of the in-place
+    # products below.
+    tri = torch.ones((q, q), dtype=torch.bool, device=xh.device).tril()[None, None, :, :, None]
+    decay = torch.exp(torch.where(tri, cum[:, :, :, None] - cum[:, :, None, :], -torch.inf))
+    decay = torch.where(tri, decay, 0.0)  # (B, C, Qt, Qtau, H)
     cb = torch.einsum("bcqn,bckn->bcqk", cc, bc)  # (B, C, Qt, Qtau)
     w = decay.mul_(cb[..., None]).mul_(dtc[:, :, None])  # (B, C, Qt, Qtau, H)
     y_diag = torch.einsum("bcqkh,bckhp->bcqhp", w, xc)

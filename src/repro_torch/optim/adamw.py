@@ -10,7 +10,13 @@ The state is ``{"m", "v", "count"}``: moments shaped as the parameters in
 ``state_dtype`` and ``count`` a 0-d int32, so its leaves flatten in the
 reference's order.  The update math runs in f32 whatever the storage dtype.
 :func:`adamw_update` returns new tensors and changes none it is given, as
-the reference's pure function does (autograd may still hold the old ones).
+the reference's pure function does (autograd may still hold the old ones);
+with ``donate`` it writes the same bits into the parameters and moments it
+is given, so a state the caller owns is not held twice (a training loop's:
+dbrx-132b's one layer, 4.49 B parameters, takes 45 GB of bf16 weights and
+f32 moments, and two of them do not fit one 80 GB card).  Either way a leaf
+is updated in slices of ``_CHUNK`` elements, which bounds the f32
+temporaries; the math is elementwise, so the slices change no bit.
 """
 
 from __future__ import annotations
@@ -24,6 +30,7 @@ import torch
 from repro_torch.tree import tree_flatten, tree_map, tree_unflatten
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+_CHUNK = 1 << 26  # elements of a leaf updated at once
 
 
 @dataclasses.dataclass(frozen=True)
@@ -64,9 +71,12 @@ def lr_schedule(cfg: AdamWConfig, step: torch.Tensor) -> torch.Tensor:
     return torch.where(step < cfg.warmup_steps, warm, cos)
 
 
-def adamw_update(params, grads, state, cfg: AdamWConfig) -> Tuple[Any, Dict[str, Any], Dict]:
+def adamw_update(params, grads, state, cfg: AdamWConfig, donate: bool = False
+                 ) -> Tuple[Any, Dict[str, Any], Dict]:
     """One AdamW step: ``(new_params, new_state, {"grad_norm", "lr"})``, the
-    metrics f32 0-d tensors (no host sync)."""
+    metrics f32 0-d tensors (no host sync).  ``donate``: the new values are
+    written into ``params`` and ``state``'s moments (contiguous tensors),
+    which the returned trees hold."""
     count = state["count"] + 1
     cf = count.to(torch.float32)
     lr = lr_schedule(cfg, state["count"])
@@ -81,19 +91,30 @@ def adamw_update(params, grads, state, cfg: AdamWConfig) -> Tuple[Any, Dict[str,
     bc1 = 1 - torch.pow(one * cfg.b1, cf)
     bc2 = 1 - torch.pow(one * cfg.b2, cf)
 
-    def upd(p, g, m, v):
+    def upd(p, g, m, v, new_p, new_m, new_v):
         gf = g.to(torch.float32) * scale
         mf = cfg.b1 * m.to(torch.float32) + (1 - cfg.b1) * gf
         vf = cfg.b2 * v.to(torch.float32) + (1 - cfg.b2) * torch.square(gf)
         mhat = mf / bc1
         vhat = vf / bc2
         step_ = mhat / (torch.sqrt(vhat) + cfg.eps) + cfg.weight_decay * p.to(torch.float32)
-        return (p.to(torch.float32) - lr * step_).to(p.dtype), mf.to(dt), vf.to(dt)
+        new_p.copy_(p.to(torch.float32) - lr * step_)  # rounded as .to(p.dtype) rounds
+        new_m.copy_(mf)
+        new_v.copy_(vf)
 
-    flat_p = tree_flatten(params)
-    out = [upd(p, g, m, v) for p, g, m, v in
-           zip(flat_p, flat_g, tree_flatten(state["m"]), tree_flatten(state["v"]))]
-    new_params = tree_unflatten(params, [o[0] for o in out])
-    new_m = tree_unflatten(params, [o[1] for o in out])
-    new_v = tree_unflatten(params, [o[2] for o in out])
+    flat_p, flat_m, flat_v = (tree_flatten(t) for t in (params, state["m"], state["v"]))
+    if donate:
+        out_p, out_m, out_v = flat_p, flat_m, flat_v
+    else:
+        new = lambda p, dtype: torch.empty(p.shape, dtype=dtype, device=p.device)
+        out_p = [new(p, p.dtype) for p in flat_p]
+        out_m, out_v = ([new(p, dt) for p in flat_p] for _ in range(2))
+    for leaf in zip(flat_p, flat_g, flat_m, flat_v, out_p, out_m, out_v):
+        ins = [t.reshape(-1) for t in leaf[:4]]
+        outs = [t.view(-1) for t in leaf[4:]]
+        for i in range(0, ins[0].numel(), _CHUNK):
+            upd(*(t[i:i + _CHUNK] for t in ins + outs))
+    new_params = tree_unflatten(params, out_p)
+    new_m = tree_unflatten(params, out_m)
+    new_v = tree_unflatten(params, out_v)
     return new_params, {"m": new_m, "v": new_v, "count": count}, {"grad_norm": gnorm, "lr": lr}

@@ -11,7 +11,10 @@ of the committed manifest: exactly-once step semantics end to end.
 One process here (the simulated cluster announces N worker records).  The
 step runs eagerly on ``device`` (the card unless the caller asks for the
 CPU), through the model's kernels and their backward kernels
-(``backend="kernel"``).  The combined leaves are ``(params, opt)`` in the
+(``backend="kernel"``), each step writing the new parameters and
+AdamW moments over the old ones (``make_train_step(donate=True)``): the
+same bits as the reference's pure step, with one copy of the state on the
+card.  The combined leaves are ``(params, opt)`` in the
 reference's order; ``boot`` reads them back with each leaf's shape and
 dtype on the runtime's device.
 """
@@ -47,7 +50,8 @@ class TrainRuntime:
     def __post_init__(self):
         self.device = resolve_device(self.device)
         self.mgr = DFCCheckpointManager(self.fs, self.n_workers)
-        self._step_fn = make_train_step(self.cfg, self.opt_cfg)
+        # the loop owns its state, so each step writes the new one over it
+        self._step_fn = make_train_step(self.cfg, self.opt_cfg, donate=True)
         self.step_s: List[float] = []  # host seconds of each step of the last train()
         self.last_boot = None  # (step, cursor, report) of the last boot()
 

@@ -254,6 +254,40 @@ def test_ssd_masked_triangle_overflows_to_inf_but_stays_finite():
     _ssd_close(tfin, jfin)
 
 
+def test_ssd_gradient_stays_finite_where_the_triangle_overflows():
+    """On the inputs above, the reference's gradient is NaN (exp's
+    gradient is grad * inf above the diagonal, and its select after exp
+    zeroes grad, not the product); the port selects before exp too, so
+    every gradient is finite, and its output has the bits of exp then the
+    select alone."""
+    ins = _ssd_inputs(3, 1, 128, 2, 4, 4, dt_scale=0.1)
+    (jx, tx), _, _, (jb, tb), (jc, tc) = ins
+    dt = np.full((1, 128, 2), 2.0, np.float32)
+    a_log = np.zeros(2, np.float32)
+    w = np.random.default_rng(5).standard_normal((1, 128, 2, 4)).astype(np.float32)
+
+    def jloss(x, d, a, b, c):
+        return jnp.sum(JMB.ssd_chunked(x, d, a, b, c, chunk=128)[0] * w)
+    jg = jax.grad(jloss, argnums=(0, 1, 2, 3, 4))(jx, jnp.asarray(dt), jnp.asarray(a_log),
+                                                  jb, jc)
+    assert any(bool(jnp.isnan(g).any()) for g in jg)
+    leaves = [t.clone().requires_grad_(True) for t in (
+        tx, torch.from_numpy(dt), torch.from_numpy(a_log), tb, tc)]
+    y, _ = TMB.ssd_chunked(*leaves, 128)
+    grads = torch.autograd.grad(torch.sum(y * torch.from_numpy(w)), leaves)
+    assert all(bool(torch.isfinite(g).all()) for g in grads)
+    # the forward's bits: exp of the whole triangle, then the select
+    cum = torch.cumsum(torch.from_numpy(dt) * -1.0, dim=1).reshape(1, 1, 128, 2)
+    with np.errstate(over="ignore"):
+        old = torch.where(torch.ones(128, 128, dtype=torch.bool).tril()[None, None, :, :, None],
+                          torch.exp(cum[:, :, :, None] - cum[:, :, None, :]), 0.0)
+    tri = torch.ones(128, 128, dtype=torch.bool).tril()[None, None, :, :, None]
+    new = torch.where(tri, torch.exp(torch.where(tri, cum[:, :, :, None] - cum[:, :, None, :],
+                                                 -torch.inf)), 0.0)
+    assert torch.isinf(torch.exp(cum[:, :, :, None] - cum[:, :, None, :])).any()
+    assert torch.equal(old.view(torch.int32), new.view(torch.int32))
+
+
 def _block_params(seed=0):
     """One mamba2 layer of the reduced zamba2, drawn with non-zero biases
     and decays (the reference's init has them at zero)."""

@@ -248,6 +248,33 @@ def test_adamw_matches_jax(state_dtype, count, clip):
     assert int(to["count"]) == count + 1
 
 
+@pytest.mark.parametrize("state_dtype", ["float32", "bfloat16"])
+def test_adamw_donated_in_slices_keeps_the_bits(state_dtype, monkeypatch):
+    """``donate=True`` writes the pure update's bits into the tensors it is
+    given, and slices of 7 elements (a ragged last one; a transposed,
+    non-contiguous grad) change none of them."""
+    rng = np.random.default_rng(7)
+    params, grads, m, v = _tree(rng, state_dtype)
+    cfg = TA.AdamWConfig(grad_clip=0.5, state_dtype=state_dtype)
+    state = lambda: {"m": _to_torch(m), "v": _to_torch(v), "count": torch.tensor(3)}
+    tgrads = _to_torch(grads)
+    tgrads["a"] = tgrads["a"].t().contiguous().t()
+    assert not tgrads["a"].is_contiguous()
+    want = TA.adamw_update(_to_torch(params), tgrads, state(), cfg)
+    monkeypatch.setattr(TA, "_CHUNK", 7)
+    given_p, given_s = _to_torch(params), state()
+    ptrs = [t.data_ptr() for t in tree_flatten((given_p, given_s["m"], given_s["v"]))]
+    got = TA.adamw_update(given_p, tgrads, given_s, cfg, donate=True)
+    assert [t.data_ptr() for t in tree_flatten((got[0], got[1]["m"], got[1]["v"]))] == ptrs
+    for a, b in zip(tree_flatten((got[0], got[1], got[2])), tree_flatten(want)):
+        assert a.dtype == b.dtype and a.shape == b.shape
+        assert torch.equal(a.view(torch.int16) if a.dtype == torch.bfloat16 else a,
+                           b.view(torch.int16) if b.dtype == torch.bfloat16 else b)
+    pure = TA.adamw_update(_to_torch(params), tgrads, state(), cfg)
+    for a, b in zip(tree_flatten(pure), tree_flatten(want)):
+        assert torch.equal(a, b)
+
+
 @pytest.mark.parametrize("step", [0, 1, 50, 99, 100, 101, 5000, 10100, 10101, 30000])
 def test_lr_schedule_matches_jax(step):
     jcfg, tcfg = JA.AdamWConfig(), TA.AdamWConfig()

@@ -208,7 +208,7 @@ def _run(main, argv, monkeypatch, as_argv=False):
     return out.getvalue().splitlines()
 
 
-@pytest.mark.parametrize("arch", ["smollm-135m", "falcon-mamba-7b"])
+@pytest.mark.parametrize("arch", ["smollm-135m", "falcon-mamba-7b", "zamba2-7b", "dbrx-132b"])
 def test_launcher_matches_the_reference(arch, tmp_path, monkeypatch):
     flags = ["--arch", arch, "--reduced", "--steps", "6", "--ckpt-every", "3",
              "--workers", "2"]
@@ -245,7 +245,7 @@ def test_launcher_refuses_frontend_stubs(arch, tmp_path):
                      "--ckpt-dir", str(tmp_path)])
 
 
-def test_launcher_refuses_ssm_on_the_card_only(tmp_path):
+def test_launcher_takes_ssm_on_either_device(tmp_path):
     """The ssm family, once refused on the card, is refused on neither
     device: ``--device cpu`` builds its runtime, and the default device
     without a card fails where any family's would, in ``resolve_device``."""
