@@ -325,7 +325,22 @@ script exits non-zero without printing a result):
                   every loss and the final state bit-equal to (b)'s; (d)
                   the backward kernels timed at each model's training
                   shapes, under ``at``.  Each kernel record gains
-                  ``more_train_launches``.
+                  ``more_train_launches``,
+  18. launch tooling -- (a) the dry run (``launch/dryrun.py`` on the
+                  card's one-device mesh, every tensor on ``meta``) of each
+                  cell phases 15-17 train, at their settings: its predicted
+                  peak held within 25% of the peak the phase measured in
+                  this run (a cell whose phase did not run is trained here
+                  for 3 steps without checkpoints), its FLOPs over the
+                  measured median step as TFLOP/s and a share of 989;
+                  (b) ``smollm-135m`` at phase 15's batch from its seed, 3
+                  steps under each of ``remat="nothing_saveable"``,
+                  ``"dots_saveable"`` and ``attn_impl="chunked"``: the
+                  step-1 loss and every gradient of ``dots_saveable``
+                  bit-equal to ``nothing_saveable``'s, and its losses; the
+                  chunked losses within bf16 1e-2 of the baseline's; exact
+                  launches; each variant's ms a step and peak beside the
+                  dry run's.
 
 Phase 3 also holds the three model kernels (RMSNorm, flash attention, the
 selective scan) against their plain versions at model shapes, in bf16 and
@@ -372,7 +387,7 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 ALL_PHASES = ("1", "2", "3", "4", "5", "6", "7", "8", "9", "10", "11", "12", "13", "14",
-              "15", "16", "17")
+              "15", "16", "17", "18")
 SOURCE = "src/repro_torch/kernels/dfc_reduce/csrc/dfc_reduce.cu"
 GRID_SOURCE = "src/repro_torch/kernels/dfc_reduce/csrc/phase_grid.cu"
 KINDS = ("stack", "queue", "deque", "map")
@@ -4628,26 +4643,29 @@ def train_blocks(cfg):
     launch (the MoE FFN runs no kernel); an ssm layer one norm and one scan;
     a hybrid group ``attn_every`` mamba2 layers of one norm each (the SSD
     and its gated norm are plain PyTorch) and the shared block's two norms
-    and one flash launch, then each tail layer one norm."""
+    and one flash launch, then each tail layer one norm.  Under
+    ``attn_impl="chunked"`` the attention is plain PyTorch: no flash."""
     L = cfg.n_layers
+    flash = int(cfg.attn_impl != "chunked")
     if cfg.family == "hybrid":
         g = L // cfg.attn_every
-        return [(cfg.attn_every + 2, 1, 0)] * g + [(1, 0, 0)] * (L - g * cfg.attn_every)
+        return [(cfg.attn_every + 2, flash, 0)] * g + [(1, 0, 0)] * (L - g * cfg.attn_every)
     if cfg.family == "ssm":
         return [(1, 0, 1)] * L
     check(cfg.family in ("dense", "moe"), f"the launcher trains no {cfg.family} model")
-    return [(2, 1, 0)] * L
+    return [(2, flash, 0)] * L
 
 
 def expected_train_launches(cfg, steps, seq):
     """Model-kernel launches of ``steps`` training steps over sequences of
     ``seq``: the forward (each block's norms and the final norm, once per
-    chunk of a chunked loss), each block again in the backward under
-    ``nothing_saveable`` remat, and a backward kernel for each forward call
-    (``train_blocks``).  A config whose norm is not RMSNorm launches no norm
-    kernel, as in serving."""
+    chunk of a chunked loss), each block again in the backward under either
+    remat policy (``dots_saveable`` keeps aten's weight products, and a
+    kernel's launch is no aten op, so it runs again), and a backward kernel
+    for each forward call (``train_blocks``).  A config whose norm is not
+    RMSNorm launches no norm kernel, as in serving."""
     norms, flash, scans = (sum(b[i] for b in train_blocks(cfg)) for i in range(3))
-    again = cfg.remat == "nothing_saveable"
+    again = cfg.remat in ("nothing_saveable", "dots_saveable")
     chunk = cfg.loss_chunk
     heads = seq // chunk if chunk and seq % chunk == 0 and seq > chunk else 1
     if cfg.norm != "rmsnorm":
@@ -4866,6 +4884,8 @@ def train_checked(torch, K, argv, cfg_in, gated, t0, phase_name, ckpt_dir, keep_
           f"launches {launches} (as predicted)", flush=True)
     check(all(math.isfinite(x) for x in losses) and losses[-1] < losses[0],
           f"the loss did not fall: {losses[0]} -> {losses[-1]}")
+    TRAINED[cfg.name] = {"cfg": cfg, "batch": args.batch, "seq": args.seq, "peak": peak,
+                         "step_ms": steady * 1e3, "phase": phase_name}
     ckpt = None
     if not keep_state:  # one card holds (b)'s state or a fresh one, not both
         fs.write = write
@@ -5384,6 +5404,187 @@ def phase_more_train(torch, K, records):
     check(not failed, "; ".join(failed))
 
 
+# ------------------------------------------------------------ launch tooling
+# phase 18: the dry run (launch/dryrun.py on the card's one-device mesh, every
+# tensor on the meta device) of each cell phases 15-17 train, at their
+# settings, beside the peaks and median step times those phases measured in
+# this run; then smollm-135m at phase 15's batch from its seed under each lever
+# the launch tooling adds
+DRY_CELLS = {"smollm-135m": "15", "falcon-mamba-7b": "16", "zamba2-7b": "17",
+             "dbrx-132b": "17"}  # arch -> the phase that trains it
+# the peaks the training phases measured before the dry run existed (H100
+# 80GB HBM3, 700 W), printed beside this run's
+EARLIER_PEAK = {"smollm-135m": "16.88 GiB", "zamba2-7b": "49.37 GiB", "dbrx-132b": "58.14 GiB"}
+PEAK_BAND = 0.25  # a predicted peak within 25% of the measured one
+LEVER_STEPS = 3  # steps each lever trains (and a cell whose phase did not run)
+LEVERS = (("nothing_saveable", {"remat": "nothing_saveable"}),
+          ("dots_saveable", {"remat": "dots_saveable"}),
+          ("chunked", {"attn_impl": "chunked"}))
+TRAINED = {}  # arch -> phases 15-17's run: cfg, batch, seq, peak, median step ms, phase
+
+
+def trained_cell(arch):
+    """(cfg, argv) of the cell the training phase of ``arch`` trains: its
+    configuration (the rehearsal's where set) and flags."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.launch.tuned import apply_tuning
+    if arch == "smollm-135m":
+        return TRAIN_CFG or apply_tuning(get_config(arch)), TRAIN_ARGV
+    if arch == SSM_TRAIN[0]:
+        return (SSM_TRAIN_CFG or dataclasses.replace(apply_tuning(get_config(arch)),
+                                                     n_layers=SSM_TRAIN[1])), SSM_TRAIN_ARGV
+    layers, argv = next((n, a) for name, n, a in MORE_TRAIN if name == arch)
+    extra = {"loss_chunk": MORE_LOSS_CHUNK[arch]} if arch in MORE_LOSS_CHUNK else {}
+    return (MORE_TRAIN_CFG.get(arch) or dataclasses.replace(
+        apply_tuning(get_config(arch)), n_layers=layers, **extra)), argv
+
+
+def steps_measured(torch, cfg, argv, steps=LEVER_STEPS):
+    """``steps`` steps of ``cfg`` through ``launch/train.py``'s runtime from
+    its fresh state (phase 15's seed) and batches, with no combine: the
+    losses, ms of each step (ended by reading its loss), the peak and the
+    launches, counted from zero."""
+    from repro_torch.launch import train as train_mod
+    with tempfile.TemporaryDirectory() as tmp:
+        args = train_mod.parse_args(argv + ["--ckpt-dir", tmp])
+        _, _, rt = train_mod.build(args, cfg=cfg)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        reset_model_launches()
+        params, opt = rt._fresh_state()
+        losses, step_ms = [], []
+        for cursor in range(steps):
+            t = time.perf_counter()
+            params, opt, metrics = rt._step_fn(params, opt, rt._batch(cursor))
+            losses.append(float(metrics["loss"]))
+            step_ms.append((time.perf_counter() - t) * 1e3)
+        peak = torch.cuda.max_memory_allocated()
+        launches = model_launches()
+        del params, opt, rt
+        torch.cuda.empty_cache()
+    return {"losses": losses, "step_ms": step_ms, "peak": peak, "launches": launches,
+            "batch": args.batch, "seq": args.seq}
+
+
+def dry_run(cfg, batch, seq):
+    """The dry run of one training step of ``cfg`` at ``batch`` x ``seq`` on
+    the card's mesh, with the runtime's AdamW."""
+    from repro_torch.configs.shapes import ShapeCfg
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_card_mesh
+    from repro_torch.optim.adamw import AdamWConfig
+    return dryrun.measure_step(cfg, ShapeCfg(cfg.name, seq, batch, "train"), make_card_mesh(),
+                               AdamWConfig())
+
+
+def dry_vs_measured(torch, gated):
+    """(a): each trained cell's dry run beside its measured peak and median
+    step (phases 15-17's, or ``steps_measured`` where the phase did not
+    run).  Returns {arch: the dry run's result}."""
+    out = {}
+    for arch, trains in DRY_CELLS.items():
+        if arch in TRAINED:
+            got = TRAINED[arch]
+            cfg, where = got["cfg"], f"phase {got['phase']}"
+            steady = got["step_ms"]
+        else:
+            cfg, argv = trained_cell(arch)
+            got = steps_measured(torch, cfg, argv)
+            where = f"{LEVER_STEPS} steps here (phase {trains} did not run)"
+            steady = statistics.median(got["step_ms"][1:])
+        t = time.perf_counter()
+        pred = dry_run(cfg, got["batch"], got["seq"])
+        host_s = time.perf_counter() - t
+        peak, meas = pred["memory"]["peak_bytes"], got["peak"]
+        off = (peak - meas) / meas
+        tflops = pred["flops"] / (steady * 1e-3) / 1e12
+        kflops = sum(k["flops"] for k in pred["kernels"].values())
+        earlier = f"; earlier {EARLIER_PEAK[arch]}" if arch in EARLIER_PEAK else ""
+        print(f"dry run {arch} ({cfg.n_layers} layers, {got['batch']} x {got['seq']}, remat "
+              f"{cfg.remat}" + (f", loss chunk {cfg.loss_chunk}" if cfg.loss_chunk else "")
+              + f"): predicted peak {peak / 2**30:.2f} GiB, measured {meas / 2**30:.2f} GiB in "
+              f"{where} ({off:+.1%}, gate {PEAK_BAND:.0%}{earlier}); arguments "
+              f"{pred['memory']['argument_bytes'] / 2**30:.2f} GiB; {pred['flops']:.4g} FLOPs a "
+              f"step ({kflops:.4g} of them the flash kernels'), {pred['bytes_accessed']:.4g} "
+              f"bytes accessed; measured median step {steady:.1f} ms -> {tflops:.1f} TFLOP/s, "
+              f"{tflops / (BF16_TENSOR_OPS_PER_S / 1e12):.1%} of 989 (bf16 dense peak); "
+              f"{pred['aten_ops']} aten ops on meta in {host_s:.1f} s of host", flush=True)
+        gated(check, abs(off) <= PEAK_BAND,
+              f"{arch}: the dry run's peak {peak / 2**30:.2f} GiB is {off:+.1%} from the "
+              f"measured {meas / 2**30:.2f} GiB, outside {PEAK_BAND:.0%}")
+        out[arch] = pred
+        torch.cuda.empty_cache()
+    return out
+
+
+def levers_checked(torch, gated):
+    """(b): smollm-135m at phase 15's batch from its seed, ``LEVER_STEPS``
+    steps under each of ``LEVERS``: step 1's loss and every gradient under
+    ``dots_saveable`` bit-equal to ``nothing_saveable``'s, and every loss;
+    the chunked attention's losses within bf16's tolerance of the
+    baseline's; exact launches; ms a step and the peak beside the dry
+    run's."""
+    import dataclasses
+    from repro_torch.launch import train as train_mod
+    base, argv = trained_cell("smollm-135m")
+    with tempfile.TemporaryDirectory() as tmp:
+        args = train_mod.parse_args(argv + ["--ckpt-dir", tmp])
+        _, _, rt = train_mod.build(args, cfg=base)
+        fresh, batch = rt._fresh_state()[0], rt._batch(0)
+        cfgs = {label: dataclasses.replace(base, **over) for label, over in LEVERS}
+        loss_n, g_n = train_grads(torch, cfgs["nothing_saveable"], fresh, batch)
+        loss_d, g_d = train_grads(torch, cfgs["dots_saveable"], fresh, batch)
+        differ = [n for n, a, b in zip(leaf_names(fresh), g_n, g_d) if not identical(a, b)]
+        same_loss = identical(loss_n, loss_d)
+        print(f"levers step 1: dots_saveable's loss {float(loss_d):.6f} and {len(g_d)} grads "
+              f"against nothing_saveable's: loss bit-equal {same_loss}, grads bit-equal "
+              f"{not differ}" + (f" (differ: {', '.join(differ)})" if differ else ""),
+              flush=True)
+        gated(check, same_loss and not differ,
+              "dots_saveable's step 1 is not bit-equal to nothing_saveable's")
+        del fresh, batch, g_n, g_d, rt
+        torch.cuda.empty_cache()
+    runs = {}
+    for label, cfg in cfgs.items():
+        run = steps_measured(torch, cfg, argv)
+        pred = dry_run(cfg, run["batch"], run["seq"])
+        want = expected_train_launches(cfg, LEVER_STEPS, run["seq"])
+        print(f"lever {label}: losses {', '.join(f'{x:.6f}' for x in run['losses'])}; "
+              f"{', '.join(f'{x:.1f}' for x in run['step_ms'])} ms a step; peak "
+              f"{run['peak'] / 2**30:.2f} GiB, dry run {pred['memory']['peak_bytes'] / 2**30:.2f} "
+              f"GiB ({pred['flops']:.4g} FLOPs a step); launches {run['launches']}", flush=True)
+        gated(check, run["launches"] == want, f"lever {label}: launches {run['launches']}, "
+                                              f"expected {want}")
+        runs[label] = run
+    base_losses = runs["nothing_saveable"]["losses"]
+    gated(check, runs["dots_saveable"]["losses"] == base_losses,
+          f"dots_saveable's losses {runs['dots_saveable']['losses']} are not nothing_saveable's "
+          f"{base_losses}")
+    rel = max(abs(a - b) / abs(b) for a, b in zip(runs["chunked"]["losses"], base_losses))
+    print(f"levers: dots_saveable's losses bit-equal to nothing_saveable's: "
+          f"{runs['dots_saveable']['losses'] == base_losses}; chunked attention's within "
+          f"{rel:.3g} of them (gate {MODEL_TOL['bfloat16']})", flush=True)
+    gated(check, rel <= MODEL_TOL["bfloat16"],
+          f"the chunked attention's losses are {rel:.3g} from the baseline's")
+
+
+def phase_launch_tools(torch, K, records):
+    """Phase 18: (a) the dry run beside the training phases' measurements
+    (``dry_vs_measured``); (b) the levers through the kernels
+    (``levers_checked``).  A gate that fails fails the phase at its end."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    failed = []
+    gated = functools.partial(run_gate, failed, "18")
+    dry_vs_measured(torch, gated)
+    print(f"launch tooling (a): {time.perf_counter() - t0:.1f} s into phase 18", flush=True)
+    levers_checked(torch, gated)
+    print(f"launch tooling (b): {time.perf_counter() - t0:.1f} s into phase 18", flush=True)
+    check(not failed, "; ".join(failed))
+
+
 def turns_kernels(root, package):
     """The kernel wrappers (``kernel.py``) of one kernel package (the
     combine kernels, ``mamba_scan`` or ``rmsnorm``) of the repository
@@ -5523,6 +5724,10 @@ def main(argv=None) -> int:
     if "17" in run:
         with phase("17 hybrid and moe training"):
             phase_more_train(torch, K, records)
+
+    if "18" in run:
+        with phase("18 launch tooling"):
+            phase_launch_tools(torch, K, records)
 
     print(card, flush=True)
     order = list(KINDS) + [f"phase_grid_{k}" for k in KINDS] + list(MODEL_KERNELS)

@@ -4,7 +4,8 @@ Counterpart of the JAX package's ``configs/__init__.py``: all ten of the
 reference's architectures.  Each module holds the exact published
 configuration and a smoke (reduced) configuration of the same family for
 CPU tests.  ``launch/tuned.py`` holds the tuning the reference's launcher
-applies on top (``moe_groups`` for the two MoE archs); ``configs/shapes.py``
+applies on top (its whole table; on one card only ``moe_groups`` for the two
+MoE archs changes the math); ``configs/shapes.py``
 the reference's input shapes (``long_500k``: zamba2-7b and falcon-mamba-7b
 only).
 """

@@ -70,9 +70,10 @@ def _batch_specs(cfg: ModelConfig, b: int, s: int, with_labels: bool):
     return specs
 
 
-def input_specs(cfg: ModelConfig, shape_name: str) -> Dict:
-    """Meta-tensor stand-ins for the step function of (arch, shape)."""
-    sh = SHAPES[shape_name]
+def input_specs(cfg: ModelConfig, shape) -> Dict:
+    """Meta-tensor stand-ins for the step function of (arch, shape):
+    ``shape`` a name of :data:`SHAPES` or a :class:`ShapeCfg`."""
+    sh = SHAPES[shape] if isinstance(shape, str) else shape
     if sh.kind == "train":
         return {"batch": _batch_specs(cfg, sh.global_batch, sh.seq_len, True)}
     if sh.kind == "prefill":

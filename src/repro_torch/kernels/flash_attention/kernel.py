@@ -12,8 +12,10 @@ q, k or v requiring grad), the call goes through :class:`_FlashFn`: its
 forward also has the kernel write the rows' log-sum-exp, and its backward
 launches ``flash_attention_bwd`` (``LAUNCHES["flash_attention_bwd"]``, two
 kernels a call); on the CPU it runs the plain forward, row log-sum-exp and
-backward formula.  The library is built at first use (``kernels/nvcc.py``);
-nothing is built or loaded on import.
+backward formula.  Given ``meta`` tensors (the dry run's) the wrappers
+allocate what the kernels would, launch nothing and report the call to
+``kernels/meta.py``.  The library is built at first use
+(``kernels/nvcc.py``); nothing is built or loaded on import.
 """
 
 from __future__ import annotations
@@ -26,7 +28,7 @@ from typing import Dict
 import torch
 from torch.autograd.function import once_differentiable
 
-from repro_torch.kernels import nvcc
+from repro_torch.kernels import meta, nvcc
 from repro_torch.kernels.flash_attention.ref import (
     attention_bwd_ref,
     attention_lse_ref,
@@ -83,7 +85,7 @@ def _forward(q, k, v, causal, with_lse):
     """The forward on checked inputs: ``(out, lse)``, the rows' log-sum-exp
     (B, Hq, S) f32 where ``with_lse`` (else None: the kernel is given a null
     pointer).  CPU tensors run the plain versions."""
-    if not q.is_cuda:
+    if not (q.is_cuda or q.is_meta):
         out = attention_ref(q, k, v, causal=causal)
         if not with_lse:
             return out, None
@@ -97,6 +99,10 @@ def _forward(q, k, v, causal, with_lse):
         return out, lse
     if t == 0:
         raise ValueError("attention over an empty key sequence")
+    if q.is_meta:
+        meta.note("flash_attention", 4 * b * hq * hd * meta.attention_pairs(s, t, causal),
+                  q, k, v, out, lse)
+        return out, lse
     bf16 = q.dtype == _BF16
     if bf16:  # the tensor-core kernel copies 16-byte rows: align an offset view
         q, k, v = (x if x.data_ptr() % 16 == 0 else x.clone() for x in (q, k, v))
@@ -127,12 +133,16 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True):
     b, s, t, hq, hkv, hd = _check(q, k, v)
     nvcc.check_tensors(q.device, ("o", o, (q.dtype,), q.shape), ("do", do, (q.dtype,), q.shape),
                        ("lse", lse, (torch.float32,), (b, hq, s)))
-    if not q.is_cuda:
+    if not (q.is_cuda or q.is_meta):
         return attention_bwd_ref(q, k, v, o, lse, do, causal)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     if b * s * hq == 0 or t == 0:
         return dq.zero_(), dk.zero_(), dv.zero_()
     dsum = torch.empty((b, hq, s), dtype=torch.float32, device=q.device)
+    if q.is_meta:  # 7 products a pair: S and dO V^T in both kernels, dQ, dK, dV
+        meta.note("flash_attention_bwd", 14 * b * hq * hd * meta.attention_pairs(s, t, causal),
+                  q, k, v, o, lse, do, dq, dk, dv)
+        return dq, dk, dv
     if q.dtype == _BF16:  # the tensor-core kernels copy 16-byte rows: align offset views
         q, k, v, o, do = (x if x.data_ptr() % 16 == 0 else x.clone() for x in (q, k, v, o, do))
     err = _entry("flash_attention_bwd")(

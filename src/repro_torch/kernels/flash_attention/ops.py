@@ -1,9 +1,10 @@
 """Public wrapper: backend-selected attention (CUDA kernel or plain version).
 
 Also ``chunked_attention``, the counterpart of the reference's XLA-native
-online-softmax attention over key chunks (its dry-run path): plain PyTorch,
-on no default path of the port (no configuration sets
-``attn_impl="chunked"``).
+online-softmax attention over key chunks: plain PyTorch, as the reference's
+is XLA and no Pallas kernel.  The model's attention without a cache takes
+it where ``cfg.attn_impl == "chunked"`` (a lever no configuration sets by
+default; ``launch/hillclimb.py`` tries it).
 """
 
 from __future__ import annotations
@@ -28,18 +29,20 @@ def attention(q, k, v, *, causal=True, backend: str = "kernel"):
 
 
 def chunked_attention(q, k, v, *, causal=True, blk_k: int = 512):
-    """Online-softmax attention over key chunks of ``blk_k`` (the last
-    ``T % blk_k`` keys are not read, as in the reference: T // blk_k
-    chunks).  q: (B, S, Hq, hd); k/v: (B, T, Hkv, hd) -> (B, S, Hq, hd) in
-    q's dtype; never makes the (S, T) scores.  The queries sit at positions
-    0..S-1; with ``causal`` the loop stops at the first chunk past the last
-    query, as the reference's unrolled loop does.  The reference's
-    ``q_offset``, ``q_offset_static`` and ``unroll`` knobs are not carried:
-    nothing sets them."""
+    """Online-softmax attention over key chunks of ``min(blk_k, T)`` keys;
+    a T that the chunk does not divide raises, as the reference's reshape
+    into T // blk_k chunks does.  q: (B, S, Hq, hd); k/v: (B, T, Hkv, hd)
+    -> (B, S, Hq, hd) in q's dtype; never makes the (S, T) scores.  The
+    queries sit at positions 0..S-1; with ``causal`` the loop stops at the
+    first chunk past the last query, as the reference's unrolled loop does.
+    The reference's ``q_offset``, ``q_offset_static`` and ``unroll`` knobs
+    are not carried: nothing sets them."""
     b, s, hq, hd = q.shape
     t, hkv = k.shape[1], k.shape[2]
     g = hq // hkv
     blk_k = min(blk_k, t)
+    if t % blk_k:
+        raise ValueError(f"{t} keys do not split into chunks of {blk_k}")
     n_k = t // blk_k
     scale = 1.0 / math.sqrt(hd)
 

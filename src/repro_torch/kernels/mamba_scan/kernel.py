@@ -12,7 +12,9 @@ an input requiring grad), the call goes through :class:`_ScanFn`, whose
 forward also keeps the state entering each chunk of steps and whose
 backward launches :func:`selective_scan_bwd` on the card
 (``LAUNCHES["selective_scan_bwd"]``, two kernels a call) and runs the plain
-backward on the CPU; the forward's outputs are the same either way.  The
+backward on the CPU; the forward's outputs are the same either way.  Given
+``meta`` tensors (the dry run's) the wrappers allocate what the kernels
+would, launch nothing and report the call to ``kernels/meta.py``.  The
 library is built at first use (``kernels/nvcc.py``); nothing is built or
 loaded on import.
 """
@@ -26,7 +28,7 @@ from typing import Dict
 import torch
 from torch.autograd.function import once_differentiable
 
-from repro_torch.kernels import nvcc
+from repro_torch.kernels import meta, nvcc
 from repro_torch.kernels.mamba_scan.ref import selective_scan_bwd_ref, selective_scan_ref
 
 _HERE = Path(__file__).resolve().parent
@@ -137,6 +139,9 @@ def _fwd_kernel(dt, a_log, b_ssm, c_ssm, x, d_skip, dt_bias, z, z_stride, keep_s
     if bsz * s * di == 0:
         return y, torch.zeros((bsz, di, n), dtype=torch.float32, device=dev), hs
     h = torch.empty((bsz, di, n), dtype=torch.float32, device=dev)
+    if dt.is_meta:
+        meta.note("selective_scan", 0, dt, a_log, b_ssm, c_ssm, x, d_skip, dt_bias, z, y, h, hs)
+        return y, h, hs
     err = _entry("fwd")(
         dt.data_ptr(), a_log.data_ptr(), b_ssm.data_ptr(), c_ssm.data_ptr(), x.data_ptr(),
         d_skip.data_ptr(), dt_bias.data_ptr() if fused else None,
@@ -156,7 +161,7 @@ def selective_scan_states(dt, a_log, b_ssm, c_ssm, x, d_skip, *, dt_bias=None, z
     DI, N) f32)``, y and h_S the same bits as :func:`selective_scan`'s.  The
     backward kernel starts from those states.  On the card only."""
     z_stride = _check(dt, a_log, b_ssm, c_ssm, x, d_skip, dt_bias, z)
-    if not dt.is_cuda:
+    if not (dt.is_cuda or dt.is_meta):
         raise ValueError("the chunk states come from the kernel: CUDA tensors only")
     return _fwd_kernel(dt, a_log, b_ssm, c_ssm, x, d_skip, dt_bias, z, z_stride, True)
 
@@ -182,7 +187,7 @@ def selective_scan_bwd(dt, a_log, b_ssm, c_ssm, x, d_skip, dy, dh_last=None, *, 
     if chunk_states is not None:
         nvcc.check_tensor("chunk_states", chunk_states, (torch.float32,),
                           (bsz, -(-s // chunk_steps(dt.dtype)), di, n), dev)
-    if not dt.is_cuda:
+    if not (dt.is_cuda or dt.is_meta):
         return selective_scan_bwd_ref(dt, a_log, b_ssm, c_ssm, x, d_skip, dy, dh_last,
                                       dt_bias=dt_bias, z=z)
     fused = z is not None
@@ -199,6 +204,10 @@ def selective_scan_bwd(dt, a_log, b_ssm, c_ssm, x, d_skip, dy, dh_last=None, *, 
     n_bc, n_row = bwd_scratch(bsz, s, di, n)
     part_bc = torch.empty(n_bc, dtype=torch.float32, device=dev)
     part_row = torch.empty(n_row, dtype=torch.float32, device=dev)
+    if dt.is_meta:
+        meta.note("selective_scan_bwd", 0, dt, a_log, b_ssm, c_ssm, x, d_skip, dt_bias, z, dy,
+                  dh_last, chunk_states, *grads)
+        return tuple(grads)
     err = _entry("bwd")(
         dt.data_ptr(), a_log.data_ptr(), b_ssm.data_ptr(), c_ssm.data_ptr(), x.data_ptr(),
         d_skip.data_ptr(), dt_bias.data_ptr() if fused else None,
@@ -221,7 +230,7 @@ class _ScanFn(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, dt, a_log, b_ssm, c_ssm, x, d_skip, dt_bias, z, z_stride):
-        if dt.is_cuda:
+        if dt.is_cuda or dt.is_meta:
             y, h, hs = _fwd_kernel(dt, a_log, b_ssm, c_ssm, x, d_skip, dt_bias, z, z_stride,
                                    True)
         else:
@@ -262,6 +271,6 @@ def selective_scan(dt, a_log, b_ssm, c_ssm, x, d_skip, *, dt_bias=None, z=None):
             t is not None and t.requires_grad
             for t in (dt, a_log, b_ssm, c_ssm, x, d_skip, dt_bias, z)):
         return _ScanFn.apply(dt, a_log, b_ssm, c_ssm, x, d_skip, dt_bias, z, z_stride)
-    if not dt.is_cuda:
+    if not (dt.is_cuda or dt.is_meta):
         return selective_scan_ref(dt, a_log, b_ssm, c_ssm, x, d_skip, dt_bias=dt_bias, z=z)
     return _fwd_kernel(dt, a_log, b_ssm, c_ssm, x, d_skip, dt_bias, z, z_stride, False)[:2]

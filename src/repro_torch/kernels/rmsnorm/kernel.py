@@ -10,7 +10,9 @@ from the card to the CPU.  Where autograd records (grad enabled and ``x`` or
 ``w`` requiring grad), the call goes through :class:`_RMSNormFn`, whose
 backward launches ``rmsnorm_bwd`` on the card (``LAUNCHES["rmsnorm_bwd"]``,
 two kernels a call) and runs the plain backward formula on the CPU; the
-forward is the same either way.  The library is built at first use
+forward is the same either way.  Given ``meta`` tensors (the dry run's)
+the wrappers allocate what the kernels would, launch nothing and report the
+call to ``kernels/meta.py``.  The library is built at first use
 (``kernels/nvcc.py``); nothing is built or loaded on import.
 """
 
@@ -23,7 +25,7 @@ from typing import Dict
 import torch
 from torch.autograd.function import once_differentiable
 
-from repro_torch.kernels import nvcc
+from repro_torch.kernels import meta, nvcc
 from repro_torch.kernels.rmsnorm.ref import rmsnorm_bwd_ref, rmsnorm_ref
 
 _HERE = Path(__file__).resolve().parent
@@ -62,6 +64,9 @@ def _fwd_kernel(x, w, eps):
     out = torch.empty_like(x)
     if r == 0 or d == 0:
         return out
+    if x.is_meta:
+        meta.note("rmsnorm", 0, x, w, out)
+        return out
     if x.data_ptr() % 16:  # the kernels read 16-byte vectors: align an offset view
         x = x.clone()
     err = _entry("rmsnorm_fwd")(x.data_ptr(), w.data_ptr(), out.data_ptr(), r, d,
@@ -82,7 +87,7 @@ def rmsnorm_bwd(x, w, dy, *, eps: float = 1e-6):
     r, d = x.shape
     nvcc.check_tensors(x.device, ("x", x, _DTYPES, (r, d)), ("w", w, _DTYPES, (d,)),
                        ("dy", dy, (x.dtype,), (r, d)))
-    if not x.is_cuda:
+    if not (x.is_cuda or x.is_meta):
         return rmsnorm_bwd_ref(x, w, dy, eps)
     if d > BWD_MAX_D:
         raise ValueError(f"rmsnorm backward takes D <= {BWD_MAX_D}, got {d}")
@@ -93,6 +98,9 @@ def rmsnorm_bwd(x, w, dy, *, eps: float = 1e-6):
     x, dy = (t.clone() if t.data_ptr() % 16 else t for t in (x, dy))
     dw = torch.empty_like(w)
     partial = torch.empty((min(r, BWD_BLOCKS), d), dtype=torch.float32, device=x.device)
+    if x.is_meta:
+        meta.note("rmsnorm_bwd", 0, x, w, dy, dx, dw)
+        return dx, dw
     err = _entry("rmsnorm_bwd")(x.data_ptr(), w.data_ptr(), dy.data_ptr(), dx.data_ptr(),
                                 dw.data_ptr(), partial.data_ptr(), r, d, x.dtype == _BF16,
                                 w.dtype == _BF16, eps, nvcc.stream(x.get_device()))
@@ -110,7 +118,7 @@ class _RMSNormFn(torch.autograd.Function):
     def forward(ctx, x, w, eps):
         ctx.save_for_backward(x, w)
         ctx.eps = eps
-        return _fwd_kernel(x, w, eps) if x.is_cuda else rmsnorm_ref(x, w, eps)
+        return _fwd_kernel(x, w, eps) if x.is_cuda or x.is_meta else rmsnorm_ref(x, w, eps)
 
     @staticmethod
     @once_differentiable
@@ -128,6 +136,6 @@ def rmsnorm(x, w, *, eps: float = 1e-6):
     nvcc.check_tensors(x.device, ("x", x, _DTYPES, (r, d)), ("w", w, _DTYPES, (d,)))
     if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
         return _RMSNormFn.apply(x, w, eps)
-    if not x.is_cuda:
+    if not (x.is_cuda or x.is_meta):
         return rmsnorm_ref(x, w, eps)
     return _fwd_kernel(x, w, eps)

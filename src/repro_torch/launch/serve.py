@@ -44,7 +44,8 @@ prefilled and greedily decoded by the port's model on the card
 selective scan run through the hand-written kernels.  The model's
 configuration is ``--arch``'s (its smoke configuration with
 ``--reduced``), tuned as the reference's launcher tunes it
-(``launch/tuned.py``: ``moe_groups`` 16 for the MoE archs).
+(``launch/tuned.py``: of its levers only ``moe_groups`` 16 for the MoE
+archs changes the math on one card).
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-135m \\
       --batch 8 --prompt-len 512 --gen 32 --sessions 16

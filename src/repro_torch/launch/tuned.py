@@ -1,13 +1,14 @@
-"""Per-arch tuning the serving launcher applies (counterpart of the JAX
-package's ``launch/tuned.py``).
+"""Per-arch tuned levers (counterpart of the JAX package's
+``launch/tuned.py``): the reference's whole ``TUNED`` table, applied by the
+serving and training launchers unless ``--no-tuned``.
 
-Only the lever that changes the math is carried: ``moe_groups=16`` for the
-two MoE archs, whose grouped dispatch gives each of 16 token groups its own
-expert capacity (``models/moe.py``).  The reference's other levers
-(context-parallel attention, the sequence-parallel residual) shard across
-devices and mean nothing on one card; so ``zamba2-7b``, which the reference
-tunes with those sharding levers alone, gets nothing here, as do the dense,
-vlm, audio and ssm archs.  The key is ``cfg.name``, as in the reference, so
+Of its levers only ``moe_groups=16`` (the two MoE archs) changes the math
+on one card: the grouped dispatch gives each of 16 token groups its own
+expert capacity (``models/moe.py``).  The others, context-parallel
+attention (``attn_seq_shard``) and the sequence-parallel residual
+(``seq_parallel_resid``), are sharding constraints of the reference's mesh;
+the port carries them in the configuration, where they are inert
+(``models/config.py``).  The key is ``cfg.name``, as in the reference, so
 the reduced ``*-smoke`` configurations get no tuning.
 """
 
@@ -17,9 +18,21 @@ import dataclasses
 
 from repro_torch.models.config import ModelConfig
 
+# context-parallel attention + sequence-parallel residual, as the reference
+# tunes every attention-bearing arch
+_ATTN_TUNING = dict(attn_seq_shard=True, seq_parallel_resid=True)
+
 TUNED = {
-    "arctic-480b": dict(moe_groups=16),
-    "dbrx-132b": dict(moe_groups=16),
+    "llama-3.2-vision-11b": _ATTN_TUNING,
+    "zamba2-7b": _ATTN_TUNING,
+    "smollm-135m": _ATTN_TUNING,
+    "qwen2-1.5b": _ATTN_TUNING,
+    "olmo-1b": _ATTN_TUNING,
+    "deepseek-coder-33b": _ATTN_TUNING,
+    "musicgen-large": _ATTN_TUNING,
+    "arctic-480b": dict(moe_groups=16, **_ATTN_TUNING),
+    "dbrx-132b": dict(moe_groups=16, **_ATTN_TUNING),
+    "falcon-mamba-7b": dict(seq_parallel_resid=True),
 }
 
 

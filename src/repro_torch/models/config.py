@@ -1,22 +1,30 @@
 """Model configuration (counterpart of the JAX package's ``models/config.py``).
 
-The fields that change the math, for every family of the reference, so a
-copied configuration reads the same in both packages.  ``moe_groups`` is one
-of them: the reference calls it a dispatch layout, but its grouped dispatch
-gives each group its own expert capacity, so it changes which assignments
-are dropped.  ``remat`` (rematerialise each block in the backward:
-``"none"`` or ``"nothing_saveable"``) and ``loss_chunk`` (the loss's
-head and cross-entropy per sequence chunk) shape training as the
-reference's do.  The reference's sharding and scheduling levers (activation
-sharding, the MoE capacity buffer's sharding anchor, context-parallel
-attention, sequence-parallel residual, chunked attention) mean nothing on
-one card and are not carried.
+Every field of the reference's ``ModelConfig``, in its order and with its
+defaults, so a copied configuration reads the same in both packages.  The
+fields that change the math: the architecture's own, ``moe_groups`` (the
+reference calls it a dispatch layout, but its grouped dispatch gives each
+group its own expert capacity, so it changes which assignments are
+dropped), ``capacity_factor``, ``attn_impl`` / ``attn_chunk``
+(``"chunked"``: the no-cache attention as an online softmax over key
+chunks, ``kernels/flash_attention/ops.py::chunked_attention``) and
+``loss_chunk`` (the head and cross-entropy per sequence chunk).  ``remat``
+(``"none"``, ``"nothing_saveable"`` or ``"dots_saveable"``) chooses what a
+block keeps for its backward (``models/model.py`` ``_remat``) and changes no
+bit.
+
+The reference's sharding levers, ``act_sharding``, ``attn_seq_shard``,
+``moe_shard_dispatch`` and ``seq_parallel_resid``, only add sharding
+constraints over a device mesh, and only when ``act_sharding`` is set.  The
+port runs on one card and has no partitioner: it accepts them and they are
+inert.  ``scan_layers`` and ``logits_chunk`` are read nowhere in the
+reference; the port carries them the same way.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -46,8 +54,6 @@ class ModelConfig:
     moe_dff: int = 0
     dense_residual: bool = False  # arctic: dense MLP in parallel with MoE
     capacity_factor: float = 1.25
-    moe_groups: int = 0  # grouped dispatch: G groups of tokens, each with its
-    # own per-expert capacity (so it decides the drops); 0 = flat dispatch
 
     # SSM (mamba)
     ssm_version: int = 0  # 0 = none, 1 = mamba1, 2 = mamba2
@@ -67,10 +73,23 @@ class ModelConfig:
     # audio: inputs are precomputed frame embeddings instead of token ids
     embedding_inputs: bool = False
 
-    # numerics
+    # numerics / scheduling
     dtype: str = "bfloat16"
-    remat: str = "nothing_saveable"  # none | nothing_saveable (dots_saveable: ROADMAP A4)
+    remat: str = "nothing_saveable"  # none | nothing_saveable | dots_saveable
+    scan_layers: bool = True  # read nowhere, as in the reference
+    logits_chunk: int = 0  # read nowhere, as in the reference
+    # the reference's activation sharding anchor (the batch-parallel mesh
+    # axes, set by its launchers); inert on one card
+    act_sharding: Tuple[str, ...] = ()
+    # ---- perf levers (the reference's hillclimb, launch/hillclimb.py) ----
+    attn_impl: str = "naive"  # naive | chunked (online softmax over key chunks)
+    attn_chunk: int = 512  # key-chunk size of the chunked attention
+    attn_seq_shard: bool = False  # context-parallel attention: inert on one card
     loss_chunk: int = 0  # sequence-chunked CE loss (0 = off): the head and CE per chunk
+    moe_shard_dispatch: bool = False  # expert-parallel anchor: inert on one card
+    moe_groups: int = 0  # grouped dispatch: G groups of tokens, each with its
+    # own per-expert capacity (so it decides the drops); 0 = flat dispatch
+    seq_parallel_resid: bool = False  # sequence-parallel residual: inert on one card
 
     def hd(self) -> int:
         return self.head_dim or self.d_model // self.n_heads

@@ -9,7 +9,10 @@ every key of its source) through the flash-attention kernel.
 ``backend="ref"`` runs the kernels' plain versions instead.  Decode
 attention (one query against the cache) and a sliding-window attention
 (``window`` > 0: neither the Pallas kernel nor the flash kernel has a
-window) stay plain PyTorch, as the reference computes them in jnp.  Matrix
+window) stay plain PyTorch, as the reference computes them in jnp.  With
+``cfg.attn_impl == "chunked"`` the attention without a cache (the training
+forward) is the reference's online softmax over key chunks,
+``chunked_attention``, in plain PyTorch as the reference's is XLA.  Matrix
 products are ``torch.matmul``.
 """
 
@@ -23,7 +26,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from repro_torch.kernels.flash_attention.ops import attention
+from repro_torch.kernels.flash_attention.ops import attention, chunked_attention
 from repro_torch.kernels.rmsnorm.ops import rmsnorm_op
 
 
@@ -133,7 +136,10 @@ def attention_block(
     only and attends over every key, through the flash kernel's non-causal
     mode.  ``window`` > 0 (self-attention only) masks keys more than
     ``window`` - 1 positions back, in plain PyTorch over the cache (or the
-    prompt's own keys without one).
+    prompt's own keys without one).  ``cfg.attn_impl == "chunked"`` sends
+    the self-attention without a cache through :func:`chunked_attention`
+    over ``cfg.attn_chunk`` keys a chunk, whatever ``window`` is, as the
+    reference's branch does.
     """
     b, s, _ = x.shape
     hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd()
@@ -162,7 +168,9 @@ def attention_block(
         k_cache[:, length:length + s] = k
         v_cache[:, length:length + s] = v
         new_cache = (k_cache, v_cache, length + s)
-    if length == 0 and not window:
+    if kv_cache is None and cfg.attn_impl == "chunked":
+        out = chunked_attention(q, k, v, causal=True, blk_k=cfg.attn_chunk)
+    elif length == 0 and not window:
         out = attention(q, k, v, causal=True, backend=backend)
     elif kv_cache is None:
         out = gqa_attention(q, k, v, causal=True, window=window)

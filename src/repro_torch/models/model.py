@@ -24,6 +24,7 @@ views ``leaf[i]``.  Entry points:
   init_cache(cfg, batch, max_len, window=0)           -> cache dict
   prefill(params, cfg, batch, max_len)                -> (last_logits, cache)
   decode_step(params, cfg, cache, batch, window=0)    -> (logits, cache)
+  abstract_params(cfg)                                -> the tree on ``meta``
 
 ``backend="kernel"`` (the default) runs RMSNorm, prefill attention and the
 selective scan through the hand-written kernels (their plain versions for
@@ -32,7 +33,8 @@ lie, for a replay on the card.  Caches are updated in place.  ``forward``'s
 aux is the MoE load-balance loss summed over the layers (zero for the other
 families).  ``forward`` and ``loss_fn`` run the blocks through ``_trunk``;
 under autograd the kernels' Functions give the RMSNorm and flash calls
-backward kernels on the card, and ``cfg.remat`` rematerialises each block.
+backward kernels on the card, and ``cfg.remat`` rematerialises each block
+(``"dots_saveable"`` keeping the weight products).
 
 Rolling window (``window > 0``, zamba2's ``long_500k``): ``init_cache``
 makes attention caches ``window`` wide, and ``decode_step`` treats every
@@ -45,12 +47,17 @@ window.
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Any, Dict, Tuple
 
 import numpy as np
 import torch
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+)
 
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (
@@ -228,6 +235,16 @@ def init_params(cfg: ModelConfig, seed: int = 0, device="cuda") -> Params:
     return _map_spec(lambda leaf: _init_leaf(leaf, gen, dev), param_spec(cfg))
 
 
+def abstract_params(cfg: ModelConfig) -> Params:
+    """The parameter tree as ``meta`` tensors (names, shapes, dtypes; no
+    storage), from :func:`param_spec`: the reference's ``abstract_params``
+    (``jax.eval_shape`` of ``init_params``), for the dry run.  A generator
+    cannot draw on ``meta``, so ``init_params`` cannot make it."""
+    meta = torch.device("meta")
+    return _map_spec(lambda leaf: torch.empty(leaf[0], dtype=leaf[1], device=meta),
+                     param_spec(cfg))
+
+
 def _layer(tree, i):
     """Layer ``i``'s parameters (or cache rows): views of the stacked leaves
     (``i`` a tuple indexes several leading axes: a vlm group's self layer)."""
@@ -343,24 +360,43 @@ def _img_embeds(cfg, batch):
     return batch["image_embeddings"].to(cfg.act_dtype())
 
 
+# the products without batch dimensions: torch.matmul folds (B, S, D) @ (D, F)
+# into one of these, so they are the weight products (the reference's
+# ``dots_with_no_batch_dims_saveable``); bmm and baddbmm have a batch dimension
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    if op in _DOTS:
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
 def _remat(cfg: ModelConfig, fn):
     """``fn`` under the configuration's rematerialisation, as the
     reference's ``_remat`` wraps its scan bodies: ``"none"`` keeps every
     activation for the backward; ``"nothing_saveable"`` keeps a block's
     inputs only and recomputes the block in the backward
-    (``torch.utils.checkpoint``, non-reentrant), where autograd records."""
+    (``torch.utils.checkpoint``, non-reentrant); ``"dots_saveable"`` also
+    keeps the outputs of the products without batch dimensions (``aten.mm``
+    / ``addmm``: the weight products) and recomputes the rest, batched
+    products such as the MoE's experts included (selective checkpointing).
+    The kernels' launches are no aten ops, so no policy keeps their outputs:
+    they run again in the recompute under either policy.  Only where
+    autograd records; the saved outputs are the recomputed ones' bits."""
     if cfg.remat == "none":
         return fn
-    if cfg.remat == "dots_saveable":
-        raise NotImplementedError("remat='dots_saveable' (keep the matmul outputs) is not "
-                                  "ported: it comes with the launch tooling, ROADMAP A4")
-    if cfg.remat != "nothing_saveable":
+    if cfg.remat not in ("nothing_saveable", "dots_saveable"):
         raise ValueError(f"unknown remat {cfg.remat!r}")
+    kw = {}
+    if cfg.remat == "dots_saveable":
+        kw["context_fn"] = functools.partial(create_selective_checkpoint_contexts,
+                                             _dots_policy)
 
     def remat(*args):
         if not torch.is_grad_enabled():
             return fn(*args)
-        return checkpoint(fn, *args, use_reentrant=False, preserve_rng_state=False)
+        return checkpoint(fn, *args, use_reentrant=False, preserve_rng_state=False, **kw)
 
     return remat
 

@@ -30,6 +30,15 @@ import torch.nn.functional as F
 from repro_torch.models.layers import mlp_block
 
 
+def _count(idx, n: int) -> torch.Tensor:
+    """How often each of 0..n-1 occurs in the int64 ``idx`` (1-D): the
+    counts ``torch.bincount(idx, minlength=n)`` gives, by an integer
+    scatter-add of ones (exact), which the ``meta`` device also runs (the
+    dry run's)."""
+    return torch.zeros(n, dtype=torch.int64, device=idx.device).scatter_add_(
+        0, idx, torch.ones_like(idx))
+
+
 def capacity(cfg, tokens: int) -> int:
     """Slots per expert for ``tokens`` tokens (per group when grouped):
     ``capacity_factor * tokens * k / E``, at least 1, rounded up to 8."""
@@ -69,7 +78,7 @@ def moe_route(x, p, cfg) -> Dict[str, Any]:
     order = torch.argsort(ge, dim=1, stable=True)
     se = ge.gather(1, order)
     offset = torch.arange(g, device=x.device)[:, None] * e
-    counts = torch.bincount((ge + offset).reshape(-1), minlength=g * e).reshape(g, e)
+    counts = _count((ge + offset).reshape(-1), g * e).reshape(g, e)
     starts = counts.cumsum(1) - counts
     pos = torch.arange(tg * k, device=x.device)[None, :] - starts.gather(1, se)
     keep_s = pos < cap
@@ -88,7 +97,7 @@ def aux_loss(route, cfg) -> torch.Tensor:
     e, k = cfg.n_experts, cfg.top_k
     flat = route["expert_idx"].reshape(-1)
     me = route["gate_all"].mean(dim=0)
-    ce = torch.bincount(flat, minlength=e).float() / flat.numel() * k
+    ce = _count(flat, e).float() / flat.numel() * k
     return e * torch.sum(me * ce)
 
 

@@ -137,7 +137,8 @@ def test_config_matches_jax():
     """The copied configs carry the reference's values in every field the
     port keeps; the full config is 81 layers, 13 groups of 6 and a tail of
     3, head dim 112, and 6,750,530,784 parameters as the reference counts
-    them; the launcher tunes nothing (the reference's levers shard)."""
+    them; the launcher's tuning sets the reference's two sharding levers,
+    inert on one card, and nothing else."""
     for getter in ("get_config", "get_reduced"):
         jcfg, tcfg = getattr(JCFG, getter)("zamba2-7b"), getattr(TCFG, getter)("zamba2-7b")
         for f in dataclasses.fields(ModelConfig):
@@ -147,7 +148,8 @@ def test_config_matches_jax():
     full = TCFG.get_config("zamba2-7b")
     assert full.param_count() == 6_750_530_784 and full.hd() == 112
     assert TM._hybrid_groups(full) == (13, 3)
-    assert apply_tuning(full) == full
+    assert apply_tuning(full) == dataclasses.replace(full, attn_seq_shard=True,
+                                                     seq_parallel_resid=True)
 
 
 def _flat_spec(tcfg):

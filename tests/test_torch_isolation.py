@@ -37,6 +37,14 @@ def _imported_roots(path: Path):
             yield str(node.args[0].value).split(".")[0], node.lineno
 
 
+def test_the_launch_tools_are_covered():
+    """The dry run's modules are among the files checked."""
+    files = {str(p.relative_to(PORT)) for p in _port_files() if PORT in p.parents}
+    for name in ("mesh", "sharding", "dryrun", "probe", "hillclimb", "tuned", "steps"):
+        assert f"launch/{name}.py" in files
+    assert "kernels/meta.py" in files
+
+
 @pytest.mark.parametrize("path", _port_files(), ids=lambda p: str(p.relative_to(REPO)))
 def test_no_jax_or_reference_import(path):
     bad = [(name, line) for name, line in _imported_roots(path) if name in FORBIDDEN]

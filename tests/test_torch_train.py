@@ -159,9 +159,13 @@ def test_remat_is_bit_equal_to_none(arch):
 
 
 def test_dots_saveable_names_the_roadmap():
+    """``remat="dots_saveable"`` gives ``"nothing_saveable"``'s loss; a
+    policy the reference lacks raises."""
     tcfg, tparams, batch = _port_only("smollm-135m", remat="dots_saveable")
-    with pytest.raises(NotImplementedError, match="ROADMAP A4"):
-        TM.loss_fn(tparams, tcfg, _tb(batch))
+    want = TM.loss_fn(tparams, dataclasses.replace(tcfg, remat="nothing_saveable"), _tb(batch))
+    assert torch.equal(TM.loss_fn(tparams, tcfg, _tb(batch)), want)
+    with pytest.raises(ValueError, match="unknown remat 'everything'"):
+        TM.loss_fn(tparams, dataclasses.replace(tcfg, remat="everything"), _tb(batch))
 
 
 def test_train_step_matches_jax():
