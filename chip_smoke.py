@@ -358,10 +358,10 @@ launch under ``torch.cuda.stream`` runs on that stream.
 ``--phases`` runs a subset (default all).  ``--turns DIR`` also builds the
 combine kernels of the checkout at DIR and times each of them in turns with
 this tree's (DIR's, this, this, DIR's) on the same inputs in phases 4 and 5,
-after holding their outputs bit for bit, and DIR's RMSNorm and selective-scan
-backward kernels in turns with this tree's at the training shapes in phases
-15 (d) and 16 (d), after holding their outputs to the plain versions
-(``turns_tree`` in the records).
+after holding their outputs bit for bit, and DIR's RMSNorm, flash-attention
+and selective-scan backward kernels in turns with this tree's at the
+training shapes in phases 15 (d), 16 (d) and 17 (d), after holding their
+outputs to the plain versions (``turns_tree`` in the records).
 
 Then the card line (nvidia-smi), one JSON line with a record per kernel and,
 last, ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
@@ -966,7 +966,7 @@ def grid_bound(kind, state, g_ops):
 
 # the kernel modules of the tree given by --turns: the combine kernels (K),
 # the selective scan (SK) and RMSNorm (RK)
-PARENT = {"K": None, "SK": None, "RK": None}
+PARENT = {"K": None, "SK": None, "RK": None, "FK": None}
 B5_DEVICE_CALLS, B5_HOST_CALLS = 5, 20  # B5 outputs K full states a call
 
 
@@ -4566,11 +4566,15 @@ def measure_bwd(torch, name, shape, dtype):
     mean = lambda xs, i: sum(x[i] for x in xs) / len(xs)
     bound_ms, bound_by = bwd_bound(name, shape, 2 if dtype == torch.bfloat16 else 4)
     turns = None
+    tol = MODEL_TOL["bfloat16" if dtype == torch.bfloat16 else "float32"]
     if name == "rmsnorm_bwd" and PARENT["RK"] is not None:
         x, w, dy = args
-        tol = MODEL_TOL["bfloat16" if dtype == torch.bfloat16 else "float32"]
         turns = bwd_turns(torch, f"{name} {shape}", fn,
                           lambda: PARENT["RK"].rmsnorm_bwd(x, w, dy), plain(), (tol, tol))
+    if name == "flash_attention_bwd" and PARENT["FK"] is not None:
+        turns = bwd_turns(torch, f"{name} {shape}", fn,
+                          lambda: PARENT["FK"].flash_attention_bwd(*args, causal=True), plain(),
+                          (tol,) * 3)
     rec = {"max_abs_err": err, "rel_max_abs_err": rel, "ms": mean(got["kernel"], 0),
            "device_ms": mean(got["kernel"], 1), "device_ms_by": got["kernel"][0][2],
            "plain_ms": cuda_ms(plain, 3), "bound_ms": bound_ms, "bound_by": bound_by,
@@ -5587,7 +5591,7 @@ def phase_launch_tools(torch, K, records):
 
 def turns_kernels(root, package):
     """The kernel wrappers (``kernel.py``) of one kernel package (the
-    combine kernels, ``mamba_scan`` or ``rmsnorm``) of the repository
+    combine kernels, ``mamba_scan``, ``rmsnorm`` or ``flash_attention``) of the repository
     checkout at ``root``, loaded beside this tree's: its ``csrc`` sources
     build into this tree's ``build/`` under their own content hash."""
     import importlib.util
@@ -5607,8 +5611,9 @@ def main(argv=None) -> int:
                     help="also time the combine kernels of the repository checkout at DIR "
                          "in turns with this tree's (DIR's, this, this, DIR's) in phases 4 "
                          "and 5, on the same inputs, after holding their outputs bit for bit, "
-                         "and its RMSNorm and selective-scan backward kernels in phases 15 "
-                         "(d) and 16 (d), after holding their outputs to the plain versions")
+                         "and its RMSNorm, flash-attention and selective-scan backward "
+                         "kernels in phases 15 (d), 16 (d) and 17 (d), after holding their "
+                         "outputs to the plain versions")
     opts = ap.parse_args(argv)
     run = set(opts.phases.split(",")) | {"1", "2"}
     if not (ROOT / "src" / "repro_torch").is_dir():
@@ -5651,7 +5656,7 @@ def main(argv=None) -> int:
             libs = nvcc.build(libraries, verbose=True)
             if opts.turns:
                 for key, package in (("K", "dfc_reduce"), ("SK", "mamba_scan"),
-                                     ("RK", "rmsnorm")):
+                                     ("RK", "rmsnorm"), ("FK", "flash_attention")):
                     PARENT[key] = turns_kernels(opts.turns, package)
                     libs.update({f"{k} (--turns)": v for k, v in PARENT[key].build().items()})
         usage = [ln.strip() for ln in log.getvalue().splitlines()

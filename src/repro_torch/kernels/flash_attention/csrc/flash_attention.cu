@@ -78,6 +78,7 @@
 // 112 and 128 its per-thread q row and accumulator fill the 255 registers
 // and spill a little (84 and 844 bytes of stores, `-Xptxas -v`).
 
+#include <cuda.h>  // CUtensorMap and its enums (types only: no -lcuda)
 #include <math.h>
 
 #include "../../model_common.cuh"
@@ -668,343 +669,667 @@ int launch_bwd(const void* q, const void* k, const void* v, const void* o, const
   return (int)cudaGetLastError();
 }
 
-// ------------------------------------------------ backward, bf16, tensor cores
-// The bf16 backward (the training path) on mma.sync.m16n8k16 with the
-// forward's fragment layouts, in the same two kernels' roles.  Tiles of 64
-// rows, 4 warps of 16 rows each; every operand is staged in shared memory by
-// cp.async (16-byte rows padded to HD + 8 bf16: no ldmatrix bank conflicts),
-// single-buffered.  P and dS are formed in f32 from the f32 accumulators,
-// then rounded to bf16 as the A operand of the next product (as the forward
-// rounds P for P V), so the products stay on the tensor cores:
-//   dq kernel, per warp of 16 queries and per key tile:
-//     S = Q K^T, dP = dO V^T (B: K, V rows), dS = P (dP - D), dQ += dS K
-//     (B: K rows by ldmatrix.trans); D = rowsum(dO o) of the block's rows
-//     is written to the scratch buffer for the dk/dv kernel;
-//   dk/dv kernel, per warp of 16 keys and per query tile of each head of
-//     the group: S^T = K Q^T, dP^T = V dO^T (B: Q, dO rows), dV += P^T dO,
-//     dK += dS^T Q (B: dO, Q rows by ldmatrix.trans).
-// Sums of the products run in a fixed order (no atomics): deterministic.
-// Rounding P and dS to bf16 costs accuracy: within 0.0043-0.0073 relative
-// max-abs of the f32 plain backward on bf16 inputs (the scalar kernels on the
-// same inputs: 0.0009-0.0027), held to 1e-2 as the forward is.
+// ---------------------------------- backward, bf16, Hopper: wgmma and TMA
+// The bf16 backward (the training path), at every head dim: a preprocess
+// kernel and two kernels of two warpgroups each, in the scalar pair's roles.
+//   flash_bwd_prep_kernel: D = rowsum(dO o) by 16-byte loads (8 or 16 lanes
+//     a row, a shuffle tree) and the row LSE times log2 e, into the scratch
+//     (B, Hq, 2, S_pad) f32, S_pad = S rounded up to 128 (zeros past S), so
+//     that each 64-row slice is one aligned 256-byte bulk copy.
+//   flash_bwd_dq_wgmma_kernel: one block per 128 queries of one query head,
+//     the last query tiles first (under causality they see the most keys).
+//   flash_bwd_dkdv_wgmma_kernel: one block per 128 keys of one kv head,
+//     walking the group's query heads and the query tiles that see its keys;
+//     key blocks are handed out in the order 0, 1, ... (block index / (Hkv B)),
+//     so under causality the heaviest blocks (the first keys, which every
+//     later query sees) start first and the grid's tail holds the lightest.
+// Each block is two warpgroups, each owning 64 rows: queries in dq, keys in
+// dk/dv.  The block's other operand streams through a ring of 3 stages in
+// shared memory, loaded by TMA (4-d tensor maps over (hd, heads, rows,
+// batch), 64 x 64 boxes, 128-byte swizzle, zeros past S, Tk and hd) and, in
+// dk/dv, cp.async.bulk (the 64 L and D values of a query tile), each stage
+// with an mbarrier that the bytes complete.  Thread 0 issues the fixed
+// operands and the first 3 tiles; after that the last of the 8 warps to leave
+// a stage refills it (last_out below), so the next tiles land while this one
+// is multiplied and no warp waits for a stage it does not read.  There is no
+// producer warp: a block of 8 warps keeps 2 a scheduler, so ptxas may give a
+// thread up to 255 registers (a third warpgroup caps it at 168, where ptxas
+// serialised dk/dv's products at hd 128 and spilled: dK and dV alone take
+// 128 floats a thread there).  Per tile, a warpgroup runs on
+// wgmma.mma_async.m64nNk16 (bf16 in, f32 accumulate):
+//   dq:    S = Q K^T and dP = dO V^T (both operands from shared memory,
+//          K-major), P = exp2(S scale log2 e - L), dS = P (dP - D) in f32,
+//          then dQ += dS K with dS rounded to bf16 in registers as the A
+//          operand and K read MN-major (transposed) from the same tile;
+//   dk/dv: S^T = K Q^T and dP^T = V dO^T, then dV += P^T dO and
+//          dK += dS^T Q, P^T and dS^T in registers, dO and Q MN-major.
+// That is 7 products a visible (query, key) pair, where the function needs
+// 5: S and dP are formed in both kernels, the price of summing every output
+// in one kernel with no atomic accumulation.  The accumulator fragment of an
+// m64n64 product is, packed to bf16, the A fragment of the next product's
+// k-steps (8 floats per 16 columns), so P and dS never touch shared memory
+// (and no generic write is read by wgmma or TMA).  Operand tiles are 64-row
+// slabs of 64 columns (128 bytes a row, 8 KB, 1024-byte aligned): K-major
+// descriptors step 32 bytes a k-step inside a slab and a slab at a time past
+// it; MN-major ones read 16 rows (2 KB) a k-step with the next 64 columns a
+// slab (8 KB) away.  A head dim is padded to whole slabs in shared memory by
+// the maps' zero fill (16 and 32 to 64, 112 to 128): the score products run
+// hd / 16 k-steps and skip the zero ones, while dQ, dK and dV run at N = 64
+// or 128 (their padded columns zero, never stored): at hd 112, 8/7 of those
+// three products' work.  The score products of a tile commit as two groups,
+// so P is formed while dP is still in flight.  Rows past S or Tk load zeros
+// and are masked to P = 0 and never stored; a warpgroup skips a tile that
+// causality hides from all its rows, but waits for it and counts itself out
+// of its stage.  Every output element is summed by one thread in a fixed
+// order: two launches give the same bits.  Rounding P and dS to bf16 costs
+// accuracy, held to 1e-2 relative max-abs of the f32 plain backward, as the
+// forward is (0.0043-0.0073 with the mma.sync kernels this design replaced;
+// the scalar kernels on the same inputs: 0.0009-0.0027).
 //
-// What bounds it: at smollm's training shape (8, 2048, 9, 3, 64) the five
-// products of the backward are 96.7 GFLOP (0.098 ms at 989 TFLOP/s) against
-// 101 MB of inputs and outputs (0.030 ms), so the products.  Measured
-// (chip_smoke.py phase 15, H100 80GB HBM3 at 700 W): 0.7755 ms of device
-// (dk/dv 0.441, dq 0.336), 7.9x the bound and 2.3x SDPA's backward (0.3395);
-// the scalar kernels took 9.30 ms.  Registers: 164-168 for the dq kernel,
-// 165 for dk/dv at hd 64 and 248-254 at hd 112 and 128 (no spills): 3
-// blocks an SM at hd 64, 2 at hd 112 and 128; 37 KB of shared memory at hd 64.
-constexpr int kTile = 64;  // rows of every shared tile
+// Measured (chip_smoke.py phases 15 (d) and 17 (d), H100 80GB HBM3 at 700 W,
+// device ms a call, in turns with the mma.sync.m16n8k16 pair it replaced):
+//   (8, 2048, 9, 3, 64), smollm-135m: 0.3986 (the mma.sync pair 0.7700;
+//     SDPA's backward 0.3390), dk/dv 7.090 ms of a 137.6 ms training step;
+//   (8, 2048, 32, 32, 112), zamba2-7b: 2.2796 (3.7703; SDPA 1.6339);
+//   (8, 2048, 48, 8, 128), dbrx-132b: 3.2627 (5.9022; SDPA 2.5203);
+// 1.65-1.93x faster, still 1.18-1.40x SDPA's.  The function's seven
+// products a pair at 989 TFLOP/s take 0.137 / 0.852 / 1.460 ms, so the
+// kernels run at 34-45% of the tensor cores' peak.  The likely limits, by
+// arithmetic and not yet measured apart: the score products read both
+// operands from shared memory (an m64n64k16 reads 4 KB in the 32 cycles it
+// takes at peak, all of an SM's 128 bytes a cycle), and a warpgroup's exps,
+// masks and packing between its products are covered only by the other
+// warpgroup's products.  ptxas (phase 2): dq 122 / 124 / 124 / 155 / 155
+// registers at hd 16 / 32 / 64 / 112 / 128, dk/dv 183 / 183 / 183 / 234 /
+// 234, the preprocess 32, no spills.
+constexpr int kWgThreads = 128;           // one warpgroup
+constexpr int kWgBlock = 2 * kWgThreads;  // two warpgroups: 2 warps a scheduler
+constexpr int kSlabBytes = 64 * 128;      // 64 rows of one 128-byte swizzled slab
+constexpr int kStages = 3;                // the ring of streamed tiles
 
-template <int HD> constexpr int bwd_mma_smem_bytes() {
-  return 4 * kTile * (HD + 8) * (int)sizeof(bf16) + 2 * kTile * (int)sizeof(float);
+template <int HD> struct WgBwd {
+  static constexpr int SLABS = (HD + 63) / 64;     // slabs of 64 columns
+  static constexpr int HDP = 64 * SLABS;           // the head dim padded to them
+  static constexpr int KSTEPS = HD / 16;           // k-steps of the score products
+  static constexpr int TILE = SLABS * kSlabBytes;  // bytes of one 64-row tile
+  static constexpr int BARS = 64;                  // bytes of mbarriers and counters
+  // dk/dv: K and V of the block's 128 keys; a stage: a Q and a dO tile, 64 L and 64 D
+  static constexpr int DKDV_SMEM = 4 * TILE + kStages * (2 * TILE + 512) + BARS + 1024;
+  // dq: Q and dO of the block's 128 queries; a stage: a K and a V tile
+  static constexpr int DQ_SMEM = 4 * TILE + kStages * 2 * TILE + BARS + 1024;
+};
+
+__device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
+  return reinterpret_cast<unsigned char*>((reinterpret_cast<uintptr_t>(p) + 1023) & ~uintptr_t(1023));
 }
 
-// 64 rows of a (rows, H, HD) bf16 tensor at head h, from row r0 (zeros past
-// n), into a shared tile, by cp.async
+__device__ __forceinline__ void mbar_init(uint64_t* bar, unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_addr(bar)), "r"(count)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_addr(bar)),
+               "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
+  const uint32_t a = smem_addr(bar);
+  for (;;) {
+    uint32_t done;
+    asm volatile(
+        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(a), "r"(parity)
+        : "memory");
+    if (done) return;
+  }
+}
+
+// A stage is refilled by the last of the 8 warps to leave it.  Once all its
+// lanes are done with the stage (__syncwarp at the call), a warp's lane 0
+// counts it out on the stage's counter (8 a round, never reset) by an
+// acquire-release add, so the lane that completes the round has acquired
+// every warp's reads of the stage; it then orders them before its TMA writes
+// (fence.proxy.async) and issues the tile kStages further on.  The counter
+// only elects the refilling warp: no result is summed by an atomic.  Nothing
+// waits for a later tile's stage, and a stage's loads start the moment its
+// last reader is done.
+__device__ __forceinline__ bool last_out(unsigned* count) {
+  unsigned before;
+  asm volatile("atom.acq_rel.cta.shared.add.u32 %0, [%1], 1;\n"
+               : "=r"(before)
+               : "r"(smem_addr(count))
+               : "memory");
+  if (before % 8 != 7) return false;
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  return true;
+}
+
+// a 64 x 64 box of a 4-d map at (column, head, row, batch), onto bar
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, uint64_t* bar, int col,
+                                         int head, int row, int batch) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.tile.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(col), "r"(head), "r"(row),
+      "r"(batch)
+      : "memory");
+}
+// bytes (a multiple of 16, both addresses 16-byte aligned) onto bar
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, unsigned bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::
+          "r"(smem_addr(dst)),
+      "l"(src), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+
+// wgmma descriptor of a 128-byte-swizzled operand in shared memory
+// (offsets in bytes): K-major lbo 16, sbo 1024 (8 rows of 128 bytes);
+// MN-major lbo 8192 (the next 64 columns), sbo 1024
+__device__ __forceinline__ uint64_t sw128_desc(const void* p, uint32_t lbo, uint32_t sbo) {
+  return (uint64_t)((smem_addr(p) & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
+         ((uint64_t)(sbo >> 4) << 32) | (1ull << 62);
+}
+// descriptor units (16 bytes) from a K-major tile's start to k-step kk
+__device__ __forceinline__ uint64_t kmajor_step(int kk) {
+  return (uint64_t)((kk / 4) * (kSlabBytes >> 4) + (kk % 4) * 2);
+}
+constexpr uint64_t kMnStep = 16 * 128 >> 4;  // MN-major: 16 rows a k-step
+// d, opaque to the optimiser: a value laundered at its use is not hoisted
+// out of the tile loop or into a product's window, where it would hold
+// registers through the softmax (without it ptxas gives dq more registers
+// a thread, and at hd 64, where two blocks share an SM at 128, it ran
+// markedly slower)
+__device__ __forceinline__ uint64_t fresh(uint64_t d) {
+  asm volatile("mov.b64 %0, %0;\n" : "+l"(d));
+  return d;
+}
+__device__ __forceinline__ int fresh(int x) {
+  asm volatile("mov.b32 %0, %0;\n" : "+r"(x));
+  return x;
+}
+
+__device__ __forceinline__ void wg_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N> __device__ __forceinline__ void wg_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+// keep the compiler from moving reads or writes of registers an async
+// product owns across this point
+template <int R> __device__ __forceinline__ void pin(float (&d)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+__device__ __forceinline__ void pin(uint32_t (&a)[4][4]) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(a[i][j])::"memory");
+}
+
+#define WG_ACC8(i)                                                                          \
+  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]), "+f"(d[i + 4]), "+f"(d[i + 5]), \
+      "+f"(d[i + 6]), "+f"(d[i + 7])
+#define WG_REGS32                                                                 \
+  "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, " \
+  "%18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+#define WG_REGS64                                                                     \
+  WG_REGS32 ", %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, " \
+            "%46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, " \
+            "%61, %62, %63"
+
+// d (64 x 64 f32) = [d +] a b: a 64 x 16 and b 16 x 64, both K-major in shared memory
+__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t a, uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {" WG_REGS32
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : WG_ACC8(0), WG_ACC8(8), WG_ACC8(16), WG_ACC8(24)
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+// d (64 x N f32) += a b: a 64 x 16 bf16 in registers, b 16 x N MN-major in shared memory
+__device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {" WG_REGS32
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : WG_ACC8(0), WG_ACC8(8), WG_ACC8(16), WG_ACC8(24)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+__device__ __forceinline__ void wgmma_rs(float (&d)[64], const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {" WG_REGS64
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : WG_ACC8(0), WG_ACC8(8), WG_ACC8(16), WG_ACC8(24), WG_ACC8(32), WG_ACC8(40),
+        WG_ACC8(48), WG_ACC8(56)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+#undef WG_ACC8
+#undef WG_REGS32
+#undef WG_REGS64
+
+// 2^x by the SFU (ex2.approx.ftz: 2 ulp, subnormal results flushed to 0)
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// an m64n64 accumulator (f32) as the A fragments of 4 k-steps (bf16): k-step
+// kk holds columns 16 kk .. 16 kk + 15, which are accumulator floats 8 kk ..
+// 8 kk + 7 in the order the A fragment takes them
+__device__ __forceinline__ void to_a_frags(uint32_t (&a)[4][4], const float (&d)[32]) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) a[kk][i] = pack_bf16(d[8 * kk + 2 * i], d[8 * kk + 2 * i + 1]);
+}
+
 template <int HD>
-__device__ __forceinline__ void load_tile(bf16* dst, const bf16* src, int b, int r0, int n,
-                                          int H, int h) {
-  constexpr int LD = HD + 8, CH = HD / 8;
-  for (int c = threadIdx.x; c < kTile * CH; c += 32 * kPosWarps) {
-    const int r = c / CH, ch = c % CH, t = r0 + r;
-    const bf16* g = src + (((size_t)b * n + min(t, n - 1)) * H + h) * HD + ch * 8;
-    cp_async16(dst + r * LD + ch * 8, g, t < n ? 16 : 0);
+__global__ void __launch_bounds__(256)
+flash_bwd_prep_kernel(const bf16* __restrict__ o, const bf16* __restrict__ dout,
+                      const float* __restrict__ lse, float* __restrict__ ld, int B, int S,
+                      int S_pad, int Hq) {
+  constexpr int CH = HD / 8;              // 16-byte chunks of a row
+  constexpr int LPR = CH <= 8 ? 8 : 16;   // lanes a row
+  const long long gid = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  const long long row = gid / LPR;        // over (b, s < S_pad, h)
+  const int sub = (int)(gid % LPR);
+  const bool live = row < (long long)B * S_pad * Hq;
+  const int h = (int)(row % Hq), s = (int)(row / Hq % S_pad), b = (int)(row / Hq / S_pad);
+  float dd = 0.f;
+  if (live && s < S && sub < CH) {
+    const size_t off = (((size_t)b * S + s) * Hq + h) * HD + sub * 8;
+    float x[8], y[8];
+    model::load16(dout + off, x);
+    model::load16(o + off, y);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) dd = fmaf(x[i], y[i], dd);
+  }
+#pragma unroll
+  for (int m = 1; m < LPR; m <<= 1) dd += __shfl_xor_sync(0xffffffffu, dd, m);
+  if (live && sub == 0) {
+    float* base = ld + ((size_t)b * Hq + h) * 2 * S_pad;
+    base[s] = s < S ? lse[((size_t)b * Hq + h) * S + s] * 1.4426950408889634f : 0.f;
+    base[S_pad + s] = s < S ? dd : 0.f;
   }
 }
 
 template <int HD>
-__global__ void __launch_bounds__(32 * kPosWarps)
-flash_bwd_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                        const bf16* __restrict__ v, const bf16* __restrict__ o,
-                        const float* __restrict__ lse, const bf16* __restrict__ dout,
-                        bf16* __restrict__ dq, float* __restrict__ dsum, int S, int Tk, int Hq,
-                        int Hkv, int causal, float scale_log2, float scale) {
-  constexpr int LD = HD + 8, CH = HD / 8, KS = HD / 16, DB = HD / 8;
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem);  // [64][LD] the block's queries
-  bf16* Gs = Qs + kTile * LD;                // [64][LD] their dO rows
-  bf16* Ks = Gs + kTile * LD;                // [64][LD] one key tile
-  bf16* Vs = Ks + kTile * LD;                // [64][LD]
-  float* Ls = reinterpret_cast<float*>(Vs + kTile * LD);  // lse * log2 e
-  float* Dd = Ls + kTile;                                 // rowsum(dO o)
-  const int q0 = blockIdx.x * kTile, h = blockIdx.y, b = blockIdx.z;
+__global__ void __launch_bounds__(kWgBlock, 1)
+flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                          const __grid_constant__ CUtensorMap tk,
+                          const __grid_constant__ CUtensorMap tv,
+                          const __grid_constant__ CUtensorMap tg, const float* __restrict__ ld,
+                          bf16* __restrict__ dq, int B, int S, int S_pad, int Tk, int Hq, int Hkv,
+                          int causal, float scale_log2, float scale) {
+  using W = WgBwd<HD>;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* Qs = align1024(smem_raw);   // 2 tiles: the block's 128 queries
+  unsigned char* Gs = Qs + 2 * W::TILE;      // 2 tiles: their dO rows
+  unsigned char* Ks = Gs + 2 * W::TILE;      // a key tile a stage
+  unsigned char* Vs = Ks + kStages * W::TILE;
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(Vs + kStages * W::TILE);
+  uint64_t* full = q_full + 1;
+  unsigned* out = reinterpret_cast<unsigned*>(full + kStages);  // warps out of each stage
+
+  const int n_qb = (S + 127) / 128;
+  const int qb = n_qb - 1 - (int)(blockIdx.x / (Hq * B));  // heaviest first
+  const int b = blockIdx.x % (Hq * B) / Hq, h = blockIdx.x % Hq;
   const int kvh = h / (Hq / Hkv);
-  const int lane = threadIdx.x % 32, p0 = 16 * (threadIdx.x / 32);
+  const int q0 = qb * 128;
+  const int kv_end = causal ? min(Tk, min(S, q0 + 128)) : Tk;
+  const int n_kt = (kv_end + 63) / 64;
 
-  load_tile<HD>(Qs, q, b, q0, S, Hq, h);
-  load_tile<HD>(Gs, dout, b, q0, S, Hq, h);
-  cp_async_commit();
-  // D and the scaled lse of the warp's 16 rows
-  for (int r = 0; r < 16; ++r) {
-    const int s = q0 + p0 + r;
-    float dd = 0.f;
-    if (s < S) {
-      const size_t off = (((size_t)b * S + s) * Hq + h) * HD;
-      for (int d = lane; d < HD; d += 32)
-        dd = fmaf(__bfloat162float(dout[off + d]), __bfloat162float(o[off + d]), dd);
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int i = 0; i < kStages; ++i) {
+      mbar_init(full + i, 1);
+      out[i] = 0;
     }
-#pragma unroll
-    for (int x = 16; x; x >>= 1) dd += __shfl_xor_sync(0xffffffffu, dd, x);
-    if (lane == 0) {
-      const size_t srow = ((size_t)b * Hq + h) * S + s;
-      Dd[p0 + r] = dd;
-      Ls[p0 + r] = s < S ? lse[srow] * 1.4426950408889634f : 0.f;
-      if (s < S) dsum[srow] = dd;
-    }
+    asm volatile("fence.mbarrier_init.release.cluster;\nfence.proxy.async.shared::cta;\n" ::
+                     : "memory");
   }
-  __syncwarp();
-  const int row_lo = q0 + p0 + lane / 4;  // this lane's rows: row_lo, row_lo + 8
-  const float lrow[2] = {Ls[p0 + lane / 4], Ls[p0 + lane / 4 + 8]};
-  const float drow[2] = {Dd[p0 + lane / 4], Dd[p0 + lane / 4 + 8]};
-
-  float acc[DB][4];
-#pragma unroll
-  for (int d = 0; d < DB; ++d) acc[d][0] = acc[d][1] = acc[d][2] = acc[d][3] = 0.f;
-  const int kv_end = causal ? min(Tk, min(S, q0 + kTile)) : Tk;
-  for (int k0 = 0; k0 < kv_end; k0 += kTile) {
-    __syncthreads();  // the previous tile's readers are done
-    load_tile<HD>(Ks, k, b, k0, Tk, Hkv, kvh);
-    load_tile<HD>(Vs, v, b, k0, Tk, Hkv, kvh);
-    cp_async_commit();
-    cp_async_wait<0>();
-    __syncthreads();
-    float sc[8][4], dp[8][4];
-#pragma unroll
-    for (int nb = 0; nb < 8; ++nb)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) sc[nb][e] = dp[nb][e] = 0.f;
-#pragma unroll
-    for (int ks = 0; ks < KS; ++ks) {
-      uint32_t a[4], g[4];
-      ldsm_x4(a, Qs + (p0 + (lane & 15)) * LD + ks * 16 + (lane >> 4) * 8);
-      ldsm_x4(g, Gs + (p0 + (lane & 15)) * LD + ks * 16 + (lane >> 4) * 8);
-#pragma unroll
-      for (int np = 0; np < 4; ++np) {
-        const int off = (np * 16 + (lane & 7) + (lane >> 4) * 8) * LD + ks * 16 +
-                        ((lane >> 3) & 1) * 8;
-        uint32_t kb[4], vb[4];
-        ldsm_x4(kb, Ks + off);
-        ldsm_x4(vb, Vs + off);
-        mma_bf16(sc[2 * np], a, kb[0], kb[1]);
-        mma_bf16(sc[2 * np + 1], a, kb[2], kb[3]);
-        mma_bf16(dp[2 * np], g, vb[0], vb[1]);
-        mma_bf16(dp[2 * np + 1], g, vb[2], vb[3]);
-      }
-    }
-    const bool masked = k0 + kTile > Tk || (causal && k0 + kTile - 1 > q0 + p0);
-    uint32_t da[4][4];  // dS as the A operand of key steps 0..3
-#pragma unroll
-    for (int nb = 0; nb < 8; ++nb) {
-      float ds[4];
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int r = e >> 1;
-        float p = exp2f(sc[nb][e] * scale_log2 - lrow[r]);
-        if (masked) {
-          const int t = k0 + nb * 8 + (lane & 3) * 2 + (e & 1);
-          if (t >= Tk || (causal && t > row_lo + 8 * r)) p = 0.f;
-        }
-        ds[e] = p * (dp[nb][e] - drow[r]);
-      }
-      da[nb / 2][(nb & 1) * 2] = pack_bf16(ds[0], ds[1]);
-      da[nb / 2][(nb & 1) * 2 + 1] = pack_bf16(ds[2], ds[3]);
-    }
-#pragma unroll
-    for (int ks = 0; ks < 4; ++ks) {
-#pragma unroll
-      for (int dj = 0; dj < DB / 2; ++dj) {
-        uint32_t kb[4];
-        ldsm_x4_trans(kb, Ks + (ks * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * LD + dj * 16 +
-                              (lane >> 4) * 8);
-        mma_bf16(acc[2 * dj], da[ks], kb[0], kb[1]);
-        mma_bf16(acc[2 * dj + 1], da[ks], kb[2], kb[3]);
-      }
-    }
-  }
-
-  // dq = scale * acc, staged through the warp's own Q rows, 16-byte stores
-  __syncwarp();
-  bf16* st = Qs + p0 * LD;
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    bf16* row = st + (lane / 4 + 8 * r) * LD + (lane & 3) * 2;
-#pragma unroll
-    for (int d = 0; d < DB; ++d)
-      *reinterpret_cast<uint32_t*>(row + d * 8) =
-          pack_bf16(acc[d][2 * r] * scale, acc[d][2 * r + 1] * scale);
-  }
-  __syncwarp();
-  for (int c = lane; c < 16 * CH; c += 32) {
-    const int r = c / CH, ch = c % CH, s = q0 + p0 + r;
-    if (s < S)
-      *reinterpret_cast<uint4*>(dq + (((size_t)b * S + s) * Hq + h) * HD + ch * 8) =
-          *reinterpret_cast<const uint4*>(st + r * LD + ch * 8);
-  }
-}
-
-template <int HD>
-__global__ void __launch_bounds__(32 * kPosWarps)
-flash_bwd_dkdv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                          const bf16* __restrict__ v, const float* __restrict__ lse,
-                          const bf16* __restrict__ dout, const float* __restrict__ dsum,
-                          bf16* __restrict__ dk, bf16* __restrict__ dv, int S, int Tk, int Hq,
-                          int Hkv, int causal, float scale_log2, float scale) {
-  constexpr int LD = HD + 8, CH = HD / 8, KS = HD / 16, DB = HD / 8;
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* Ks = reinterpret_cast<bf16*>(smem);  // [64][LD] the block's keys
-  bf16* Vs = Ks + kTile * LD;                // [64][LD] their values
-  bf16* Qs = Vs + kTile * LD;                // [64][LD] one query tile
-  bf16* Gs = Qs + kTile * LD;                // [64][LD] its dO rows
-  float* Ls = reinterpret_cast<float*>(Gs + kTile * LD);  // lse * log2 e
-  float* Dd = Ls + kTile;                                 // rowsum(dO o)
-  const int t0 = blockIdx.x * kTile, kvh = blockIdx.y, b = blockIdx.z;
-  const int group = Hq / Hkv;
-  const int lane = threadIdx.x % 32, p0 = 16 * (threadIdx.x / 32);
-  const int w0 = t0 + p0;  // the warp's first key
-  const int t_lo = w0 + lane / 4;  // this lane's keys: t_lo, t_lo + 8
-
-  load_tile<HD>(Ks, k, b, t0, Tk, Hkv, kvh);
-  load_tile<HD>(Vs, v, b, t0, Tk, Hkv, kvh);
-  cp_async_commit();
-  float dka[DB][4], dva[DB][4];
-#pragma unroll
-  for (int d = 0; d < DB; ++d)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dka[d][e] = dva[d][e] = 0.f;
-  // queries before the block's first key see none of its keys
-  const int q_begin = causal ? t0 : 0;
-  for (int j = 0; j < group; ++j) {
-    const int h = kvh * group + j;
-    for (int s0 = q_begin; s0 < S; s0 += kTile) {
-      __syncthreads();  // the previous tile's readers are done
-      load_tile<HD>(Qs, q, b, s0, S, Hq, h);
-      load_tile<HD>(Gs, dout, b, s0, S, Hq, h);
-      cp_async_commit();
-      for (int i = threadIdx.x; i < kTile; i += 32 * kPosWarps) {
-        const int s = s0 + i;
-        const size_t srow = ((size_t)b * Hq + h) * S + s;
-        Ls[i] = s < S ? lse[srow] * 1.4426950408889634f : 0.f;
-        Dd[i] = s < S ? dsum[srow] : 0.f;
-      }
-      cp_async_wait<0>();
-      __syncthreads();
-      float st[8][4], dpt[8][4];  // S^T and dP^T: the warp's 16 keys x 64 queries
-#pragma unroll
-      for (int nb = 0; nb < 8; ++nb)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) st[nb][e] = dpt[nb][e] = 0.f;
-#pragma unroll
-      for (int ks = 0; ks < KS; ++ks) {
-        uint32_t a[4], w[4];
-        ldsm_x4(a, Ks + (p0 + (lane & 15)) * LD + ks * 16 + (lane >> 4) * 8);
-        ldsm_x4(w, Vs + (p0 + (lane & 15)) * LD + ks * 16 + (lane >> 4) * 8);
-#pragma unroll
-        for (int np = 0; np < 4; ++np) {
-          const int off = (np * 16 + (lane & 7) + (lane >> 4) * 8) * LD + ks * 16 +
-                          ((lane >> 3) & 1) * 8;
-          uint32_t qb[4], gb[4];
-          ldsm_x4(qb, Qs + off);
-          ldsm_x4(gb, Gs + off);
-          mma_bf16(st[2 * np], a, qb[0], qb[1]);
-          mma_bf16(st[2 * np + 1], a, qb[2], qb[3]);
-          mma_bf16(dpt[2 * np], w, gb[0], gb[1]);
-          mma_bf16(dpt[2 * np + 1], w, gb[2], gb[3]);
-        }
-      }
-      const bool masked = s0 + kTile > S || w0 + 16 > Tk || (causal && s0 < w0 + 16);
-      uint32_t pa[4][4], da[4][4];  // P^T and dS^T as A operands of query steps 0..3
-#pragma unroll
-      for (int nb = 0; nb < 8; ++nb) {
-        float p[4], ds[4];
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int col = nb * 8 + (lane & 3) * 2 + (e & 1);
-          p[e] = exp2f(st[nb][e] * scale_log2 - Ls[col]);
-          if (masked) {
-            const int s = s0 + col, t = t_lo + (e >> 1) * 8;
-            if (s >= S || t >= Tk || (causal && t > s)) p[e] = 0.f;
-          }
-          ds[e] = p[e] * (dpt[nb][e] - Dd[col]);
-        }
-        pa[nb / 2][(nb & 1) * 2] = pack_bf16(p[0], p[1]);
-        pa[nb / 2][(nb & 1) * 2 + 1] = pack_bf16(p[2], p[3]);
-        da[nb / 2][(nb & 1) * 2] = pack_bf16(ds[0], ds[1]);
-        da[nb / 2][(nb & 1) * 2 + 1] = pack_bf16(ds[2], ds[3]);
-      }
-#pragma unroll
-      for (int ks = 0; ks < 4; ++ks) {
-#pragma unroll
-        for (int dj = 0; dj < DB / 2; ++dj) {
-          const int off = (ks * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * LD + dj * 16 +
-                          (lane >> 4) * 8;
-          uint32_t gb[4], qb[4];
-          ldsm_x4_trans(gb, Gs + off);
-          ldsm_x4_trans(qb, Qs + off);
-          mma_bf16(dva[2 * dj], pa[ks], gb[0], gb[1]);
-          mma_bf16(dva[2 * dj + 1], pa[ks], gb[2], gb[3]);
-          mma_bf16(dka[2 * dj], da[ks], qb[0], qb[1]);
-          mma_bf16(dka[2 * dj + 1], da[ks], qb[2], qb[3]);
-        }
-      }
-    }
-  }
-  cp_async_wait<0>();  // the K/V copies, where no query tile ran
   __syncthreads();
 
-  // dk = scale * dka and dv, staged through the warp's own K and V rows
-  bf16* sk = Ks + p0 * LD;
-  bf16* sv = Vs + p0 * LD;
+  // key tile it into its free stage
+  auto load = [&](int it) {
+    const int st = it % kStages;
+    mbar_expect_tx(full + st, 2 * W::TILE);
+    for (int sl = 0; sl < W::SLABS; ++sl) {
+      tma_load(Ks + st * W::TILE + sl * kSlabBytes, &tk, full + st, 64 * sl, kvh, 64 * it, b);
+      tma_load(Vs + st * W::TILE + sl * kSlabBytes, &tv, full + st, 64 * sl, kvh, 64 * it, b);
+    }
+  };
+  if (threadIdx.x == 0) {
+    mbar_expect_tx(q_full, 4 * W::TILE);
+    for (int g = 0; g < 2; ++g)
+      for (int sl = 0; sl < W::SLABS; ++sl) {
+        tma_load(Qs + g * W::TILE + sl * kSlabBytes, &tq, q_full, 64 * sl, h, q0 + 64 * g, b);
+        tma_load(Gs + g * W::TILE + sl * kSlabBytes, &tg, q_full, 64 * sl, h, q0 + 64 * g, b);
+      }
+    for (int it = 0; it < min(kStages, n_kt); ++it) load(it);
+  }
+
+  const int c = threadIdx.x / kWgThreads;  // the consumer: rows q0 + 64 c ..
+  const int tid = threadIdx.x % kWgThreads, lane = tid % 32;
+  const int wq0 = q0 + 64 * c;
+  const int r_lo = wq0 + 16 * (tid / 32) + lane / 4;  // this thread's rows: r_lo, r_lo + 8
+  const float* lrow = ld + ((size_t)b * Hq + h) * 2 * S_pad;  // rows < S_pad (a multiple of 128)
+  const float lr[2] = {lrow[r_lo], lrow[r_lo + 8]};
+  const float dr[2] = {lrow[S_pad + r_lo], lrow[S_pad + r_lo + 8]};
+  const uint64_t qd = sw128_desc(Qs + c * W::TILE, 16, 1024);
+  const uint64_t gd = sw128_desc(Gs + c * W::TILE, 16, 1024);
+
+  float acc[W::HDP / 2];
+#pragma unroll
+  for (int i = 0; i < W::HDP / 2; ++i) acc[i] = 0.f;
+  mbar_wait(q_full, 0);
+  for (int it = 0; it < n_kt; ++it) {
+    const int st = it % kStages, k0 = 64 * it;
+    mbar_wait(full + st, (it / kStages) & 1);
+    if (!(wq0 >= S || (causal && k0 > wq0 + 63))) {
+      const uint64_t kd = fresh(sw128_desc(Ks + st * W::TILE, 16, 1024));
+      const uint64_t vd = fresh(sw128_desc(Vs + st * W::TILE, 16, 1024));
+      const uint64_t q_d = fresh(qd), g_d = fresh(gd);
+      // S and dP: a tile's first k-step overwrites them, so they carry
+      // nothing from the last tile and hold no registers through dQ's product
+      float sc[32], dp[32];
+      wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < W::KSTEPS; ++kk)
+        wgmma_ss(sc, q_d + kmajor_step(kk), kd + kmajor_step(kk), kk > 0);
+      wg_commit();
+#pragma unroll
+      for (int kk = 0; kk < W::KSTEPS; ++kk)
+        wgmma_ss(dp, g_d + kmajor_step(kk), vd + kmajor_step(kk), kk > 0);
+      wg_commit();
+      wg_wait<1>();
+      pin(sc);
+      const bool masked = k0 + 64 > Tk || (causal && k0 + 63 > wq0);
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        float p = ex2(fmaf(sc[i], scale_log2, -lr[(i >> 1) & 1]));
+        if (masked) {
+          const int t = k0 + 8 * (i / 4) + 2 * (lane & 3) + (i & 1);
+          if (t >= Tk || (causal && t > r_lo + 8 * ((i >> 1) & 1))) p = 0.f;
+        }
+        sc[i] = p;
+      }
+      wg_wait<0>();
+      pin(dp);
+#pragma unroll
+      for (int i = 0; i < 32; ++i) dp[i] = sc[i] * (dp[i] - dr[(i >> 1) & 1]);
+      uint32_t da[4][4];
+      to_a_frags(da, dp);
+      pin(acc);
+      wg_fence();
+      const uint64_t kt = fresh(sw128_desc(Ks + st * W::TILE, kSlabBytes, 1024));
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) wgmma_rs(acc, da[kk], kt + kk * kMnStep);
+      wg_commit();
+      wg_wait<0>();
+      pin(acc);
+      pin(da);
+    }
+    __syncwarp();
+    if (lane == 0 && last_out(out + st) && it + kStages < n_kt) load(it + kStages);
+  }
+
+  // dq = scale * acc, each thread's two rows straight from its registers
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
-    const int ro = (lane / 4 + 8 * r) * LD + (lane & 3) * 2;
+    const int s = r_lo + 8 * r;
+    if (s >= S) continue;
+    bf16* row = dq + (((size_t)b * S + s) * Hq + h) * HD + 2 * (lane & 3);
 #pragma unroll
-    for (int d = 0; d < DB; ++d) {
-      *reinterpret_cast<uint32_t*>(sk + ro + d * 8) =
-          pack_bf16(dka[d][2 * r] * scale, dka[d][2 * r + 1] * scale);
-      *reinterpret_cast<uint32_t*>(sv + ro + d * 8) = pack_bf16(dva[d][2 * r], dva[d][2 * r + 1]);
-    }
-  }
-  __syncwarp();
-  for (int c = lane; c < 16 * CH; c += 32) {
-    const int r = c / CH, ch = c % CH, t = w0 + r;
-    if (t < Tk) {
-      const size_t off = (((size_t)b * Tk + t) * Hkv + kvh) * HD + ch * 8;
-      *reinterpret_cast<uint4*>(dk + off) = *reinterpret_cast<const uint4*>(sk + r * LD + ch * 8);
-      *reinterpret_cast<uint4*>(dv + off) = *reinterpret_cast<const uint4*>(sv + r * LD + ch * 8);
-    }
+    for (int j = 0; j < HD / 8; ++j)
+      *reinterpret_cast<uint32_t*>(row + 8 * j) =
+          pack_bf16(acc[4 * j + 2 * r] * scale, acc[4 * j + 2 * r + 1] * scale);
   }
 }
 
 template <int HD>
-int launch_bwd_mma(const void* q, const void* k, const void* v, const void* o, const float* lse,
-                   const void* dout, void* dq, void* dk, void* dv, float* dsum, int B, int S,
-                   int Tk, int Hq, int Hkv, int causal, float scale, cudaStream_t stream) {
-  // the kernels copy 16-byte rows
+__global__ void __launch_bounds__(kWgBlock, 1)
+flash_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                            const __grid_constant__ CUtensorMap tk,
+                            const __grid_constant__ CUtensorMap tv,
+                            const __grid_constant__ CUtensorMap tg, const float* __restrict__ ld,
+                            bf16* __restrict__ dk, bf16* __restrict__ dv, int B, int S, int S_pad,
+                            int Tk, int Hq, int Hkv, int causal, float scale_log2, float scale) {
+  using W = WgBwd<HD>;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* Ks = align1024(smem_raw);  // 2 tiles: the block's 128 keys
+  unsigned char* Vs = Ks + 2 * W::TILE;     // 2 tiles: their values
+  unsigned char* Qs = Vs + 2 * W::TILE;     // a query tile a stage
+  unsigned char* Gs = Qs + kStages * W::TILE;  // its dO rows
+  float* Ls = reinterpret_cast<float*>(Gs + kStages * W::TILE);  // 64 lse * log2 e a stage
+  float* Ds = Ls + 64 * kStages;                                 // 64 rowsum(dO o) a stage
+  uint64_t* kv_full = reinterpret_cast<uint64_t*>(Ds + 64 * kStages);
+  uint64_t* full = kv_full + 1;
+  unsigned* out = reinterpret_cast<unsigned*>(full + kStages);  // warps out of each stage
+
+  const int kb = blockIdx.x / (Hkv * B);  // the first key blocks first: the heaviest
+  const int b = blockIdx.x % (Hkv * B) / Hkv, kvh = blockIdx.x % Hkv;
+  const int group = Hq / Hkv;
+  const int t0 = kb * 128;
+  const int q_begin = causal ? t0 : 0;  // earlier queries see none of the block's keys
+  const int n_qt = q_begin < S ? (S - q_begin + 63) / 64 : 0;
+  const int n_it = group * n_qt;
+
+  if (threadIdx.x == 0) {
+    mbar_init(kv_full, 1);
+    for (int i = 0; i < kStages; ++i) {
+      mbar_init(full + i, 1);
+      out[i] = 0;
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\nfence.proxy.async.shared::cta;\n" ::
+                     : "memory");
+  }
+  __syncthreads();
+
+  // query tile it into its free stage
+  auto load = [&](int it) {
+    const int st = it % kStages, i = it % n_it;
+    const int h = kvh * group + i / n_qt, s0 = q_begin + i % n_qt * 64;
+    mbar_expect_tx(full + st, 2 * W::TILE + 512);
+    for (int sl = 0; sl < W::SLABS; ++sl) {
+      tma_load(Qs + st * W::TILE + sl * kSlabBytes, &tq, full + st, 64 * sl, h, s0, b);
+      tma_load(Gs + st * W::TILE + sl * kSlabBytes, &tg, full + st, 64 * sl, h, s0, b);
+    }
+    const float* src = ld + ((size_t)b * Hq + h) * 2 * S_pad + s0;
+    bulk_load(Ls + 64 * st, src, 256, full + st);
+    bulk_load(Ds + 64 * st, src + S_pad, 256, full + st);
+  };
+  if (threadIdx.x == 0) {
+    mbar_expect_tx(kv_full, 4 * W::TILE);
+    for (int g = 0; g < 2; ++g)
+      for (int sl = 0; sl < W::SLABS; ++sl) {
+        tma_load(Ks + g * W::TILE + sl * kSlabBytes, &tk, kv_full, 64 * sl, kvh, t0 + 64 * g, b);
+        tma_load(Vs + g * W::TILE + sl * kSlabBytes, &tv, kv_full, 64 * sl, kvh, t0 + 64 * g, b);
+      }
+    for (int it = 0; it < min(kStages, n_it); ++it) load(it);
+  }
+
+  const int c = threadIdx.x / kWgThreads;  // the consumer: keys t0 + 64 c ..
+  const int tid = threadIdx.x % kWgThreads, lane = tid % 32;
+  const int wt0 = t0 + 64 * c;
+  const int t_lo = wt0 + 16 * (tid / 32) + lane / 4;  // this thread's keys: t_lo, t_lo + 8
+  const uint64_t kd = sw128_desc(Ks + c * W::TILE, 16, 1024);
+  const uint64_t vd = sw128_desc(Vs + c * W::TILE, 16, 1024);
+
+  float dka[W::HDP / 2], dva[W::HDP / 2];
+#pragma unroll
+  for (int i = 0; i < W::HDP / 2; ++i) dka[i] = dva[i] = 0.f;
+  mbar_wait(kv_full, 0);
+  for (int it = 0; it < n_it; ++it) {
+    const int st = it % kStages, s0 = q_begin + it % n_qt * 64;
+    mbar_wait(full + st, (it / kStages) & 1);
+    if (!(wt0 >= Tk || (causal && s0 + 63 < wt0))) {
+      unsigned char* Qt = Qs + st * W::TILE;
+      unsigned char* Gt = Gs + st * W::TILE;
+      const uint64_t qd = fresh(sw128_desc(Qt, 16, 1024)), gd = fresh(sw128_desc(Gt, 16, 1024));
+      const uint64_t k_d = fresh(kd), v_d = fresh(vd);
+      float sc[32], dp[32];  // S^T and dP^T: written by the first k-step, as in dq
+      wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < W::KSTEPS; ++kk)
+        wgmma_ss(sc, k_d + kmajor_step(kk), qd + kmajor_step(kk), kk > 0);
+      wg_commit();
+#pragma unroll
+      for (int kk = 0; kk < W::KSTEPS; ++kk)
+        wgmma_ss(dp, v_d + kmajor_step(kk), gd + kmajor_step(kk), kk > 0);
+      wg_commit();
+      wg_wait<1>();
+      pin(sc);
+      // P^T: rows are keys (t_lo, t_lo + 8), columns queries s0 + col + 8 j
+      // + e.  The column is laundered here, so that neither the L and D
+      // loads nor the masks are hoisted into the products' window
+      const int col = fresh(2 * (lane & 3));
+      const float* L = Ls + 64 * st + col;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const float2 l2 = *reinterpret_cast<const float2*>(L + 8 * j);
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          sc[4 * j + e] = ex2(fmaf(sc[4 * j + e], scale_log2, -((e & 1) ? l2.y : l2.x)));
+      }
+      if (s0 + 64 > S || wt0 + 64 > Tk || (causal && s0 < wt0 + 63)) {
+#pragma unroll
+        for (int e = 0; e < 32; ++e) {
+          const int s = s0 + col + 8 * (e / 4) + (e & 1), t = t_lo + 8 * ((e >> 1) & 1);
+          if (s >= S || t >= Tk || (causal && t > s)) sc[e] = 0.f;
+        }
+      }
+      wg_wait<0>();
+      pin(dp);
+      const float* D = Ds + 64 * st + fresh(col);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const float2 d2 = *reinterpret_cast<const float2*>(D + 8 * j);
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          dp[4 * j + e] = sc[4 * j + e] * (dp[4 * j + e] - ((e & 1) ? d2.y : d2.x));
+      }
+      uint32_t pa[4][4], da[4][4];
+      to_a_frags(pa, sc);
+      to_a_frags(da, dp);
+      pin(dva);
+      pin(dka);
+      wg_fence();
+      const uint64_t gt = fresh(sw128_desc(Gt, kSlabBytes, 1024));
+      const uint64_t qt = fresh(sw128_desc(Qt, kSlabBytes, 1024));
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) wgmma_rs(dva, pa[kk], gt + kk * kMnStep);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) wgmma_rs(dka, da[kk], qt + kk * kMnStep);
+      wg_commit();
+      wg_wait<0>();
+      pin(dva);
+      pin(dka);
+      pin(pa);
+      pin(da);
+    }
+    __syncwarp();
+    if (lane == 0 && last_out(out + st) && it + kStages < n_it) load(it + kStages);
+  }
+
+  // dk = scale * dka and dv, each thread's two keys straight from its registers
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int t = t_lo + 8 * r;
+    if (t >= Tk) continue;
+    const size_t off = (((size_t)b * Tk + t) * Hkv + kvh) * HD + 2 * (lane & 3);
+#pragma unroll
+    for (int j = 0; j < HD / 8; ++j) {
+      *reinterpret_cast<uint32_t*>(dk + off + 8 * j) =
+          pack_bf16(dka[4 * j + 2 * r] * scale, dka[4 * j + 2 * r + 1] * scale);
+      *reinterpret_cast<uint32_t*>(dv + off + 8 * j) =
+          pack_bf16(dva[4 * j + 2 * r], dva[4 * j + 2 * r + 1]);
+    }
+  }
+}
+
+// cuTensorMapEncodeTiled, resolved through the runtime (no -lcuda)
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                  const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                  const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                  CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiledFn encode_tiled() {
+  static const EncodeTiledFn fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                                             cudaEnableDefault, &found);
+#else
+    const cudaError_t err =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiledFn>(p)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// the 4-d map of a (B, rows, H, HD) bf16 tensor: 64 x 64 boxes of one head,
+// 128-byte swizzle, zeros out of bounds
+bool bwd_map(CUtensorMap* map, const void* base, int B, int rows, int H, int HD) {
+  const cuuint64_t dims[4] = {(cuuint64_t)HD, (cuuint64_t)H, (cuuint64_t)rows, (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)HD * 2, (cuuint64_t)H * HD * 2,
+                                 (cuuint64_t)rows * H * HD * 2};
+  const cuuint32_t box[4] = {64, 1, 64, 1}, elem[4] = {1, 1, 1, 1};
+  return encode_tiled()(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims,
+                        strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                        CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+
+template <int HD>
+int launch_bwd_wgmma(const void* q, const void* k, const void* v, const void* o, const float* lse,
+                     const void* dout, void* dq, void* dk, void* dv, float* ld, int B, int S,
+                     int Tk, int Hq, int Hkv, int causal, float scale, cudaStream_t stream) {
+  using W = WgBwd<HD>;
+  // TMA takes 16-byte aligned bases; the other kernels store 4-byte pairs
   if (((uintptr_t)q | (uintptr_t)k | (uintptr_t)v | (uintptr_t)o | (uintptr_t)dout |
-       (uintptr_t)dq | (uintptr_t)dk | (uintptr_t)dv) % 16)
+       (uintptr_t)dq | (uintptr_t)dk | (uintptr_t)dv | (uintptr_t)ld) % 16)
     return (int)cudaErrorMisalignedAddress;
-  constexpr int smem = bwd_mma_smem_bytes<HD>();
-  static const cudaError_t attr_dq = cudaFuncSetAttribute(
-      flash_bwd_dq_mma_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  static const cudaError_t attr_dkdv = cudaFuncSetAttribute(
-      flash_bwd_dkdv_mma_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (attr_dq != cudaSuccess) return (int)attr_dq;
-  if (attr_dkdv != cudaSuccess) return (int)attr_dkdv;
-  const bf16 *qp = static_cast<const bf16*>(q), *kp = static_cast<const bf16*>(k),
-             *vp = static_cast<const bf16*>(v), *gp = static_cast<const bf16*>(dout);
+  static const cudaError_t ready_dq = cudaFuncSetAttribute(
+      flash_bwd_dq_wgmma_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, W::DQ_SMEM);
+  static const cudaError_t ready_dkdv = cudaFuncSetAttribute(
+      flash_bwd_dkdv_wgmma_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, W::DKDV_SMEM);
+  if (ready_dq != cudaSuccess) return (int)ready_dq;
+  if (ready_dkdv != cudaSuccess) return (int)ready_dkdv;
+  if (encode_tiled() == nullptr) return (int)cudaErrorSymbolNotFound;
+  CUtensorMap tq, tk, tv, tg;
+  if (!bwd_map(&tq, q, B, S, Hq, HD) || !bwd_map(&tk, k, B, Tk, Hkv, HD) ||
+      !bwd_map(&tv, v, B, Tk, Hkv, HD) || !bwd_map(&tg, dout, B, S, Hq, HD))
+    return (int)cudaErrorInvalidValue;
+  const int S_pad = (S + 127) / 128 * 128;
   const float scale_log2 = scale * 1.4426950408889634f;
-  const dim3 gq((S + kTile - 1) / kTile, Hq, B);
-  flash_bwd_dq_mma_kernel<HD><<<gq, 32 * kPosWarps, smem, stream>>>(
-      qp, kp, vp, static_cast<const bf16*>(o), lse, gp, static_cast<bf16*>(dq), dsum, S, Tk,
-      Hq, Hkv, causal, scale_log2, scale);
+  constexpr int LPR = HD / 8 <= 8 ? 8 : 16;
+  const long long threads = (long long)B * S_pad * Hq * LPR;
+  flash_bwd_prep_kernel<HD><<<(unsigned)((threads + 255) / 256), 256, 0, stream>>>(
+      static_cast<const bf16*>(o), static_cast<const bf16*>(dout), lse, ld, B, S, S_pad, Hq);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  const dim3 gk((Tk + kTile - 1) / kTile, Hkv, B);
-  flash_bwd_dkdv_mma_kernel<HD><<<gk, 32 * kPosWarps, smem, stream>>>(
-      qp, kp, vp, lse, gp, dsum, static_cast<bf16*>(dk), static_cast<bf16*>(dv), S, Tk, Hq,
+  flash_bwd_dq_wgmma_kernel<HD><<<(unsigned)(S_pad / 128 * Hq * B), kWgBlock, W::DQ_SMEM,
+                                  stream>>>(tq, tk, tv, tg, ld, static_cast<bf16*>(dq), B, S,
+                                            S_pad, Tk, Hq, Hkv, causal, scale_log2, scale);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  flash_bwd_dkdv_wgmma_kernel<HD><<<(unsigned)((Tk + 127) / 128 * Hkv * B), kWgBlock,
+                                    W::DKDV_SMEM, stream>>>(
+      tq, tk, tv, tg, ld, static_cast<bf16*>(dk), static_cast<bf16*>(dv), B, S, S_pad, Tk, Hq,
       Hkv, causal, scale_log2, scale);
   return (int)cudaGetLastError();
 }
@@ -1030,8 +1355,9 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, 
 }
 
 // The backward: q, o, dout, dq (B,S,Hq,HD), k, v, dk, dv (B,Tk,Hkv,HD) in one
-// dtype; lse and the scratch dsum (B,Hq,S) f32.  Two launches: dq (which
-// writes dsum), then dk/dv.
+// dtype; lse (B,Hq,S) f32; dsum the f32 scratch: for bf16 (B,Hq,2,S_pad),
+// S_pad = S rounded up to 128 (three launches: the preprocess, dq, dk/dv),
+// for f32 (B,Hq,S) (two launches: dq, which writes it, then dk/dv).
 extern "C" int flash_attention_bwd(const void* q, const void* k, const void* v, const void* o,
                                    const float* lse, const void* dout, void* dq, void* dk,
                                    void* dv, float* dsum, int B, int S, int Tk, int Hq,
@@ -1039,17 +1365,13 @@ extern "C" int flash_attention_bwd(const void* q, const void* k, const void* v, 
                                    void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
 #define BWD_ARGS q, k, v, o, lse, dout, dq, dk, dv, dsum, B, S, Tk, Hq, Hkv, causal, scale, st
-#define BWD_CASE(HD_)                                                            \
-  case HD_:                                                                      \
-    return is_bf16 ? launch_bwd_mma<HD_>(BWD_ARGS) : launch_bwd<HD_>(BWD_ARGS);
   switch (HD) {
-    BWD_CASE(16)
-    BWD_CASE(32)
-    BWD_CASE(64)
-    BWD_CASE(112)
-    BWD_CASE(128)
+    case 16: return is_bf16 ? launch_bwd_wgmma<16>(BWD_ARGS) : launch_bwd<16>(BWD_ARGS);
+    case 32: return is_bf16 ? launch_bwd_wgmma<32>(BWD_ARGS) : launch_bwd<32>(BWD_ARGS);
+    case 64: return is_bf16 ? launch_bwd_wgmma<64>(BWD_ARGS) : launch_bwd<64>(BWD_ARGS);
+    case 112: return is_bf16 ? launch_bwd_wgmma<112>(BWD_ARGS) : launch_bwd<112>(BWD_ARGS);
+    case 128: return is_bf16 ? launch_bwd_wgmma<128>(BWD_ARGS) : launch_bwd<128>(BWD_ARGS);
     default: return (int)cudaErrorInvalidValue;
   }
-#undef BWD_CASE
 #undef BWD_ARGS
 }

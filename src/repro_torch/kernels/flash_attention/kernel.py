@@ -10,9 +10,10 @@ For CPU tensors it returns the plain version (``ref.py``); there is no
 fallback from the card to the CPU.  Where autograd records (grad enabled and
 q, k or v requiring grad), the call goes through :class:`_FlashFn`: its
 forward also has the kernel write the rows' log-sum-exp, and its backward
-launches ``flash_attention_bwd`` (``LAUNCHES["flash_attention_bwd"]``, two
-kernels a call); on the CPU it runs the plain forward, row log-sum-exp and
-backward formula.  Given ``meta`` tensors (the dry run's) the wrappers
+launches ``flash_attention_bwd`` (``LAUNCHES["flash_attention_bwd"]``, one a
+call: three kernels on wgmma and TMA in bf16, two scalar ones in f32); on
+the CPU it runs the plain forward, row log-sum-exp and backward formula.
+Given ``meta`` tensors (the dry run's) the wrappers
 allocate what the kernels would, launch nothing and report the call to
 ``kernels/meta.py``.  The library is built at first use
 (``kernels/nvcc.py``); nothing is built or loaded on import.
@@ -116,6 +117,15 @@ def _forward(q, k, v, causal, with_lse):
     return out, lse
 
 
+def bwd_scratch_shape(b, hq, s, dtype):
+    """The f32 scratch of one backward call: in bf16 the row LSE times
+    log2 e and D = rowsum(dO o), (B, Hq, 2, S rounded up to 128); in f32 D
+    alone, (B, Hq, S)."""
+    if dtype == _BF16:
+        return (b, hq, 2, -(-s // 128) * 128)
+    return (b, hq, s)
+
+
 def flash_attention_lse(q, k, v, *, causal: bool = True):
     """``(out, lse)``: the forward and the rows' log-sum-exp of the scaled
     scores, (B, Hq, S) f32, from one kernel launch (the plain versions for
@@ -127,9 +137,10 @@ def flash_attention_lse(q, k, v, *, causal: bool = True):
 def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True):
     """The backward from the forward's ``o`` and ``lse`` and the output's
     gradient ``do`` (shaped and typed as q) -> ``(dq, dk, dv)``.  CUDA
-    tensors launch the kernels (dq, which also writes rowsum(do o) into a
-    scratch buffer, then dk/dv; bf16 on the tensor cores, f32 on scalar
-    FMAs), CPU tensors run :func:`ref.attention_bwd_ref`."""
+    tensors launch the kernels (bf16: a preprocess writing rowsum(do o)
+    and the scaled LSE into a scratch buffer, then dq and dk/dv on wgmma;
+    f32: dq, which writes rowsum(do o), then dk/dv on scalar FMAs), CPU
+    tensors run :func:`ref.attention_bwd_ref`."""
     b, s, t, hq, hkv, hd = _check(q, k, v)
     nvcc.check_tensors(q.device, ("o", o, (q.dtype,), q.shape), ("do", do, (q.dtype,), q.shape),
                        ("lse", lse, (torch.float32,), (b, hq, s)))
@@ -138,16 +149,17 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True):
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     if b * s * hq == 0 or t == 0:
         return dq.zero_(), dk.zero_(), dv.zero_()
-    dsum = torch.empty((b, hq, s), dtype=torch.float32, device=q.device)
+    scratch = torch.empty(bwd_scratch_shape(b, hq, s, q.dtype), dtype=torch.float32,
+                          device=q.device)
     if q.is_meta:  # 7 products a pair: S and dO V^T in both kernels, dQ, dK, dV
         meta.note("flash_attention_bwd", 14 * b * hq * hd * meta.attention_pairs(s, t, causal),
                   q, k, v, o, lse, do, dq, dk, dv)
         return dq, dk, dv
-    if q.dtype == _BF16:  # the tensor-core kernels copy 16-byte rows: align offset views
+    if q.dtype == _BF16:  # TMA and 16-byte rows want aligned bases: align offset views
         q, k, v, o, do = (x if x.data_ptr() % 16 == 0 else x.clone() for x in (q, k, v, o, do))
     err = _entry("flash_attention_bwd")(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(), do.data_ptr(),
-        dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), dsum.data_ptr(), b, s, t, hq, hkv, hd,
+        dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), scratch.data_ptr(), b, s, t, hq, hkv, hd,
         causal, 1.0 / math.sqrt(hd), q.dtype == _BF16, nvcc.stream(q.get_device()))
     if err:
         raise RuntimeError(f"flash attention backward launch failed: CUDA error {err}")

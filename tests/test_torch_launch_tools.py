@@ -281,6 +281,33 @@ def test_kernel_wrappers_on_meta():
     assert meta.attention_pairs(4, 10, False) == 40
 
 
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("hd", [16, 32, 64, 112, 128])
+def test_flash_bwd_on_meta_is_the_kernels_call(hd, dtype):
+    """The flash backward on ``meta`` at each head dim: it notes the FLOPs of
+    the function's products that its kernels run (7 a visible pair, 2 hd
+    each; a head dim the kernels pad in shared memory counts unpadded) and
+    allocates exactly what the CUDA path does: dq, dk, dv and the f32
+    scratch ((B, Hq, 2, S rounded up to 128) for bf16, where the preprocess
+    kernel writes the scaled LSE and D; D, (B, Hq, S), for f32)."""
+    from repro_torch.kernels.flash_attention import kernel as FK
+
+    b, s, t, hq, hkv = 2, 48, 48, 8, 2
+    dt = getattr(torch, dtype)
+    q, o, do = (torch.empty((b, s, hq, hd), device="meta", dtype=dt) for _ in range(3))
+    k, v = (torch.empty((b, t, hkv, hd), device="meta", dtype=dt) for _ in range(2))
+    lse = torch.empty((b, hq, s), device="meta")
+    held = [q, k, v, o, lse, do]
+    got = DR.count(lambda: FK.flash_attention_bwd(q, k, v, o, lse, do), held)
+    pairs = s * (s + 1) // 2
+    grads = dt.itemsize * (q.numel() + k.numel() + v.numel())
+    inputs = sum(x.numel() * x.element_size() for x in held)
+    assert got["kernels"]["flash_attention_bwd"] == {
+        "calls": 1, "flops": 14 * hd * b * hq * pairs, "bytes": inputs + grads}
+    scratch = 4 * b * hq * (2 * 128 if dtype == "bfloat16" else s)
+    assert got["peak_bytes"] == inputs + grads + scratch
+
+
 def test_dry_run_peak_counts_live_bytes():
     """The tracker's peak on a step whose live bytes are known: a product
     and its sum on meta."""
