@@ -34,7 +34,9 @@ script exits non-zero without printing a result):
                   eliminated, every pop past the window, pops served, paired
                   and run empty in one row, a committed size past N, rows of
                   two and more tiles, N off the 16-byte vector, the deque's
-                  whole shared-memory budget): bit-equal; kernels 1-3 at S=1 timed
+                  whole shared-memory budget): bit-equal (the map's plain
+                  walks on the host, ``on_host``, and one full-width walk
+                  on the card as well, the same bits); kernels 1-3 at S=1 timed
                   (``ms``, ``device_ms``, ``host_us``),
   4. volatile  -- the port's main path at full width: ``serve_shards --mixed
                   --shards 256 --batch 16384 --phases 32 --skew 1.1`` on the
@@ -289,7 +291,8 @@ script exits non-zero without printing a result):
                   beside their bounds and PyTorch calls (under ``at``).
                   Each kernel record gains ``hybrid_configs_launches``,
   15. training -- (a) the RMSNorm and flash backward kernels against their
-                  plain versions in bf16 and f32; (b) ``smollm-135m`` trained
+                  plain versions in bf16 and f32 (flash at every head dim,
+                  8 and 48 zero-padded among them); (b) ``smollm-135m`` trained
                   at full width through ``launch/train.py``'s code path
                   (``TRAIN_ARGV``: 8 x 2,048, 20 steps, a checkpoint every
                   10; exact launches, a falling loss, the kernels' loss
@@ -311,15 +314,17 @@ script exits non-zero without printing a result):
                   steps, a checkpoint every 5); (d) the scan's backward
                   timed at the training shape.  Each kernel record gains
                   ``ssm_train_launches``.
-  17. hybrid and moe training -- (a) the flash backward at zamba2's and
-                  dbrx's attention layouts (batch 2) and the RMSNorm
-                  backward at their training rows, bf16, against their
-                  plain versions, two launches bit-equal; (b) as phase 15's
-                  for ``zamba2-7b`` cut to 12 of 81 layers and
-                  ``dbrx-132b`` cut to 1 of 40, every width kept
-                  (``MORE_TRAIN``: zamba2 at 4 x 2,048, dbrx at 8 x 2,048
-                  with a loss chunk of 512; their real combines, the disk's
-                  free space checked first); (c') in place of the
+  17. more training -- (a) the flash backward at the trained configs'
+                  attention layouts (batch 2: zamba2's, dbrx's, qwen2's,
+                  olmo's, deepseek's) and the RMSNorm backward at their
+                  training rows, bf16, against their plain versions, two
+                  launches bit-equal; (b) as phase 15's for ``zamba2-7b``
+                  cut to 12 of 81 layers, ``dbrx-132b`` cut to 1 of 40,
+                  ``qwen2-1.5b`` and ``olmo-1b`` whole and
+                  ``deepseek-coder-33b`` cut to 4 of 62, every width kept
+                  (``MORE_TRAIN``: zamba2 at 4 x 2,048, the others at 8 x
+                  2,048, dbrx and qwen2 with a loss chunk of 512; their
+                  real combines, the disk's free space checked first); (c') in place of the
                   crash and resume, each run's steps replayed from a fresh
                   state through a fresh runtime's step, without combines,
                   every loss and the final state bit-equal to (b)'s; (d)
@@ -344,7 +349,9 @@ script exits non-zero without printing a result):
 
 Phase 3 also holds the three model kernels (RMSNorm, flash attention, the
 selective scan) against their plain versions at model shapes, in bf16 and
-f32 (tolerances in ``MODEL_TOL``): flash attention at every head dim, a
+f32 (tolerances in ``MODEL_TOL``): flash attention at every head dim (and at
+8 and 48, which run zero-padded to 16 and 64, causal and not, two launches
+bit-equal), a
 ragged S, S = T = 1, non-causal, Hq = Hkv and a group of 4, phase 11's
 shapes, phase 12's group of 7 and non-causal S queries over T != S keys
 (T 1,024 at S 512 and 1, a ragged T of 1,000 at S 200), and phase 14's head
@@ -446,6 +453,7 @@ MODEL_KERNELS = {
                            "src/repro/kernels/mamba_scan/kernel.py:51"),
 }
 MODEL_TOL = {"float32": 1e-5, "bfloat16": 1e-2}
+PADDED_HEAD_DIMS = (8, 48)  # head dims the flash kernel runs zero-padded (to 16, 64)
 SCAN_TOL_F32 = 1e-4  # the scan: 512 dependent steps of rounding
 SCAN_SHAPES = ((4, 512, 8192, 16), (4, 200, 8192, 16), (2, 512, 8192, 8), (4, 1, 8192, 16),
                (2, 70, 100, 5))  # (B, S, DI, N) checked in phase 3
@@ -496,6 +504,13 @@ HOST_CALLS = 200  # calls per host-clock window: its host_us
 
 
 VOLATILE = {}  # phase 4's unsplit run, printed beside phase 9's split run
+# the seconds of phases before the map's plain walks ran on the host and over
+# live lanes only, and before phase 17 trained the other dense configs (whole
+# runs of the script on an H100 80GB HBM3 at 700 W), printed beside this run's
+EARLIER_PHASE_S = {"3": "162-169 s, the map's walks on the card",
+                   "4 and 5": "the map's plain walks 31.0 + 62.6 s, over every lane",
+                   "17": "122-147.3 s, training zamba2 and dbrx only",
+                   "whole script": "1,066.9 / 1,099.0 s"}
 SINGLE_N64 = {}  # phase 3's single-object times (N = 64), printed beside phase 10 (d)
 
 
@@ -508,11 +523,15 @@ def check(cond, msg):
         raise SmokeFailure(msg)
 
 
+PHASE_S = {}  # phase number -> its seconds in this run
+
+
 @contextlib.contextmanager
 def phase(name):
     t0 = time.perf_counter()
     yield
-    print(f"phase {name}: ok ({time.perf_counter() - t0:.2f} s)", flush=True)
+    PHASE_S[name.split()[0]] = took = time.perf_counter() - t0
+    print(f"phase {name}: ok ({took:.2f} s)", flush=True)
 
 
 # ----------------------------------------------------------------- helpers
@@ -548,6 +567,31 @@ def compare_outputs(what, outs_k, outs_p):
 def compare_states(what, a, b):
     for i, (x, y) in enumerate(zip(a.leaves(), b.leaves())):
         check(same_bits(x, y), f"{what}: state leaf {i} differs")
+
+
+def on_host(fn, *args):
+    """(``fn``'s outputs, its seconds): ``fn``, a plain version, run on
+    host copies of its tensor and state arguments, its outputs moved back
+    to the card.  The map's plain walk is a loop over lanes of a few dozen
+    small ops each, one launch apiece on the card; on the host the same ops
+    in the same order give the same bits (the map's values are
+    integer-valued f32 below 2^24), several times faster (phase 3 times one
+    full-width walk both ways)."""
+    import torch
+
+    def move(x, dev):
+        if isinstance(x, torch.Tensor):
+            return x.to(dev)
+        if hasattr(x, "leaves"):  # a structure's state
+            return type(x)(*(leaf.to(dev) for leaf in x.leaves()))
+        if isinstance(x, (tuple, list)):
+            return type(x)(move(y, dev) for y in x)
+        return x
+    host = move(args, "cpu")
+    t = time.perf_counter()
+    out = fn(*host)
+    took = time.perf_counter() - t
+    return move(out, "cuda"), took
 
 
 def cuda_ms(fn, reps, warmup=1):
@@ -739,12 +783,26 @@ def phase_kernels_adversarial(torch, T):
         cases["map"].append([torch.from_numpy(np.ascontiguousarray(a)).to(dev)
                              for a in C.map_reduce_args(C.map_hot(1, n_map))])
 
+    walks = []
     for kind, kcases in cases.items():
         kfn, pfn = fns[kind]
         for i, args in enumerate(kcases):
             outs_k = kfn(*args)
             torch.cuda.synchronize()
-            compare_outputs(f"{kind} adversarial case {i}", outs_k, pfn(*args))
+            if kind != "map":
+                compare_outputs(f"{kind} adversarial case {i}", outs_k, pfn(*args))
+                continue
+            outs_p, host_s = on_host(pfn, *args)
+            compare_outputs(f"{kind} adversarial case {i}", outs_k, outs_p)
+            walks.append(f"S,N={tuple(args[5].shape)} {host_s:.2f} s")
+            if args[5].shape[1] == max(MAP_STRESS_N):  # once, the same walk on the card
+                t = time.perf_counter()
+                on_card = pfn(*args)
+                torch.cuda.synchronize()
+                card_s = time.perf_counter() - t
+                compare_outputs("the map's plain walk on the card against on the host",
+                                on_card, outs_p)
+                walks[-1] += f" (on the card {card_s:.2f} s, the same bits)"
             if kind == "map" and i > 0:
                 check(bits(outs_k[4][0, 0]).item() == 0 and outs_k[5][0, 0].item() == T.R_VALUE
                       and outs_k[5][0, 3].item() == T.R_FULL,
@@ -771,6 +829,8 @@ def phase_kernels_adversarial(torch, T):
                 check(not bool((outs_k[1][C.S - 1] != T.R_NONE).any()),
                       f"{what}: the untouched shard answered")
                 del outs_k, args
+    print("one-phase map kernel: bit-equal to its plain walk, on the host: " + ", ".join(walks),
+          flush=True)
     print(f"one-phase ring kernels: bit-equal to their plain versions on ring_forward, "
           f"ring_edges and ring_drain at N in {ring_ns}", flush=True)
 
@@ -886,11 +946,19 @@ def phase_grid_adversarial(torch, T):
     """B5 against its plain version, bit for bit, for every kind."""
     from repro_torch.kernels.dfc_reduce import kernel as K
     from repro_torch.kernels.dfc_reduce import ref as R
+    def plain(kind, *args):  # the map's walk on the host (``on_host``)
+        if kind == "map":
+            out, took = on_host(R.phase_grid_combine_ref, kind, *args)
+            walk_s.append(took)
+            return out
+        return R.phase_grid_combine_ref(kind, *args)
+
+    walk_s = []
     for n in (64, 1024):
         for kind, state, ops, params, keys in phase_grid_cases(torch, T, n):
             outs_k = K.phase_grid_call(kind, state, ops, params, keys)
             torch.cuda.synchronize()
-            outs_p = R.phase_grid_combine_ref(kind, state, ops, params, keys)
+            outs_p = plain(kind, state, ops, params, keys)
             compare_grid(f"phase grid {kind} N={n}", outs_k, outs_p)
             st, resp, kinds = outs_k
             check(not bool((kinds[:, 2] != T.R_NONE).any()) and not bool(
@@ -920,7 +988,7 @@ def phase_grid_adversarial(torch, T):
         ops, params, keys = (torch.from_numpy(a).cuda() for a in (ops, params, keys))
         outs_k = K.phase_grid_call(kind, state, ops, params, keys)
         torch.cuda.synchronize()
-        outs_p = R.phase_grid_combine_ref(kind, state, ops, params, keys)
+        outs_p = plain(kind, state, ops, params, keys)
         what = f"phase grid {name} {kind} K={k_phases} N={n}"
         compare_grid(what, outs_k, outs_p)
         st, resp, knd = outs_k
@@ -937,8 +1005,8 @@ def phase_grid_adversarial(torch, T):
         del outs_k, outs_p
     print("phase grid kernel: bit-equal to its plain version for every kind at "
           "S=3, K=3, N in (64, 1024), on the stress cases (K, N) "
-          f"{[(k, n) for k, n, _ in stress]}, and on ring_drain at K=1, N in {drain_ns}",
-          flush=True)
+          f"{[(k, n) for k, n, _ in stress]}, and on ring_drain at K=1, N in {drain_ns}; "
+          f"the map's plain walks on the host took {sum(walk_s):.1f} s", flush=True)
 
 
 def compare_grid(what, outs_k, outs_p):
@@ -1232,6 +1300,7 @@ def phase_volatile(torch, T, K, serve_shards, records):
           f"{ {k: v / out['phases'] for k, v in launches.items()} }", flush=True)
 
     # replay the first two phases from the initial state on the plain path
+    t0 = time.perf_counter()
     rt_ref = ShardedDFCRuntime(rt.kinds, rt.n_shards, rt.capacity, rt.lanes,
                                backend="ref", device="cuda")
     for i, (keys, ops, params, resp, kinds) in enumerate(seen["batches"]):
@@ -1244,7 +1313,9 @@ def phase_volatile(torch, T, K, serve_shards, records):
     for c, v in seen["meta"].items():
         check(same_bits(v, rt_ref.meta[c]), f"plain replay meta {c} differs")
     del rt_ref
-    print("volatile: plain-backend replay of phases 0-1 is bit-equal", flush=True)
+    print(f"volatile: plain-backend replay of phases 0-1 is bit-equal "
+          f"({time.perf_counter() - t0:.1f} s; the map's walks visit the live lanes only)",
+          flush=True)
     profile_window(torch, rt, [b[:3] for b in seen["batches"]] + [seen["next"]])
 
     # the kernels at the main path's shapes: phase 2's routed batch on the
@@ -1801,6 +1872,10 @@ def phase_model_kernels(torch):
               ("flash_attention", (8, 512, 12, 2, 128), {}),
               ("flash_attention", (8, 512, 16, 16, 128), {})]
     cases += [("flash_attention", (2, 512, 9, 3, hd), {}) for hd in HEAD_DIMS if hd != 64]
+    # head dims without an instance of their own, zero-padded to the next one
+    padded = [((2, 512, 9, 3, hd), {}) for hd in PADDED_HEAD_DIMS]
+    padded += [((2, 200, 9, 3, hd, 300), {"causal": False}) for hd in PADDED_HEAD_DIMS]
+    cases += [("flash_attention", shape, kw) for shape, kw in padded]
     cases += [("flash_attention", (2, 1, 9, 3, 64), {}),
               ("flash_attention", (2, 200, 9, 3, 64), {"causal": False}),
               ("flash_attention", (2, 512, 4, 4, 64), {}),
@@ -1851,6 +1926,14 @@ def phase_model_kernels(torch):
         lines.append(f"flash_attention(2, 200, 9, 3, 64) unaligned q {str(dtype)[6:]} "
                      f"{err:.3g} (atol = rtol = {tol:g})")
     print("model kernels vs plain, max abs err: " + "; ".join(lines), flush=True)
+    fn = model_fns("flash_attention")[0]
+    for shape, kw in padded:
+        for dtype in (torch.bfloat16, torch.float32):
+            args = model_inputs(torch, "flash_attention", shape, dtype)
+            check(identical(fn(*args, **kw), fn(*args, **kw)),
+                  f"flash_attention {shape} {kw} {dtype}: two launches differ")
+    print(f"flash attention at the padded head dims {PADDED_HEAD_DIMS}, bf16 and f32, causal "
+          "and not: two launches bit-equal", flush=True)
 
     side = torch.cuda.Stream()
     fn, plain = model_fns("flash_attention")
@@ -4407,8 +4490,9 @@ TRAIN_CFG = None  # a configuration in place of --arch's (a rehearsal's reduced 
 RMSNORM_BWD_SHAPES = [(16384, 576), (16384, 4096)] + [(4096, d) for d in (
     1536, 2048, 3584, 4096, 6144, 7168, 100)]
 FLASH_BWD_SHAPES = [((8, 2048, 9, 3, 64), True)]
-FLASH_BWD_SHAPES += [((2, 200, 9, 3, hd), True) for hd in (16, 32, 64, 112, 128)]
-FLASH_BWD_SHAPES += [((2, 200, 9, 3, hd, 300), False) for hd in (16, 32, 64, 112, 128)]
+# every instantiated head dim, and 8 and 48 (no instance: padded to 16, 64)
+FLASH_BWD_SHAPES += [((2, 200, 9, 3, hd), True) for hd in (8, 16, 32, 48, 64, 112, 128)]
+FLASH_BWD_SHAPES += [((2, 200, 9, 3, hd, 300), False) for hd in (8, 16, 32, 48, 64, 112, 128)]
 FLASH_BWD_SHAPES += [((2, 130, 4, 4, 64), True), ((2, 130, 14, 2, 32), True),
                      ((1, 77, 7, 1, 128, 50), False)]  # groups of 1 and 7
 TRAIN_KERNEL_SHAPES = {"rmsnorm_bwd": (16384, 576), "flash_attention_bwd": (8, 2048, 9, 3, 64)}
@@ -4692,11 +4776,25 @@ def leaf_names(tree, prefix=""):
 
 
 def train_grads(torch, cfg, params, batch, backend="kernel"):
+    """The loss and every leaf's gradient, in ``tree_flatten``'s order; a
+    leaf the loss reads nowhere (``unread_leaves``) gets zeros, as
+    ``jax.grad`` gives it."""
     from repro_torch.models.model import loss_fn
     from repro_torch.tree import tree_flatten, tree_unflatten
     leaves = [p.detach().requires_grad_(True) for p in tree_flatten(params)]
     loss = loss_fn(tree_unflatten(params, leaves), cfg, batch, backend=backend)
-    return loss.detach(), torch.autograd.grad(loss, leaves)
+    grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+    return loss.detach(), [torch.zeros_like(p) if g is None else g
+                           for p, g in zip(leaves, grads)]
+
+
+def unread_leaves(cfg, names):
+    """The leaves of ``names`` that no op of ``cfg``'s loss reads: the norms'
+    weights where the norm is a LayerNorm without parameters (olmo-1b's),
+    which the reference's parameter tree holds all the same."""
+    if cfg.norm != "layernorm_np":
+        return []
+    return [n for n in names if n.rsplit("/", 1)[-1] in ("norm1", "norm2", "final_norm")]
 
 
 def train_call_gate(torch, cfg, params, batch):
@@ -4722,14 +4820,17 @@ def train_call_gate(torch, cfg, params, batch):
     from repro_torch.kernels.rmsnorm.ref import rmsnorm_bwd_ref
     from repro_torch.models import layers, mamba
     tol = MODEL_TOL["bfloat16"]
-    calls = {"rmsnorm_bwd": [0.0, 0], "flash_attention_bwd": [0.0, 0],
-             "selective_scan_bwd": [0.0, 0]}
+    calls = {"rmsnorm_bwd": [0.0, 0, None], "flash_attention_bwd": [0.0, 0, None],
+             "selective_scan_bwd": [0.0, 0, None]}
+    outputs = {"rmsnorm_bwd": ("dx", "dw"), "flash_attention_bwd": ("dq", "dk", "dv"),
+               "selective_scan_bwd": tuple(f"d({n})" for n in SCAN_BWD_NAMES)}
     control = []
     saved = layers.rmsnorm_op, layers.attention, mamba.selective_scan_op
 
     def note(name, got, want):
-        e = max(rel_max_abs(a, b) for a, b in zip(got, want))
-        calls[name][0] = max(calls[name][0], e)
+        e, which = max((rel_max_abs(a, b), i) for i, (a, b) in enumerate(zip(got, want)))
+        if e >= calls[name][0]:
+            calls[name][0], calls[name][2] = e, outputs[name][which]
         calls[name][1] += 1
 
     def norm(x, w, *, backend="kernel", eps=1e-6):
@@ -4804,11 +4905,12 @@ def train_call_gate(torch, cfg, params, batch):
             else "dC/dx from B rolled by one state")
     print(f"train call gate {cfg.name}: every backward call within {tol} of its plain "
           f"version on the plain stream ({TRAIN_GATE_ROWS} x {batch['tokens'].shape[1]}): "
-          + ", ".join(f"{n} max {e:.4g} ({c} calls)" for n, (e, c) in calls.items() if c)
+          + ", ".join(f"{n} max {e:.4g} ({w}; {c} calls)" for n, (e, c, w) in calls.items()
+                      if c)
           + f"; control, {what}: {control[0] if control else None}", flush=True)
-    check({n: c for n, (_, c) in calls.items()} == want_calls,
+    check({n: c for n, (_, c, _) in calls.items()} == want_calls,
           f"the train call gate held {calls}, expected {want_calls} calls")
-    for n, (e, _) in calls.items():
+    for n, (e, _, _) in calls.items():
         check(e <= tol, f"a {n} call {e:.4g} from its plain version, over {tol}")
     check(control and control[0] > tol,
           f"the control ({what}) is {control} from the plain version, within {tol}: the gate "
@@ -4918,14 +5020,18 @@ def train_checked(torch, K, argv, cfg_in, gated, t0, phase_name, ckpt_dir, keep_
           f"the kernels' loss {float(loss1)} is {loss_err:.3g} from the plain backend's "
           f"{float(plain_loss)}, over {MODEL_TOL['bfloat16']}")
     names = leaf_names(fresh)
-    bad = [n for n, g in zip(names, g1)
-           if not (bool(torch.isfinite(g.float()).all()) and float(g.abs().max()) > 0)]
+    unread = unread_leaves(cfg, names)
+    bad = [n for n, g in zip(names, g1) if n not in unread
+           and not (bool(torch.isfinite(g.float()).all()) and float(g.abs().max()) > 0)]
+    bad += [n for n, g in zip(names, g1) if n in unread and bool(g.any())]
     differ = [n for n, a, b in zip(names, g1, g2) if not identical(a, b)]
     print(f"train grads: {len(g1)} leaves, every one finite and non-zero: {not bad} "
-          f"(smallest max |g| {min(float(g.abs().max()) for g in g1):.3g}); two backward "
-          f"passes on one batch bit-equal: {not differ}"
+          f"(smallest max |g| {min(float(g.abs().max()) for n, g in zip(names, g1) if n not in unread):.3g})"
+          + (f", but {len(unread)} leaves no op reads, each zero as it must be "
+             f"({', '.join(sorted(set(unread)))})" if unread else "")
+          + f"; two backward passes on one batch bit-equal: {not differ}"
           + (f" (differ: {', '.join(differ)})" if differ else ""), flush=True)
-    gated(check, not bad, f"grads not finite or all zero: {bad}")
+    gated(check, not bad, f"grads not finite or all zero (or not zero where unread): {bad}")
     gated(check, not differ, f"two backward passes differ: {differ}")
     del g1, g2
     marks["grads and plain loss"] = time.perf_counter() - t2
@@ -5233,7 +5339,7 @@ def phase_ssm_train(torch, K, records):
     check(not failed, "; ".join(failed))
 
 
-# ------------------------------------------------- hybrid and MoE training
+# ---------------------------------------------------------- more training
 # phase 17: zamba2-7b cut to 12 of its 81 layers (two groups of 6 mamba2
 # layers and the shared block after each: the least depth at which the
 # block's one set of weights takes its gradients from two applications) and
@@ -5249,29 +5355,56 @@ def phase_ssm_train(torch, K, records):
 # intermediates (about 11 GB each: the (B, C, Q, Q, H) decay matrix and the
 # copies autograd keeps of it, and the (B, S, H, P) values) and ran out of
 # the card's memory; the batch is the only cut that keeps the widths, the
-# reference's remat and the forward's bits
+# reference's remat and the forward's bits.
+# The other dense configs, at phase 15's batch, 4 steps and one combine:
+# qwen2-1.5b (12 / 2 heads of 128, QKV bias, a head tied to its 151,936-word
+# vocab) and olmo-1b (16 / 16 heads of 128, a LayerNorm without parameters,
+# plain PyTorch: no RMSNorm launch) whole; deepseek-coder-33b (56 / 8 heads
+# of 128) cut to 4 of its 62 layers, 2.58 B parameters: the dry run puts 8
+# layers at 60.79 GiB with a 47 GB slot (about 47 s a combine) and 12 at
+# 88.6 GiB, past the card.  Each is replayed without combines in place of a
+# crash and resume, as dbrx is, for the script's time: each crash and resume
+# writes a second slot (12.8-25.8 GB, about 1 s a GB) and runs the steps
+# again, and phase 15 already crashes and resumes the dense family (smollm)
 MORE_TRAIN = (
     ("zamba2-7b", 12, ["--arch", "zamba2-7b", "--steps", "6", "--batch", "4", "--seq", "2048",
                        "--ckpt-every", "3", "--workers", "4", "--device", "cuda"]),
     ("dbrx-132b", 1, ["--arch", "dbrx-132b", "--steps", "4", "--batch", "8", "--seq", "2048",
                       "--ckpt-every", "4", "--workers", "4", "--device", "cuda"]))
+MORE_TRAIN += tuple(
+    (arch, layers, ["--arch", arch, "--steps", "4", "--batch", "8", "--seq", "2048",
+                    "--ckpt-every", "4", "--workers", "4", "--device", "cuda"])
+    for arch, layers in (("qwen2-1.5b", 28), ("olmo-1b", 16), ("deepseek-coder-33b", 4)))
 MORE_TRAIN_CFG = {}  # arch -> a configuration in place of the cut one (a rehearsal's reduced one)
 # dbrx's step fit the card at 8 x 2,048 without a loss chunk in phase 17
 # alone (peak 73.09 GiB), but its profiled step ran out of memory after
 # phases 1-16 (the f32 logits' gradient, 6.12 GiB, against a fragmented
-# cache): the reference's loss chunk keeps the head's tensors a quarter as big
-MORE_LOSS_CHUNK = {"dbrx-132b": 512}  # arch -> the loss chunk its step needs
+# cache): the reference's loss chunk keeps the head's tensors a quarter as big.
+# qwen2's whole logits over its 151,936-word vocab put the dry run's peak at
+# 62.15 GiB, 34.33 with the chunk
+MORE_LOSS_CHUNK = {"dbrx-132b": 512, "qwen2-1.5b": 512}  # arch -> its step's loss chunk
 DISK_MARGIN = 2 * 2**30  # bytes left free beside a run's checkpoints
-# (a): the two models' attention layouts at batch 2, where the plain f32
-# attention backward is small, and their RMSNorm training rows
+# (a): the models' attention layouts at batch 2, where the plain f32
+# attention backward is small (qwen2's group of 6, olmo's of 1, deepseek's
+# of 7, all at hd 128), and their RMSNorm training rows (olmo's norm is no
+# RMSNorm)
 MORE_BWD_SHAPES = (("flash_attention_bwd", (2, 2048, 32, 32, 112)),
                    ("flash_attention_bwd", (2, 2048, 48, 8, 128)),
-                   ("rmsnorm_bwd", (16384, 3584)), ("rmsnorm_bwd", (16384, 6144)))
+                   ("flash_attention_bwd", (2, 2048, 12, 2, 128)),
+                   ("flash_attention_bwd", (2, 2048, 16, 16, 128)),
+                   ("flash_attention_bwd", (2, 2048, 56, 8, 128)),
+                   ("rmsnorm_bwd", (16384, 3584)), ("rmsnorm_bwd", (16384, 6144)),
+                   ("rmsnorm_bwd", (16384, 1536)), ("rmsnorm_bwd", (16384, 7168)))
 # (d): each model's backward calls at its training shape, timed under "at"
 MORE_TIMED = {"zamba2-7b": (("flash_attention_bwd", (8, 2048, 32, 32, 112)),
                             ("rmsnorm_bwd", (16384, 3584))),
               "dbrx-132b": (("flash_attention_bwd", (8, 2048, 48, 8, 128)),
-                            ("rmsnorm_bwd", (16384, 6144)))}
+                            ("rmsnorm_bwd", (16384, 6144))),
+              "qwen2-1.5b": (("flash_attention_bwd", (8, 2048, 12, 2, 128)),
+                             ("rmsnorm_bwd", (16384, 1536))),
+              "olmo-1b": (("flash_attention_bwd", (8, 2048, 16, 16, 128)),),
+              "deepseek-coder-33b": (("flash_attention_bwd", (8, 2048, 56, 8, 128)),
+                                     ("rmsnorm_bwd", (16384, 7168)))}
 
 
 def state_bytes(cfg):
@@ -5297,7 +5430,7 @@ def more_bwd_checks(torch):
         _, rel, fwd = bwd_vs_plain(torch, name, shape, torch.bfloat16)
         lines.append(f"{name}{shape} {rel:.3g} (forward {fwd:.3g})")
         torch.cuda.empty_cache()
-    print(f"backward kernels vs plain at the hybrid's and the MoE's training layouts "
+    print(f"backward kernels vs plain at the trained configs' layouts "
           f"(relative max-abs err; bf16 within {MODEL_TOL['bfloat16']}; the forward kernel "
           "held the same; two launches bit-equal): " + "; ".join(lines), flush=True)
 
@@ -5366,13 +5499,13 @@ def train_and_replay(torch, K, argv, cfg_in, gated, t0):
 
 def phase_more_train(torch, K, records):
     """Phase 17: (a) the backward kernels against their plain versions at
-    the hybrid's and the MoE's training layouts; (b) zamba2-7b and
-    dbrx-132b, each cut by ``MORE_TRAIN`` with every width kept, trained
-    through ``launch/train.py``'s code path and (c') replayed bit-equal
-    without combines (``train_and_replay``); (d) the backward kernels timed
-    at each model's training shapes, under ``at`` in their records.  A gate
-    that fails fails the phase at its end.  Each record gains
-    ``more_train_launches``."""
+    the trained configs' layouts; (b) zamba2-7b, dbrx-132b, qwen2-1.5b,
+    olmo-1b and deepseek-coder-33b, each as ``MORE_TRAIN`` cuts it with
+    every width kept, trained through ``launch/train.py``'s code path and
+    (c') replayed bit-equal without combines (``train_and_replay``); (d)
+    the backward kernels timed at each model's training shapes, under
+    ``at`` in their records.  A gate that fails fails the phase at its
+    end.  Each record gains ``more_train_launches``."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t0 = time.perf_counter()
@@ -5415,7 +5548,8 @@ def phase_more_train(torch, K, records):
 # this run; then smollm-135m at phase 15's batch from its seed under each lever
 # the launch tooling adds
 DRY_CELLS = {"smollm-135m": "15", "falcon-mamba-7b": "16", "zamba2-7b": "17",
-             "dbrx-132b": "17"}  # arch -> the phase that trains it
+             "dbrx-132b": "17", "qwen2-1.5b": "17", "olmo-1b": "17",
+             "deepseek-coder-33b": "17"}  # arch -> the phase that trains it
 # the peaks the training phases measured before the dry run existed (H100
 # 80GB HBM3, 700 W), printed beside this run's
 EARLIER_PEAK = {"smollm-135m": "16.88 GiB", "zamba2-7b": "49.37 GiB", "dbrx-132b": "58.14 GiB"}
@@ -5666,9 +5800,15 @@ def main(argv=None) -> int:
 
     if "3" in run:
         with phase("3 kernels"):
-            phase_kernels_adversarial(torch, T)
-            phase_grid_adversarial(torch, T)
+            marks, t0 = {}, time.perf_counter()
+            for part, fn in (("one-phase", phase_kernels_adversarial),
+                             ("grid", phase_grid_adversarial)):
+                fn(torch, T)
+                marks[part] = time.perf_counter() - t0
             phase_model_kernels(torch)
+            marks["model kernels"] = time.perf_counter() - t0
+            print("kernels: " + ", ".join(f"{k} done at {v:.1f} s" for k, v in marks.items()),
+                  flush=True)
 
     records = {}
     if "4" in run or "5" in run:
@@ -5727,13 +5867,16 @@ def main(argv=None) -> int:
             phase_ssm_train(torch, K, records)
 
     if "17" in run:
-        with phase("17 hybrid and moe training"):
+        with phase("17 more training"):
             phase_more_train(torch, K, records)
 
     if "18" in run:
         with phase("18 launch tooling"):
             phase_launch_tools(torch, K, records)
 
+    print("phase seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in PHASE_S.items())
+          + f"; {sum(PHASE_S.values()):.1f} in all; earlier runs (H100 80GB HBM3, 700 W): "
+          + "; ".join(f"{k} {v}" for k, v in EARLIER_PHASE_S.items()), flush=True)
     print(card, flush=True)
     order = list(KINDS) + [f"phase_grid_{k}" for k in KINDS] + list(MODEL_KERNELS)
     print(json.dumps({"kernels": [records[k] for k in order if k in records]}), flush=True)

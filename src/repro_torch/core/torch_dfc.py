@@ -697,6 +697,17 @@ def sequential_reference_deque(deque_list, ops, params):
 
 
 # ======================================================================== map
+def map_live_lanes(ops) -> list:
+    """The lanes (columns of ``ops`` ``[S, N]``) where some shard holds a
+    map op, in announcement order.  A map walk need visit no other lane:
+    at a lane without one :func:`map_lane_apply` writes nothing and answers
+    ``(+0.0, R_NONE)`` in every shard, what the walk's zeroed outputs hold
+    already.  A routed batch fills each shard's lanes from lane 0, so past
+    the busiest shard's count no lane is live."""
+    live = ((ops >= OP_MAP_INSERT) & (ops <= OP_MAP_CAS)).any(0)
+    return live.nonzero().flatten().tolist()
+
+
 def map_lane_apply(mk, mv, mo, cnt, key, op, par, *, summed_cur: bool):
     """Apply ONE keyed lane to every shard's table (``[S, C]`` rows, ``key``
     / ``op`` / ``par`` of shape ``[S]``), in place.
@@ -769,7 +780,8 @@ def combine_map(state: MapState, keys, ops, params):
     """One DFC map combining phase over N keyed announcement lanes.
 
     Map ops do not commute, so there is no elimination: lanes apply in
-    announcement order (a loop over lanes, vectorized over shards).  Per
+    announcement order (a loop over the live lanes, ``map_live_lanes``,
+    vectorized over shards).  Per
     lane: insert overwrites a hit or takes a free slot (``R_ACK``) or is
     rejected ``R_FULL``; lookup returns the value (``R_VALUE``) or
     ``R_EMPTY``; delete clears the slot and returns the old value; CAS
@@ -787,7 +799,7 @@ def combine_map(state: MapState, keys, ops, params):
     params = params.float()
     resp = torch.zeros((s, n), dtype=torch.float32, device=ops.device)
     kinds = torch.zeros((s, n), dtype=torch.int32, device=ops.device)
-    for j in range(n):
+    for j in map_live_lanes(ops):
         cnt, resp[:, j], kinds[:, j] = map_lane_apply(
             mk, mv, mo, cnt, keys32[:, j], ops[:, j].int(), params[:, j],
             summed_cur=False,

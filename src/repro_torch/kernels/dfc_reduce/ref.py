@@ -37,6 +37,7 @@ from repro_torch.core.torch_dfc import (
     STRUCTS,
     exclusive_rank,
     map_lane_apply,
+    map_live_lanes,
     map_state,
     route_rows,
 )
@@ -214,7 +215,8 @@ def dfc_deque_reduce_ref(ops, params, windows_l, windows_r, sizes):
 
 def dfc_map_reduce_ref(mkeys, mvals, mocc, counts, lkeys, ops, params):
     """Map combine per shard: lanes apply in announcement order (a loop over
-    lanes, vectorized over shards), each probing its key's bucket window.
+    the live lanes, ``map_live_lanes``, vectorized over shards), each
+    probing its key's bucket window.
     Takes the tables ``[S, C]`` and active counts ``[S]`` and returns fresh
     ``(keys', values', occupied', count' i32[S], resp f32[S,N], kinds
     i32[S,N])``; the hit value is the masked window sum, as in the
@@ -229,7 +231,7 @@ def dfc_map_reduce_ref(mkeys, mvals, mocc, counts, lkeys, ops, params):
     params = params.float()
     resp = torch.zeros((s, n), dtype=torch.float32, device=ops.device)
     kinds = torch.zeros((s, n), dtype=torch.int32, device=ops.device)
-    for j in range(n):
+    for j in map_live_lanes(ops):
         cnt, resp[:, j], kinds[:, j] = map_lane_apply(
             mk, mv, mo, cnt, lkeys[:, j], ops[:, j], params[:, j],
             summed_cur=True,

@@ -699,11 +699,15 @@ int launch_bwd(const void* q, const void* k, const void* v, const void* o, const
 // wgmma.mma_async.m64nNk16 (bf16 in, f32 accumulate):
 //   dq:    S = Q K^T and dP = dO V^T (both operands from shared memory,
 //          K-major), P = exp2(S scale log2 e - L), dS = P (dP - D) in f32,
-//          then dQ += dS K with dS rounded to bf16 in registers as the A
-//          operand and K read MN-major (transposed) from the same tile;
+//          then dQ += dS K with dS in registers as the A operand, split
+//          into two bf16 halves (hi = bf16(dS), lo = bf16(dS - hi): dS's
+//          rows sum to 0, so dQ cancels most of its terms and one rounding
+//          of dS left up to 1.04e-2 of |dQ|), and K read MN-major
+//          (transposed) from the same tile;
 //   dk/dv: S^T = K Q^T and dP^T = V dO^T, then dV += P^T dO and
 //          dK += dS^T Q, P^T and dS^T in registers, dO and Q MN-major.
-// That is 7 products a visible (query, key) pair, where the function needs
+// That is 7 products a visible (query, key) pair (8 with dQ's second half),
+// where the function needs
 // 5: S and dP are formed in both kernels, the price of summing every output
 // in one kernel with no atomic accumulation.  The accumulator fragment of an
 // m64n64 product is, packed to bf16, the A fragment of the next product's
@@ -931,6 +935,21 @@ __device__ __forceinline__ void to_a_frags(uint32_t (&a)[4][4], const float (&d)
     for (int i = 0; i < 4; ++i) a[kk][i] = pack_bf16(d[8 * kk + 2 * i], d[8 * kk + 2 * i + 1]);
 }
 
+// the same as two bf16 operands that sum to the f32 value to 16 bits of
+// mantissa: hi = bf16(d), lo = bf16(d - hi)
+__device__ __forceinline__ void to_a_frags_split(uint32_t (&hi)[4][4], uint32_t (&lo)[4][4],
+                                                 const float (&d)[32]) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float x = d[8 * kk + 2 * i], y = d[8 * kk + 2 * i + 1];
+      const __nv_bfloat162 h = __floats2bfloat162_rn(x, y);
+      hi[kk][i] = *reinterpret_cast<const uint32_t*>(&h);
+      lo[kk][i] = pack_bf16(x - __low2float(h), y - __high2float(h));
+    }
+}
+
 template <int HD>
 __global__ void __launch_bounds__(256)
 flash_bwd_prep_kernel(const bf16* __restrict__ o, const bf16* __restrict__ dout,
@@ -1066,17 +1085,24 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
       pin(dp);
 #pragma unroll
       for (int i = 0; i < 32; ++i) dp[i] = sc[i] * (dp[i] - dr[(i >> 1) & 1]);
-      uint32_t da[4][4];
-      to_a_frags(da, dp);
+      // dS as hi + lo: each row of dS sums to 0, so dQ = dS K cancels most
+      // of its terms, and dS rounded once to bf16 left up to 1.04e-2 of
+      // |dQ| (qwen2-1.5b's training step); the second product takes it to
+      // the output's own rounding
+      uint32_t da[4][4], dl[4][4];
+      to_a_frags_split(da, dl, dp);
       pin(acc);
       wg_fence();
       const uint64_t kt = fresh(sw128_desc(Ks + st * W::TILE, kSlabBytes, 1024));
 #pragma unroll
       for (int kk = 0; kk < 4; ++kk) wgmma_rs(acc, da[kk], kt + kk * kMnStep);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) wgmma_rs(acc, dl[kk], kt + kk * kMnStep);
       wg_commit();
       wg_wait<0>();
       pin(acc);
       pin(da);
+      pin(dl);
     }
     __syncwarp();
     if (lane == 0 && last_out(out + st) && it + kStages < n_kt) load(it + kStages);

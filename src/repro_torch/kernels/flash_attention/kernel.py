@@ -13,7 +13,10 @@ forward also has the kernel write the rows' log-sum-exp, and its backward
 launches ``flash_attention_bwd`` (``LAUNCHES["flash_attention_bwd"]``, one a
 call: three kernels on wgmma and TMA in bf16, two scalar ones in f32); on
 the CPU it runs the plain forward, row log-sum-exp and backward formula.
-Given ``meta`` tensors (the dry run's) the wrappers
+Every head dim from 1 to 128 runs (:func:`kernel_head_dim`): one without
+its own instance is zero-padded on the head axis to the next instantiated
+width, the kernels get the true ``scale = 1/sqrt(hd)``, and the outputs
+are sliced back.  Given ``meta`` tensors (the dry run's) the wrappers
 allocate what the kernels would, launch nothing and report the call to
 ``kernels/meta.py``.  The library is built at first use
 (``kernels/nvcc.py``); nothing is built or loaded on import.
@@ -77,9 +80,32 @@ def _check(q, k, v):
                        ("v", v, (q.dtype,), (b, t, hkv, hd)))
     if hkv == 0 or hq % hkv:
         raise ValueError(f"{hq} query heads do not group over {hkv} kv heads")
-    if hd not in HEAD_DIMS:
-        raise ValueError(f"head dim {hd} not in {HEAD_DIMS}")
+    kernel_head_dim(hd)
     return b, s, t, hq, hkv, hd
+
+
+def kernel_head_dim(hd: int) -> int:
+    """The width head dim ``hd`` runs at on the card: its own instance, else
+    the smallest instantiated width above it, the head axis zero-padded
+    (zero columns change neither the scores nor the output's kept columns).
+    Raises outside 1..128, on either device."""
+    if hd >= 1:
+        for width in HEAD_DIMS:
+            if hd <= width:
+                return width
+    raise ValueError(f"head dim {hd} not in 1..{HEAD_DIMS[-1]}")
+
+
+def _padded(width, *xs):
+    """``xs`` zero-padded on the last axis to ``width`` (new, aligned
+    storage), or as given where they are that wide already."""
+    return tuple(x if x.shape[-1] == width
+                 else torch.nn.functional.pad(x, (0, width - x.shape[-1])) for x in xs)
+
+
+def _cut(hd, *xs):
+    """``xs`` cut back to their first ``hd`` columns (contiguous copies)."""
+    return tuple(x if x.shape[-1] == hd else x[..., :hd].contiguous() for x in xs)
 
 
 def _forward(q, k, v, causal, with_lse):
@@ -93,28 +119,31 @@ def _forward(q, k, v, causal, with_lse):
         return out.contiguous(), attention_lse_ref(q, k, causal=causal)
     b, s, hq, hd = q.shape
     t, hkv = k.shape[1], k.shape[2]
-    out = torch.empty_like(q)
     lse = (torch.empty((b, hq, s), dtype=torch.float32, device=q.device)
            if with_lse else None)
     if b * s * hq == 0:
-        return out, lse
+        return torch.empty_like(q), lse
     if t == 0:
         raise ValueError("attention over an empty key sequence")
-    if q.is_meta:
+    if q.is_meta:  # the function's products, at the true head dim
+        out = torch.empty_like(q)
         meta.note("flash_attention", 4 * b * hq * hd * meta.attention_pairs(s, t, causal),
                   q, k, v, out, lse)
         return out, lse
+    width = kernel_head_dim(hd)
+    q, k, v = _padded(width, q, k, v)
     bf16 = q.dtype == _BF16
     if bf16:  # the tensor-core kernel copies 16-byte rows: align an offset view
         q, k, v = (x if x.data_ptr() % 16 == 0 else x.clone() for x in (q, k, v))
+    out = torch.empty_like(q)
     err = _entry("flash_attention_fwd")(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        None if lse is None else lse.data_ptr(), b, s, t, hq, hkv, hd, causal,
+        None if lse is None else lse.data_ptr(), b, s, t, hq, hkv, width, causal,
         1.0 / math.sqrt(hd), bf16, nvcc.stream(q.get_device()))
     if err:
         raise RuntimeError(f"flash attention kernel launch failed: CUDA error {err}")
     LAUNCHES["flash_attention"] += 1
-    return out, lse
+    return _cut(hd, out)[0], lse
 
 
 def bwd_scratch_shape(b, hq, s, dtype):
@@ -146,25 +175,29 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True):
                        ("lse", lse, (torch.float32,), (b, hq, s)))
     if not (q.is_cuda or q.is_meta):
         return attention_bwd_ref(q, k, v, o, lse, do, causal)
-    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     if b * s * hq == 0 or t == 0:
-        return dq.zero_(), dk.zero_(), dv.zero_()
+        return torch.zeros_like(q), torch.zeros_like(k), torch.zeros_like(v)
     scratch = torch.empty(bwd_scratch_shape(b, hq, s, q.dtype), dtype=torch.float32,
                           device=q.device)
     if q.is_meta:  # 7 products a pair: S and dO V^T in both kernels, dQ, dK, dV
+        # (dQ's second bf16 half of dS, a rounding correction, not counted)
+        dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
         meta.note("flash_attention_bwd", 14 * b * hq * hd * meta.attention_pairs(s, t, causal),
                   q, k, v, o, lse, do, dq, dk, dv)
         return dq, dk, dv
+    width = kernel_head_dim(hd)
+    q, k, v, o, do = _padded(width, q, k, v, o, do)
     if q.dtype == _BF16:  # TMA and 16-byte rows want aligned bases: align offset views
         q, k, v, o, do = (x if x.data_ptr() % 16 == 0 else x.clone() for x in (q, k, v, o, do))
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     err = _entry("flash_attention_bwd")(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(), do.data_ptr(),
-        dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), scratch.data_ptr(), b, s, t, hq, hkv, hd,
-        causal, 1.0 / math.sqrt(hd), q.dtype == _BF16, nvcc.stream(q.get_device()))
+        dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), scratch.data_ptr(), b, s, t, hq, hkv,
+        width, causal, 1.0 / math.sqrt(hd), q.dtype == _BF16, nvcc.stream(q.get_device()))
     if err:
         raise RuntimeError(f"flash attention backward launch failed: CUDA error {err}")
     LAUNCHES["flash_attention_bwd"] += 1
-    return dq, dk, dv
+    return _cut(hd, dq, dk, dv)
 
 
 class _FlashFn(torch.autograd.Function):
@@ -188,9 +221,9 @@ class _FlashFn(torch.autograd.Function):
 
 def flash_attention(q, k, v, *, causal: bool = True):
     """q: (B, S, Hq, hd); k/v: (B, T, Hkv, hd), all f32 or all bf16, Hq a
-    multiple of Hkv (query head h reads kv head h // (Hq/Hkv)) ->
-    (B, S, Hq, hd) in q's dtype.  Any S: a ragged last query tile is masked,
-    never dropped.  The arguments are checked on either device, so the CPU
+    multiple of Hkv (query head h reads kv head h // (Hq/Hkv)), hd from 1
+    to 128 (``kernel_head_dim``) -> (B, S, Hq, hd) in q's dtype.  Any S: a
+    ragged last query tile is masked, never dropped.  The arguments are checked on either device, so the CPU
     path takes only what the kernel takes.  bf16 runs on the tensor cores,
     f32 on the scalar kernel."""
     _check(q, k, v)

@@ -5,9 +5,11 @@ A kernel wrapper given ``meta`` tensors takes its kernel's path up to the
 launch: it checks its arguments and allocates its outputs and scratch
 buffers as on the card (so a tracker of live bytes sees the kernel's
 memory, not the plain version's intermediates), launches nothing, counts no
-launch, and reports the call here: its name, the matrix-product FLOPs it
-does (2 a multiply-add; the flash kernels' products, the others none) and
-the bytes it must move (each input read once, each output written once).
+launch, and reports the call here: its name, the matrix-product FLOPs of
+the function it computes (2 a multiply-add; the flash kernels' products at
+the true head dim, not at the width a head dim is padded to on the card;
+the others none) and the bytes it must move (each input read once, each
+output written once).
 :func:`account` routes the reports to a sink for the length of a ``with``.
 """
 

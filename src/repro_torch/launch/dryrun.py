@@ -169,7 +169,7 @@ def step_inputs(cfg: ModelConfig, sh, opt_cfg: AdamWConfig, backend: str = "kern
     """The step of ``sh``'s kind and its ``meta`` arguments: (a function of
     no arguments running the step, {part: tree} of the arguments).  A
     decode cache is full to its last position.  ``backend="ref"`` runs the
-    kernels' plain versions (a head dim the flash kernel does not take)."""
+    kernels' plain versions."""
     specs = input_specs(cfg, sh)
     params = abstract_params(cfg)
     parts = {"params": params, "batch": specs["batch"]}

@@ -5,8 +5,13 @@ Selects an architecture (``--arch``), builds the model and AdamW state on
 loop with DFC-Checkpoint (``runtime/train_loop.py``), through the model's
 kernels and their backward kernels.  The audio and vlm archs are refused,
 as the reference's launcher refuses them; every other family trains on
-either device.  One 80 GB card holds a state of bf16 weights and grads and
-f32 AdamW moments, 12 bytes a parameter, up to a few billion parameters:
+either device, at any attention head dim up to 128 (the flash kernels pad
+one without an instance of its own).  One 80 GB card holds a state of bf16
+weights and grads and f32 AdamW moments, 12 bytes a parameter, up to a few
+billion parameters, beside the step's activations: smollm-135m, qwen2-1.5b
+(with ``loss_chunk`` 512 at 8 x 2,048) and olmo-1b train whole;
+deepseek-coder-33b to about 8 of its 62 layers (the dry run,
+``launch/dryrun.py``, puts 8 at 60.79 GiB at 8 x 2,048 and 12 at 88.6);
 dbrx-132b trains one of its 40 layers at full width (4.49 B parameters with
 its embedding and head, about 54 GB); arctic-480b trains no full-width
 layer (one layer and its embedding and head are 14.07 B parameters, about

@@ -61,8 +61,8 @@ from repro_torch.models.convert import params_from_numpy  # noqa: E402
 jax.config.update("jax_platform_name", "cpu")
 
 REPO = Path(__file__).resolve().parents[1]
-# tests/test_models.py's hybrid variant (head dim 8: the flash wrapper has
-# no instance for it, so its forward and prefill run backend="ref")
+# tests/test_models.py's hybrid variant (head dim 8: the flash kernel has no
+# instance for it and runs it zero-padded to 16; on the CPU the plain version)
 VARIANT = dict(name="hybrid", family="hybrid", n_layers=5, d_model=32, n_heads=4,
                n_kv_heads=4, d_ff=64, vocab=64, ssm_version=2, ssm_state=8, ssm_head_dim=16,
                attn_every=2, remat="none", dtype="float32")
@@ -81,7 +81,7 @@ def _cfgs(case):
 
 
 def _backend(cfg):
-    return "kernel" if cfg.hd() in FK.HEAD_DIMS else "ref"
+    return "kernel" if cfg.hd() <= FK.HEAD_DIMS[-1] else "ref"
 
 
 @functools.lru_cache(maxsize=None)
@@ -704,18 +704,20 @@ def test_chunked_attention_matches_jax(causal, s, t, blk):
 
 @pytest.mark.parametrize("causal,hq,hkv", [(True, 2, 2), (False, 4, 2)])
 def test_flash_head_dim_112_matches_pallas(causal, hq, hkv):
-    """Head dim 112 (zamba2's): the wrapper's plain path against the
-    reference's Pallas kernel in interpret mode; a head dim the kernel has
-    no instance for (48) is refused on the CPU as on the card."""
-    assert 112 in FK.HEAD_DIMS
-    rng = np.random.default_rng(112)
-    jq, tq = _pair(rng, (1, 128, hq, 112), 0.5)
-    jk, tk = _pair(rng, (1, 128, hkv, 112), 0.5)
-    jv, tv = _pair(rng, (1, 128, hkv, 112), 0.5)
-    want = j_flash(jq, jk, jv, causal=causal, blk_q=64, blk_k=64, interpret=True)
-    FK.reset_launches()
-    got = FK.flash_attention(tq, tk, tv, causal=causal)
-    assert FK.LAUNCHES["flash_attention"] == 0
-    _close(got, want, 1e-5)
-    with pytest.raises(ValueError, match="head dim"):
-        FK.flash_attention(*([torch.randn(1, 4, 2, 48)] * 3))
+    """Head dim 112 (zamba2's), and 48, which the kernel has no instance for
+    (the card pads it to 64): the wrapper's plain path against the
+    reference's Pallas kernel in interpret mode; a head dim past the widest
+    instance (160) is refused on the CPU as on the card."""
+    assert 112 in FK.HEAD_DIMS and 48 not in FK.HEAD_DIMS
+    for hd in (112, 48):
+        rng = np.random.default_rng(hd)
+        jq, tq = _pair(rng, (1, 128, hq, hd), 0.5)
+        jk, tk = _pair(rng, (1, 128, hkv, hd), 0.5)
+        jv, tv = _pair(rng, (1, 128, hkv, hd), 0.5)
+        want = j_flash(jq, jk, jv, causal=causal, blk_q=64, blk_k=64, interpret=True)
+        FK.reset_launches()
+        got = FK.flash_attention(tq, tk, tv, causal=causal)
+        assert FK.LAUNCHES["flash_attention"] == 0 and got.shape == tq.shape
+        _close(got, want, 1e-5)
+    with pytest.raises(ValueError, match="head dim 160"):
+        FK.flash_attention(*([torch.randn(1, 4, 2, 160)] * 3))

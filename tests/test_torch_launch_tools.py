@@ -74,7 +74,7 @@ def _port_specs(tree):
 
 
 def _backend(cfg):
-    return "kernel" if cfg.hd() in HEAD_DIMS else "ref"
+    return "kernel" if cfg.hd() <= HEAD_DIMS[-1] else "ref"
 
 
 # ------------------------------------------------------------------ sharding

@@ -13,10 +13,10 @@ image K/V included), decode steps and greedy tokens match the reference to
 cross-attention from the logits, so the gates are set to non-zero values on
 both sides (one case keeps them at zero).
 
-The flash kernel takes head dims 16-128 only, on the CPU too, so the configs
-of head dim 8 (the reduced deepseek and both ``tests/test_models.py``
-variants) run with ``backend="ref"``, which computes the same plain version
-there; the others run with ``backend="kernel"``.
+Every config runs with ``backend="kernel"``: the flash wrapper takes any
+head dim up to 128, the head dim 8 of the reduced deepseek and of both
+``tests/test_models.py`` variants too (padded to 16 on the card; on the CPU
+the plain version runs at head dim 8).
 """
 
 import dataclasses
@@ -66,7 +66,7 @@ def _cfgs(case):
 
 
 def _backend(cfg):
-    return "kernel" if cfg.hd() in HEAD_DIMS else "ref"
+    return "kernel" if cfg.hd() <= HEAD_DIMS[-1] else "ref"
 
 
 @functools.lru_cache(maxsize=None)
@@ -357,12 +357,14 @@ def test_kernel_and_ref_backends_agree_on_cpu(case):
 
 @pytest.mark.parametrize("case", ["deepseek-coder-33b", "audio", "vlm"])
 def test_head_dim_8_runs_on_the_plain_backend(case):
-    """The flash wrapper refuses head dim 8 on the CPU as on the card, so
-    these configs' kernel backend raises and their tests run ``ref``."""
+    """The flash wrapper takes head dim 8, which the kernel has no instance
+    for (the card pads it to 16): on the CPU the kernel backend runs the
+    plain version at head dim 8, bit-equal to the plain backend."""
     _, tcfg, _, tparams, inputs = _setup(case)
-    assert tcfg.hd() == 8 and _backend(tcfg) == "ref"
-    with pytest.raises(ValueError, match="head dim 8"):
-        TM.forward(tparams, tcfg, _tb(inputs), backend="kernel")
+    assert tcfg.hd() == 8 and _backend(tcfg) == "kernel"
+    a, _ = TM.forward(tparams, tcfg, _tb(inputs), backend="kernel")
+    b, _ = TM.forward(tparams, tcfg, _tb(inputs), backend="ref")
+    assert torch.equal(a, b)
 
 
 # --------------------------------------------------------- cross-attention

@@ -234,15 +234,20 @@ def test_cpu_calls_launch_nothing_and_check_like_the_kernels():
     assert FK.LAUNCHES == {"flash_attention": 0, "flash_attention_bwd": 0}
     assert SK.LAUNCHES == {"selective_scan": 0, "selective_scan_bwd": 0}
     # the CPU path takes only what the kernel takes: a strided view, a
-    # dtype or a head width the kernel has no instance for
+    # dtype or a head width past the kernel's widest instance; a width
+    # between its instances (24, padded to 32 on the card) runs
     with pytest.raises(ValueError, match="contiguous"):
         FK.flash_attention(q, q[:, :, :1], q[:, :, :1])
     with pytest.raises(ValueError, match="contiguous"):
         RK.rmsnorm(x.t(), torch.ones(4))
     with pytest.raises(TypeError):
         RK.rmsnorm(x.double(), torch.ones(16))
-    with pytest.raises(ValueError, match="head dim"):
-        FK.flash_attention(*([torch.randn(1, 4, 1, 24)] * 3))
+    with pytest.raises(ValueError, match="head dim 136"):
+        FK.flash_attention(*([torch.randn(1, 4, 1, 136)] * 3))
+    odd = np.random.default_rng(24).standard_normal((1, 4, 1, 24)).astype(np.float32)
+    np.testing.assert_allclose(FK.flash_attention(*[torch.from_numpy(odd)] * 3).numpy(),
+                               np.asarray(j_attention_ref(*[jnp.asarray(odd)] * 3, causal=True)),
+                               atol=1e-5, rtol=1e-5)
     # every check of the one-pass argument check, on each argument after
     # the first: device, dtype, shape, layout
     meta = torch.empty(kv.shape, device="meta")

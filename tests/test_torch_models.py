@@ -265,18 +265,30 @@ def test_unported_families_raise(family):
 
 def test_cross_attention_raises():
     """Cross-attention runs the flash kernel's non-causal mode: on the
-    kernel backend a head dim the kernel lacks (8 here) raises, on the CPU
-    as on the card; the plain backend computes it."""
-    cfg = ModelConfig(name="x", family="vlm", n_layers=5, d_model=32, n_heads=4,
-                      n_kv_heads=2, d_ff=64, vocab=64, cross_attn_every=5, dtype="float32")
-    g = torch.Generator().manual_seed(0)
-    p = {n: torch.randn(32, w, generator=g) * 0.2
-         for n, w in (("wq", 32), ("wk", 16), ("wv", 16), ("wo", 32))}
-    x, src = torch.randn(1, 2, 32, generator=g), torch.randn(1, 5, 32, generator=g)
-    with pytest.raises(ValueError, match="head dim 8"):
-        L.attention_block(x, p, cfg, torch.arange(2), kv_override=src)
-    out, cache = L.attention_block(x, p, cfg, torch.arange(2), kv_override=src, backend="ref")
-    assert out.shape == (1, 2, 32) and cache is None and bool(torch.isfinite(out).all())
+    kernel backend a head dim past the kernel's widest instance (160 here)
+    raises, on the CPU as on the card, and the plain backend computes it; a
+    head dim without an instance of its own (8, padded on the card) runs,
+    on the CPU as the plain backend's."""
+    def block(hd):
+        d = 4 * hd
+        cfg = ModelConfig(name="x", family="vlm", n_layers=5, d_model=d, n_heads=4,
+                          n_kv_heads=2, d_ff=64, vocab=64, cross_attn_every=5,
+                          dtype="float32")
+        g = torch.Generator().manual_seed(0)
+        p = {n: torch.randn(d, w, generator=g) * 0.2
+             for n, w in (("wq", d), ("wk", d // 2), ("wv", d // 2), ("wo", d))}
+        x, src = torch.randn(1, 2, d, generator=g), torch.randn(1, 5, d, generator=g)
+        return lambda **kw: L.attention_block(x, p, cfg, torch.arange(2), kv_override=src,
+                                              **kw)
+
+    wide, narrow = block(160), block(8)
+    with pytest.raises(ValueError, match="head dim 160"):
+        wide()
+    out, cache = wide(backend="ref")
+    assert out.shape == (1, 2, 640) and cache is None and bool(torch.isfinite(out).all())
+    out, cache = narrow()
+    assert out.shape == (1, 2, 32) and cache is None
+    assert torch.equal(out, narrow(backend="ref")[0])
 
 
 def test_gqa_attention_matches_jax_with_offset():

@@ -287,7 +287,7 @@ def test_serve_crash_resume_matches_jax(tmp_path):
     assert got == want and got[-1].startswith("exactly-once OK")
 
 
-@pytest.mark.parametrize("arch", ["smollm-135m", "falcon-mamba-7b"])
+@pytest.mark.parametrize("arch", ["smollm-135m", "falcon-mamba-7b", "deepseek-coder-33b"])
 def test_serve_model_tokens_match_jax(arch):
     """The port's launcher serves each session the reference model's greedy
     tokens, for the same sessions and the same (carried-across) params."""

@@ -47,10 +47,10 @@ from repro_torch.tree import tree_flatten, tree_unflatten  # noqa: E402
 
 jax.config.update("jax_platform_name", "cpu")
 
-# deepseek-coder-33b's reduced config has head dim 8, which the flash
-# wrapper refuses on either device: it runs the plain backend
+# every config on the kernel backend: deepseek-coder-33b's reduced head dim
+# 8 too, which the flash wrapper takes (padded to 16 on the card)
 LOSS_ARCHS = {"smollm-135m": "kernel", "qwen2-1.5b": "kernel", "olmo-1b": "kernel",
-              "dbrx-132b": "kernel", "zamba2-7b": "kernel", "deepseek-coder-33b": "ref",
+              "dbrx-132b": "kernel", "zamba2-7b": "kernel", "deepseek-coder-33b": "kernel",
               "falcon-mamba-7b": "kernel"}
 B, S, ATOL = 2, 16, 1e-4
 
@@ -134,7 +134,7 @@ def test_every_leaf_gets_a_finite_grad(arch):
         assert bool(torch.isfinite(g).all())
 
 
-@pytest.mark.parametrize("arch", ["smollm-135m", "dbrx-132b"])
+@pytest.mark.parametrize("arch", ["smollm-135m", "dbrx-132b", "qwen2-1.5b"])
 def test_chunked_loss_matches_jax_and_unchunked(arch):
     jcfg, tcfg, jparams, tparams, batch = _setup(arch, loss_chunk=4)
     want, jgrads = _jax_loss_grads(jcfg, jparams, batch)
@@ -147,7 +147,7 @@ def test_chunked_loss_matches_jax_and_unchunked(arch):
 
 
 @pytest.mark.parametrize("arch", ["smollm-135m", "dbrx-132b", "zamba2-7b", "olmo-1b",
-                                  "falcon-mamba-7b"])
+                                  "falcon-mamba-7b", "qwen2-1.5b", "deepseek-coder-33b"])
 def test_remat_is_bit_equal_to_none(arch):
     tcfg, tparams, batch = _port_only(arch)
     a_loss, a = _port_grads(tparams, dataclasses.replace(tcfg, remat="none"), batch, "kernel")
@@ -332,7 +332,11 @@ FLASH_CASES += [(1, 13, 3, 3, 16, 13, True),  # a group of 1, ragged S
                 (2, 9, 3, 1, 32, 9, True),  # a group of 3
                 (1, 10, 7, 1, 16, 10, True),  # a group of 7
                 (2, 7, 4, 2, 16, 11, False),  # non-causal, T > S
-                (1, 11, 6, 2, 32, 5, False)]  # non-causal, T < S
+                (1, 11, 6, 2, 32, 5, False),  # non-causal, T < S
+                (1, 10, 12, 2, 128, 10, True),  # qwen2's group of 6
+                (1, 9, 14, 2, 128, 9, True),  # deepseek's group of 7
+                (2, 12, 6, 2, 8, 12, True),  # hd 8: no instance, padded on the card
+                (1, 11, 4, 2, 48, 13, False)]  # hd 48, non-causal
 
 
 @pytest.mark.parametrize("b,s,hq,hkv,hd,t,causal", FLASH_CASES)

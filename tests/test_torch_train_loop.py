@@ -208,7 +208,8 @@ def _run(main, argv, monkeypatch, as_argv=False):
     return out.getvalue().splitlines()
 
 
-@pytest.mark.parametrize("arch", ["smollm-135m", "falcon-mamba-7b", "zamba2-7b", "dbrx-132b"])
+@pytest.mark.parametrize("arch", ["smollm-135m", "falcon-mamba-7b", "zamba2-7b", "dbrx-132b",
+                                  "qwen2-1.5b", "olmo-1b", "deepseek-coder-33b"])
 def test_launcher_matches_the_reference(arch, tmp_path, monkeypatch):
     flags = ["--arch", arch, "--reduced", "--steps", "6", "--ckpt-every", "3",
              "--workers", "2"]
